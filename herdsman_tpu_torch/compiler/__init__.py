@@ -1,0 +1,6 @@
+from herdsman_tpu_torch.compiler.lower import (  # noqa: F401
+    circuit_cost,
+    compile_circuit,
+    evaluate_plain,
+    levelize,
+)

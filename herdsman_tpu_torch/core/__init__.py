@@ -1,0 +1,9 @@
+from herdsman_tpu_torch.core.params import (  # noqa: F401
+    PARAM_SETS,
+    STD128,
+    STD128_K2,
+    TEST_PBS,
+    TEST_SMALL,
+    TFHEParams,
+    TOY,
+)

@@ -1,0 +1,180 @@
+"""Batched TFHE gate bootstrapping on torch tensors: blind rotation (GINX /
+CMux), sample extraction and key switching, exact mod 2^32 and bit-identical
+to ``core.reference`` — the port of ``herdsman_tpu.ops.bootstrap``.
+
+The blind rotation applies, for each of the n bootstrapping-key bits and to
+the whole ciphertext batch at once,
+
+    acc <- acc + BSK_i  (x)  (X^{a~_i} * acc - acc)
+
+through one of two kinds of engine:
+
+- ``ROTATION_ENGINES``: one call owns the whole n-step loop.  ``mega13`` (the
+  default) is the hand-written CUDA kernel ``csrc/mega13.cu`` on a CUDA
+  tensor and its plain PyTorch version on a CPU tensor.
+- ``ENGINES``: a per-step external product inside a Python loop over i.
+  ``gather_u32`` is the gather-Toeplitz u32 product of the JAX package's
+  engine of the same name (any device, slow; a second yardstick).
+
+All tensors are the int32 carrier of ``ops.u32``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from herdsman_tpu_torch.core.params import TFHEParams
+from herdsman_tpu_torch.ops import poly
+from herdsman_tpu_torch.ops.decomp import signed_decompose
+from herdsman_tpu_torch.ops.kernels import mega13
+from herdsman_tpu_torch.ops.server_key import DeviceServerKey
+from herdsman_tpu_torch.ops.u32 import resolve_device, srl, to_device, u32_const
+
+I32 = torch.int32
+I8 = torch.int8
+
+BOOL_MU = 1 << 29  # q/8
+
+
+def _ep_gather_u32(p: TFHEParams, digits: torch.Tensor,
+                   bsk_ext_i: torch.Tensor) -> torch.Tensor:
+    """digits [B, R, N] int32, bsk_ext_i [R, k+1, 2N] -> [B, k+1, N]."""
+    T = poly.negacyclic_toeplitz(bsk_ext_i[..., :p.N])  # [R, k+1, N, N]
+    prod = digits[:, :, None, :, None] * T[None]        # [B, R, k+1, N, N]
+    return prod.sum(dim=(1, 3), dtype=I32)
+
+
+# engine name -> (fn(params, digits, bsk_i), key layout it reads)
+ENGINES: dict[str, tuple[Callable, str]] = {
+    "gather_u32": (_ep_gather_u32, "bsk_ext"),
+}
+
+# engine name -> (fn(params, acc0, a_t, bsk), key layout it reads): one call
+# runs the whole n-step rotation
+ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
+    "mega13": (mega13.mega13_blind_rotate, "bsk"),
+}
+
+
+def layouts_for_engine(engine: str) -> tuple[str, ...]:
+    """Key layout(s) ``device_server_key`` must build for ``engine``."""
+    table = ROTATION_ENGINES if engine in ROTATION_ENGINES else ENGINES
+    if engine not in table:
+        raise ValueError(f"unknown engine {engine!r}; known: "
+                         f"{sorted(ROTATION_ENGINES) + sorted(ENGINES)}")
+    return (table[engine][1],)
+
+
+def mod_switch_2N(p: TFHEParams, ct: torch.Tensor,
+                  coarse_bits: int = 0) -> torch.Tensor:
+    """Round LWE coords from q = 2^32 to 2N: [..., n+1] -> int32 in [0, 2N).
+
+    ``coarse_bits`` = log2(k) rounds to multiples of k instead (the
+    reduced-precision switch of many-LUT PBS)."""
+    shift = 32 - (p.log2_2N + 1) + coarse_bits
+    r = srl(ct, shift)
+    idx = ((r + 1) >> 1) & ((p.two_N >> coarse_bits) - 1)
+    return idx << coarse_bits
+
+
+def make_test_poly(p: TFHEParams, mu: int = BOOL_MU,
+                   device: str | torch.device = "cpu") -> torch.Tensor:
+    """Constant test polynomial [N]: every coefficient mu (sign bootstrap)."""
+    return torch.full((p.N,), u32_const(mu), dtype=I32, device=device)
+
+
+def rotation_inputs(p: TFHEParams, ct: torch.Tensor, test_poly: torch.Tensor,
+                    coarse_bits: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """What a rotation engine is given for ct [B, n+1]: the trivial GLWE
+    acc0 = (0, X^{-b~} v) [B, k+1, N] and the switched mask a_t [n, B]."""
+    B = ct.shape[0]
+    tilde = mod_switch_2N(p, ct, coarse_bits)          # [B, n+1]
+    b_t = tilde[:, p.n]
+    body = poly.negacyclic_monomial_mul(
+        test_poly.expand(B, p.N), (p.two_N - b_t) & (p.two_N - 1))
+    acc0 = torch.cat([torch.zeros(B, p.k, p.N, dtype=I32, device=ct.device),
+                      body[:, None, :]], dim=1)
+    return acc0, tilde[:, :p.n].T.contiguous()
+
+
+def blind_rotate_batch(dsk: DeviceServerKey, ct: torch.Tensor,
+                       test_poly: torch.Tensor, engine: str = "mega13",
+                       coarse_bits: int = 0) -> torch.Tensor:
+    """GINX blind rotation of a batch: ct [B, n+1] -> acc [B, k+1, N]."""
+    p = dsk.params
+    B = ct.shape[0]
+    acc0, a_t = rotation_inputs(p, ct, test_poly, coarse_bits)
+    if engine in ROTATION_ENGINES:
+        rot_fn, layout = ROTATION_ENGINES[engine]
+        return rot_fn(p, acc0, a_t, _key(dsk, layout, engine))
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    ep, layout = ENGINES[engine]
+    bsk = _key(dsk, layout, engine)
+    acc = acc0
+    for i in range(p.n):
+        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
+        digits = signed_decompose(rot - acc, p.bg_bits, p.levels)
+        digits = digits.permute(0, 1, 3, 2).reshape(B, dsk.R, p.N)
+        acc = acc + ep(p, digits, bsk[i])
+    return acc
+
+
+def _key(dsk: DeviceServerKey, layout: str, engine: str) -> torch.Tensor:
+    key = getattr(dsk, layout)
+    if key is None:
+        raise ValueError(f"engine {engine!r} reads the {layout!r} key layout, "
+                         f"which this DeviceServerKey was built without")
+    return key
+
+
+def sample_extract_batch(p: TFHEParams, acc: torch.Tensor,
+                         offset: int = 0) -> torch.Tensor:
+    """Extract coeff ``offset``: [B, k+1, N] -> LWE [B, kN+1].
+
+    Coefficient j of a * s is sum_i a[(j - i) mod N] * s[i], with + for
+    i <= j and - beyond (X^N = -1)."""
+    rolled = torch.roll(acc[:, :p.k, :].flip(-1), offset + 1, dims=-1)
+    keep = torch.arange(p.N, device=acc.device) <= offset
+    a_out = torch.where(keep, rolled, -rolled).reshape(acc.shape[0], p.kN)
+    return torch.cat([a_out, acc[:, p.k, offset:offset + 1]], dim=-1)
+
+
+def key_switch_batch(dsk: DeviceServerKey, ct: torch.Tensor) -> torch.Tensor:
+    """Switch extracted LWEs to the n-key: [B, kN+1] -> [B, n+1].
+
+    One int8 product, balanced signed digits [B, kN*t] times the key's limbs
+    [kN*t, (n+1)*4] through ``torch._int_mm`` (exact: kN*t*4*128 < 2^31),
+    then the limb recombine."""
+    p = dsk.params
+    B = ct.shape[0]
+    digits = signed_decompose(ct[:, :p.kN], p.ks_base_bits, p.ks_levels)
+    d8 = digits.reshape(B, p.kN * p.ks_levels).to(I8)
+    part = mega13.int8_matmul(d8, dsk.ksk_limbs)[:, :(p.n + 1) * 4]
+    contrib = poly.from_i32_limb_partials(part.reshape(B, p.n + 1, 4))
+    out = -contrib
+    out[:, p.n] += ct[:, p.kN]
+    return out
+
+
+def bootstrap_raw_batch(dsk: DeviceServerKey, ct: torch.Tensor,
+                        test_poly: torch.Tensor,
+                        engine: str = "mega13") -> torch.Tensor:
+    """Blind rotate + extract (no key switch): [B, n+1] -> [B, kN+1]."""
+    acc = blind_rotate_batch(dsk, ct, test_poly, engine=engine)
+    return sample_extract_batch(dsk.params, acc)
+
+
+def bootstrap_bool_batch(dsk: DeviceServerKey, ct, engine: str = "mega13",
+                         device: str | torch.device = "cuda") -> torch.Tensor:
+    """Full sign bootstrap back to the n-LWE key: [B, n+1] -> [B, n+1].
+
+    ``ct`` is a numpy uint32 array or an int32 carrier tensor; it is moved to
+    ``device``, which must be the key's."""
+    dev = dsk.check_device(resolve_device(device))
+    ct = to_device(ct, dev)
+    raw = bootstrap_raw_batch(dsk, ct, make_test_poly(dsk.params, device=dev),
+                              engine=engine)
+    return key_switch_batch(dsk, raw)

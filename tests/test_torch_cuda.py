@@ -1,0 +1,102 @@
+"""Card tests of the port's CUDA kernels: each kernel against its plain
+PyTorch version (array equality: the arithmetic is exact mod 2^32) and
+against the NumPy reference.
+
+They need an NVIDIA Hopper card, ``nvcc`` and the repo's sources, and skip
+without a card.  This file imports neither ``jax`` nor ``herdsman_tpu``, so it
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda -s tests/test_torch_cuda.py
+"""
+
+import dataclasses as dc
+
+import numpy as np
+import pytest
+import torch
+
+from herdsman_tpu_torch.core import TOY
+from herdsman_tpu_torch.core import reference as ref
+from herdsman_tpu_torch.ops import bootstrap as bs
+from herdsman_tpu_torch.ops import gates
+from herdsman_tpu_torch.ops.kernels import _build, mega13
+from herdsman_tpu_torch.ops.server_key import device_server_key
+from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
+
+pytestmark = pytest.mark.cuda
+
+# every kernel geometry class: the three B8L2 sets of the JAX tests (the
+# last is the STD128_K2 tile geometry), the TOY gadget (bg=2^6, l=3), k=4,
+# the exact W=32 gadget, and N=1024 / N=2048 (2 and 4 outputs per thread)
+KERNEL_SETS = [
+    dc.replace(TOY, name="toy_b8l2_k1", n=8, N=256, k=1, bg_bits=8, levels=2),
+    dc.replace(TOY, name="toy_b8l2_k2", n=8, N=256, k=2, bg_bits=8, levels=2),
+    dc.replace(TOY, name="toy_b8l2_k2_n512", n=8, N=512, k=2, bg_bits=8,
+               levels=2),
+    TOY,
+    dc.replace(TOY, name="toy_k4", n=8, N=256, k=4, bg_bits=8, levels=2),
+    dc.replace(TOY, name="toy_b8l4", n=8, N=256, k=1, bg_bits=8, levels=4),
+    dc.replace(TOY, name="toy_n1024", n=4, N=1024, k=1, bg_bits=7, levels=3),
+    dc.replace(TOY, name="toy_n2048", n=4, N=2048, k=1, bg_bits=7, levels=3),
+]
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def rand_u32(rng, *shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def test_kernels_build(card):
+    for name, (secs, log) in _build.build().items():
+        print(f"built {name} in {secs:.1f} s\n{log}")
+    for name in _build.sources():
+        assert _build.load(name) is not None
+
+
+@pytest.mark.parametrize("params", KERNEL_SETS, ids=[q.name for q in KERNEL_SETS])
+def test_mega13_matches_plain_and_reference(card, params):
+    rng = np.random.default_rng(5)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, device=card)
+    B = 20  # not a multiple of the kernel's 8 ciphertexts per block
+    ct = rand_u32(rng, B, params.n + 1)
+    tp = bs.make_test_poly(params, device=card)
+    before = mega13.mega13_blind_rotate.launches
+    got = bs.blind_rotate_batch(dsk, from_numpy_u32(ct, card), tp)
+    torch.cuda.synchronize()
+    assert mega13.mega13_blind_rotate.launches == before + 1
+    acc0, a_t = bs.rotation_inputs(params, from_numpy_u32(ct, card), tp)
+    plain = mega13.blind_rotate_plain(params, acc0, a_t, dsk.bsk_ext)
+    np.testing.assert_array_equal(to_numpy_u32(got), to_numpy_u32(plain))
+    for i in (0, B - 1):
+        np.testing.assert_array_equal(
+            to_numpy_u32(got[i]),
+            ref.blind_rotate(sk, ct[i], ref.make_test_poly(params)))
+
+
+def test_gate_batch_on_card(card):
+    params = KERNEL_SETS[2]
+    rng = np.random.default_rng(6)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, device=card)
+    b1 = rng.integers(0, 2, 48).astype(bool)
+    b2 = rng.integers(0, 2, 48).astype(bool)
+    ids = np.arange(48) % len(gates.GATE_IDS)
+    c1, c2 = ref.encrypt_bool(ck, b1, rng), ref.encrypt_bool(ck, b2, rng)
+    out = to_numpy_u32(gates.gate_batch(dsk, gates.GateBatch(ids, c1, c2),
+                                        device=card))
+    truth = {"AND": b1 & b2, "OR": b1 | b2, "NAND": ~(b1 & b2),
+             "NOR": ~(b1 | b2), "XOR": b1 ^ b2, "XNOR": ~(b1 ^ b2)}
+    expect = np.array([truth[g][i] for i, g in
+                       enumerate(np.array(list(gates.GATE_IDS))[ids])])
+    np.testing.assert_array_equal(ref.lwe_decrypt_bool(ck, out), expect)
+    lin0 = gates.gate_linear(params.n, torch.as_tensor(ids[:1]),
+                             from_numpy_u32(c1[:1]), from_numpy_u32(c2[:1]))
+    np.testing.assert_array_equal(
+        out[0], ref.bootstrap_bool(sk, to_numpy_u32(lin0)[0]))

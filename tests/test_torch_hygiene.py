@@ -1,0 +1,123 @@
+"""The port stands alone and runs on the card by default.
+
+- ``herdsman_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+  ``herdsman_tpu``, checked both in a fresh interpreter and in the source.
+- Without a CUDA device, every entry point called with its default device
+  raises instead of running on the CPU, and ``chip_smoke.py`` fails without
+  printing a result.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from herdsman_tpu_torch.circuit import CircuitBuilder, ColumnMeta, DataType
+from herdsman_tpu_torch.compiler import lower
+from herdsman_tpu_torch.core import TOY
+from herdsman_tpu_torch.core import reference as ref
+from herdsman_tpu_torch.ops import bootstrap as bs
+from herdsman_tpu_torch.ops import gates
+from herdsman_tpu_torch.ops.server_key import device_server_key
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "herdsman_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "herdsman_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(extra)
+    return env
+
+
+def test_port_modules_import_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, herdsman_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert len(names) >= 15, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(f.relative_to(ROOT)) for f in
+    [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    if "_build" not in f.relative_to(ROOT).parts))  # build outputs, not source
+def test_source_imports_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+@pytest.fixture(scope="module")
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    rng = np.random.default_rng(0)
+    ck, sk = ref.keygen(TOY, rng)
+    return ck, sk, rng
+
+
+def test_device_server_key_defaults_to_card(no_card):
+    _, sk, _ = no_card
+    with pytest.raises(RuntimeError, match="GPU"):
+        device_server_key(sk)
+    assert device_server_key(sk, device="cpu").device.type == "cpu"
+
+
+def test_entry_points_default_to_card(no_card):
+    ck, sk, rng = no_card
+    dsk = device_server_key(sk, device="cpu")
+    c = ref.encrypt_bool(ck, np.array([True, False]), rng)
+    with pytest.raises(RuntimeError, match="GPU"):
+        gates.gate_batch(dsk, gates.GateBatch(np.array([0, 1]), c, c))
+    with pytest.raises(RuntimeError, match="GPU"):
+        gates.mux_batch(dsk, c, c, c)
+    with pytest.raises(RuntimeError, match="GPU"):
+        bs.bootstrap_bool_batch(dsk, c)
+    cb = CircuitBuilder((ColumnMeta("a", DataType.BIT),
+                         ColumnMeta("b", DataType.BIT)))
+    cb.output("x", cb.input_bit("a") & cb.input_bit("b"))
+    with pytest.raises(RuntimeError, match="GPU"):
+        lower.compile_circuit(cb.build(), dsk)
+    # a key on one device is refused for another
+    with pytest.raises(ValueError):
+        gates.gate_batch(dsk, gates.GateBatch(np.array([0, 1]), c, c),
+                         device="meta")
+
+
+def test_chip_smoke_fails_without_card(no_card, tmp_path):
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, env=_env(PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
