@@ -21,23 +21,47 @@ Phases, in order; any failure raises and exits non-zero:
 5. main path B: ``compiler.lower.compile_circuit`` on an 8-bit ripple adder
    (a + b, UINT8) over 128 rows, decrypted against ``evaluate_plain``;
 6. times (CUDA events, after warm-up) of the kernel at B=2048, the key
-   switch, the plain version and both main paths end to end.
+   switch, the plain version and both main paths end to end;
+7. kernel vs plain for the block-Toeplitz kernels (tolerance 0):
+   ``bt_external_product`` (unfused and fused) and ``rotate_decompose``
+   against their plain PyTorch versions on the card, on step 0 of the
+   gate batch's rotation at B = 2048, 9 and 1, and on one random step at
+   STD128's geometry (k=1, N=1024, bg=2^7, l=3); then
+   ``blind_rotate_batch`` with engines ``bt`` and ``bt_fused`` at B=2048
+   against mega13's output of phase 3;
+8. main path C, the coordinator's job path: a ``Coordinator`` built from an
+   in-code ``Config`` with ``workers.mesh.engine = pallas_bt`` (the config
+   default) -> authorize -> session -> server key streamed in 64 KiB
+   chunks -> 2048 rows of (a, b) UINT8 in 4 partitions, in ~1 MiB chunks
+   -> a map (x = a XOR b, odd = parity(x)) + PARALLEL XOR-reduce plan sent
+   as JSON -> wait (COMPLETED, no retry) -> download of the output and the
+   map's intermediate frame, every row decrypted against the plaintext;
+   then the same on a second coordinator with ``pallas_fused``, whose
+   frames must equal the first's byte for byte;
+9. times of the block-Toeplitz kernels per step at B=2048 (with bound,
+   plain and library times), a B=2048 gate batch on ``bt`` and
+   ``bt_fused``, path C's jobs with the runner's load / exec / store split,
+   and the kernel device time of a second fused job under
+   ``torch.profiler``.
 
-The kernel's launch counter is set to 0 before each main path and read
-after it; the run fails if a path did not launch the kernel.  The
-second-to-last line of output is a JSON object describing every kernel;
-the last is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
-card and the repo's ``herdsman_tpu_torch`` beside it, and imports nothing of
-JAX or of the JAX package.
+Every kernel's launch counter is set to 0 before each main path and read
+after it; the run fails if a path did not launch the kernels of its
+engine, or launched another engine's.  The second-to-last line of output is
+a JSON object describing every kernel; the last is
+``{"ok": true, "device": {...}}``.  The script needs a CUDA card and the
+repo's ``herdsman_tpu_torch`` beside it, and imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,11 +69,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
 B_MAIN = 2048
 ROWS = 128
+JOB_ROWS = 2048
+JOB_PARTITIONS = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -71,14 +94,6 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(ms, what bounds it): the least time the card could take for ``ops``
-    int8 operations on inputs and outputs of ``nbytes`` in all."""
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes \
-        else "bytes"
-
-
 def host_s(fn):
     """(result, host seconds) of ``fn`` ending in a synchronize."""
     torch.cuda.synchronize()
@@ -86,6 +101,29 @@ def host_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| of two integer tensors, int32 read as u32."""
+    def host(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.int32:
+            return t.numpy().view(np.uint32).astype(np.int64)
+        return t.numpy().astype(np.int64)
+    return int(np.abs(host(a) - host(b)).max())
+
+
+class PhaseLog(logging.Handler):
+    """Keeps the job runner's load / exec / store split of each job."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.phases: dict[str, tuple[float, float, float]] = {}
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if record.msg.startswith("job %s phases"):
+            job_uuid, *split = record.args
+            self.phases[job_uuid] = tuple(split)
 
 
 def main() -> int:
@@ -98,21 +136,65 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     try:
-        from herdsman_tpu_torch.circuit import CircuitBuilder, ColumnMeta, DataType
+        from herdsman_tpu_torch.circuit import (
+            DAG, CircuitBuilder, ColumnMeta, DataType, ExecutionPlan,
+            InputStage, MapperStage, OutputStage, Policy, ReduceStage,
+            SchemaType)
         from herdsman_tpu_torch.compiler import lower
+        from herdsman_tpu_torch.core import STD128
         from herdsman_tpu_torch.core import STD128_K2 as P
+        from herdsman_tpu_torch.core import client
         from herdsman_tpu_torch.core import reference as ref
         from herdsman_tpu_torch.ops import bootstrap as bs
-        from herdsman_tpu_torch.ops import gates
+        from herdsman_tpu_torch.ops import gates, poly
         from herdsman_tpu_torch.ops.decomp import signed_decompose
-        from herdsman_tpu_torch.ops.kernels import _build, mega13
-        from herdsman_tpu_torch.ops.server_key import device_server_key
+        from herdsman_tpu_torch.ops.kernels import _build, bt, mega13
+        from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
+        from herdsman_tpu_torch.ops.server_key import (
+            LAYOUTS, bt_tile, device_server_key)
         from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
+        from herdsman_tpu_torch.service import frames as frame_codec
+        from herdsman_tpu_torch.service.config import (
+            Config, MeshWorkersConfig, SecurityConfig, ServerConfig)
+        from herdsman_tpu_torch.service.coordinator import (
+            Coordinator, serialize_server_key)
+        from herdsman_tpu_torch.service.execution import JobStatus
+        from herdsman_tpu_torch.utils import bounds, rowcodec
     except ImportError as e:
         print(f"chip_smoke: the herdsman_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+
+    # path C's plan: the map and reduce of tests/test_e2e.py
+    JOB_IN_COLS = (ColumnMeta("a", DataType.UINT8),
+                   ColumnMeta("b", DataType.UINT8))
+    JOB_MID_COLS = (ColumnMeta("x", DataType.UINT8),
+                    ColumnMeta("odd", DataType.BIT))
+
+    def job_plan(frame_uuid: str):
+        """Input -> Mapper (x = a XOR b, odd = parity(x)) -> Reduce
+        (bitwise XOR, PARALLEL, 2 per node) -> Output."""
+        mb = CircuitBuilder(JOB_IN_COLS)
+        xv = mb.input_column("a") ^ mb.input_column("b")
+        parity = xv.bits[0]
+        for bit in xv.bits[1:]:
+            parity = parity ^ bit
+        mb.output("x", xv)
+        mb.output("odd", parity)
+        rb = CircuitBuilder(JOB_MID_COLS + JOB_MID_COLS)
+        rb.output("x", rb.input_column_at(0) ^ rb.input_column_at(2))
+        rb.output("odd", rb.input_column_at(1).bits[0]
+                  ^ rb.input_column_at(3).bits[0])
+        g = DAG()
+        stages = [g.emplace(InputStage(frame_uuid)),
+                  g.emplace(MapperStage(mb.build())),
+                  g.emplace(ReduceStage(rb.build(), Policy.PARALLEL,
+                                        per_node_count=2)),
+                  g.emplace(OutputStage("result"))]
+        for a, b in zip(stages, stages[1:]):
+            g.add_edge(a, b)
+        return ExecutionPlan(SchemaType.TFHE_BOOL, g)
 
     # 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -133,9 +215,21 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     ck, sk = ref.keygen(P, rng)
-    dsk = device_server_key(sk, device=dev)
-    print(f"keys: {P.name} keygen + carry to the card "
-          f"{time.perf_counter() - t0:.1f} s")
+    dsk = device_server_key(sk, layouts=LAYOUTS, device=dev)
+    torch.cuda.synchronize()
+    print(f"keys: {P.name} keygen + carry to the card in layouts {LAYOUTS} "
+          f"{time.perf_counter() - t0:.1f} s; bsk_bt "
+          f"{dsk.bsk_bt.numel() / 2**30:.3f} GiB")
+    counters = {"mega13": mega13.mega13_blind_rotate,
+                "bt_external_product": bt.external_product_bt,
+                "rotate_decompose": rd.rotate_decompose}
+
+    def reset_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict[str, int]:
+        return {k: fn.launches for k, fn in counters.items()}
     tp = bs.make_test_poly(P, device=dev)
 
     # the main path A's gate batch, made here so that phase 3 compares the
@@ -170,10 +264,13 @@ def main() -> int:
           f"{err}); ciphertexts 0 and {B_MAIN - 1} == reference.blind_rotate")
 
     # 4. main path A: one heterogeneous gate batch ---------------------------
-    mega13.mega13_blind_rotate.launches = 0
+    reset_counts()
     out, gate_s = host_s(lambda: gates.gate_batch(dsk, batch, device=dev))
-    launches_a = mega13.mega13_blind_rotate.launches
+    counts_a = read_counts()
+    launches_a = counts_a["mega13"]
     check(launches_a > 0, "main path A did not launch mega13")
+    check(counts_a["bt_external_product"] == counts_a["rotate_decompose"] == 0,
+          f"main path A launched another engine's kernels: {counts_a}")
     truth = {"AND": b1 & b2, "OR": b1 | b2, "NAND": ~(b1 & b2),
              "NOR": ~(b1 | b2), "XOR": b1 ^ b2, "XNOR": ~(b1 ^ b2)}
     expect = np.array([truth[names[g]][i] for i, g in enumerate(ids)])
@@ -206,10 +303,13 @@ def main() -> int:
         ROWS, 16)
     x = ref.encrypt_bool(ck, bits, rng)
     run = lower.compile_circuit(circuit, dsk, device=dev)
-    mega13.mega13_blind_rotate.launches = 0
+    reset_counts()
     y, job_s = host_s(lambda: run(x))
-    launches_b = mega13.mega13_blind_rotate.launches
+    counts_b = read_counts()
+    launches_b = counts_b["mega13"]
     check(launches_b > 0, "main path B did not launch mega13")
+    check(counts_b["bt_external_product"] == counts_b["rotate_decompose"] == 0,
+          f"main path B launched another engine's kernels: {counts_b}")
     y_np = to_numpy_u32(y)
     check(y_np.shape == (ROWS, 8, P.n + 1), f"adder output {y_np.shape}")
     dec = ref.lwe_decrypt_bool(ck, y_np)
@@ -232,10 +332,8 @@ def main() -> int:
     narrow_ms = {B: timed_ms(rotate(B), reps=3) for B in (ROWS, 2 * ROWS)}
     plain_ms = timed_ms(lambda: mega13.blind_rotate_plain(P, acc0, a_t,
                                                           dsk.bsk_ext), reps=1)
-    R = (P.k + 1) * P.levels
-    bound_ms, bound_by = bound(
-        2 * P.n * B_MAIN * (R * P.N) * ((P.k + 1) * P.N * 4),
-        4 * (2 * acc0.numel() + a_t.numel() + dsk.bsk.numel()))
+    bound_ms, bound_by = bounds.bound_ms(
+        *bounds.rotation(P, B_MAIN, 4 * dsk.bsk.numel()))
     print(f"time: mega13 B={B_MAIN} {kernel_ms:.3f} ms = "
           f"{B_MAIN / kernel_ms * 1e3:.1f} bootstraps/s, "
           f"{bound_ms / kernel_ms:.4f} of the {bound_ms:.2f} ms bound "
@@ -250,7 +348,7 @@ def main() -> int:
     d8 = signed_decompose(raw[:, :P.kN], P.ks_base_bits, P.ks_levels
                           ).reshape(B_MAIN, -1).to(torch.int8)
     mm_ms = timed_ms(lambda: mega13.int8_matmul(d8, dsk.ksk_limbs), reps=10)
-    ks_bound_ms, ks_by = bound(
+    ks_bound_ms, ks_by = bounds.bound_ms(
         2 * d8.numel() * dsk.ksk_limbs.shape[1],
         4 * raw.numel() + dsk.ksk_limbs.numel() + 4 * B_MAIN * (P.n + 1))
     print(f"time: key_switch_batch B={B_MAIN} {ks_ms:.3f} ms, of which "
@@ -267,21 +365,306 @@ def main() -> int:
           f"{job_s:.3f} s first call, {job2_s:.3f} s second = "
           f"{n_bs / job2_s:.1f} bootstraps/s {card}")
 
-    # 7-8. result lines -------------------------------------------------------
+    # 7. kernel vs plain: the block-Toeplitz kernels, tolerance 0 ----------
+    errs = {"bt_external_product": 0, "rotate_decompose": 0}
+
+    def compare_step(p, acc, a_i, key, label):
+        """Kernels 2 and 1 (unfused, fused) against their plain versions."""
+        d8 = rd.rotate_decompose(p, acc, a_i)
+        want = rd.rotate_decompose_plain(p, acc, a_i)
+        errs["rotate_decompose"] = max(errs["rotate_decompose"],
+                                       abs_err(d8, want))
+        check(torch.equal(d8, want), f"rotate_decompose != plain at {label}")
+        for glwe in (None, acc):
+            got = bt.external_product_bt(p, d8, key, glwe=glwe)
+            want = bt.external_product_bt_plain(p, d8, key, glwe=glwe)
+            errs["bt_external_product"] = max(errs["bt_external_product"],
+                                              abs_err(got, want))
+            check(torch.equal(got, want), f"bt_external_product "
+                  f"({'fused' if glwe is not None else 'unfused'}) != plain "
+                  f"at {label}")
+
+    for B in (B_MAIN, 9, 1):  # step 0 of the gate batch's rotation
+        compare_step(P, acc0[:B], a_t[0, :B], dsk.bsk_bt[0],
+                     f"{P.name} B={B}")
+    Q = STD128  # the other gadget and N, on random inputs and key step
+    PQ, HALFQ = bt_tile(Q)
+    RQ = (Q.k + 1) * Q.levels
+    key_q = torch.randint(-128, 128, (RQ, HALFQ, PQ, (Q.k + 1) * 4 * PQ),
+                          dtype=torch.int8, device=dev)
+    for B in (B_MAIN, 9, 1):
+        acc_q = torch.randint(-2**31, 2**31, (B, Q.k + 1, Q.N),
+                              dtype=torch.int32, device=dev)
+        a_q = torch.randint(0, 2 * Q.N, (B,), dtype=torch.int32, device=dev)
+        compare_step(Q, acc_q, a_q, key_q, f"{Q.name} B={B}")
+    for engine in ("bt", "bt_fused"):
+        got = bs.blind_rotate_batch(dsk, lin, tp, engine=engine)
+        check(torch.equal(got, outs[B_MAIN]),
+              f"blind_rotate_batch engine {engine} != mega13 at B={B_MAIN}")
+    print(f"kernel vs plain: rotate_decompose == rotate_decompose_plain and "
+          f"bt_external_product (unfused, fused) == external_product_bt_plain "
+          f"at {P.name} (step 0 of the gate batch) and {Q.name} (random "
+          f"step), B in {[B_MAIN, 9, 1]} (array equality, max_abs_err "
+          f"{errs}); blind_rotate_batch engines bt and bt_fused == mega13 "
+          f"at B={B_MAIN}")
+
+    # 8. main path C: the coordinator's job path, on pallas_bt then
+    # pallas_fused ------------------------------------------------------------
+    table = rng.integers(0, 256, (JOB_ROWS, 2))
+    job_in = client.encrypt_rows(ck, JOB_IN_COLS, table.tolist(), rng)
+    payloads = frame_codec.rows_to_payloads(job_in)
+    per_chunk = max(1, (1 << 20) // (len(payloads[0]) + 4))
+    upload = [rowcodec.frame_rows(payloads[i:i + per_chunk])
+              for i in range(0, len(payloads), per_chunk)]
+    key_bytes = serialize_server_key(sk)
+    xs = table[:, 0] ^ table[:, 1]
+    odd = np.array([bin(int(v)).count("1") & 1 for v in xs])
+    want_rows = [{"x": int(a), "odd": int(b)} for a, b in zip(xs, odd)]
+    want_out = [{"x": int(np.bitwise_xor.reduce(xs)),
+                 "odd": int(np.bitwise_xor.reduce(odd))}]
+    phase_log = PhaseLog()
+    runner_log = logging.getLogger("herdsman.runner")
+    runner_log.setLevel(logging.DEBUG)
+    runner_log.propagate = False
+    runner_log.addHandler(phase_log)
+
+    def path_c(engine: str, workdir: str, profile: bool) -> dict:
+        cfg = Config(server=ServerConfig(key_directory=workdir + "/keys",
+                                         storage_directory=workdir + "/st"),
+                     security=SecurityConfig(secret_key="chip-smoke"),
+                     mesh_workers=(MeshWorkersConfig() if engine == "pallas_bt"
+                                   else MeshWorkersConfig(engine=engine)))
+        coord = Coordinator(cfg, device=dev)
+        tok = coord.authorize_connection("admin==true")
+        sess = coord.create_session(tok, "chip-smoke").uuid
+        coord.add_key(tok, sess, SchemaType.TFHE_BOOL, len(key_bytes),
+                      (key_bytes[i:i + (1 << 16)]
+                       for i in range(0, len(key_bytes), 1 << 16)))
+        meta = coord.begin_data_frame_upload(
+            tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, JOB_ROWS,
+            JOB_PARTITIONS)
+        for chunk in upload:
+            coord.append_data_frame(tok, sess, meta.uuid, chunk)
+        coord.finish_data_frame_upload(tok, sess, meta.uuid)
+        plan_json = job_plan(meta.uuid).to_json()
+
+        def run_job():
+            job = coord.schedule_job(tok, sess, plan_json)
+            job = coord.wait_for_job(tok, sess, job.job_uuid, timeout=900)
+            check(job.status == JobStatus.COMPLETED and job.retries == 0
+                  and job.bootstraps_executed > 0,
+                  f"path C ({engine}) job {job.status.name}, retries "
+                  f"{job.retries}, {job.bootstraps_executed} bootstraps: "
+                  f"{job.message}")
+            return job
+
+        reset_counts()
+        job, host = host_s(run_job)
+        counts = read_counts()
+        res = {"job": job, "host_s": host, "counts": counts,
+               "phases": phase_log.phases[job.job_uuid]}
+
+        def frame_bytes(uuid):
+            return list(coord.download_data_frame(tok, sess, uuid))
+
+        (out_uuid,) = job.output_frames.values()
+        (mid,) = [f.uuid for f in coord.list_data_frames(tok, sess)
+                  if f.name.startswith(f"intermediate-{job.job_uuid}-")]
+        res["out"], res["mid"] = frame_bytes(out_uuid), frame_bytes(mid)
+        for name, parts, want in (("intermediate", res["mid"], want_rows),
+                                  ("output", res["out"], want_out)):
+            rows = [pl for part in parts for pl in rowcodec.parse_rows(part)]
+            cts = frame_codec.payloads_to_rows(rows, 9, P)
+            got = client.decrypt_rows(ck, JOB_MID_COLS, cts)
+            bad = sum(g != w for g, w in zip(got, want))
+            check(len(got) == len(want) and bad == 0,
+                  f"path C ({engine}) {name} frame: {len(got)} rows, {bad} "
+                  f"decrypt wrong")
+        if profile:  # the same job again, warm, with kernel device times
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                job2, host2 = host_s(run_job)
+            res["profile"] = (job2, host2, prof.key_averages())
+        coord.shutdown()
+        return res
+
+    runs = {}
+    for engine in ("pallas_bt", "pallas_fused"):
+        with tempfile.TemporaryDirectory() as workdir:
+            runs[engine] = path_c(engine, workdir,
+                                  profile=engine == "pallas_fused")
+        torch.cuda.empty_cache()
+        r = runs[engine]
+        print(f"main path C ({engine}): {JOB_ROWS} rows in {JOB_PARTITIONS} "
+              f"partitions, map + PARALLEL reduce: COMPLETED, retries 0, "
+              f"{r['job'].bootstraps_executed} bootstraps; all {JOB_ROWS} "
+              f"intermediate rows and the reduced row decrypt right; "
+              f"launches {r['counts']}")
+    c_bt, c_fused = runs["pallas_bt"]["counts"], runs["pallas_fused"]["counts"]
+    check(c_bt["bt_external_product"] > 0 and c_bt["rotate_decompose"] == 0
+          and c_bt["mega13"] == 0,
+          f"path C on pallas_bt launched {c_bt}, not bt_external_product alone")
+    check(c_fused["bt_external_product"] > 0 and c_fused["rotate_decompose"] > 0
+          and c_fused["mega13"] == 0,
+          f"path C on pallas_fused launched {c_fused}, not its two kernels")
+    for frame in ("out", "mid"):
+        check(runs["pallas_bt"][frame] == runs["pallas_fused"][frame],
+              f"path C {frame} frame differs between pallas_bt and "
+              f"pallas_fused")
+    print("main path C: pallas_bt and pallas_fused output and intermediate "
+          "frames are byte-equal")
+
+    # 9. times of the block-Toeplitz engines --------------------------------
+    R = (P.k + 1) * P.levels
+    HALF = P.N // bt_tile(P)[0]
+    acc_s, a_s = acc0, a_t[0]
+    d8_s = rd.rotate_decompose(P, acc_s, a_s)
+    steps = iter(range(1 << 30))  # a new step key per call, as in a rotation
+
+    def step_key():
+        return dsk.bsk_bt[next(steps) % P.n]
+
+    rd_ms = timed_ms(lambda: rd.rotate_decompose(P, acc_s, a_s), reps=50)
+    rd_plain_ms = timed_ms(lambda: rd.rotate_decompose_plain(P, acc_s, a_s),
+                           reps=5)
+    rd_bound_ms, rd_by = bounds.bound_ms(
+        *bounds.rotate_decompose_step(P, acc_s.shape[0]),
+        bounds.PEAK_INT32_OPS)
+    ep = {}
+    for fused in (False, True):
+        glwe = acc_s if fused else None
+        ep[fused] = {
+            "ms": timed_ms(lambda: bt.external_product_bt(
+                P, d8_s, step_key(), glwe=glwe), reps=20),
+            "plain_ms": timed_ms(lambda: bt.external_product_bt_plain(
+                P, d8_s, step_key(), glwe=glwe), reps=3),
+        }
+        ep[fused]["bound_ms"], ep[fused]["bound_by"] = bounds.bound_ms(
+            *bounds.external_product_step(P, d8_s.shape[1], fused))
+    # the library yardstick: one int8 product on the fully expanded step
+    # matrix [R*N, (k+1)*4*N] (no recombine); never called by the port
+    idx = (torch.arange(P.N, device=dev)[None, :]
+           - torch.arange(P.N, device=dev)[:, None]) % (2 * P.N)
+    full = poly.to_i8_limbs(dsk.bsk_ext[0][..., idx]).permute(
+        0, 2, 1, 3, 4).reshape(R * P.N, (P.k + 1) * P.N * 4)
+    d_flat = d8_s.reshape(R, HALF, B_MAIN, -1).permute(2, 0, 1, 3).reshape(
+        B_MAIN, R * P.N)
+    lib_ms = timed_ms(lambda: torch._int_mm(d_flat, full), reps=20)
+    for fused in (False, True):
+        e = ep[fused]
+        print(f"time: bt_external_product {'fused' if fused else 'unfused'} "
+              f"one step B={B_MAIN} {e['ms']:.4f} ms ({e['ms'] * P.n:.1f} ms "
+              f"per {P.n}-step rotation); {e['bound_ms'] / e['ms']:.4f} of "
+              f"the {e['bound_ms']:.4f} ms bound ({e['bound_by']}); plain "
+              f"{e['plain_ms']:.4f} ms; torch._int_mm [{B_MAIN}, {R * P.N}] x "
+              f"{list(full.shape)} {lib_ms:.4f} ms {card}")
+    for B in (288, 9):  # path C's narrow reduce levels
+        acc_n, a_n = acc0[:B], a_t[0, :B]
+        d8_n = rd.rotate_decompose(P, acc_n, a_n)
+        n_ms = timed_ms(lambda: bt.external_product_bt(
+            P, d8_n, step_key(), glwe=acc_n), reps=20)
+        nrd_ms = timed_ms(lambda: rd.rotate_decompose(P, acc_n, a_n), reps=20)
+        print(f"time: bt_external_product fused one step B={B} {n_ms:.4f} "
+              f"ms, rotate_decompose {nrd_ms:.4f} ms "
+              f"({(n_ms + nrd_ms) * P.n:.1f} ms per rotation) {card}")
+    print(f"time: rotate_decompose one step B={B_MAIN} {rd_ms:.4f} ms; "
+          f"{rd_bound_ms / rd_ms:.4f} of the {rd_bound_ms:.4f} ms bound "
+          f"({rd_by}); plain {rd_plain_ms:.4f} ms {card}")
+    d8_q = rd.rotate_decompose(
+        Q, torch.randint(-2**31, 2**31, (B_MAIN, Q.k + 1, Q.N),
+                         dtype=torch.int32, device=dev),
+        torch.randint(0, 2 * Q.N, (B_MAIN,), dtype=torch.int32, device=dev))
+    q_ms = timed_ms(lambda: bt.external_product_bt(Q, d8_q, key_q), reps=10)
+    q_bound, q_by = bounds.bound_ms(
+        *bounds.external_product_step(Q, d8_q.shape[1], fused=False))
+    print(f"time: bt_external_product unfused one step at {Q.name} B={B_MAIN} "
+          f"{q_ms:.4f} ms; {q_bound / q_ms:.4f} of the {q_bound:.4f} ms "
+          f"bound ({q_by}) {card}")
+    for engine in ("bt", "bt_fused"):
+        got, s1 = host_s(lambda: gates.gate_batch(dsk, batch, engine=engine,
+                                                  device=dev))
+        check(np.array_equal(to_numpy_u32(got), out_np),
+              f"gate_batch on {engine} != on mega13")
+        _, s2 = host_s(lambda: gates.gate_batch(dsk, batch, engine=engine,
+                                                device=dev))
+        print(f"time: gate_batch B={B_MAIN} on {engine} {s1:.3f} s first "
+              f"call, {s2:.3f} s second = {B_MAIN / s2:.1f} bootstraps/s "
+              f"(outputs == mega13's) {card}")
+    for engine, r in runs.items():
+        job = r["job"]
+        load, exe, store = r["phases"]
+        print(f"time: main path C job on {engine} wall {job.wall_time_s:.3f} "
+              f"s (host {r['host_s']:.3f} s), {job.bootstraps_executed} "
+              f"bootstraps = {job.bootstraps_per_sec:.1f} bootstraps/s; "
+              f"runner load {load:.3f} s, exec {exe:.3f} s, store "
+              f"{store:.3f} s, key ingest and the rest "
+              f"{job.wall_time_s - load - exe - store:.3f} s {card}")
+    job2, host2, ka = runs["pallas_fused"]["profile"]
+    dev_us = {e.key: getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) for e in ka}
+    dev_us = {k: v for k, v in dev_us.items() if v > 0}
+    total_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    print(f"time: main path C second job on pallas_fused under "
+          f"torch.profiler: wall {job2.wall_time_s:.3f} s, kernels "
+          + (f"{total_ms:.1f} ms on the device = busy share "
+             f"{total_ms / 1e3 / job2.wall_time_s:.4f}; top: "
+             + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top)
+             if total_ms else "not measured (no device time in the trace)")
+          + f" {card}")
+    print(f"memory: torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
+
+    # 10-11. result lines ---------------------------------------------------
+    by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
+               "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused}
+
+    def launches(name):
+        per = {path: c[name] for path, c in by_path.items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
+
     kernels = [{
         "name": "mega13",
         "route": "cuda",
         "source": "herdsman_tpu_torch/csrc/mega13.cu",
         "replaces": "herdsman_tpu/ops/pallas/mega.py:793",
-        "launches": launches_a + launches_b,
-        "launches_by_path": {"gate_batch": launches_a,
-                             "adder_job": launches_b},
+        **launches("mega13"),
         "matches_plain": err == 0,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "bt_external_product",
+        "route": "cuda",
+        "source": "herdsman_tpu_torch/csrc/bt_external_product.cu",
+        "replaces": "herdsman_tpu/ops/pallas/blind_rotate.py:153",
+        "replaces_fused": "herdsman_tpu/ops/pallas/blind_rotate.py:189",
+        **launches("bt_external_product"),
+        "matches_plain": errs["bt_external_product"] == 0,
+        "max_abs_err": errs["bt_external_product"],
+        "ms": ep[False]["ms"],
+        "plain_ms": ep[False]["plain_ms"],
+        "bound_ms": ep[False]["bound_ms"],
+        "bound_by": ep[False]["bound_by"],
+        "library_ms": lib_ms,
+        "ms_fused": ep[True]["ms"],
+        "plain_ms_fused": ep[True]["plain_ms"],
+        "bound_ms_fused": ep[True]["bound_ms"],
+    }, {
+        "name": "rotate_decompose",
+        "route": "cuda",
+        "source": "herdsman_tpu_torch/csrc/rotate_decompose.cu",
+        "replaces": "herdsman_tpu/ops/pallas/rotate_decompose.py:38",
+        **launches("rotate_decompose"),
+        "matches_plain": errs["rotate_decompose"] == 0,
+        "max_abs_err": errs["rotate_decompose"],
+        "ms": rd_ms,
+        "plain_ms": rd_plain_ms,
+        "bound_ms": rd_bound_ms,
+        "bound_by": rd_by,
         "library_ms": None,
     }]
     print(smi)

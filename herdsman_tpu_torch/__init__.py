@@ -14,8 +14,12 @@ copy.
 - ``ops``      u32 carrier, polynomial and decomposition primitives, the
                device server key, bootstrapping, gates; ``ops.kernels`` holds
                the CUDA kernels' wrappers and their build.
-- ``circuit``  the boolean-circuit model and builder.
-- ``compiler`` levelized circuit evaluation on the device.
+- ``circuit``  the boolean-circuit model and builder, execution plans.
+- ``compiler`` levelized circuit evaluation on the device, the optimizer,
+               reduce trees and the plan compiler.
+- ``service``  the coordinator: auth, sessions, keys, frame storage, the
+               job executor and runner (row frames on one device).
+- ``utils``    the row codec and the H100 bounds of the kernels' work.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
 from herdsman_tpu_torch.circuit.builder import CircuitBuilder  # noqa: F401
+from herdsman_tpu_torch.circuit.dag import DAG  # noqa: F401
 from herdsman_tpu_torch.circuit.model import (  # noqa: F401
     Circuit,
     ColumnMeta,
@@ -8,4 +9,12 @@ from herdsman_tpu_torch.circuit.model import (  # noqa: F401
     MappingError,
     OutputColumn,
     SchemaType,
+)
+from herdsman_tpu_torch.circuit.plan import (  # noqa: F401
+    ExecutionPlan,
+    InputStage,
+    MapperStage,
+    OutputStage,
+    Policy,
+    ReduceStage,
 )

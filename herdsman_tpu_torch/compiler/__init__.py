@@ -4,3 +4,4 @@ from herdsman_tpu_torch.compiler.lower import (  # noqa: F401
     evaluate_plain,
     levelize,
 )
+from herdsman_tpu_torch.compiler.optimizer import optimize_circuit  # noqa: F401

@@ -7,14 +7,25 @@ the whole ciphertext batch at once,
 
     acc <- acc + BSK_i  (x)  (X^{a~_i} * acc - acc)
 
-through one of two kinds of engine:
+through one of three kinds of engine:
 
 - ``ROTATION_ENGINES``: one call owns the whole n-step loop.  ``mega13`` (the
   default) is the hand-written CUDA kernel ``csrc/mega13.cu`` on a CUDA
   tensor and its plain PyTorch version on a CPU tensor.
-- ``ENGINES``: a per-step external product inside a Python loop over i.
-  ``gather_u32`` is the gather-Toeplitz u32 product of the JAX package's
-  engine of the same name (any device, slow; a second yardstick).
+- ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
+  whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
+  ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
+  with the accumulate, against the ``bsk_bt`` key.
+- ``ENGINES``: a per-step external product inside a Python loop over i,
+  after a PyTorch rotate and decompose.  ``bt`` (the JAX package's
+  ``pallas_bt``) is ``csrc/bt_external_product.cu`` unfused; ``gather_u32``
+  is the gather-Toeplitz u32 product of the JAX package's engine of the
+  same name (any device, slow; a second yardstick).
+
+Every kernel wrapper takes its plain PyTorch version for a CPU tensor and
+only then.  The per-step engines launch 2 kernels per step (n = 768 steps
+at STD128_K2) from the Python loop and mask ragged batches in the kernels,
+so no batch is padded.
 
 All tensors are the int32 carrier of ``ops.u32``.
 """
@@ -28,8 +39,9 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.decomp import signed_decompose
-from herdsman_tpu_torch.ops.kernels import mega13
-from herdsman_tpu_torch.ops.server_key import DeviceServerKey
+from herdsman_tpu_torch.ops.kernels import bt, mega13
+from herdsman_tpu_torch.ops.kernels.rotate_decompose import rotate_decompose
+from herdsman_tpu_torch.ops.server_key import DeviceServerKey, bt_tile
 from herdsman_tpu_torch.ops.u32 import resolve_device, srl, to_device, u32_const
 
 I32 = torch.int32
@@ -46,9 +58,34 @@ def _ep_gather_u32(p: TFHEParams, digits: torch.Tensor,
     return prod.sum(dim=(1, 3), dtype=I32)
 
 
+def _ep_bt(p: TFHEParams, digits: torch.Tensor,
+           bsk_bt_i: torch.Tensor) -> torch.Tensor:
+    """digits [B, R, N] int32, bsk_bt_i [R, HALF, P, (k+1)*4*P] int8 ->
+    [B, k+1, N]: the digits in the kernel's row-tile-major int8 layout,
+    then the unfused block-Toeplitz product."""
+    P, HALF = bt_tile(p)
+    B, R, _ = digits.shape
+    d8 = digits.to(I8).reshape(B, R * HALF, P).transpose(0, 1).contiguous()
+    return bt.external_product_bt(p, d8, bsk_bt_i)
+
+
+def _step_bt_fused(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
+                   bsk_bt_i: torch.Tensor) -> torch.Tensor:
+    """Whole CMux step, two kernels: acc + BSK_i (x) (X^{a_i} acc - acc)."""
+    d8 = rotate_decompose(p, acc, a_i)
+    return bt.external_product_bt(p, d8, bsk_bt_i, glwe=acc)
+
+
 # engine name -> (fn(params, digits, bsk_i), key layout it reads)
 ENGINES: dict[str, tuple[Callable, str]] = {
+    "bt": (_ep_bt, "bsk_bt"),
     "gather_u32": (_ep_gather_u32, "bsk_ext"),
+}
+
+# engine name -> (fn(params, acc, a_i, bsk_i), key layout it reads): one
+# call runs a whole CMux step
+STEP_ENGINES: dict[str, tuple[Callable, str]] = {
+    "bt_fused": (_step_bt_fused, "bsk_bt"),
 }
 
 # engine name -> (fn(params, acc0, a_t, bsk), key layout it reads): one call
@@ -56,15 +93,6 @@ ENGINES: dict[str, tuple[Callable, str]] = {
 ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega13": (mega13.mega13_blind_rotate, "bsk"),
 }
-
-
-def layouts_for_engine(engine: str) -> tuple[str, ...]:
-    """Key layout(s) ``device_server_key`` must build for ``engine``."""
-    table = ROTATION_ENGINES if engine in ROTATION_ENGINES else ENGINES
-    if engine not in table:
-        raise ValueError(f"unknown engine {engine!r}; known: "
-                         f"{sorted(ROTATION_ENGINES) + sorted(ENGINES)}")
-    return (table[engine][1],)
 
 
 def mod_switch_2N(p: TFHEParams, ct: torch.Tensor,
@@ -109,6 +137,13 @@ def blind_rotate_batch(dsk: DeviceServerKey, ct: torch.Tensor,
     if engine in ROTATION_ENGINES:
         rot_fn, layout = ROTATION_ENGINES[engine]
         return rot_fn(p, acc0, a_t, _key(dsk, layout, engine))
+    if engine in STEP_ENGINES:
+        step_fn, layout = STEP_ENGINES[engine]
+        bsk = _key(dsk, layout, engine)
+        acc = acc0
+        for i in range(p.n):
+            acc = step_fn(p, acc, a_t[i], bsk[i])
+        return acc
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     ep, layout = ENGINES[engine]

@@ -1,0 +1,143 @@
+"""Block-Toeplitz external-product kernel (``csrc/bt_external_product.cu``)
+and its plain PyTorch version.
+
+``external_product_bt`` replaces ``herdsman_tpu/ops/pallas/blind_rotate.py::
+_kernel`` / ``_kernel_fused`` and keeps their wrapper's layouts: digits d8
+int8 [R*HALF, B, P] (row-tile major), one step's key ``bsk_bt[i]`` int8
+[R, HALF, P, (k+1)*4*P], out [B, k+1, N], plus ``glwe`` when given (the
+fused CMux accumulate).  On a CUDA tensor it launches the hand-written
+kernel (counted in ``external_product_bt.launches``) or raises; on a CPU
+tensor it runs ``external_product_bt_plain``.  The source note in
+``csrc/bt_external_product.cu`` gives the kernel's design and bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from herdsman_tpu_torch.core.params import TFHEParams
+from herdsman_tpu_torch.ops import poly
+from herdsman_tpu_torch.ops.kernels import _build
+from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
+from herdsman_tpu_torch.ops.server_key import bt_tile
+
+I32 = torch.int32
+I8 = torch.int8
+
+
+def check_params(p: TFHEParams) -> None:
+    """Raise on a parameter set the kernel does not take."""
+    if p.N & (p.N - 1) or not 32 <= p.N <= 2048:
+        raise ValueError(f"bt_external_product takes N a power of two in "
+                         f"[32, 2048], not {p.N} ({p.name})")
+
+
+def _check_args(p: TFHEParams, d8: torch.Tensor, key: torch.Tensor,
+                glwe: torch.Tensor | None) -> None:
+    P, HALF = bt_tile(p)
+    R = (p.k + 1) * p.levels
+    B = d8.shape[1] if d8.dim() == 3 else -1
+    shapes = {"d8": (d8, I8, (R * HALF, B, P)),
+              "key": (key, I8, (R, HALF, P, (p.k + 1) * 4 * P))}
+    if glwe is not None:
+        shapes["glwe"] = (glwe, I32, (B, p.k + 1, p.N))
+    for name, (t, dtype, shape) in shapes.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != d8.device:
+            raise ValueError(f"{name} is on {t.device}, d8 on {d8.device}")
+    if B < 1:
+        raise ValueError("empty batch")
+    if d8.data_ptr() % 16:  # the kernel stages digits in 16-byte loads
+        raise ValueError("d8 must start on a 16-byte boundary")
+
+
+def external_product_bt_plain(params: TFHEParams, d8: torch.Tensor,
+                              key: torch.Tensor,
+                              glwe: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """The same product in plain PyTorch, either device: for each column
+    tile ct, one int8 product over the positive diagonal run minus one over
+    the negated run (``_ep_column_total`` of the JAX kernel), all R rows in
+    each, through ``torch._int_mm``; then the limb recombine."""
+    p = params
+    _check_args(p, d8, key, glwe)
+    P, HALF = bt_tile(p)
+    R = (p.k + 1) * p.levels
+    B = d8.shape[1]
+    d = d8.reshape(R, HALF, B, P)
+
+    def run(ms: range, subs: list[int]) -> torch.Tensor:
+        """[B, C4P] partial of stored blocks ``ms`` against digit tiles
+        ``subs``, every GGSW row."""
+        dig = torch.cat([d[r, s] for s in subs for r in range(R)], dim=1)
+        k = key[:, ms.start:ms.stop].transpose(0, 1).reshape(-1, key.shape[-1])
+        return int8_matmul(dig, k)
+
+    tiles = []
+    for ct in range(HALF):
+        total = run(range(0, ct + 1), [ct - m for m in range(ct + 1)])
+        if ct + 1 < HALF:
+            total = total - run(range(ct + 1, HALF),
+                                [HALF + ct - m for m in range(ct + 1, HALF)])
+        limbs = total.reshape(B, p.k + 1, 4, P).transpose(2, 3)
+        tiles.append(poly.from_i32_limb_partials(limbs))   # [B, k+1, P]
+    out = torch.cat(tiles, dim=-1)
+    return out if glwe is None else glwe + out
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/bt_external_product.cu`` with its C signatures."""
+    lib = _build.load("bt_external_product")
+    lib.bt_external_product.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bt_external_product.restype = ctypes.c_int
+    lib.bt_error_string.argtypes = [ctypes.c_int]
+    lib.bt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(p: TFHEParams, d8: torch.Tensor, key: torch.Tensor,
+            glwe: torch.Tensor | None) -> torch.Tensor:
+    lib = _lib()
+    B = d8.shape[1]
+    out = torch.empty(B, p.k + 1, p.N, dtype=I32, device=d8.device)
+    with torch.cuda.device(d8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.bt_external_product(
+            d8.data_ptr(), key.data_ptr(),
+            None if glwe is None else glwe.data_ptr(), out.data_ptr(),
+            B, p.N, p.k + 1, (p.k + 1) * p.levels, stream)
+    if err:
+        raise RuntimeError("bt_external_product launch failed: "
+                           + lib.bt_error_string(err).decode())
+    external_product_bt.launches += 1
+    return out
+
+
+def external_product_bt(params: TFHEParams, d8: torch.Tensor,
+                        key: torch.Tensor,
+                        glwe: torch.Tensor | None = None) -> torch.Tensor:
+    """One step's external product: d8 int8 [R*HALF, B, P], key int8
+    [R, HALF, P, (k+1)*4*P] (+ glwe int32 [B, k+1, N]) -> int32 [B, k+1, N].
+    CUDA tensors go through the kernel, CPU tensors through
+    ``external_product_bt_plain``."""
+    check_params(params)
+    _check_args(params, d8, key, glwe)
+    if d8.device.type == "cuda":
+        return _launch(params, d8, key, glwe)
+    if d8.device.type == "cpu":
+        return external_product_bt_plain(params, d8, key, glwe)
+    raise ValueError(f"bt_external_product runs on cuda or cpu, "
+                     f"not {d8.device}")
+
+
+external_product_bt.launches = 0

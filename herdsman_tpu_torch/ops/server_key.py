@@ -14,10 +14,26 @@ once, into:
 - ``bsk_ext``   int32 [n, R, k+1, 2N]  ext(p) = concat(p, -p) of every key
                                        polynomial: the Toeplitz gather table
                                        of the plain version.
+- ``bsk_bt``    int8  [n, R, HALF, P, (k+1)*4*P]
+                                       the block-Toeplitz key of the JAX
+                                       package's ``pallas_bt`` engines
+                                       (``_block_toeplitz_layout``), read by
+                                       ``csrc/bt_external_product.cu``:
+                                       stored diagonal block m at (p, (c, j,
+                                       q)) is limb j of ext(bsk[i, r, c])
+                                       [(P*m + q - p) mod 2N].  It is
+                                       n*R*(k+1)*4*N*P bytes, 3.375 GiB at
+                                       STD128_K2, so it is built on the
+                                       device in step chunks and only for an
+                                       engine that reads it.
 - ``ksk_limbs`` int8  [kN*t, C]        the key-switching key as balanced int8
                                        limbs for one ``torch._int_mm``;
                                        C = (n+1)*4 padded to a multiple of 8,
                                        which the CUDA int8 matmul requires.
+
+``layouts_for_engine`` names the layout each engine reads, and
+``fit_engine`` picks the engine a key fits on the card for (the port of
+``herdsman_tpu/ops/server_key.py:594-699``).
 """
 
 from __future__ import annotations
@@ -28,9 +44,22 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
+from herdsman_tpu_torch.ops.kernels import mega13
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext")
+LAYOUTS = ("bsk", "bsk_ext", "bsk_bt")
+DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
+
+# the layout each engine of ops.bootstrap reads
+ENGINE_LAYOUTS = {"mega13": "bsk", "bt": "bsk_bt", "bt_fused": "bsk_bt",
+                  "gather_u32": "bsk_ext"}
+
+# device memory the key layouts of one session may take: half of an H100's
+# 80 GB, leaving the rest to ciphertext batches and other sessions
+KEY_BUDGET_BYTES = 40 * (1 << 30)
+
+# working set of one chunk of the bsk_bt build
+_BT_CHUNK_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +69,7 @@ class DeviceServerKey:
     ksk_limbs: torch.Tensor             # int8 [kN*ks_levels, ceil8((n+1)*4)]
     bsk: torch.Tensor | None = None     # int32 [n, R, k+1, N]
     bsk_ext: torch.Tensor | None = None  # int32 [n, R, k+1, 2N]
+    bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
 
     @property
     def R(self) -> int:
@@ -55,14 +85,85 @@ class DeviceServerKey:
 
 
 def bt_tile(params: TFHEParams) -> tuple[int, int]:
-    """(P, HALF) of the JAX package's block-Toeplitz tiling: P = min(128, N),
-    HALF = N/P.  The port's layouts do not tile; this names the geometry
-    that the TPU kernels' shapes are quoted in."""
+    """(P, HALF) of the block-Toeplitz tiling: P = min(128, N), HALF = N/P."""
     P = min(128, params.N)
     return P, params.N // P
 
 
-def device_server_key(sk, layouts: tuple[str, ...] = LAYOUTS,
+def bt_key_bytes(p: TFHEParams) -> int:
+    """Bytes of the ``bsk_bt`` layout at ``p``."""
+    P, _ = bt_tile(p)
+    return p.n * (p.k + 1) * p.levels * (p.k + 1) * 4 * p.N * P
+
+
+def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor) -> torch.Tensor:
+    """``bsk_bt`` int8 [n, R, HALF, P, (k+1)*4*P] from the int32 ``bsk``
+    [n, R, k+1, N], on ``bsk``'s device, a chunk of steps at a time: one
+    gather of ext(bsk) and one limb split per chunk, so the working set
+    stays near 256 MiB whatever the key's size.  Equal to the JAX package's
+    ``_block_toeplitz_layout`` (tests/test_torch_bt.py)."""
+    n, R, kp1, N = bsk.shape
+    P, HALF = bt_tile(p)
+    m = torch.arange(HALF, device=bsk.device)[:, None, None]
+    row = torch.arange(P, device=bsk.device)[None, :, None]
+    q = torch.arange(P, device=bsk.device)[None, None, :]
+    idx = (P * m + q - row) % (2 * N)                # [HALF, P(row), P(q)]
+    out = torch.empty(n, R, HALF, P, kp1 * 4 * P, dtype=torch.int8,
+                      device=bsk.device)
+    step = max(1, _BT_CHUNK_BYTES // (R * kp1 * N * P * 4 * 8))
+    for i0 in range(0, n, step):
+        i1 = min(i0 + step, n)
+        blocks = poly.negacyclic_extend(bsk[i0:i1])[..., idx]
+        limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, HALF, P, P, 4]
+        out[i0:i1] = limbs.permute(0, 1, 3, 4, 2, 6, 5).reshape(
+            i1 - i0, R, HALF, P, kp1 * 4 * P)
+    return out
+
+
+def layouts_for_engine(engine: str) -> tuple[str, ...]:
+    """Key layout(s) ``device_server_key`` must build for ``engine``."""
+    if engine not in ENGINE_LAYOUTS:
+        raise ValueError(f"unknown engine {engine!r}; known: "
+                         f"{sorted(ENGINE_LAYOUTS)}")
+    return (ENGINE_LAYOUTS[engine],)
+
+
+def fit_engine(engine: str, params: TFHEParams,
+               budget_bytes: int = KEY_BUDGET_BYTES) -> str:
+    """The engine that serves ``params`` on the card, starting from
+    ``engine``: the block-Toeplitz engines while their ``bsk_bt`` key fits
+    ``budget_bytes``, else ``mega13`` (raw key, 27 MiB at STD128_K2); and
+    ``mega13`` where its kernel takes the parameter set, else ``bt_fused``.
+    The coordinator builds every session's key through this, so no
+    session can run the card out of memory at key ingest."""
+
+    def mega13_takes() -> bool:
+        try:
+            mega13.check_params(params)
+        except ValueError:
+            return False
+        return True
+
+    bt_fits = bt_key_bytes(params) <= budget_bytes
+    if engine in ("bt", "bt_fused"):
+        if bt_fits:
+            return engine
+        if mega13_takes():
+            return "mega13"
+    elif engine == "mega13":
+        if mega13_takes():
+            return engine
+        if bt_fits:
+            return "bt_fused"
+    elif engine == "gather_u32":
+        return engine
+    else:
+        layouts_for_engine(engine)  # raises for an unknown engine
+    raise ValueError(f"no engine of the port serves {params.name} from "
+                     f"{engine!r} within {budget_bytes} bytes of key")
+
+
+def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                       device: str | torch.device = "cuda") -> DeviceServerKey:
     """Carry a host server key to ``device`` in the layouts named."""
     dev = resolve_device(device)
@@ -93,4 +194,6 @@ def device_server_key(sk, layouts: tuple[str, ...] = LAYOUTS,
         bsk=bsk if "bsk" in layouts else None,
         bsk_ext=(poly.negacyclic_extend(bsk).contiguous()
                  if "bsk_ext" in layouts else None),
+        bsk_bt=(block_toeplitz_layout(p, bsk)
+                if "bsk_bt" in layouts else None),
     )

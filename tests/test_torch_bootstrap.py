@@ -20,6 +20,7 @@ from herdsman_tpu.ops.server_key import layouts_for_engine
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops.kernels import mega13
 from herdsman_tpu_torch.ops.server_key import device_server_key
+from herdsman_tpu_torch.ops.server_key import layouts_for_engine as layouts_for
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 
 # the B8L2 sets of tests/test_ops_bitexact.py: N = 512, k = 2 is the
@@ -96,7 +97,7 @@ def test_bootstrap_bool_equals_jax(engine):
     want = np.asarray(jbs.bootstrap_bool_batch(
         jax_dsk(sk, layouts=("bsk_ext",)), jnp.asarray(ct),
         engine="gather_u32"))
-    dsk = device_server_key(sk, layouts=tbs.layouts_for_engine(engine),
+    dsk = device_server_key(sk, layouts=layouts_for(engine),
                             device="cpu")
     got = to_numpy_u32(tbs.bootstrap_bool_batch(dsk, ct, engine=engine,
                                                 device="cpu"))

@@ -1,6 +1,6 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version (array equality: the arithmetic is exact mod 2^32) and
-against the NumPy reference.
+PyTorch version (array equality: the arithmetic is exact mod 2^32), and the
+blind rotation of every engine against the NumPy reference.
 
 They need an NVIDIA Hopper card, ``nvcc`` and the repo's sources, and skip
 without a card.  This file imports neither ``jax`` nor ``herdsman_tpu``, so it
@@ -19,8 +19,9 @@ from herdsman_tpu_torch.core import TOY
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
-from herdsman_tpu_torch.ops.kernels import _build, mega13
-from herdsman_tpu_torch.ops.server_key import device_server_key
+from herdsman_tpu_torch.ops.kernels import _build, bt, mega13
+from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
+from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +101,65 @@ def test_gate_batch_on_card(card):
                              from_numpy_u32(c1[:1]), from_numpy_u32(c2[:1]))
     np.testing.assert_array_equal(
         out[0], ref.bootstrap_bool(sk, to_numpy_u32(lin0)[0]))
+
+
+# the block-Toeplitz kernels' geometry classes: k+1 in (2, 3, 5), N from
+# 256 to 2048 (HALF 2 to 16), the two gadgets (2^8, 2) and (2^7, 3)
+BT_SETS = [
+    dc.replace(TOY, name="bt_k1_n256_b8l2", n=4, N=256, k=1, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="bt_k2_n512_b8l2", n=4, N=512, k=2, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="bt_k4_n256_b7l3", n=4, N=256, k=4, bg_bits=7,
+               levels=3),
+    dc.replace(TOY, name="bt_k1_n1024_b7l3", n=4, N=1024, k=1, bg_bits=7,
+               levels=3),
+    dc.replace(TOY, name="bt_k2_n2048_b8l2", n=4, N=2048, k=2, bg_bits=8,
+               levels=2),
+]
+
+
+@pytest.mark.parametrize("B", [1, 9, 129, 2048])
+@pytest.mark.parametrize("params", BT_SETS, ids=[q.name for q in BT_SETS])
+def test_bt_kernels_match_plain(card, params, B):
+    p = params
+    P, HALF = bt_tile(p)
+    R = (p.k + 1) * p.levels
+    rng = np.random.default_rng(B + p.N + p.k)
+    acc = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_i = torch.as_tensor(rng.integers(0, 2 * p.N, B), dtype=torch.int32,
+                          device=card)
+    before = rd.rotate_decompose.launches
+    d8 = rd.rotate_decompose(p, acc, a_i)
+    assert rd.rotate_decompose.launches == before + 1
+    assert torch.equal(d8, rd.rotate_decompose_plain(p, acc, a_i))
+    key = torch.as_tensor(rng.integers(-128, 128, (R, HALF, P,
+                                                   (p.k + 1) * 4 * P)),
+                          dtype=torch.int8, device=card)
+    for glwe in (None, acc):
+        before = bt.external_product_bt.launches
+        got = bt.external_product_bt(p, d8, key, glwe=glwe)
+        torch.cuda.synchronize()
+        assert bt.external_product_bt.launches == before + 1
+        assert torch.equal(got, bt.external_product_bt_plain(p, d8, key,
+                                                             glwe=glwe))
+
+
+@pytest.mark.parametrize("params", BT_SETS[:3], ids=[q.name for q in
+                                                     BT_SETS[:3]])
+def test_bt_engines_match_mega13_and_reference(card, params):
+    rng = np.random.default_rng(9)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, layouts=("bsk", "bsk_bt"), device=card)
+    cpu_bt = device_server_key(sk, layouts=("bsk_bt",), device="cpu").bsk_bt
+    assert torch.equal(dsk.bsk_bt.cpu(), cpu_bt)  # built on the card
+    B = 13
+    ct = from_numpy_u32(rand_u32(rng, B, params.n + 1), card)
+    tp = bs.make_test_poly(params, device=card)
+    want = bs.blind_rotate_batch(dsk, ct, tp, engine="mega13")
+    for engine in ("bt", "bt_fused"):
+        got = bs.blind_rotate_batch(dsk, ct, tp, engine=engine)
+        assert torch.equal(got, want), engine
+    np.testing.assert_array_equal(
+        to_numpy_u32(want[0]),
+        ref.blind_rotate(sk, to_numpy_u32(ct[0]), ref.make_test_poly(params)))

@@ -1,7 +1,9 @@
 """The port stands alone and runs on the card by default.
 
 - ``herdsman_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-  ``herdsman_tpu``, checked both in a fresh interpreter and in the source.
+  ``herdsman_tpu``, checked both in a fresh interpreter and in the source;
+  nor, when imported, ``cryptography`` or ``yaml``, which the GPU machines
+  do not have.
 - Without a CUDA device, every entry point called with its default device
   raises instead of running on the CPU, and ``chip_smoke.py`` fails without
   printing a result.
@@ -24,6 +26,9 @@ from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
 from herdsman_tpu_torch.ops.server_key import device_server_key
+from herdsman_tpu_torch.service.config import (Config, SecurityConfig,
+                                               ServerConfig)
+from herdsman_tpu_torch.service.coordinator import Coordinator
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "herdsman_tpu_torch"
@@ -49,6 +54,20 @@ def test_port_modules_import_no_jax():
         "assert len(names) >= 15, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_port_modules_import_without_cryptography_or_yaml():
+    code = (
+        "import importlib, pkgutil, sys, herdsman_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cryptography', 'yaml'))\n"
+        "assert 'herdsman_tpu_torch.service.coordinator' in names, names\n"
+        "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
                          text=True, timeout=300)
@@ -106,6 +125,15 @@ def test_entry_points_default_to_card(no_card):
     with pytest.raises(ValueError):
         gates.gate_batch(dsk, gates.GateBatch(np.array([0, 1]), c, c),
                          device="meta")
+
+
+def test_coordinator_defaults_to_card(no_card, tmp_path):
+    cfg = Config(server=ServerConfig(key_directory=str(tmp_path / "k"),
+                                     storage_directory=str(tmp_path / "s")),
+                 security=SecurityConfig(secret_key="x"))
+    with pytest.raises(RuntimeError, match="GPU"):
+        Coordinator(cfg)
+    Coordinator(cfg, device="cpu").shutdown()
 
 
 def test_chip_smoke_fails_without_card(no_card, tmp_path):
