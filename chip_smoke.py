@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``herdsman_tpu_torch``) on one NVIDIA
 GPU, at the parameter set of record, STD128_K2 (n=768, N=512, k=2, bg=2^8,
-l=2), with keys made from a seed.
+l=2), and at the integer tier's, STD128_SHORTINT (n=768, N=2048, k=1,
+bg=2^7, l=3, key switch 2^2 x 12), with keys made from a seed.
 
     python3 chip_smoke.py [--seed S]
 
@@ -42,7 +43,22 @@ Phases, in order; any failure raises and exits non-zero:
    plain and library times), a B=2048 gate batch on ``bt`` and
    ``bt_fused``, path C's jobs with the runner's load / exec / store split,
    and the kernel device time of a second fused job under
-   ``torch.profiler``.
+   ``torch.profiler``;
+10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
+    (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
+    the card as ``bsk_btjj``; then the whole-rotation kernel ``mega12``
+    against its plain PyTorch version (tolerance 0) on D1's first rotation
+    inputs at B = 2048, 9 and 1, and on random inputs and keys at B=9 at
+    STD128_K2's and STD128's geometries;
+11. main path D1, shortint: (a*b)+a over 2048 encrypted 2-bit values
+    (``bench.py``'s shortint metric), decrypted against the plaintext, then
+    the same on a second context on ``mega13`` (same keys and seed), whose
+    ciphertexts must equal the first's; main path D2, radix: an 8-bit
+    multiply (4 blocks of 2 bits) over 256 values on ``mega12``, decrypted
+    against (a*b) mod 256, with its rotation widths;
+12. times of ``mega12`` per rotation at B=2048 (beside its bound and the
+    plain version's time) and at D2's narrow width, D1 and D2 end to end
+    with rotations/s, and the peak device memory of path D.
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
@@ -71,6 +87,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 B_MAIN = 2048
 ROWS = 128
+RADIX_VALUES = 256  # path D2: bench.py's radix metric uses B_MAIN
 JOB_ROWS = 2048
 JOB_PARTITIONS = 4
 
@@ -92,6 +109,17 @@ def timed_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_call(fn):
+    """(result, device ms) of one call of ``fn``."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def host_s(fn):
@@ -141,24 +169,25 @@ def main() -> int:
             InputStage, MapperStage, OutputStage, Policy, ReduceStage,
             SchemaType)
         from herdsman_tpu_torch.compiler import lower
-        from herdsman_tpu_torch.core import STD128
+        from herdsman_tpu_torch.core import PARAM_SETS, STD128
         from herdsman_tpu_torch.core import STD128_K2 as P
         from herdsman_tpu_torch.core import client
         from herdsman_tpu_torch.core import reference as ref
         from herdsman_tpu_torch.ops import bootstrap as bs
-        from herdsman_tpu_torch.ops import gates, poly
+        from herdsman_tpu_torch.ops import gates, pbs, poly
         from herdsman_tpu_torch.ops.decomp import signed_decompose
-        from herdsman_tpu_torch.ops.kernels import _build, bt, mega13
+        from herdsman_tpu_torch.ops.kernels import _build, bt, mega12, mega13
         from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
-        from herdsman_tpu_torch.ops.server_key import (
-            LAYOUTS, bt_tile, device_server_key)
+        from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
         from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
+        from herdsman_tpu_torch.radix import RadixContext
         from herdsman_tpu_torch.service import frames as frame_codec
         from herdsman_tpu_torch.service.config import (
             Config, MeshWorkersConfig, SecurityConfig, ServerConfig)
         from herdsman_tpu_torch.service.coordinator import (
             Coordinator, serialize_server_key)
         from herdsman_tpu_torch.service.execution import JobStatus
+        from herdsman_tpu_torch.shortint import ShortContext
         from herdsman_tpu_torch.utils import bounds, rowcodec
     except ImportError as e:
         print(f"chip_smoke: the herdsman_tpu_torch package must sit beside "
@@ -215,12 +244,14 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     ck, sk = ref.keygen(P, rng)
-    dsk = device_server_key(sk, layouts=LAYOUTS, device=dev)
+    layouts = ("bsk", "bsk_ext", "bsk_bt")
+    dsk = device_server_key(sk, layouts=layouts, device=dev)
     torch.cuda.synchronize()
-    print(f"keys: {P.name} keygen + carry to the card in layouts {LAYOUTS} "
+    print(f"keys: {P.name} keygen + carry to the card in layouts {layouts} "
           f"{time.perf_counter() - t0:.1f} s; bsk_bt "
           f"{dsk.bsk_bt.numel() / 2**30:.3f} GiB")
     counters = {"mega13": mega13.mega13_blind_rotate,
+                "mega12": mega12.mega12_blind_rotate,
                 "bt_external_product": bt.external_product_bt,
                 "rotate_decompose": rd.rotate_decompose}
 
@@ -248,9 +279,9 @@ def main() -> int:
     # at every rotation width of the main paths (the adder's rows * 1, 2, 16)
     err, outs = 0, {}
     for B in (B_MAIN, 2 * ROWS, ROWS):
-        args = acc0[:B].contiguous(), a_t[:, :B].contiguous()
-        outs[B] = mega13.mega13_blind_rotate(P, *args, dsk.bsk)
-        plain = mega13.blind_rotate_plain(P, *args, dsk.bsk_ext)
+        x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
+        outs[B] = mega13.mega13_blind_rotate(P, *x, dsk.bsk)
+        plain = mega13.blind_rotate_plain(P, *x, dsk.bsk_ext)
         err = max(err, int(np.abs(to_numpy_u32(outs[B]).astype(np.int64)
                                   - to_numpy_u32(plain).astype(np.int64)).max()))
         check(torch.equal(outs[B], plain), f"mega13 != plain version at B={B}")
@@ -269,7 +300,8 @@ def main() -> int:
     counts_a = read_counts()
     launches_a = counts_a["mega13"]
     check(launches_a > 0, "main path A did not launch mega13")
-    check(counts_a["bt_external_product"] == counts_a["rotate_decompose"] == 0,
+    check(counts_a["bt_external_product"] == counts_a["rotate_decompose"]
+          == counts_a["mega12"] == 0,
           f"main path A launched another engine's kernels: {counts_a}")
     truth = {"AND": b1 & b2, "OR": b1 | b2, "NAND": ~(b1 & b2),
              "NOR": ~(b1 | b2), "XOR": b1 ^ b2, "XNOR": ~(b1 ^ b2)}
@@ -308,7 +340,8 @@ def main() -> int:
     counts_b = read_counts()
     launches_b = counts_b["mega13"]
     check(launches_b > 0, "main path B did not launch mega13")
-    check(counts_b["bt_external_product"] == counts_b["rotate_decompose"] == 0,
+    check(counts_b["bt_external_product"] == counts_b["rotate_decompose"]
+          == counts_b["mega12"] == 0,
           f"main path B launched another engine's kernels: {counts_b}")
     y_np = to_numpy_u32(y)
     check(y_np.shape == (ROWS, 8, P.n + 1), f"adder output {y_np.shape}")
@@ -502,10 +535,10 @@ def main() -> int:
               f"launches {r['counts']}")
     c_bt, c_fused = runs["pallas_bt"]["counts"], runs["pallas_fused"]["counts"]
     check(c_bt["bt_external_product"] > 0 and c_bt["rotate_decompose"] == 0
-          and c_bt["mega13"] == 0,
+          and c_bt["mega13"] == c_bt["mega12"] == 0,
           f"path C on pallas_bt launched {c_bt}, not bt_external_product alone")
     check(c_fused["bt_external_product"] > 0 and c_fused["rotate_decompose"] > 0
-          and c_fused["mega13"] == 0,
+          and c_fused["mega13"] == c_fused["mega12"] == 0,
           f"path C on pallas_fused launched {c_fused}, not its two kernels")
     for frame in ("out", "mid"):
         check(runs["pallas_bt"][frame] == runs["pallas_fused"][frame],
@@ -615,15 +648,200 @@ def main() -> int:
     print(f"memory: torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
 
-    # 10-11. result lines ---------------------------------------------------
+    # 10. path D setup: the integer tier at STD128_SHORTINT -----------------
+    PS = PARAM_SETS["std128_shortint"]
+    del dsk, key_q, full, d8_q  # path A-C's keys and inputs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    keys_d = ref.keygen(PS, np.random.default_rng(args.seed))
+    keygen_s = time.perf_counter() - t0
+    short, ingest_s = host_s(lambda: ShortContext(
+        PS, msg_bits=2, carry_bits=2, keys=keys_d, seed=args.seed,
+        device=dev))
+    check(short.engine == "mega12" and short.many_lut,
+          f"ShortContext at {PS.name} took engine {short.engine}, many-LUT "
+          f"{short.many_lut}")
+    key12 = short.dsk.bsk_btjj
+    print(f"setup: {PS.name} host keygen {keygen_s:.1f} s; ShortContext "
+          f"key ingest (fit_engine -> {short.engine}, bsk_btjj "
+          f"{key12.numel() / 2**30:.3f} GiB built on the card) "
+          f"{ingest_s:.1f} s")
+    vals = np.random.default_rng(args.seed + 99)
+    av, bv = vals.integers(0, 4, B_MAIN), vals.integers(0, 4, B_MAIN)
+    a, b = short.encrypt(av), short.encrypt(bv)
+    m = short.modulus
+    mul_t = [((t >> short.msg_bits) * (t & (m - 1))) % m
+             for t in range(short.space)]
+    # D1's first rotation: a*b's packed bivariate LUT (shortint.py __mul__)
+    acc0_d, a_t_d = bs.rotation_inputs(
+        PS, a.data * m + b.data,
+        pbs.lut_test_poly(PS, mul_t, short.space_bits, device=dev))
+    err12 = 0
+    for B in (B_MAIN, 9, 1):
+        x = acc0_d[:B].contiguous(), a_t_d[:, :B].contiguous()
+        got = mega12.mega12_blind_rotate(PS, *x, key12)
+        want, ms = timed_call(lambda: mega12.blind_rotate_plain_btjj(
+            PS, *x, key12))
+        err12 = max(err12, abs_err(got, want))
+        check(torch.equal(got, want), f"mega12 != plain version at {PS.name} "
+              f"B={B} (D1's first rotation)")
+        if B == B_MAIN:
+            plain12_ms = ms
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    for Gp in (P, Q):  # STD128_K2's and STD128's geometries, random
+        R_g = (Gp.k + 1) * Gp.levels
+        key_g = torch.randint(-128, 128, (Gp.n, Gp.N // 128, R_g, 128,
+                                          (Gp.k + 1) * 512),
+                              dtype=torch.int8, device=dev, generator=gen)
+        acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
+                              dtype=torch.int32, device=dev, generator=gen)
+        a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
+                            device=dev, generator=gen)
+        got = mega12.mega12_blind_rotate(Gp, acc_g, a_g, key_g)
+        want = mega12.blind_rotate_plain_btjj(Gp, acc_g, a_g, key_g)
+        err12 = max(err12, abs_err(got, want))
+        check(torch.equal(got, want), f"mega12 != plain version at "
+              f"{Gp.name}'s geometry, B=9, random inputs")
+        del key_g
+    torch.cuda.empty_cache()
+    per_block = {B: mega12.ciphertexts_per_block(PS, B, dev)
+                 for B in (2560, B_MAIN, 1536, RADIX_VALUES, 9, 1)}
+    print(f"kernel vs plain: mega12 == blind_rotate_plain_btjj at {PS.name} "
+          f"on D1's first rotation inputs, B in {[B_MAIN, 9, 1]}, and on "
+          f"random inputs and keys at B=9 at {P.name}'s and {Q.name}'s "
+          f"geometries (array equality, max_abs_err {err12}); ciphertexts "
+          f"per block by B: {per_block}")
+
+    # 11. main paths D1 (shortint) and D2 (radix) ---------------------------
+    def d1(ctx, a, b):
+        """(a*b)+a, reduced (the decrypt's PBS), then decrypted."""
+        rr = ((a * b) + a).reduce()
+        return rr, ctx.decrypt(rr)
+
+    reset_counts()
+    rot0 = short.rotations
+    (r12, dec12), d1_s = host_s(lambda: d1(short, a, b))
+    counts_d1 = read_counts()
+    d1_rot = short.rotations - rot0
+    check(dec12 == ((av * bv + av) % 4).tolist(),
+          f"D1: {int((np.array(dec12) != (av * bv + av) % 4).sum())} of "
+          f"{B_MAIN} shortint values decrypt wrong")
+    check(counts_d1["mega12"] > 0 and counts_d1["mega13"] == 0
+          and counts_d1["bt_external_product"] == 0
+          and counts_d1["rotate_decompose"] == 0,
+          f"D1 on mega12 launched {counts_d1}")
+    check(tuple(r12.data.shape) == (B_MAIN, PS.n + 1),
+          f"D1 output shape {tuple(r12.data.shape)}")
+    short13, _ = host_s(lambda: ShortContext(
+        PS, msg_bits=2, carry_bits=2, engine="mega13", keys=keys_d,
+        seed=args.seed, device=dev))
+    a13, b13 = short13.encrypt(av), short13.encrypt(bv)
+    check(torch.equal(a13.data, a.data) and torch.equal(b13.data, b.data),
+          "the mega13 context's encryptions differ from the mega12 one's")
+    reset_counts()
+    (r13, dec13), d1_13_s = host_s(lambda: d1(short13, a13, b13))
+    counts_d1_13 = read_counts()
+    check(counts_d1_13["mega13"] > 0 and counts_d1_13["mega12"] == 0
+          and counts_d1_13["bt_external_product"] == 0
+          and counts_d1_13["rotate_decompose"] == 0,
+          f"D1 on mega13 launched {counts_d1_13}")
+    check(torch.equal(r13.data, r12.data) and dec13 == dec12,
+          "D1 on mega13 != D1 on mega12")
+    del short13, a13, b13, r13
+    print(f"main path D1: ShortContext (a*b)+a over {B_MAIN} encrypted 2-bit "
+          f"values on mega12: every value decrypts right; {d1_rot} "
+          f"rotations; launches {counts_d1}; the same on mega13 is "
+          f"array-equal; launches {counts_d1_13}")
+
+    rctx = RadixContext(short, n_blocks=4)
+    av2 = vals.integers(0, 256, RADIX_VALUES)
+    bv2 = vals.integers(1, 256, RADIX_VALUES)
+    x2, y2 = rctx.encrypt(av2), rctx.encrypt(bv2)
+    widths: list[int] = []
+
+    def recording(fn):
+        def wrapped(data, tables):
+            widths.append(int(data.shape[0]))
+            return fn(data, tables)
+        return wrapped
+
+    short._pbs, short._pbs_many = recording(short._pbs), recording(
+        short._pbs_many)
+
+    def d2():
+        prod = x2 * y2
+        n_mul = len(widths)
+        return rctx.decrypt(prod), n_mul
+
+    reset_counts()
+    rot0 = short.rotations
+    (dec2, n_mul), d2_s = host_s(d2)
+    counts_d2 = read_counts()
+    d2_rot = short.rotations - rot0
+    del short._pbs, short._pbs_many
+    check(dec2 == ((av2 * bv2) % 256).tolist(),
+          f"D2: {int((np.array(dec2) != (av2 * bv2) % 256).sum())} of "
+          f"{RADIX_VALUES} 8-bit products decrypt wrong")
+    check(counts_d2["mega12"] > 0 and counts_d2["mega13"] == 0
+          and counts_d2["bt_external_product"] == 0
+          and counts_d2["rotate_decompose"] == 0,
+          f"D2 on mega12 launched {counts_d2}")
+    print(f"main path D2: RadixContext(n_blocks=4) 8-bit multiply over "
+          f"{RADIX_VALUES} values on mega12: every product decrypts to "
+          f"(a*b) mod 256; rotation widths of the multiply "
+          f"{widths[:n_mul]}, of the decrypt {widths[n_mul:]}; {d2_rot} "
+          f"rotations; launches {counts_d2}")
+
+    # 12. times of path D ---------------------------------------------------
+    # warm: the kernel ran at these shapes in phase 10
+    _, m12_ms = timed_call(lambda: mega12.mega12_blind_rotate(
+        PS, acc0_d, a_t_d, key12))
+    bound12_ms, bound12_by = bounds.bound_ms(
+        *bounds.rotation(PS, B_MAIN, key12.numel()))
+    narrow12_ms = timed_ms(lambda: mega12.mega12_blind_rotate(
+        PS, acc0_d[:RADIX_VALUES].contiguous(),
+        a_t_d[:, :RADIX_VALUES].contiguous(), key12), reps=1)
+    print(f"time: mega12 B={B_MAIN} {m12_ms:.3f} ms = "
+          f"{B_MAIN / m12_ms * 1e3:.1f} bootstraps/s, "
+          f"{bound12_ms / m12_ms:.4f} of the {bound12_ms:.2f} ms bound "
+          f"({bound12_by}); plain {plain12_ms:.3f} ms {card}")
+    print(f"time: mega12 B={RADIX_VALUES} {narrow12_ms:.3f} ms = "
+          f"{RADIX_VALUES / narrow12_ms * 1e3:.1f} bootstraps/s {card}")
+    print(f"time: main path D1 (a*b)+a over {B_MAIN} values end to end "
+          f"{d1_s:.3f} s on mega12 = {d1_rot / d1_s:.1f} rotations/s, "
+          f"{d1_13_s:.3f} s on mega13 {card}")
+    print(f"time: main path D2 8-bit multiply over {RADIX_VALUES} values end "
+          f"to end {d2_s:.3f} s = {d2_rot / d2_s:.1f} rotations/s, "
+          f"{RADIX_VALUES / d2_s:.2f} multiplies/s {card}")
+    print(f"memory: path D torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
+
+    # 13-14. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
-               "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused}
+               "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
+               "D1_shortint": counts_d1, "D1_shortint_on_mega13": counts_d1_13,
+               "D2_radix": counts_d2}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
         return {"launches": sum(per.values()), "launches_by_path": per}
 
     kernels = [{
+        "name": "mega12",
+        "route": "cuda",
+        "source": "herdsman_tpu_torch/csrc/mega12.cu",
+        "replaces": "herdsman_tpu/ops/pallas/mega.py:625",
+        **launches("mega12"),
+        "matches_plain": err12 == 0,
+        "max_abs_err": err12,
+        "ms": m12_ms,
+        "plain_ms": plain12_ms,
+        "bound_ms": bound12_ms,
+        "bound_by": bound12_by,
+        "library_ms": None,
+    }, {
         "name": "mega13",
         "route": "cuda",
         "source": "herdsman_tpu_torch/csrc/mega13.cu",

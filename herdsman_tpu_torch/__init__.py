@@ -12,8 +12,12 @@ copy.
 
 - ``core``     parameter sets and the exact NumPy reference (client side).
 - ``ops``      u32 carrier, polynomial and decomposition primitives, the
-               device server key, bootstrapping, gates; ``ops.kernels`` holds
-               the CUDA kernels' wrappers and their build.
+               device server key, bootstrapping, gates, programmable (LUT)
+               bootstrapping; ``ops.kernels`` holds the CUDA kernels'
+               wrappers and their build.
+- ``shortint``, ``radix``, ``api``
+               the integer tier: short integers over PBS, radix integers
+               over shortint blocks, and the eager boolean ``EncUint`` API.
 - ``circuit``  the boolean-circuit model and builder, execution plans.
 - ``compiler`` levelized circuit evaluation on the device, the optimizer,
                reduce trees and the plan compiler.

@@ -11,7 +11,9 @@ through one of three kinds of engine:
 
 - ``ROTATION_ENGINES``: one call owns the whole n-step loop.  ``mega13`` (the
   default) is the hand-written CUDA kernel ``csrc/mega13.cu`` on a CUDA
-  tensor and its plain PyTorch version on a CPU tensor.
+  tensor and its plain PyTorch version on a CPU tensor; ``mega12`` (the
+  integer tier's engine, the JAX package's ``pallas_mega12``) is
+  ``csrc/mega12.cu`` against the ``bsk_btjj`` key.
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -39,7 +41,7 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.decomp import signed_decompose
-from herdsman_tpu_torch.ops.kernels import bt, mega13
+from herdsman_tpu_torch.ops.kernels import bt, mega12, mega13
 from herdsman_tpu_torch.ops.kernels.rotate_decompose import rotate_decompose
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey, bt_tile
 from herdsman_tpu_torch.ops.u32 import resolve_device, srl, to_device, u32_const
@@ -92,6 +94,7 @@ STEP_ENGINES: dict[str, tuple[Callable, str]] = {
 # runs the whole n-step rotation
 ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega13": (mega13.mega13_blind_rotate, "bsk"),
+    "mega12": (mega12.mega12_blind_rotate, "bsk_btjj"),
 }
 
 

@@ -26,6 +26,16 @@ once, into:
                                        STD128_K2, so it is built on the
                                        device in step chunks and only for an
                                        engine that reads it.
+- ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
+                                       the same blocks step-major by stored
+                                       diagonal block, with limb-major
+                                       columns (j, c, q): the key of the JAX
+                                       package's ``pallas_mega12``
+                                       (``_block_toeplitz_layout_device(...,
+                                       j_major=True, col_order="jcq")``),
+                                       read by ``csrc/mega12.cu``.  As big
+                                       as ``bsk_bt``: 9.0 GiB at
+                                       STD128_SHORTINT, built the same way.
 - ``ksk_limbs`` int8  [kN*t, C]        the key-switching key as balanced int8
                                        limbs for one ``torch._int_mm``;
                                        C = (n+1)*4 padded to a multiple of 8,
@@ -44,15 +54,15 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import mega13
+from herdsman_tpu_torch.ops.kernels import mega12, mega13
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext", "bsk_bt")
+LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btjj")
 DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
-ENGINE_LAYOUTS = {"mega13": "bsk", "bt": "bsk_bt", "bt_fused": "bsk_bt",
-                  "gather_u32": "bsk_ext"}
+ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btjj", "bt": "bsk_bt",
+                  "bt_fused": "bsk_bt", "gather_u32": "bsk_ext"}
 
 # device memory the key layouts of one session may take: half of an H100's
 # 80 GB, leaving the rest to ciphertext batches and other sessions
@@ -70,6 +80,7 @@ class DeviceServerKey:
     bsk: torch.Tensor | None = None     # int32 [n, R, k+1, N]
     bsk_ext: torch.Tensor | None = None  # int32 [n, R, k+1, 2N]
     bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
+    bsk_btjj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
 
     @property
     def R(self) -> int:
@@ -91,32 +102,40 @@ def bt_tile(params: TFHEParams) -> tuple[int, int]:
 
 
 def bt_key_bytes(p: TFHEParams) -> int:
-    """Bytes of the ``bsk_bt`` layout at ``p``."""
+    """Bytes of the ``bsk_bt`` layout at ``p`` (and of ``bsk_btjj``)."""
     P, _ = bt_tile(p)
     return p.n * (p.k + 1) * p.levels * (p.k + 1) * 4 * p.N * P
 
 
-def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor) -> torch.Tensor:
+def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
+                          jcq: bool = False) -> torch.Tensor:
     """``bsk_bt`` int8 [n, R, HALF, P, (k+1)*4*P] from the int32 ``bsk``
     [n, R, k+1, N], on ``bsk``'s device, a chunk of steps at a time: one
     gather of ext(bsk) and one limb split per chunk, so the working set
     stays near 256 MiB whatever the key's size.  Equal to the JAX package's
-    ``_block_toeplitz_layout`` (tests/test_torch_bt.py)."""
+    ``_block_toeplitz_layout`` (tests/test_torch_bt.py).  With ``jcq`` the
+    same blocks as ``bsk_btjj`` [n, HALF, R, P, (k+1)*4*P], columns (j, c,
+    q): the JAX ``_block_toeplitz_layout_device(..., j_major=True,
+    col_order="jcq")`` (tests/test_torch_pbs.py)."""
     n, R, kp1, N = bsk.shape
     P, HALF = bt_tile(p)
     m = torch.arange(HALF, device=bsk.device)[:, None, None]
     row = torch.arange(P, device=bsk.device)[None, :, None]
     q = torch.arange(P, device=bsk.device)[None, None, :]
     idx = (P * m + q - row) % (2 * N)                # [HALF, P(row), P(q)]
-    out = torch.empty(n, R, HALF, P, kp1 * 4 * P, dtype=torch.int8,
+    shape = (HALF, R) if jcq else (R, HALF)
+    out = torch.empty(n, *shape, P, kp1 * 4 * P, dtype=torch.int8,
                       device=bsk.device)
+    # limbs [c, R, k+1, HALF, P(row), P(q), 4] -> (R, HALF, row, c, j, q)
+    # or, limb-major, (HALF, R, row, j, c, q)
+    order = (0, 3, 1, 4, 6, 2, 5) if jcq else (0, 1, 3, 4, 2, 6, 5)
     step = max(1, _BT_CHUNK_BYTES // (R * kp1 * N * P * 4 * 8))
     for i0 in range(0, n, step):
         i1 = min(i0 + step, n)
         blocks = poly.negacyclic_extend(bsk[i0:i1])[..., idx]
         limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, HALF, P, P, 4]
-        out[i0:i1] = limbs.permute(0, 1, 3, 4, 2, 6, 5).reshape(
-            i1 - i0, R, HALF, P, kp1 * 4 * P)
+        out[i0:i1] = limbs.permute(*order).reshape(
+            i1 - i0, *shape, P, kp1 * 4 * P)
     return out
 
 
@@ -131,27 +150,29 @@ def layouts_for_engine(engine: str) -> tuple[str, ...]:
 def fit_engine(engine: str, params: TFHEParams,
                budget_bytes: int = KEY_BUDGET_BYTES) -> str:
     """The engine that serves ``params`` on the card, starting from
-    ``engine``: the block-Toeplitz engines while their ``bsk_bt`` key fits
-    ``budget_bytes``, else ``mega13`` (raw key, 27 MiB at STD128_K2); and
-    ``mega13`` where its kernel takes the parameter set, else ``bt_fused``.
-    The coordinator builds every session's key through this, so no
-    session can run the card out of memory at key ingest."""
+    ``engine``: the block-Toeplitz engines (``bt``, ``bt_fused``, and
+    ``mega12``, whose kernel must also take the set) while their key
+    (``bsk_bt`` or ``bsk_btjj``, the same size) fits ``budget_bytes``, else
+    ``mega13`` (raw key, 27 MiB at STD128_K2); and ``mega13`` where its
+    kernel takes the parameter set, else ``bt_fused``.  The coordinator
+    and the integer tier build every key through this, so none of them can
+    run the card out of memory at key ingest."""
 
-    def mega13_takes() -> bool:
+    def takes(kernel) -> bool:
         try:
-            mega13.check_params(params)
+            kernel.check_params(params)
         except ValueError:
             return False
         return True
 
     bt_fits = bt_key_bytes(params) <= budget_bytes
-    if engine in ("bt", "bt_fused"):
-        if bt_fits:
+    if engine in ("bt", "bt_fused", "mega12"):
+        if bt_fits and (engine != "mega12" or takes(mega12)):
             return engine
-        if mega13_takes():
+        if takes(mega13):
             return "mega13"
     elif engine == "mega13":
-        if mega13_takes():
+        if takes(mega13):
             return engine
         if bt_fits:
             return "bt_fused"
@@ -196,4 +217,6 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                  if "bsk_ext" in layouts else None),
         bsk_bt=(block_toeplitz_layout(p, bsk)
                 if "bsk_bt" in layouts else None),
+        bsk_btjj=(block_toeplitz_layout(p, bsk, jcq=True)
+                  if "bsk_btjj" in layouts else None),
     )

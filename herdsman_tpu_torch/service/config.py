@@ -39,7 +39,7 @@ class ConfigError(ValueError):
 
 # the JAX package's engine names -> the port's engines
 ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
-                "pallas_mega13": "mega13"}
+                "pallas_mega13": "mega13", "pallas_mega12": "mega12"}
 
 
 def port_engine(name: str) -> str:
@@ -52,7 +52,7 @@ def port_engine(name: str) -> str:
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
         f"{sorted(ENGINE_NAMES)}; the other pallas_mega* kernels are "
-        f"ROADMAP queue 2 items 3-11, and conv_i8/gather_u32 (XLA engines "
+        f"ROADMAP queue 2 items 4-11, and conv_i8/gather_u32 (XLA engines "
         f"with no kernel) are not served by the port's coordinator")
 
 

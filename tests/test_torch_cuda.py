@@ -19,7 +19,7 @@ from herdsman_tpu_torch.core import TOY
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
-from herdsman_tpu_torch.ops.kernels import _build, bt, mega13
+from herdsman_tpu_torch.ops.kernels import _build, bt, mega12, mega13
 from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
 from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
@@ -163,3 +163,67 @@ def test_bt_engines_match_mega13_and_reference(card, params):
     np.testing.assert_array_equal(
         to_numpy_u32(want[0]),
         ref.blind_rotate(sk, to_numpy_u32(ct[0]), ref.make_test_poly(params)))
+
+
+# mega12's geometry classes: k+1 in (2, 3) (and 5), N from 256 to 2048
+# (HALF 2 to 16), the two gadgets (2^8, 2) and (2^7, 3); B = 129 takes a
+# ragged last block at every ciphertexts-per-block choice
+MEGA12_SETS = [
+    dc.replace(TOY, name="m12_k1_n256_b8l2", n=4, N=256, k=1, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="m12_k2_n256_b7l3", n=4, N=256, k=2, bg_bits=7,
+               levels=3),
+    dc.replace(TOY, name="m12_k1_n1024_b7l3", n=4, N=1024, k=1, bg_bits=7,
+               levels=3),
+    dc.replace(TOY, name="m12_k2_n1024_b8l2", n=4, N=1024, k=2, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="m12_k1_n2048_b7l3", n=4, N=2048, k=1, bg_bits=7,
+               levels=3),
+    dc.replace(TOY, name="m12_k2_n2048_b8l2", n=4, N=2048, k=2, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="m12_k4_n256_b8l2", n=4, N=256, k=4, bg_bits=8,
+               levels=2),
+]
+
+
+@pytest.mark.parametrize("B", [1, 9, 129])
+@pytest.mark.parametrize("params", MEGA12_SETS,
+                         ids=[q.name for q in MEGA12_SETS])
+def test_mega12_matches_plain(card, params, B):
+    p = params
+    HALF = p.N // mega12.P
+    R = (p.k + 1) * p.levels
+    rng = np.random.default_rng(B + p.N + p.k)
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    key = torch.as_tensor(
+        rng.integers(-128, 128, (p.n, HALF, R, mega12.P,
+                                 (p.k + 1) * 4 * mega12.P)),
+        dtype=torch.int8, device=card)
+    before = mega12.mega12_blind_rotate.launches
+    got = mega12.mega12_blind_rotate(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert mega12.mega12_blind_rotate.launches == before + 1
+    assert torch.equal(got, mega12.blind_rotate_plain_btjj(p, acc0, a_t, key))
+
+
+@pytest.mark.parametrize("params", MEGA12_SETS[:2],
+                         ids=[q.name for q in MEGA12_SETS[:2]])
+def test_mega12_engine_matches_mega13_and_reference(card, params):
+    rng = np.random.default_rng(10)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, layouts=("bsk", "bsk_btjj"), device=card)
+    cpu_jj = device_server_key(sk, layouts=("bsk_btjj",),
+                               device="cpu").bsk_btjj
+    assert torch.equal(dsk.bsk_btjj.cpu(), cpu_jj)  # built on the card
+    B = 13
+    ct = from_numpy_u32(rand_u32(rng, B, params.n + 1), card)
+    tp = bs.make_test_poly(params, device=card)
+    got = bs.blind_rotate_batch(dsk, ct, tp, engine="mega12")
+    assert torch.equal(got, bs.blind_rotate_batch(dsk, ct, tp,
+                                                  engine="mega13"))
+    np.testing.assert_array_equal(
+        to_numpy_u32(got[B - 1]),
+        ref.blind_rotate(sk, to_numpy_u32(ct[B - 1]),
+                         ref.make_test_poly(params)))

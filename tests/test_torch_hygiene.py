@@ -74,6 +74,24 @@ def test_port_modules_import_without_cryptography_or_yaml():
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "herdsman_tpu_torch.ops.pbs", "herdsman_tpu_torch.shortint",
+    "herdsman_tpu_torch.radix", "herdsman_tpu_torch.api",
+    "herdsman_tpu_torch.ops.kernels.mega12"])
+def test_integer_tier_imports_alone(module):
+    """Each module of the integer tier, imported alone, loads nothing of
+    JAX, the JAX package, PyYAML or cryptography."""
+    code = (
+        f"import importlib, sys; importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cryptography', 'yaml')!r})\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     str(f.relative_to(ROOT)) for f in
     [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
@@ -125,6 +143,25 @@ def test_entry_points_default_to_card(no_card):
     with pytest.raises(ValueError):
         gates.gate_batch(dsk, gates.GateBatch(np.array([0, 1]), c, c),
                          device="meta")
+
+
+def test_integer_tier_defaults_to_card(no_card):
+    from herdsman_tpu_torch.api import HerdContext
+    from herdsman_tpu_torch.core import PARAM_SETS
+    from herdsman_tpu_torch.ops import pbs
+    from herdsman_tpu_torch.shortint import ShortContext
+
+    ck, sk, rng = no_card
+    with pytest.raises(RuntimeError, match="GPU"):
+        HerdContext(TOY, keys=(ck, sk))
+    with pytest.raises(RuntimeError, match="GPU"):
+        ShortContext(PARAM_SETS["test_pbs"])
+    dsk = device_server_key(sk, device="cpu")
+    c = ref.encrypt_bool(ck, np.array([True, False]), rng)
+    with pytest.raises(RuntimeError, match="GPU"):
+        pbs.pbs_batch(dsk, c, [0, 1], 1)
+    with pytest.raises(RuntimeError, match="GPU"):
+        pbs.pbs_many_batch(dsk, c, [[0, 1], [1, 0]], 1)
 
 
 def test_coordinator_defaults_to_card(no_card, tmp_path):

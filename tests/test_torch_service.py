@@ -303,10 +303,12 @@ def test_config_engine_names(tmp_path, monkeypatch):
     monkeypatch.delenv("HERDSMAN_ENGINE", raising=False)
     monkeypatch.delenv("WORKER_TYPE", raising=False)
     assert {e: port_engine(e) for e in
-            ("pallas_bt", "pallas_fused", "pallas_mega13", "bt_fused")} \
+            ("pallas_bt", "pallas_fused", "pallas_mega13", "pallas_mega12",
+             "bt_fused", "mega12")} \
         == {"pallas_bt": "bt", "pallas_fused": "bt_fused",
-            "pallas_mega13": "mega13", "bt_fused": "bt_fused"}
-    for name in ("conv_i8", "gather_u32", "pallas_mega12"):
+            "pallas_mega13": "mega13", "pallas_mega12": "mega12",
+            "bt_fused": "bt_fused", "mega12": "mega12"}
+    for name in ("conv_i8", "gather_u32", "pallas_mega17"):
         with pytest.raises(ConfigError, match="ROADMAP"):
             port_engine(name)
     cfg = load_config(str(ROOT / "template.yaml"))  # loads as it is
