@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``herdsman_tpu_torch``) on one NVIDIA
 GPU, at the parameter set of record, STD128_K2 (n=768, N=512, k=2, bg=2^8,
-l=2), and at the integer tier's, STD128_SHORTINT (n=768, N=2048, k=1,
-bg=2^7, l=3, key switch 2^2 x 12), with keys made from a seed.
+l=2), at the integer tier's, STD128_SHORTINT (n=768, N=2048, k=1, bg=2^7,
+l=3, key switch 2^2 x 12), and at the N=2048 byte-aligned sets
+STD128_SHORTINT_B8 (bg=2^8, l=3), STD128_SHORTINT_FAST (bg=2^8, l=2, key
+switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), with keys made from a
+seed.  The four N=2048 host keygens run in worker processes while the card
+runs the earlier paths.
 
     python3 chip_smoke.py [--seed S]
 
@@ -58,11 +62,27 @@ Phases, in order; any failure raises and exits non-zero:
     against (a*b) mod 256, with its rotation widths;
 12. times of ``mega12`` per rotation at B=2048 (beside its bound and the
     plain version's time) and at D2's narrow width, D1 and D2 end to end
-    with rotations/s, and the peak device memory of path D.
+    with rotations/s, and the peak device memory of path D;
+13. main path E, the integer tier at STD128_SHORTINT_B8 on ``mega17``: a
+    ``ShortContext`` that routes to ``mega17`` and carries the compact
+    ``bsk_btTc`` key to the card; the kernel against its plain version
+    (tolerance 0) on E's first rotation inputs at B = 2048, 256 and 9; D1's
+    (a*b)+a over 2048 values, decrypted, then the same on a ``mega12``
+    context (same keys and seed), whose ciphertexts must be equal;
+14. main path F, bool gates at STD128_SHORTINT_FAST on ``mega16``: a
+    heterogeneous ``gate_batch`` of 2048 gates, the kernel against its
+    plain version on its rotation inputs at B = 2048, 256 and 9, decrypted
+    against the truth table, then the same batch on ``mega13``, whose
+    outputs must be equal;
+15. main path G, the integer tier at STD128_SHORTINT_L4 on ``mega15``, as
+    E, with its rerun on ``mega12``;
+16. for E, F and G: the kernel's time per rotation at B=2048 (beside its
+    bound and the plain version's time) and B=256, the path end to end,
+    and the path's peak device memory.
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
-engine, or launched another engine's.  The second-to-last line of output is
+engine, or launched another kernel.  The second-to-last line of output is
 a JSON object describing every kernel; the last is
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA card and the
 repo's ``herdsman_tpu_torch`` beside it, and imports nothing of JAX or of
@@ -72,8 +92,11 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
+import gc
 import json
 import logging
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -90,6 +113,19 @@ ROWS = 128
 RADIX_VALUES = 256  # path D2: bench.py's radix metric uses B_MAIN
 JOB_ROWS = 2048
 JOB_PARTITIONS = 4
+# the N=2048 parameter sets whose host keys the worker processes make
+KEYGEN_SETS = ("std128_shortint", "std128_shortint_b8",
+               "std128_shortint_fast", "std128_shortint_l4")
+
+
+def keygen(name: str, seed: int):
+    """(client key, server key, seconds) of the parameter set ``name`` from
+    ``seed``, on the host (a worker process's job)."""
+    from herdsman_tpu_torch.core import PARAM_SETS
+    from herdsman_tpu_torch.core import reference as ref
+    t0 = time.perf_counter()
+    ck, sk = ref.keygen(PARAM_SETS[name], np.random.default_rng(seed))
+    return ck, sk, time.perf_counter() - t0
 
 
 def check(ok: bool, what: str) -> None:
@@ -176,9 +212,11 @@ def main() -> int:
         from herdsman_tpu_torch.ops import bootstrap as bs
         from herdsman_tpu_torch.ops import gates, pbs, poly
         from herdsman_tpu_torch.ops.decomp import signed_decompose
-        from herdsman_tpu_torch.ops.kernels import _build, bt, mega12, mega13
+        from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
+                                                    megaT)
         from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
-        from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
+        from herdsman_tpu_torch.ops.server_key import (
+            bt_tile, device_server_key, fit_engine, layouts_for_engine)
         from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
         from herdsman_tpu_torch.radix import RadixContext
         from herdsman_tpu_torch.service import frames as frame_codec
@@ -193,6 +231,12 @@ def main() -> int:
         print(f"chip_smoke: the herdsman_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
         return 2
+    # the N=2048 host keygens (30-60 s each) run beside paths A-D; the
+    # workers are killed at exit, also when a check fails
+    pool = multiprocessing.get_context("spawn").Pool(len(KEYGEN_SETS))
+    atexit.register(pool.terminate)
+    keys_of = {name: pool.apply_async(keygen, (name, args.seed))
+               for name in KEYGEN_SETS}
     dev = torch.device("cuda", 0)
 
     # path C's plan: the map and reduce of tests/test_e2e.py
@@ -253,7 +297,10 @@ def main() -> int:
     counters = {"mega13": mega13.mega13_blind_rotate,
                 "mega12": mega12.mega12_blind_rotate,
                 "bt_external_product": bt.external_product_bt,
-                "rotate_decompose": rd.rotate_decompose}
+                "rotate_decompose": rd.rotate_decompose,
+                "mega16": megaT.mega16_blind_rotate,
+                "mega17": megaT.mega17_blind_rotate,
+                "mega15": megaT.mega15_blind_rotate}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -261,6 +308,13 @@ def main() -> int:
 
     def read_counts() -> dict[str, int]:
         return {k: fn.launches for k, fn in counters.items()}
+
+    def only(counts: dict[str, int], kernels: tuple[str, ...],
+             path: str) -> None:
+        """Fail unless ``path`` launched each of ``kernels`` and no other."""
+        check(all(counts[k] > 0 for k in kernels)
+              and not any(v for k, v in counts.items() if k not in kernels),
+              f"{path} launched {counts}, not {' and '.join(kernels)} alone")
     tp = bs.make_test_poly(P, device=dev)
 
     # the main path A's gate batch, made here so that phase 3 compares the
@@ -299,10 +353,7 @@ def main() -> int:
     out, gate_s = host_s(lambda: gates.gate_batch(dsk, batch, device=dev))
     counts_a = read_counts()
     launches_a = counts_a["mega13"]
-    check(launches_a > 0, "main path A did not launch mega13")
-    check(counts_a["bt_external_product"] == counts_a["rotate_decompose"]
-          == counts_a["mega12"] == 0,
-          f"main path A launched another engine's kernels: {counts_a}")
+    only(counts_a, ("mega13",), "main path A")
     truth = {"AND": b1 & b2, "OR": b1 | b2, "NAND": ~(b1 & b2),
              "NOR": ~(b1 | b2), "XOR": b1 ^ b2, "XNOR": ~(b1 ^ b2)}
     expect = np.array([truth[names[g]][i] for i, g in enumerate(ids)])
@@ -339,10 +390,7 @@ def main() -> int:
     y, job_s = host_s(lambda: run(x))
     counts_b = read_counts()
     launches_b = counts_b["mega13"]
-    check(launches_b > 0, "main path B did not launch mega13")
-    check(counts_b["bt_external_product"] == counts_b["rotate_decompose"]
-          == counts_b["mega12"] == 0,
-          f"main path B launched another engine's kernels: {counts_b}")
+    only(counts_b, ("mega13",), "main path B")
     y_np = to_numpy_u32(y)
     check(y_np.shape == (ROWS, 8, P.n + 1), f"adder output {y_np.shape}")
     dec = ref.lwe_decrypt_bool(ck, y_np)
@@ -534,12 +582,9 @@ def main() -> int:
               f"intermediate rows and the reduced row decrypt right; "
               f"launches {r['counts']}")
     c_bt, c_fused = runs["pallas_bt"]["counts"], runs["pallas_fused"]["counts"]
-    check(c_bt["bt_external_product"] > 0 and c_bt["rotate_decompose"] == 0
-          and c_bt["mega13"] == c_bt["mega12"] == 0,
-          f"path C on pallas_bt launched {c_bt}, not bt_external_product alone")
-    check(c_fused["bt_external_product"] > 0 and c_fused["rotate_decompose"] > 0
-          and c_fused["mega13"] == c_fused["mega12"] == 0,
-          f"path C on pallas_fused launched {c_fused}, not its two kernels")
+    only(c_bt, ("bt_external_product",), "path C on pallas_bt")
+    only(c_fused, ("bt_external_product", "rotate_decompose"),
+         "path C on pallas_fused")
     for frame in ("out", "mid"):
         check(runs["pallas_bt"][frame] == runs["pallas_fused"][frame],
               f"path C {frame} frame differs between pallas_bt and "
@@ -650,12 +695,13 @@ def main() -> int:
 
     # 10. path D setup: the integer tier at STD128_SHORTINT -----------------
     PS = PARAM_SETS["std128_shortint"]
-    del dsk, key_q, full, d8_q  # path A-C's keys and inputs
+    # path A-C's keys and inputs; the adder job and path C's jobs hold
+    # STD128_K2 keys (3.4 GiB of bsk_bt each)
+    del dsk, key_q, full, d8_q, run, runs, r, job, job2, ka
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    keys_d = ref.keygen(PS, np.random.default_rng(args.seed))
-    keygen_s = time.perf_counter() - t0
+    *keys_d, keygen_s = keys_of[PS.name].get()
     short, ingest_s = host_s(lambda: ShortContext(
         PS, msg_bits=2, carry_bits=2, keys=keys_d, seed=args.seed,
         device=dev))
@@ -663,7 +709,8 @@ def main() -> int:
           f"ShortContext at {PS.name} took engine {short.engine}, many-LUT "
           f"{short.many_lut}")
     key12 = short.dsk.bsk_btjj
-    print(f"setup: {PS.name} host keygen {keygen_s:.1f} s; ShortContext "
+    print(f"setup: {PS.name} host keygen {keygen_s:.1f} s (worker "
+          f"process); ShortContext "
           f"key ingest (fit_engine -> {short.engine}, bsk_btjj "
           f"{key12.numel() / 2**30:.3f} GiB built on the card) "
           f"{ingest_s:.1f} s")
@@ -728,10 +775,7 @@ def main() -> int:
     check(dec12 == ((av * bv + av) % 4).tolist(),
           f"D1: {int((np.array(dec12) != (av * bv + av) % 4).sum())} of "
           f"{B_MAIN} shortint values decrypt wrong")
-    check(counts_d1["mega12"] > 0 and counts_d1["mega13"] == 0
-          and counts_d1["bt_external_product"] == 0
-          and counts_d1["rotate_decompose"] == 0,
-          f"D1 on mega12 launched {counts_d1}")
+    only(counts_d1, ("mega12",), "D1 on mega12")
     check(tuple(r12.data.shape) == (B_MAIN, PS.n + 1),
           f"D1 output shape {tuple(r12.data.shape)}")
     short13, _ = host_s(lambda: ShortContext(
@@ -743,10 +787,7 @@ def main() -> int:
     reset_counts()
     (r13, dec13), d1_13_s = host_s(lambda: d1(short13, a13, b13))
     counts_d1_13 = read_counts()
-    check(counts_d1_13["mega13"] > 0 and counts_d1_13["mega12"] == 0
-          and counts_d1_13["bt_external_product"] == 0
-          and counts_d1_13["rotate_decompose"] == 0,
-          f"D1 on mega13 launched {counts_d1_13}")
+    only(counts_d1_13, ("mega13",), "D1 on mega13")
     check(torch.equal(r13.data, r12.data) and dec13 == dec12,
           "D1 on mega13 != D1 on mega12")
     del short13, a13, b13, r13
@@ -784,10 +825,7 @@ def main() -> int:
     check(dec2 == ((av2 * bv2) % 256).tolist(),
           f"D2: {int((np.array(dec2) != (av2 * bv2) % 256).sum())} of "
           f"{RADIX_VALUES} 8-bit products decrypt wrong")
-    check(counts_d2["mega12"] > 0 and counts_d2["mega13"] == 0
-          and counts_d2["bt_external_product"] == 0
-          and counts_d2["rotate_decompose"] == 0,
-          f"D2 on mega12 launched {counts_d2}")
+    only(counts_d2, ("mega12",), "D2 on mega12")
     print(f"main path D2: RadixContext(n_blocks=4) 8-bit multiply over "
           f"{RADIX_VALUES} values on mega12: every product decrypts to "
           f"(a*b) mod 256; rotation widths of the multiply "
@@ -817,12 +855,201 @@ def main() -> int:
           f"{RADIX_VALUES / d2_s:.2f} multiplies/s {card}")
     print(f"memory: path D torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
+    del short, key12, rctx, a, b, r12, x2, y2, acc0_d, a_t_d  # path D's
+    d1_values = ((av * bv + av) % 4).tolist()
 
-    # 13-14. result lines ---------------------------------------------------
+    # 13-16. paths E, F, G: the byte-aligned kernels megaT.cu --------------
+    def megaT_vs_plain(name, p, acc0, a_t, key) -> tuple[int, float]:
+        """Kernel ``name`` against its plain version (tolerance 0) on a
+        path's first rotation inputs at B = 2048, 256 and 9: (max_abs_err,
+        plain ms at B=2048)."""
+        err, plain_ms = 0, None
+        for B in (B_MAIN, RADIX_VALUES, 9):
+            x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
+            got = counters[name](p, *x, key)
+            want, ms = timed_call(lambda: megaT.blind_rotate_plain_btTc(
+                p, *x, key))
+            err = max(err, abs_err(got, want))
+            check(torch.equal(got, want), f"{name} != plain version at "
+                  f"{p.name} B={B}")
+            plain_ms = plain_ms or ms
+        return err, plain_ms
+
+    def megaT_times(name, p, acc0, a_t, key) -> dict:
+        """Kernel ``name``'s ms per rotation at B=2048 (warm: it ran at
+        this shape in megaT_vs_plain) and at B=256, and its bound."""
+        _, ms = timed_call(lambda: counters[name](p, acc0, a_t, key))
+        narrow_ms = timed_ms(lambda: counters[name](
+            p, acc0[:RADIX_VALUES].contiguous(),
+            a_t[:, :RADIX_VALUES].contiguous(), key), reps=1)
+        ops, nbytes = bounds.rotation(p, B_MAIN, key.numel())
+        bound, by = bounds.bound_ms(ops, nbytes)
+        # the share of the integer lanes' issue rate its __dp4a use (4 MACs
+        # each, ops / 8 of them), its own ceiling short of tensor cores
+        dp4a = ops / 8 / bounds.PEAK_INT32_OPS / (ms / 1e3)
+        return {"ms": ms, "narrow_ms": narrow_ms, "bound_ms": bound,
+                "bound_by": by, "dp4a_share": dp4a,
+                "G": {B: megaT.ciphertexts_per_block(p, B, dev)
+                      for B in (B_MAIN, RADIX_VALUES, 9)}}
+
+    def integer_path(label: str, pset: str, engine: str) -> dict:
+        """Main path E or G: D1's (a*b)+a over the same 2048 values at
+        ``pset`` on ``engine``, then on mega12 with the same keys and
+        seed, which must give the same ciphertexts."""
+        PX = PARAM_SETS[pset]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        *keys_x, keygen_x_s = keys_of[pset].get()
+        ctx, ingest_x_s = host_s(lambda: ShortContext(
+            PX, msg_bits=2, carry_bits=2, engine=engine, keys=keys_x,
+            seed=args.seed, device=dev))
+        check(ctx.engine == engine and ctx.dsk.bsk_btTc is not None
+              and ctx.dsk.bsk_btjj is None,
+              f"ShortContext(engine={engine!r}) at {PX.name} took engine "
+              f"{ctx.engine}")
+        key = ctx.dsk.bsk_btTc
+        xa, xb = ctx.encrypt(av), ctx.encrypt(bv)
+        acc0_x, a_t_x = bs.rotation_inputs(
+            PX, xa.data * m + xb.data,
+            pbs.lut_test_poly(PX, mul_t, ctx.space_bits, device=dev))
+        err, plain_ms = megaT_vs_plain(engine, PX, acc0_x, a_t_x, key)
+        reset_counts()
+        rot0 = ctx.rotations
+        (r, dec), path_s = host_s(lambda: d1(ctx, xa, xb))
+        counts = read_counts()
+        rotations = ctx.rotations - rot0
+        peak = torch.cuda.max_memory_allocated()
+        wrong = sum(x != y for x, y in zip(dec, d1_values))
+        check(dec == d1_values, f"{label}: {wrong} of {B_MAIN} values "
+              f"decrypt wrong at {PX.name}")
+        only(counts, (engine,), f"main path {label} on {engine}")
+        ctx12 = ShortContext(PX, msg_bits=2, carry_bits=2, engine="mega12",
+                             keys=keys_x, seed=args.seed, device=dev)
+        ya, yb = ctx12.encrypt(av), ctx12.encrypt(bv)
+        check(ctx12.engine == "mega12" and torch.equal(ya.data, xa.data)
+              and torch.equal(yb.data, xb.data),
+              f"{label}: the mega12 context differs from the {engine} one")
+        reset_counts()
+        (r12x, dec12x), path12_s = host_s(lambda: d1(ctx12, ya, yb))
+        counts12 = read_counts()
+        only(counts12, ("mega12",), f"main path {label} on mega12")
+        check(torch.equal(r12x.data, r.data) and dec12x == dec,
+              f"{label} on mega12 != {label} on {engine}")
+        del ctx12, ya, yb, r12x
+        torch.cuda.empty_cache()
+        t = megaT_times(engine, PX, acc0_x, a_t_x, key)
+        print(f"main path {label}: {PX.name} host keygen {keygen_x_s:.1f} s "
+              f"(worker process); ShortContext key ingest (fit_engine -> "
+              f"{ctx.engine}, bsk_btTc {key.numel() / 2**20:.1f} MiB built on "
+              f"the card) {ingest_x_s:.1f} s; {engine} == "
+              f"blind_rotate_plain_btTc on the first rotation's inputs at B "
+              f"in {[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+              f"{err}); (a*b)+a over {B_MAIN} values: every value decrypts "
+              f"right; {rotations} rotations; launches {counts}; the same on "
+              f"mega12 is array-equal; launches {counts12}")
+        print(f"time: {engine} B={B_MAIN} {t['ms']:.3f} ms = "
+              f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
+              f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.2f} ms "
+              f"bound ({t['bound_by']}), {t['dp4a_share']:.4f} of the "
+              f"integer lanes' dp4a rate; B={RADIX_VALUES} "
+              f"{t['narrow_ms']:.3f} ms; plain {plain_ms:.3f} ms at "
+              f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
+        print(f"time: main path {label} (a*b)+a over {B_MAIN} values end to "
+              f"end {path_s:.3f} s on {engine} = {rotations / path_s:.1f} "
+              f"rotations/s, {path12_s:.3f} s on mega12 {card}")
+        print(f"memory: path {label} on {engine} torch.cuda."
+              f"max_memory_allocated {peak / 2**30:.3f} GiB {card}")
+        return {"counts": counts, "counts12": counts12, "err": err,
+                "plain_ms": plain_ms, **t}
+
+    res_e = integer_path("E", "std128_shortint_b8", "mega17")
+
+    # F: bool gates at STD128_SHORTINT_FAST on mega16, then on mega13
+    PF = PARAM_SETS["std128_shortint_fast"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck_f, sk_f, keygen_f_s = keys_of[PF.name].get()
+    check(fit_engine("mega16", PF) == "mega16"
+          and fit_engine("mega13", PF) == "mega13",
+          f"fit_engine at {PF.name}: mega16 -> {fit_engine('mega16', PF)}, "
+          f"mega13 -> {fit_engine('mega13', PF)}")
+    dsk_f, ingest_f_s = host_s(lambda: device_server_key(
+        sk_f, layouts=layouts_for_engine("mega16") + layouts_for_engine(
+            "mega13"), device=dev))
+    rng_f = np.random.default_rng(args.seed + 7)
+    f1 = rng_f.integers(0, 2, B_MAIN).astype(bool)
+    f2 = rng_f.integers(0, 2, B_MAIN).astype(bool)
+    cf1, cf2 = ref.encrypt_bool(ck_f, f1, rng_f), ref.encrypt_bool(ck_f, f2,
+                                                                   rng_f)
+    batch_f = gates.GateBatch(ids, cf1, cf2)
+    lin_f = gates.gate_linear(PF.n, torch.as_tensor(ids, device=dev),
+                              from_numpy_u32(cf1, dev),
+                              from_numpy_u32(cf2, dev))
+    acc0_f, a_t_f = bs.rotation_inputs(PF, lin_f,
+                                       bs.make_test_poly(PF, device=dev))
+    err16, plain16_ms = megaT_vs_plain("mega16", PF, acc0_f, a_t_f,
+                                       dsk_f.bsk_btTc)
+    reset_counts()
+    out_f, f_s = host_s(lambda: gates.gate_batch(dsk_f, batch_f,
+                                                 engine="mega16", device=dev))
+    counts_f = read_counts()
+    peak_f = torch.cuda.max_memory_allocated()
+    only(counts_f, ("mega16",), "main path F on mega16")
+    truth_f = {"AND": f1 & f2, "OR": f1 | f2, "NAND": ~(f1 & f2),
+               "NOR": ~(f1 | f2), "XOR": f1 ^ f2, "XNOR": ~(f1 ^ f2)}
+    expect_f = np.array([truth_f[names[g]][i] for i, g in enumerate(ids)])
+    out_f_np = to_numpy_u32(out_f)
+    check(out_f_np.shape == (B_MAIN, PF.n + 1), f"F output {out_f_np.shape}")
+    dec_f = ref.lwe_decrypt_bool(ck_f, out_f_np)
+    check(np.array_equal(dec_f, expect_f),
+          f"F: {int((dec_f != expect_f).sum())} of {B_MAIN} gates decrypt "
+          f"wrong at {PF.name}")
+    reset_counts()
+    out_f13, f13_s = host_s(lambda: gates.gate_batch(
+        dsk_f, batch_f, engine="mega13", device=dev))
+    counts_f13 = read_counts()
+    only(counts_f13, ("mega13",), "main path F on mega13")
+    check(torch.equal(out_f13, out_f), "F on mega13 != F on mega16")
+    t_f = megaT_times("mega16", PF, acc0_f, a_t_f, dsk_f.bsk_btTc)
+    res_f = {"counts": counts_f, "counts13": counts_f13, "err": err16,
+             "plain_ms": plain16_ms, **t_f}
+    print(f"main path F: {PF.name} host keygen {keygen_f_s:.1f} s (worker "
+          f"process); keys to the card (bsk_btTc "
+          f"{dsk_f.bsk_btTc.numel() / 2**20:.1f} MiB, bsk) {ingest_f_s:.1f} "
+          f"s; mega16 == blind_rotate_plain_btTc on the gate batch's "
+          f"rotation inputs at B in {[B_MAIN, RADIX_VALUES, 9]} (array "
+          f"equality, max_abs_err {err16}); gate_batch of {B_MAIN} gates "
+          f"decrypts to the truth table; launches {counts_f}; the same "
+          f"batch on mega13 is array-equal; launches {counts_f13}")
+    print(f"time: mega16 B={B_MAIN} {t_f['ms']:.3f} ms = "
+          f"{B_MAIN / t_f['ms'] * 1e3:.1f} bootstraps/s, "
+          f"{t_f['bound_ms'] / t_f['ms']:.4f} of the {t_f['bound_ms']:.2f} ms "
+          f"bound ({t_f['bound_by']}), {t_f['dp4a_share']:.4f} of the "
+          f"integer lanes' dp4a rate; B={RADIX_VALUES} "
+          f"{t_f['narrow_ms']:.3f} ms; plain {plain16_ms:.3f} ms at "
+          f"B={B_MAIN}; ciphertexts per block by B {t_f['G']} {card}")
+    print(f"time: main path F gate_batch B={B_MAIN} end to end {f_s:.3f} s "
+          f"on mega16 = {B_MAIN / f_s:.1f} bootstraps/s, {f13_s:.3f} s on "
+          f"mega13 {card}")
+    print(f"memory: path F on mega16 torch.cuda.max_memory_allocated "
+          f"{peak_f / 2**30:.3f} GiB {card}")
+    del dsk_f, lin_f, acc0_f, a_t_f, out_f, out_f13
+
+    res_g = integer_path("G", "std128_shortint_l4", "mega15")
+    pool.close()
+    pool.join()
+
+    # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
                "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
                "D1_shortint": counts_d1, "D1_shortint_on_mega13": counts_d1_13,
-               "D2_radix": counts_d2}
+               "D2_radix": counts_d2,
+               "E_shortint_b8": res_e["counts"],
+               "E_shortint_b8_on_mega12": res_e["counts12"],
+               "F_gate_batch_fast": res_f["counts"],
+               "F_gate_batch_fast_on_mega13": res_f["counts13"],
+               "G_shortint_l4": res_g["counts"],
+               "G_shortint_l4_on_mega12": res_g["counts12"]}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
@@ -885,6 +1112,23 @@ def main() -> int:
         "bound_by": rd_by,
         "library_ms": None,
     }]
+    for name, line, res in (("mega17", 1495, res_e), ("mega16", 1323, res_f),
+                            ("mega15", 1154, res_g)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "herdsman_tpu_torch/csrc/megaT.cu",
+            "replaces": f"herdsman_tpu/ops/pallas/mega.py:{line}",
+            **launches(name),
+            "matches_plain": res["err"] == 0,
+            "max_abs_err": res["err"],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "ms_b256": res["narrow_ms"],
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ through one of three kinds of engine:
   default) is the hand-written CUDA kernel ``csrc/mega13.cu`` on a CUDA
   tensor and its plain PyTorch version on a CPU tensor; ``mega12`` (the
   integer tier's engine, the JAX package's ``pallas_mega12``) is
-  ``csrc/mega12.cu`` against the ``bsk_btjj`` key.
+  ``csrc/mega12.cu`` against the ``bsk_btjj`` key; ``mega16``, ``mega17``
+  and ``mega15`` (the JAX package's engines of the same names, at the
+  byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
+  ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key.
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -41,7 +44,7 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.decomp import signed_decompose
-from herdsman_tpu_torch.ops.kernels import bt, mega12, mega13
+from herdsman_tpu_torch.ops.kernels import bt, mega12, mega13, megaT
 from herdsman_tpu_torch.ops.kernels.rotate_decompose import rotate_decompose
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey, bt_tile
 from herdsman_tpu_torch.ops.u32 import resolve_device, srl, to_device, u32_const
@@ -95,6 +98,9 @@ STEP_ENGINES: dict[str, tuple[Callable, str]] = {
 ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega13": (mega13.mega13_blind_rotate, "bsk"),
     "mega12": (mega12.mega12_blind_rotate, "bsk_btjj"),
+    "mega16": (megaT.mega16_blind_rotate, "bsk_btTc"),
+    "mega17": (megaT.mega17_blind_rotate, "bsk_btTc"),
+    "mega15": (megaT.mega15_blind_rotate, "bsk_btTc"),
 }
 
 

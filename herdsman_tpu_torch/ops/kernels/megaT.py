@@ -1,0 +1,274 @@
+"""Whole-rotation blind-rotation kernels of the single-width bitcast-stream
+class (``csrc/megaT.cu``) and their plain PyTorch version.
+
+The three kernels serve the byte-aligned gadget bg = 2^8 at its three depths
+and keep the contract of the JAX package's wrappers they replace:
+
+- ``mega16_blind_rotate``: levels 2, ``herdsman_tpu/ops/pallas/mega.py::
+  _mega16_kernel`` (STD128_SHORTINT_FAST, the N=2048 bool-gate tier);
+- ``mega17_blind_rotate``: levels 3, ``mega.py::_mega17_kernel``
+  (STD128_SHORTINT_B8, the integer tier);
+- ``mega15_blind_rotate``: levels 4, ``mega.py::_mega15_kernel``
+  (STD128_SHORTINT_L4, the exact gadget).
+
+acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
+accumulator after the n CMux steps out, exact mod 2^32.  Each step packs
+the digits of X^a acc - acc into a byte stream (``pack_stream``: byte
+L*z + lb of polynomial c is digit lb, least significant first, of
+coefficient z) and contracts it, per column tile ct, with the wrap-split
+two-dot of ``mega.py:1578-1590``:
+
+    out[ct*P + q] = key[q, :split] . D[L*ct*P:] - key[q, split:] . D[:L*ct*P]
+
+with split = L*(N - ct*P), then recombines the limb rows (j, c_out, q)
+limb-major into the accumulator.
+
+The key is the compact step key ``bsk_btTc`` int8 [n, k+1 (c_in), k+1
+(c_out), 4 (limb j), row_bytes]: per (step, c_in, c_out, j) one L-fold
+interleaved limb sequence T[L*u + lb] = limb_j(ext(bsk[i, c_in*levels +
+levels-1-lb, c_out])[(P-1-u) mod 2N]) of length L*(N+P-1), zero-padded.
+Row q of the JAX package's single-width key ``[n, k+1, (k+1)*4*P, L*N]``
+(``_btT3/_btTs/_btT4_layout_device``) is the slice of T at offset
+(P-1-q)*L (``expand_key``), so the compact key holds the same numbers in
+(N+P-1)/(P*N) of the bytes: 80 MB instead of 9.0 GiB at
+STD128_SHORTINT_B8.
+
+On a CUDA tensor each wrapper launches its kernel (one launch per
+rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
+``blind_rotate_plain_btTc``.  The source note in ``csrc/megaT.cu`` gives the
+kernels' design and bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from herdsman_tpu_torch.core.params import TFHEParams
+from herdsman_tpu_torch.ops import poly
+from herdsman_tpu_torch.ops.kernels import _build
+from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
+from herdsman_tpu_torch.ops.u32 import srl, u32_const
+
+I32 = torch.int32
+I8 = torch.int8
+
+P = 128                    # column tile: the kernels take N >= 128 only
+SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
+
+# kernel -> the gadget depth it serves at bg = 2^8
+KERNELS = {"mega16": 2, "mega17": 3, "mega15": 4}
+
+
+def row_bytes(p: TFHEParams) -> int:
+    """Bytes of one limb sequence of ``bsk_btTc``: L*(N+P-1) and one word
+    of slack for the kernel's shifted key reads, rounded up to 16."""
+    return -(-(p.levels * (p.N + P - 1) + 4) // 16) * 16
+
+
+def key_bytes(p: TFHEParams) -> int:
+    """Bytes of the ``bsk_btTc`` layout at ``p``."""
+    return p.n * (p.k + 1) ** 2 * 4 * row_bytes(p)
+
+
+def smem_bytes(p: TFHEParams, G: int) -> int:
+    """Shared memory of one block of G ciphertexts: their accumulators
+    (u32), one step's digit streams and rotation amounts, and one staged
+    (c_in, c_out) slice of the step key."""
+    kp1 = p.k + 1
+    return G * (kp1 * p.N * 4 + kp1 * p.levels * p.N + 4) + 4 * row_bytes(p)
+
+
+def check_params(p: TFHEParams, name: str) -> None:
+    """Raise on a parameter set kernel ``name`` does not take: its own
+    gadget (bg_bits 8, levels KERNELS[name]), k+1 in (2, 3, 5), N a power
+    of two in [128, 2048], and one ciphertext within a block's shared
+    memory."""
+    L = KERNELS[name]
+    if p.bg_bits != 8 or p.levels != L:
+        raise ValueError(f"{name} takes bg_bits 8 and levels {L}, not "
+                         f"{p.bg_bits} and {p.levels} ({p.name})")
+    if p.k + 1 not in (2, 3, 5):
+        raise ValueError(f"{name} takes k+1 in (2, 3, 5), not {p.k + 1} "
+                         f"({p.name})")
+    if p.N & (p.N - 1) or not P <= p.N <= 2048:
+        raise ValueError(f"{name} takes N a power of two in [{P}, 2048], "
+                         f"not {p.N} ({p.name})")
+    if smem_bytes(p, 1) > SMEM_LIMIT:
+        raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} bytes "
+                         f"of shared memory per ciphertext, over {SMEM_LIMIT}")
+
+
+def _check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
+                key: torch.Tensor) -> None:
+    kp1 = p.k + 1
+    B = acc0.shape[0] if acc0.dim() == 3 else -1
+    shapes = {"acc0": (acc0, I32, (B, kp1, p.N)),
+              "a_t": (a_t, I32, (p.n, B)),
+              "bsk_btTc": (key, I8, (p.n, kp1, kp1, 4, row_bytes(p)))}
+    for name, (t, dtype, shape) in shapes.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != acc0.device:
+            raise ValueError(f"{name} is on {t.device}, acc0 on {acc0.device}")
+    if B < 1:
+        raise ValueError("empty batch")
+
+
+def pack_stream(p: TFHEParams, diff: torch.Tensor) -> torch.Tensor:
+    """The digit byte stream of diff [B, k+1, N] (int32 carrier) at the
+    byte-aligned gadget: [B, k+1, L*N] int8, byte L*z + lb the digit lb
+    (least significant first, so level L-1-lb) of coefficient z.  The bytes
+    of the JAX kernels' ``compute_stream``: round to the top W = 8L bits,
+    add the balanced offset 0x80.. (for W = 32 the exact
+    ``diff + 0x80808080``, ``mega.py:1213``), keep the low L bytes of each
+    coefficient (the carry past bit W-1 is dropped, ``mega.py:1563-1566``)
+    and read each byte b as the digit b - 128."""
+    B, kp1, N = diff.shape
+    L = p.levels
+    W = 8 * L
+    offset = u32_const(sum(0x80 << (8 * t) for t in range(L)))
+    if W < 32:
+        val = srl(diff + (1 << (31 - W)), 32 - W) + offset
+    else:
+        val = diff + offset
+    digits = torch.stack([(srl(val, 8 * lb) & 0xFF) - 128
+                          for lb in range(L)], dim=-1)   # [B, k+1, N, L]
+    return digits.to(I8).reshape(B, kp1, L * N)
+
+
+def expand_key(p: TFHEParams, key: torch.Tensor) -> torch.Tensor:
+    """The JAX package's single-width key [s, k+1, (k+1)*4*P, L*N] (rows
+    (j, c_out, q)) from s steps of ``bsk_btTc`` [s, k+1, k+1, 4, row_bytes]:
+    row q is the slice of its limb sequence at offset (P-1-q)*L."""
+    s, kp1 = key.shape[:2]
+    L, LN = p.levels, p.levels * p.N
+    rows = key[..., :L * (p.N + P - 1)].unfold(-1, LN, L)  # [.., P, LN]
+    rows = rows.flip(-2)                   # window w starts at (P-1-q)*L
+    # [s, c_in, c_out, j, q, LN] -> [s, c_in, j, c_out, q, LN]
+    return rows.permute(0, 1, 3, 2, 4, 5).reshape(s, kp1, 4 * kp1 * P, LN)
+
+
+def blind_rotate_plain_btTc(params: TFHEParams, acc0: torch.Tensor,
+                            a_t: torch.Tensor,
+                            bsk_btTc: torch.Tensor) -> torch.Tensor:
+    """The same rotation in plain PyTorch, either device, at levels 2, 3 or
+    4 of the byte-aligned gadget, reading the same ``bsk_btTc`` key.  Per
+    step: rotate, pack the digit stream (``pack_stream``), expand the step
+    key (``expand_key``); per column tile, the wrap-split two-dot through
+    ``torch._int_mm`` summed over c_in; then the limb-major recombine
+    (``mega.py:1598-1608``) into the accumulator."""
+    p = params
+    _check_args(p, acc0, a_t, bsk_btTc)
+    B, kp1, N = acc0.shape
+    L = p.levels
+    C4P = kp1 * 4 * P
+    acc = acc0
+    for i in range(p.n):
+        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
+        # stream bytes and key columns s-major, c_in minor, so that one
+        # product per run sums over c_in
+        D = pack_stream(p, rot - acc).transpose(1, 2).contiguous()
+        keyT = expand_key(p, bsk_btTc[i:i + 1])[0].permute(2, 0, 1)
+        keyT = keyT.contiguous()                           # [L*N, k+1, C4P]
+        tiles = []
+        for ct in range(N // P):
+            cut = L * ct * P
+            split = L * N - cut
+            total = int8_matmul(D[:, cut:].reshape(B, -1).contiguous(),
+                                keyT[:split].reshape(-1, C4P))
+            if cut:
+                total = total - int8_matmul(
+                    D[:, :cut].reshape(B, -1).contiguous(),
+                    keyT[split:].reshape(-1, C4P))
+            limbs = total.reshape(B, 4, kp1, P).permute(0, 2, 3, 1)
+            tiles.append(poly.from_i32_limb_partials(limbs))  # [B, k+1, P]
+        acc = acc + torch.cat(tiles, dim=-1)
+    return acc
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/megaT.cu`` with its C signatures declared."""
+    lib = _build.load("megaT")
+    for name in KERNELS:
+        fn = getattr(lib, f"{name}_blind_rotate")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
+    lib.megaT_ciphertexts_per_block.restype = ctypes.c_int
+    lib.megaT_error_string.argtypes = [ctypes.c_int]
+    lib.megaT_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ciphertexts_per_block(p: TFHEParams, B: int,
+                          device: torch.device) -> int:
+    """The G the kernels pick for a rotation of B ciphertexts at ``p`` on
+    the card ``device`` (0 where they take none)."""
+    return _lib().megaT_ciphertexts_per_block(B, p.N, p.k + 1, p.levels,
+                                              _sms(device))
+
+
+def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
+            a_t: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    check_params(p, name)
+    _check_args(p, acc0, a_t, key)
+    if acc0.device.type == "cpu":
+        return blind_rotate_plain_btTc(p, acc0, a_t, key)
+    if acc0.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
+    lib = _lib()
+    out = torch.empty_like(acc0)
+    with torch.cuda.device(acc0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"{name}_blind_rotate")(
+            acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(), out.data_ptr(),
+            acc0.shape[0], p.n, p.N, p.k + 1, _sms(acc0.device), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.megaT_error_string(err).decode())
+    wrapper.launches += 1
+    return out
+
+
+def mega16_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                        a_t: torch.Tensor,
+                        bsk_btTc: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation at bg = 2^8, levels 2 (adjacent-pair packing):
+    acc0 [B, k+1, N] and a_t [n, B] (int32 carriers), bsk_btTc int8 [n,
+    k+1, k+1, 4, row_bytes] -> acc [B, k+1, N].  CUDA tensors go through
+    the kernel, CPU tensors through ``blind_rotate_plain_btTc``."""
+    return _rotate("mega16", mega16_blind_rotate, params, acc0, a_t, bsk_btTc)
+
+
+def mega17_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                        a_t: torch.Tensor,
+                        bsk_btTc: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation at bg = 2^8, levels 3 (3-of-4 packing); the
+    contract of ``mega16_blind_rotate``."""
+    return _rotate("mega17", mega17_blind_rotate, params, acc0, a_t, bsk_btTc)
+
+
+def mega15_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                        a_t: torch.Tensor,
+                        bsk_btTc: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation at bg = 2^8, levels 4 (the exact gadget, one
+    coefficient per word); the contract of ``mega16_blind_rotate``."""
+    return _rotate("mega15", mega15_blind_rotate, params, acc0, a_t, bsk_btTc)
+
+
+mega16_blind_rotate.launches = 0
+mega17_blind_rotate.launches = 0
+mega15_blind_rotate.launches = 0

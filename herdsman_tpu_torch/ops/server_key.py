@@ -36,6 +36,20 @@ once, into:
                                        read by ``csrc/mega12.cu``.  As big
                                        as ``bsk_bt``: 9.0 GiB at
                                        STD128_SHORTINT, built the same way.
+- ``bsk_btTc``  int8  [n, k+1, k+1, 4, row_bytes]
+                                       the compact step key of the
+                                       byte-aligned gadget (bg = 2^8, levels
+                                       2, 3 or 4), read by ``csrc/megaT.cu``
+                                       (``mega16``, ``mega17``, ``mega15``):
+                                       per (step, c_in, c_out, limb j) one
+                                       L-fold interleaved limb sequence
+                                       whose slice at (P-1-q)*L is row (j,
+                                       c_out, q) of the JAX package's
+                                       single-width ``bsk_btTs`` /
+                                       ``bsk_btT3`` / ``bsk_btT4``
+                                       (``ops/kernels/megaT.expand_key``).
+                                       80 MB at STD128_SHORTINT_B8, where
+                                       the expanded key is 9.0 GiB.
 - ``ksk_limbs`` int8  [kN*t, C]        the key-switching key as balanced int8
                                        limbs for one ``torch._int_mm``;
                                        C = (n+1)*4 padded to a multiple of 8,
@@ -54,15 +68,17 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import mega12, mega13
+from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btjj")
+LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btjj", "bsk_btTc")
 DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
 ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btjj", "bt": "bsk_bt",
-                  "bt_fused": "bsk_bt", "gather_u32": "bsk_ext"}
+                  "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
+                  "mega16": "bsk_btTc", "mega17": "bsk_btTc",
+                  "mega15": "bsk_btTc"}
 
 # device memory the key layouts of one session may take: half of an H100's
 # 80 GB, leaving the rest to ciphertext batches and other sessions
@@ -81,6 +97,7 @@ class DeviceServerKey:
     bsk_ext: torch.Tensor | None = None  # int32 [n, R, k+1, 2N]
     bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
     bsk_btjj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
+    bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
 
     @property
     def R(self) -> int:
@@ -139,6 +156,34 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     return out
 
 
+def stream_key_layout(p: TFHEParams, bsk: torch.Tensor) -> torch.Tensor:
+    """``bsk_btTc`` int8 [n, k+1 (c_in), k+1 (c_out), 4 (j), row_bytes]
+    from the int32 ``bsk`` [n, R, k+1, N] at the byte-aligned gadget, on
+    ``bsk``'s device, a chunk of steps at a time: T[L*u + lb] =
+    limb_j(ext(bsk[i, c_in*levels + levels-1-lb, c_out])[(P-1-u) mod 2N])
+    for u < N+P-1, zeros after.  Its expansion equals the JAX package's
+    ``_btTs/_btT3/_btT4_layout_device`` (tests/test_torch_megaT.py)."""
+    if p.bg_bits != 8 or not 2 <= p.levels <= 4 or p.N % megaT.P:
+        raise ValueError(f"bsk_btTc needs bg_bits 8, levels 2-4 and N a "
+                         f"multiple of {megaT.P}, not {p.bg_bits}, "
+                         f"{p.levels} and {p.N} ({p.name})")
+    n, R, kp1, N = bsk.shape
+    P = megaT.P
+    L, U = p.levels, N + P - 1
+    idx = (P - 1 - torch.arange(U, device=bsk.device)) % (2 * N)
+    out = torch.zeros(n, kp1, kp1, 4, megaT.row_bytes(p), dtype=torch.int8,
+                      device=bsk.device)
+    step = max(1, _BT_CHUNK_BYTES // (R * kp1 * U * 4 * 2))
+    for i0 in range(0, n, step):
+        i1 = min(i0 + step, n)
+        limbs = poly.to_i8_limbs(poly.negacyclic_extend(bsk[i0:i1])[..., idx])
+        # [c, R = (c_in, level), c_out, U, j]; byte lb is level L-1-lb
+        limbs = limbs.reshape(i1 - i0, kp1, L, kp1, U, 4).flip(2)
+        out[i0:i1, ..., :L * U] = limbs.permute(0, 1, 3, 5, 4, 2).reshape(
+            i1 - i0, kp1, kp1, 4, U * L)
+    return out
+
+
 def layouts_for_engine(engine: str) -> tuple[str, ...]:
     """Key layout(s) ``device_server_key`` must build for ``engine``."""
     if engine not in ENGINE_LAYOUTS:
@@ -154,25 +199,45 @@ def fit_engine(engine: str, params: TFHEParams,
     ``mega12``, whose kernel must also take the set) while their key
     (``bsk_bt`` or ``bsk_btjj``, the same size) fits ``budget_bytes``, else
     ``mega13`` (raw key, 27 MiB at STD128_K2); and ``mega13`` where its
-    kernel takes the parameter set, else ``bt_fused``.  The coordinator
-    and the integer tier build every key through this, so none of them can
-    run the card out of memory at key ingest."""
+    kernel takes the parameter set, else ``bt_fused``; and ``mega16`` /
+    ``mega17`` / ``mega15`` where the set has their own byte-aligned gadget
+    (bg_bits 8 and levels 2 / 3 / 4) and their compact ``bsk_btTc`` key
+    fits ``budget_bytes``, else whatever a ``mega12`` request gets.  The
+    coordinator and the integer tier build every key through this, so none
+    of them can run the card out of memory at key ingest.
 
-    def takes(kernel) -> bool:
+    Two routes differ from the JAX package's ``fit_engine``
+    (``herdsman_tpu/ops/server_key.py:623-699``), with equal outputs:
+
+    - ``mega13`` stays ``mega13`` wherever its kernel takes the set, also
+      at STD128_SHORTINT_FAST, where the JAX package moves
+      ``pallas_mega13`` to ``pallas_mega16`` because its extended key would
+      be 18.5 GiB; the port's ``mega13`` reads the raw 50 MB key.
+    - Where the byte-aligned engines do not serve, the JAX package takes
+      ``pallas_mega11`` if its doubled key fits and ``pallas_mega12``
+      otherwise; ``mega11`` is not ported yet (ROADMAP queue 2), so the
+      port takes ``mega12``'s route."""
+
+    def takes(check) -> bool:
         try:
-            kernel.check_params(params)
+            check(params)
         except ValueError:
             return False
         return True
 
     bt_fits = bt_key_bytes(params) <= budget_bytes
-    if engine in ("bt", "bt_fused", "mega12"):
-        if bt_fits and (engine != "mega12" or takes(mega12)):
+    if engine in megaT.KERNELS:
+        if (takes(lambda p: megaT.check_params(p, engine))
+                and megaT.key_bytes(params) <= budget_bytes):
             return engine
-        if takes(mega13):
+        return fit_engine("mega12", params, budget_bytes)
+    if engine in ("bt", "bt_fused", "mega12"):
+        if bt_fits and (engine != "mega12" or takes(mega12.check_params)):
+            return engine
+        if takes(mega13.check_params):
             return "mega13"
     elif engine == "mega13":
-        if takes(mega13):
+        if takes(mega13.check_params):
             return engine
         if bt_fits:
             return "bt_fused"
@@ -219,4 +284,6 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                 if "bsk_bt" in layouts else None),
         bsk_btjj=(block_toeplitz_layout(p, bsk, jcq=True)
                   if "bsk_btjj" in layouts else None),
+        bsk_btTc=(stream_key_layout(p, bsk)
+                  if "bsk_btTc" in layouts else None),
     )

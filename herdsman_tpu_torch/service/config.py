@@ -39,7 +39,9 @@ class ConfigError(ValueError):
 
 # the JAX package's engine names -> the port's engines
 ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
-                "pallas_mega13": "mega13", "pallas_mega12": "mega12"}
+                "pallas_mega13": "mega13", "pallas_mega12": "mega12",
+                "pallas_mega16": "mega16", "pallas_mega17": "mega17",
+                "pallas_mega15": "mega15"}
 
 
 def port_engine(name: str) -> str:
@@ -51,8 +53,9 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; the other pallas_mega* kernels are "
-        f"ROADMAP queue 2 items 4-11, and conv_i8/gather_u32 (XLA engines "
+        f"{sorted(ENGINE_NAMES)}; pallas_mega11, 8, 7, 14 and the legacy "
+        f"kernels are ROADMAP queue 2 items 6-9 and 11, and "
+        f"conv_i8/gather_u32 (XLA engines "
         f"with no kernel) are not served by the port's coordinator")
 
 

@@ -19,7 +19,7 @@ from herdsman_tpu_torch.core import TOY
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
-from herdsman_tpu_torch.ops.kernels import _build, bt, mega12, mega13
+from herdsman_tpu_torch.ops.kernels import _build, bt, mega12, mega13, megaT
 from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
 from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
@@ -227,3 +227,61 @@ def test_mega12_engine_matches_mega13_and_reference(card, params):
         to_numpy_u32(got[B - 1]),
         ref.blind_rotate(sk, to_numpy_u32(ct[B - 1]),
                          ref.make_test_poly(params)))
+
+
+# the byte-aligned kernels' geometry classes (mega16 / mega17 / mega15 at
+# levels 2 / 3 / 4): k+1 in (2, 3, 5), N from 256 to 2048 (HALF 2 to 16);
+# B = 129 and 2001 take ragged last blocks (B = 2001 at G = 8 or 4)
+MEGAT_GEOMETRIES = [(1, 256), (2, 512), (4, 256), (1, 1024), (1, 2048),
+                    (2, 2048)]
+MEGAT_SETS = [dc.replace(TOY, name=f"{name}_k{k}_n{N}", n=4, N=N, k=k,
+                         bg_bits=8, levels=L)
+              for name, L in megaT.KERNELS.items()
+              for k, N in MEGAT_GEOMETRIES]
+
+
+@pytest.mark.parametrize("B", [1, 9, 129, 2001])
+@pytest.mark.parametrize("params", MEGAT_SETS,
+                         ids=[q.name for q in MEGAT_SETS])
+def test_megaT_matches_plain(card, params, B):
+    p = params
+    name = p.name.split("_")[0]
+    kernel = getattr(megaT, f"{name}_blind_rotate")
+    rng = np.random.default_rng(B + p.N + p.k + p.levels)
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    key = torch.as_tensor(
+        rng.integers(-128, 128, (p.n, p.k + 1, p.k + 1, 4,
+                                 megaT.row_bytes(p))),
+        dtype=torch.int8, device=card)
+    before = kernel.launches
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert megaT.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
+    assert torch.equal(got, megaT.blind_rotate_plain_btTc(p, acc0, a_t, key))
+
+
+@pytest.mark.parametrize("name", sorted(megaT.KERNELS))
+def test_megaT_engines_match_mega12_and_reference(card, name):
+    params = dc.replace(TOY, name=f"{name}_k1_n512", n=8, N=512, k=1,
+                        bg_bits=8, levels=megaT.KERNELS[name])
+    rng = np.random.default_rng(12)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, layouts=("bsk_btjj", "bsk_btTc"),
+                            device=card)
+    cpu_tc = device_server_key(sk, layouts=("bsk_btTc",),
+                               device="cpu").bsk_btTc
+    assert torch.equal(dsk.bsk_btTc.cpu(), cpu_tc)  # built on the card
+    B = 37
+    ct = from_numpy_u32(rand_u32(rng, B, params.n + 1), card)
+    tp = bs.make_test_poly(params, device=card)
+    got = bs.blind_rotate_batch(dsk, ct, tp, engine=name)
+    assert torch.equal(got, bs.blind_rotate_batch(dsk, ct, tp,
+                                                  engine="mega12"))
+    for i in (0, B - 1):
+        np.testing.assert_array_equal(
+            to_numpy_u32(got[i]),
+            ref.blind_rotate(sk, to_numpy_u32(ct[i]),
+                             ref.make_test_poly(params)))

@@ -299,6 +299,14 @@ def test_unported_calls_raise(inputs, tmp_path):
         coord.shutdown()
 
 
+def test_config_maps_byte_aligned_engines():
+    """The byte-aligned kernels of the JAX package map to the port's own."""
+    assert {e: port_engine(e) for e in
+            ("pallas_mega16", "pallas_mega17", "pallas_mega15", "mega17")} \
+        == {"pallas_mega16": "mega16", "pallas_mega17": "mega17",
+            "pallas_mega15": "mega15", "mega17": "mega17"}
+
+
 def test_config_engine_names(tmp_path, monkeypatch):
     monkeypatch.delenv("HERDSMAN_ENGINE", raising=False)
     monkeypatch.delenv("WORKER_TYPE", raising=False)
@@ -308,7 +316,7 @@ def test_config_engine_names(tmp_path, monkeypatch):
         == {"pallas_bt": "bt", "pallas_fused": "bt_fused",
             "pallas_mega13": "mega13", "pallas_mega12": "mega12",
             "bt_fused": "bt_fused", "mega12": "mega12"}
-    for name in ("conv_i8", "gather_u32", "pallas_mega17"):
+    for name in ("conv_i8", "gather_u32", "pallas_mega11"):
         with pytest.raises(ConfigError, match="ROADMAP"):
             port_engine(name)
     cfg = load_config(str(ROOT / "template.yaml"))  # loads as it is
