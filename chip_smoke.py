@@ -6,7 +6,8 @@ l=3, key switch 2^2 x 12), and at the N=2048 byte-aligned sets
 STD128_SHORTINT_B8 (bg=2^8, l=3), STD128_SHORTINT_FAST (bg=2^8, l=2, key
 switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), with keys made from a
 seed.  The four N=2048 host keygens run in worker processes while the card
-runs the earlier paths.
+runs the earlier paths.  Ten kernel wrappers (eleven TPU kernel bodies)
+from six CUDA sources.
 
     python3 chip_smoke.py [--seed S]
 
@@ -48,6 +49,17 @@ Phases, in order; any failure raises and exits non-zero:
    ``bt_fused``, path C's jobs with the runner's load / exec / store split,
    and the kernel device time of a second fused job under
    ``torch.profiler``;
+9b. main path H, the j-major kernels of ``megaJ.cu`` at STD128_K2: path A's
+    gate batch on ``mega11``, ``mega8`` and ``mega7`` in turn (each key
+    built, used and freed), each kernel against its plain version
+    (tolerance 0) on the batch's rotation inputs at B = 2048, 256 and 9,
+    each output array-equal to path A's ``mega13`` output and decrypted
+    against the truth table, with times and peak memory; then each kernel
+    on random inputs and keys at B=9 at the geometries of STD128,
+    STD128_FAST and STD128_SHORTINT (n cut to 32 steps);
+9c. main path I: path C's job on a coordinator whose in-code config names
+    ``pallas_mega11``: COMPLETED with no retry, every row decrypted, frames
+    byte-equal to path C's on ``pallas_fused``;
 10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
     (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
     the card as ``bsk_btjj``; then the whole-rotation kernel ``mega12``
@@ -63,6 +75,10 @@ Phases, in order; any failure raises and exits non-zero:
 12. times of ``mega12`` per rotation at B=2048 (beside its bound and the
     plain version's time) and at D2's narrow width, D1 and D2 end to end
     with rotations/s, and the peak device memory of path D;
+12b. main path J: D1 on a ``ShortContext(engine="mega7")`` (the JAX
+    bench's ``mega12 -> mega7`` step) with path D's keys and seed, ``mega7``
+    against its plain version on its first rotation inputs, ciphertexts
+    equal to D1's on ``mega12``, with times and peak memory;
 13. main path E, the integer tier at STD128_SHORTINT_B8 on ``mega17``: a
     ``ShortContext`` that routes to ``mega17`` and carries the compact
     ``bsk_btTc`` key to the card; the kernel against its plain version
@@ -93,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import dataclasses
 import gc
 import json
 import logging
@@ -213,7 +230,7 @@ def main() -> int:
         from herdsman_tpu_torch.ops import gates, pbs, poly
         from herdsman_tpu_torch.ops.decomp import signed_decompose
         from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
-                                                    megaT)
+                                                    megaJ, megaT)
         from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
         from herdsman_tpu_torch.ops.server_key import (
             bt_tile, device_server_key, fit_engine, layouts_for_engine)
@@ -300,7 +317,10 @@ def main() -> int:
                 "rotate_decompose": rd.rotate_decompose,
                 "mega16": megaT.mega16_blind_rotate,
                 "mega17": megaT.mega17_blind_rotate,
-                "mega15": megaT.mega15_blind_rotate}
+                "mega15": megaT.mega15_blind_rotate,
+                "mega11": megaJ.mega11_blind_rotate,
+                "mega8": megaJ.mega8_blind_rotate,
+                "mega7": megaJ.mega7_blind_rotate}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -693,11 +713,153 @@ def main() -> int:
     print(f"memory: torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
 
+    def vs_plain(name, plain, p, acc0, a_t, key) -> tuple[int, float]:
+        """Kernel ``name`` against its plain version ``plain`` (tolerance 0)
+        on a path's first rotation inputs at B = 2048, 256 and 9:
+        (max_abs_err, plain ms at B=2048)."""
+        err, plain_ms = 0, None
+        for B in (B_MAIN, RADIX_VALUES, 9):
+            x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
+            got = counters[name](p, *x, key)
+            want, ms = timed_call(lambda: plain(p, *x, key))
+            err = max(err, abs_err(got, want))
+            check(torch.equal(got, want), f"{name} != plain version at "
+                  f"{p.name} B={B}")
+            plain_ms = plain_ms or ms
+        return err, plain_ms
+
+    def rotation_times(name, p, acc0, a_t, key, per_block) -> dict:
+        """Kernel ``name``'s ms per rotation at B=2048 (warm: it ran at
+        this shape in vs_plain) and at B=256, its bound, and the
+        ciphertexts per block ``per_block`` gives."""
+        _, ms = timed_call(lambda: counters[name](p, acc0, a_t, key))
+        narrow_ms = timed_ms(lambda: counters[name](
+            p, acc0[:RADIX_VALUES].contiguous(),
+            a_t[:, :RADIX_VALUES].contiguous(), key), reps=1)
+        ops, nbytes = bounds.rotation(p, B_MAIN, key.numel())
+        bound, by = bounds.bound_ms(ops, nbytes)
+        # the share of the integer lanes' issue rate its __dp4a use (4 MACs
+        # each, ops / 8 of them), its own ceiling short of tensor cores
+        dp4a = ops / 8 / bounds.PEAK_INT32_OPS / (ms / 1e3)
+        return {"ms": ms, "narrow_ms": narrow_ms, "bound_ms": bound,
+                "bound_by": by, "dp4a_share": dp4a,
+                "G": {B: per_block(p, B, dev)
+                      for B in (B_MAIN, RADIX_VALUES, 9)}}
+
+    def print_times(name, p, t, plain_ms) -> None:
+        print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
+              f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
+              f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.4f} ms "
+              f"bound ({t['bound_by']}), {t['dp4a_share']:.4f} of the "
+              f"integer lanes' dp4a rate; B={RADIX_VALUES} "
+              f"{t['narrow_ms']:.3f} ms; plain {plain_ms:.3f} ms at "
+              f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
+
+    # 9b. main path H: path A's gate batch on the j-major kernels of
+    # megaJ.cu, each key built, used and freed before the next -------------
+    errs_j = {name: 0 for name in megaJ.KERNELS}
+    res_h = {}
+    for name in ("mega11", "mega8", "mega7"):
+        check(fit_engine(name, P) == name,
+              f"fit_engine({name!r}, {P.name}) -> {fit_engine(name, P)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dsk_h, ingest_h_s = host_s(lambda: device_server_key(
+            sk, layouts=layouts_for_engine(name), device=dev))
+        key_h = getattr(dsk_h, megaJ.KEY_LAYOUTS[name])
+        err_h, plain_h_ms = vs_plain(name, megaJ.plain(name), P, acc0, a_t,
+                                     key_h)
+        errs_j[name] = max(errs_j[name], err_h)
+        reset_counts()
+        out_h, h_s = host_s(lambda: gates.gate_batch(dsk_h, batch,
+                                                     engine=name, device=dev))
+        counts_h = read_counts()
+        peak_h = torch.cuda.max_memory_allocated()
+        only(counts_h, (name,), f"main path H on {name}")
+        out_h_np = to_numpy_u32(out_h)
+        check(np.array_equal(out_h_np, out_np),
+              f"H: gate_batch on {name} != on mega13 (path A)")
+        check(np.array_equal(ref.lwe_decrypt_bool(ck, out_h_np), expect),
+              f"H: gate_batch on {name} decrypts wrong")
+        t = rotation_times(name, P, acc0, a_t, key_h,
+                           megaJ.ciphertexts_per_block)
+        res_h[name] = {"counts": counts_h, "plain_ms": plain_h_ms, **t}
+        print(f"main path H ({name}): keys to the card "
+              f"({megaJ.KEY_LAYOUTS[name]} {key_h.numel() / 2**30:.3f} GiB) "
+              f"{ingest_h_s:.1f} s; {name} == its plain version on the gate "
+              f"batch's rotation inputs at B in {[B_MAIN, RADIX_VALUES, 9]} "
+              f"(array equality, max_abs_err "
+              f"{err_h}); gate_batch of {B_MAIN} gates == path A's mega13 "
+              f"output and decrypts to the truth table; launches {counts_h}")
+        print_times(name, P, t, plain_h_ms)
+        print(f"time: main path H gate_batch B={B_MAIN} on {name} end to end "
+              f"{h_s:.3f} s = {B_MAIN / h_s:.1f} bootstraps/s {card}")
+        print(f"memory: path H on {name} torch.cuda.max_memory_allocated "
+              f"{peak_h / 2**30:.3f} GiB {card}")
+        del dsk_h, key_h, out_h
+    # each kernel on random keys at B=9 at three more geometries (n cut to 32
+    # steps: the step loop is the same at every n)
+    gen_j = torch.Generator(device=dev)
+    gen_j.manual_seed(args.seed + 5)
+    geoms = [dataclasses.replace(PARAM_SETS[g], n=32)
+             for g in ("std128", "std128_fast", "std128_shortint")]
+    for Gp in geoms:
+        HALF_g, R_g = Gp.N // 128, (Gp.k + 1) * Gp.levels
+        acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
+                              dtype=torch.int32, device=dev, generator=gen_j)
+        a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
+                            device=dev, generator=gen_j)
+        for name, (_, _, doubled, _) in megaJ.KERNELS.items():
+            key_g = torch.randint(
+                -128, 128, (Gp.n, 2 * HALF_g if doubled else HALF_g, R_g,
+                            128, (Gp.k + 1) * 512),
+                dtype=torch.int8, device=dev, generator=gen_j)
+            got = counters[name](Gp, acc_g, a_g, key_g)
+            want = megaJ.plain(name)(Gp, acc_g, a_g, key_g)
+            errs_j[name] = max(errs_j[name], abs_err(got, want))
+            check(torch.equal(got, want), f"{name} != plain version at "
+                  f"{Gp.name}'s geometry, B=9, random inputs")
+            del key_g
+    torch.cuda.empty_cache()
+    print(f"kernel vs plain: mega11, mega8, mega7 == their plain versions on "
+          f"random inputs and keys at B=9 at the geometries of "
+          f"{[g.name for g in geoms]} (n = 32; array equality, max_abs_err "
+          f"{errs_j})")
+
+    # 9c. main path I: path C's job on pallas_mega11 ------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as workdir:
+        res_i = path_c("pallas_mega11", workdir, profile=False)
+    peak_i = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    res_i_counts = res_i["counts"]
+    only(res_i_counts, ("mega11",), "path I on pallas_mega11")
+    for frame in ("out", "mid"):
+        check(res_i[frame] == runs["pallas_fused"][frame],
+              f"path I {frame} frame differs from path C's on pallas_fused")
+    job_i = res_i["job"]
+    load, exe, store = res_i["phases"]
+    print(f"main path I (pallas_mega11): {JOB_ROWS} rows in {JOB_PARTITIONS} "
+          f"partitions, map + PARALLEL reduce: COMPLETED, retries 0, "
+          f"{job_i.bootstraps_executed} bootstraps; all {JOB_ROWS} "
+          f"intermediate rows and the reduced row decrypt right; output and "
+          f"intermediate frames byte-equal to path C's on pallas_fused; "
+          f"launches {res_i['counts']}")
+    print(f"time: main path I job on pallas_mega11 wall "
+          f"{job_i.wall_time_s:.3f} s (host {res_i['host_s']:.3f} s), "
+          f"{job_i.bootstraps_executed} bootstraps = "
+          f"{job_i.bootstraps_per_sec:.1f} bootstraps/s; runner load "
+          f"{load:.3f} s, exec {exe:.3f} s, store {store:.3f} s, key "
+          f"ingest and the rest {job_i.wall_time_s - load - exe - store:.3f} "
+          f"s {card}")
+    print(f"memory: path I torch.cuda.max_memory_allocated "
+          f"{peak_i / 2**30:.3f} GiB {card}")
+
     # 10. path D setup: the integer tier at STD128_SHORTINT -----------------
     PS = PARAM_SETS["std128_shortint"]
     # path A-C's keys and inputs; the adder job and path C's jobs hold
     # STD128_K2 keys (3.4 GiB of bsk_bt each)
-    del dsk, key_q, full, d8_q, run, runs, r, job, job2, ka
+    del dsk, key_q, full, d8_q, run, runs, r, job, job2, ka, res_i, job_i
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -855,43 +1017,59 @@ def main() -> int:
           f"{RADIX_VALUES / d2_s:.2f} multiplies/s {card}")
     print(f"memory: path D torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
+    d1_out = r12.data  # path J's reference; r12 holds the mega12 context
     del short, key12, rctx, a, b, r12, x2, y2, acc0_d, a_t_d  # path D's
     d1_values = ((av * bv + av) % 4).tolist()
 
+    # 12b. main path J: D1 on mega7 (the JAX chain's mega12 -> mega7) ------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx7, ingest7_s = host_s(lambda: ShortContext(
+        PS, msg_bits=2, carry_bits=2, engine="mega7", keys=keys_d,
+        seed=args.seed, device=dev))
+    check(ctx7.engine == "mega7" and ctx7.dsk.bsk_btj is not None
+          and ctx7.dsk.bsk_btjj is None,
+          f"ShortContext(engine='mega7') at {PS.name} took engine "
+          f"{ctx7.engine}")
+    key7 = ctx7.dsk.bsk_btj
+    a7, b7 = ctx7.encrypt(av), ctx7.encrypt(bv)
+    acc0_j, a_t_j = bs.rotation_inputs(
+        PS, a7.data * m + b7.data,
+        pbs.lut_test_poly(PS, mul_t, ctx7.space_bits, device=dev))
+    err7, plain7_ms = vs_plain("mega7", megaJ.blind_rotate_plain_btj, PS,
+                               acc0_j, a_t_j, key7)
+    errs_j["mega7"] = max(errs_j["mega7"], err7)
+    reset_counts()
+    rot0 = ctx7.rotations
+    (r7, dec7), j_s = host_s(lambda: d1(ctx7, a7, b7))
+    counts_j = read_counts()
+    j_rot = ctx7.rotations - rot0
+    peak_j = torch.cuda.max_memory_allocated()
+    only(counts_j, ("mega7",), "main path J on mega7")
+    wrong = sum(x != y for x, y in zip(dec7, d1_values))
+    check(dec7 == d1_values, f"J: {wrong} of {B_MAIN} values decrypt wrong "
+          f"on mega7")
+    check(torch.equal(r7.data, d1_out), "J on mega7 != D1 on mega12")
+    res_j = {"counts": counts_j, "plain_ms": plain7_ms,
+             **rotation_times("mega7", PS, acc0_j, a_t_j, key7,
+                              megaJ.ciphertexts_per_block)}
+    print(f"main path J: ShortContext key ingest (fit_engine -> "
+          f"{ctx7.engine}, bsk_btj {key7.numel() / 2**30:.3f} GiB built on "
+          f"the card) {ingest7_s:.1f} s; mega7 == blind_rotate_plain_btj on "
+          f"the first rotation's inputs at B in "
+          f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+          f"{err7}); (a*b)+a over {B_MAIN} values: "
+          f"every value decrypts right and the ciphertexts equal D1's on "
+          f"mega12; {j_rot} rotations; launches {counts_j}")
+    print_times("mega7", PS, res_j, plain7_ms)
+    print(f"time: main path J (a*b)+a over {B_MAIN} values end to end "
+          f"{j_s:.3f} s on mega7 = {j_rot / j_s:.1f} rotations/s, {d1_s:.3f} "
+          f"s on mega12 (D1) {card}")
+    print(f"memory: path J on mega7 torch.cuda.max_memory_allocated "
+          f"{peak_j / 2**30:.3f} GiB {card}")
+    del ctx7, key7, a7, b7, r7, d1_out, acc0_j, a_t_j
+
     # 13-16. paths E, F, G: the byte-aligned kernels megaT.cu --------------
-    def megaT_vs_plain(name, p, acc0, a_t, key) -> tuple[int, float]:
-        """Kernel ``name`` against its plain version (tolerance 0) on a
-        path's first rotation inputs at B = 2048, 256 and 9: (max_abs_err,
-        plain ms at B=2048)."""
-        err, plain_ms = 0, None
-        for B in (B_MAIN, RADIX_VALUES, 9):
-            x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
-            got = counters[name](p, *x, key)
-            want, ms = timed_call(lambda: megaT.blind_rotate_plain_btTc(
-                p, *x, key))
-            err = max(err, abs_err(got, want))
-            check(torch.equal(got, want), f"{name} != plain version at "
-                  f"{p.name} B={B}")
-            plain_ms = plain_ms or ms
-        return err, plain_ms
-
-    def megaT_times(name, p, acc0, a_t, key) -> dict:
-        """Kernel ``name``'s ms per rotation at B=2048 (warm: it ran at
-        this shape in megaT_vs_plain) and at B=256, and its bound."""
-        _, ms = timed_call(lambda: counters[name](p, acc0, a_t, key))
-        narrow_ms = timed_ms(lambda: counters[name](
-            p, acc0[:RADIX_VALUES].contiguous(),
-            a_t[:, :RADIX_VALUES].contiguous(), key), reps=1)
-        ops, nbytes = bounds.rotation(p, B_MAIN, key.numel())
-        bound, by = bounds.bound_ms(ops, nbytes)
-        # the share of the integer lanes' issue rate its __dp4a use (4 MACs
-        # each, ops / 8 of them), its own ceiling short of tensor cores
-        dp4a = ops / 8 / bounds.PEAK_INT32_OPS / (ms / 1e3)
-        return {"ms": ms, "narrow_ms": narrow_ms, "bound_ms": bound,
-                "bound_by": by, "dp4a_share": dp4a,
-                "G": {B: megaT.ciphertexts_per_block(p, B, dev)
-                      for B in (B_MAIN, RADIX_VALUES, 9)}}
-
     def integer_path(label: str, pset: str, engine: str) -> dict:
         """Main path E or G: D1's (a*b)+a over the same 2048 values at
         ``pset`` on ``engine``, then on mega12 with the same keys and
@@ -912,7 +1090,8 @@ def main() -> int:
         acc0_x, a_t_x = bs.rotation_inputs(
             PX, xa.data * m + xb.data,
             pbs.lut_test_poly(PX, mul_t, ctx.space_bits, device=dev))
-        err, plain_ms = megaT_vs_plain(engine, PX, acc0_x, a_t_x, key)
+        err, plain_ms = vs_plain(engine, megaT.blind_rotate_plain_btTc, PX,
+                                 acc0_x, a_t_x, key)
         reset_counts()
         rot0 = ctx.rotations
         (r, dec), path_s = host_s(lambda: d1(ctx, xa, xb))
@@ -937,7 +1116,8 @@ def main() -> int:
               f"{label} on mega12 != {label} on {engine}")
         del ctx12, ya, yb, r12x
         torch.cuda.empty_cache()
-        t = megaT_times(engine, PX, acc0_x, a_t_x, key)
+        t = rotation_times(engine, PX, acc0_x, a_t_x, key,
+                           megaT.ciphertexts_per_block)
         print(f"main path {label}: {PX.name} host keygen {keygen_x_s:.1f} s "
               f"(worker process); ShortContext key ingest (fit_engine -> "
               f"{ctx.engine}, bsk_btTc {key.numel() / 2**20:.1f} MiB built on "
@@ -987,8 +1167,8 @@ def main() -> int:
                               from_numpy_u32(cf2, dev))
     acc0_f, a_t_f = bs.rotation_inputs(PF, lin_f,
                                        bs.make_test_poly(PF, device=dev))
-    err16, plain16_ms = megaT_vs_plain("mega16", PF, acc0_f, a_t_f,
-                                       dsk_f.bsk_btTc)
+    err16, plain16_ms = vs_plain("mega16", megaT.blind_rotate_plain_btTc, PF,
+                                 acc0_f, a_t_f, dsk_f.bsk_btTc)
     reset_counts()
     out_f, f_s = host_s(lambda: gates.gate_batch(dsk_f, batch_f,
                                                  engine="mega16", device=dev))
@@ -1010,7 +1190,8 @@ def main() -> int:
     counts_f13 = read_counts()
     only(counts_f13, ("mega13",), "main path F on mega13")
     check(torch.equal(out_f13, out_f), "F on mega13 != F on mega16")
-    t_f = megaT_times("mega16", PF, acc0_f, a_t_f, dsk_f.bsk_btTc)
+    t_f = rotation_times("mega16", PF, acc0_f, a_t_f, dsk_f.bsk_btTc,
+                         megaT.ciphertexts_per_block)
     res_f = {"counts": counts_f, "counts13": counts_f13, "err": err16,
              "plain_ms": plain16_ms, **t_f}
     print(f"main path F: {PF.name} host keygen {keygen_f_s:.1f} s (worker "
@@ -1049,7 +1230,12 @@ def main() -> int:
                "F_gate_batch_fast": res_f["counts"],
                "F_gate_batch_fast_on_mega13": res_f["counts13"],
                "G_shortint_l4": res_g["counts"],
-               "G_shortint_l4_on_mega12": res_g["counts12"]}
+               "G_shortint_l4_on_mega12": res_g["counts12"],
+               "H_gate_batch_mega11": res_h["mega11"]["counts"],
+               "H_gate_batch_mega8": res_h["mega8"]["counts"],
+               "H_gate_batch_mega7": res_h["mega7"]["counts"],
+               "I_job_pallas_mega11": res_i_counts,
+               "J_shortint_mega7": res_j["counts"]}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
@@ -1129,6 +1315,27 @@ def main() -> int:
             "library_ms": None,
             "ms_b256": res["narrow_ms"],
         })
+    # mega11 and mega8 timed at STD128_K2 (path H), mega7 at STD128_SHORTINT
+    # (path J), beside its STD128_K2 time
+    for name, line, res in (("mega11", 449, res_h["mega11"]),
+                            ("mega8", 236, res_h["mega8"]),
+                            ("mega7", 84, res_j)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "herdsman_tpu_torch/csrc/megaJ.cu",
+            "replaces": f"herdsman_tpu/ops/pallas/mega.py:{line}",
+            **launches(name),
+            "matches_plain": errs_j[name] == 0,
+            "max_abs_err": errs_j[name],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "ms_b256": res["narrow_ms"],
+        })
+    kernels[-1]["ms_std128_k2"] = res_h["mega7"]["ms"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

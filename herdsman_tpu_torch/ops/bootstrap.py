@@ -16,7 +16,12 @@ through one of three kinds of engine:
   ``csrc/mega12.cu`` against the ``bsk_btjj`` key; ``mega16``, ``mega17``
   and ``mega15`` (the JAX package's engines of the same names, at the
   byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
-  ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key.
+  ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key; ``mega11``,
+  ``mega8`` and ``mega7`` (the JAX package's engines of the same names,
+  any gadget) are ``csrc/megaJ.cu`` against the j-major block-Toeplitz
+  keys ``bsk_btj2j`` and ``bsk_btj2`` (doubled window, one contraction
+  per column tile) and ``bsk_btj`` (single width, the negated run
+  subtracted).
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -44,7 +49,7 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.decomp import signed_decompose
-from herdsman_tpu_torch.ops.kernels import bt, mega12, mega13, megaT
+from herdsman_tpu_torch.ops.kernels import bt, mega12, mega13, megaJ, megaT
 from herdsman_tpu_torch.ops.kernels.rotate_decompose import rotate_decompose
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey, bt_tile
 from herdsman_tpu_torch.ops.u32 import resolve_device, srl, to_device, u32_const
@@ -101,6 +106,9 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega16": (megaT.mega16_blind_rotate, "bsk_btTc"),
     "mega17": (megaT.mega17_blind_rotate, "bsk_btTc"),
     "mega15": (megaT.mega15_blind_rotate, "bsk_btTc"),
+    "mega11": (megaJ.mega11_blind_rotate, "bsk_btj2j"),
+    "mega8": (megaJ.mega8_blind_rotate, "bsk_btj2"),
+    "mega7": (megaJ.mega7_blind_rotate, "bsk_btj"),
 }
 
 

@@ -39,71 +39,97 @@ def smem_bytes(p: TFHEParams, G: int) -> int:
     return G * ((p.k + 1) * p.N * 4 + R * p.N + 4)
 
 
-def check_params(p: TFHEParams) -> None:
-    """Raise on a parameter set the kernel does not take: k+1 in (2, 3, 5),
-    N a power of two in [128, 2048], bg_bits <= 8 (int8 digits), and one
-    ciphertext's accumulator and digits within a block's shared memory."""
+def check_params(p: TFHEParams, name: str = "mega12") -> None:
+    """Raise on a parameter set the kernel ``name`` (``mega12``, or one of
+    ``megaJ.cu``'s, which share its block layout) does not take: k+1 in (2,
+    3, 5), N a power of two in [128, 2048], bg_bits <= 8 (int8 digits), and
+    one ciphertext's accumulator and digits within a block's shared
+    memory."""
     if p.k + 1 not in (2, 3, 5):
-        raise ValueError(f"mega12 takes k+1 in (2, 3, 5), not {p.k + 1} "
+        raise ValueError(f"{name} takes k+1 in (2, 3, 5), not {p.k + 1} "
                          f"({p.name})")
     if p.N & (p.N - 1) or not P <= p.N <= 2048:
-        raise ValueError(f"mega12 takes N a power of two in [{P}, 2048], "
+        raise ValueError(f"{name} takes N a power of two in [{P}, 2048], "
                          f"not {p.N} ({p.name})")
     if p.bg_bits > 8:
-        raise ValueError(f"mega12 takes bg_bits <= 8, not {p.bg_bits} "
+        raise ValueError(f"{name} takes bg_bits <= 8, not {p.bg_bits} "
                          f"({p.name})")
     if smem_bytes(p, 1) > SMEM_LIMIT:
-        raise ValueError(f"mega12 at {p.name} needs {smem_bytes(p, 1)} "
+        raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} "
                          f"bytes of shared memory per ciphertext, over "
                          f"{SMEM_LIMIT}")
 
 
-def _check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
-                key: torch.Tensor) -> None:
+def check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
+               key: torch.Tensor, layout: str = "bsk_btjj",
+               groups: int | None = None) -> None:
+    """Raise unless acc0 [B, k+1, N] and a_t [n, B] are int32, the key
+    ``layout`` int8 [n, groups, R, P, (k+1)*4*P] (groups HALF by default),
+    all contiguous and on acc0's device, and B >= 1."""
     HALF = p.N // P
     R = (p.k + 1) * p.levels
     B = acc0.shape[0] if acc0.dim() == 3 else -1
     shapes = {"acc0": (acc0, I32, (B, p.k + 1, p.N)),
               "a_t": (a_t, I32, (p.n, B)),
-              "bsk_btjj": (key, I8, (p.n, HALF, R, P, (p.k + 1) * 4 * P))}
-    for name, (t, dtype, shape) in shapes.items():
+              layout: (key, I8, (p.n, groups or HALF, R, P,
+                                 (p.k + 1) * 4 * P))}
+    for what, (t, dtype, shape) in shapes.items():
         if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+            raise TypeError(f"{what} must be {dtype}, not {t.dtype}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+            raise ValueError(f"{what} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{what} must be contiguous")
         if t.device != acc0.device:
-            raise ValueError(f"{name} is on {t.device}, acc0 on {acc0.device}")
+            raise ValueError(f"{what} is on {t.device}, acc0 on {acc0.device}")
     if B < 1:
         raise ValueError("empty batch")
 
 
-def pack_digits(p: TFHEParams, rot_minus_acc: torch.Tensor) -> torch.Tensor:
+def pack_digits(p: TFHEParams, rot_minus_acc: torch.Tensor,
+                descending: bool = True) -> torch.Tensor:
     """Balanced digits of X^a acc - acc [B, k+1, N], packed once per step as
     the JAX kernel packs them (``mega.py:696-701``): [B, HALF*R*P] int8,
     column block (HALF-1-sub)*R + r holding coefficients sub*P .. sub*P+P-1
-    of GGSW row r = c*levels + level (sub DESCENDING, r minor)."""
+    of GGSW row r = c*levels + level (sub DESCENDING, r minor).  With
+    ``descending`` false, block sub*R + r (sub ascending, the doubled-window
+    kernels' order, ``mega.py:523-526``)."""
     B = rot_minus_acc.shape[0]
     HALF = p.N // P
     R = (p.k + 1) * p.levels
     digits = signed_decompose(rot_minus_acc, p.bg_bits, p.levels)
     d = digits.permute(0, 1, 3, 2).reshape(B, R, HALF, P).to(I8)
-    return d.flip(2).transpose(1, 2).reshape(B, HALF * R * P)
+    if descending:
+        d = d.flip(2)
+    return d.transpose(1, 2).reshape(B, HALF * R * P)
+
+
+def recombine(total: torch.Tensor, kp1: int, jcq: bool) -> torch.Tensor:
+    """One column tile's int32 limb partials [B, (k+1)*4*P], columns (j, c,
+    q) with ``jcq`` or (c, j, q) without, to u32 [B, k+1, P]: sum_j
+    partial_j << 8j mod 2^32 (``mega.py:528-540`` and ``:150-161``)."""
+    B = total.shape[0]
+    if jcq:
+        limbs = total.reshape(B, 4, kp1, P).permute(0, 2, 3, 1)
+    else:
+        limbs = total.reshape(B, kp1, 4, P).permute(0, 1, 3, 2)
+    return poly.from_i32_limb_partials(limbs)
 
 
 def blind_rotate_plain_btjj(params: TFHEParams, acc0: torch.Tensor,
-                            a_t: torch.Tensor,
-                            bsk_btjj: torch.Tensor) -> torch.Tensor:
+                            a_t: torch.Tensor, bsk_btjj: torch.Tensor,
+                            jcq: bool = True) -> torch.Tensor:
     """The same rotation in plain PyTorch, either device, reading the same
     ``bsk_btjj`` key.  Per step: rotate, decompose and pack the digits
     (``pack_digits``); per column tile ct, the two-dot contraction of
     ``_ep_column_total_jmajor_packed`` (``ops/pallas/blind_rotate.py:129``)
     through ``torch._int_mm``: the digits' tail against stored blocks
     0..ct, minus their head against the negated blocks ct+1..HALF-1; then
-    the limb-major recombine (``mega.py:703-715``) into the accumulator."""
+    the limb-major recombine (``mega.py:703-715``) into the accumulator.
+    With ``jcq`` false the key's columns are (c, j, q): the ``bsk_btj``
+    key of ``megaJ.mega7_blind_rotate``."""
     p = params
-    _check_args(p, acc0, a_t, bsk_btjj)
+    check_args(p, acc0, a_t, bsk_btjj)
     B, kp1, N = acc0.shape
     HALF = N // P
     R = kp1 * p.levels
@@ -120,8 +146,7 @@ def blind_rotate_plain_btjj(params: TFHEParams, acc0: torch.Tensor,
             if split:
                 total = total - int8_matmul(D[:, :split].contiguous(),
                                             key[(ct + 1) * R * P:])
-            limbs = total.reshape(B, 4, kp1, P).permute(0, 2, 3, 1)
-            tiles.append(poly.from_i32_limb_partials(limbs))  # [B, k+1, P]
+            tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
         acc = acc + torch.cat(tiles, dim=-1)
     return acc
 
@@ -177,7 +202,7 @@ def mega12_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     CUDA tensors go through the kernel, CPU tensors through
     ``blind_rotate_plain_btjj``."""
     check_params(params)
-    _check_args(params, acc0, a_t, bsk_btjj)
+    check_args(params, acc0, a_t, bsk_btjj)
     if acc0.device.type == "cuda":
         return _launch(params, acc0, a_t, bsk_btjj)
     if acc0.device.type == "cpu":

@@ -1,0 +1,189 @@
+"""Whole-rotation blind-rotation kernels against the j-major block-Toeplitz
+keys (``csrc/megaJ.cu``), and their plain PyTorch versions.
+
+The three kernels compute the GINX rotation of ``mega12`` at any gadget
+(bg_bits <= 8, any levels) and keep the contract of the JAX package's
+wrappers they replace; they differ from ``mega12`` and from each other in
+the key they read:
+
+- ``mega11_blind_rotate``: ``herdsman_tpu/ops/pallas/mega.py::
+  _mega11_kernel``, the doubled window ``bsk_btj2j`` with limb-major
+  columns (j, c, q);
+- ``mega8_blind_rotate``: ``mega.py::_mega8_kernel``, the doubled window
+  ``bsk_btj2`` with columns (c, j, q);
+- ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single-width
+  ``bsk_btj`` with columns (c, j, q).
+
+acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
+accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
+[n, 2*HALF, R, P, (k+1)*4*P] holds, at group g, diagonal block (HALF-1-g)
+mod 2*HALF, the blocks past HALF negated, so column tile ct's whole
+contraction is one product of the step's digits (sub ascending, r minor)
+with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
+single-width key contracts the negated run apart and subtracts it
+(``_ep_column_total_jmajor_packed``), as ``mega12`` does.
+
+On a CUDA tensor each wrapper launches its kernel (one launch per
+rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
+``blind_rotate_plain_btj2`` or ``blind_rotate_plain_btj``.  The source
+note in ``csrc/megaJ.cu`` gives the kernels' design and bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from herdsman_tpu_torch.core.params import TFHEParams
+from herdsman_tpu_torch.ops import poly
+from herdsman_tpu_torch.ops.kernels import _build
+# the kernels share mega12's block layout, so they take the same sets:
+# check_params(p, name) raises on any other
+from herdsman_tpu_torch.ops.kernels.mega12 import (P, blind_rotate_plain_btjj,
+                                                   check_args, check_params,
+                                                   pack_digits, recombine)
+from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
+
+# kernel -> (its variant number in csrc/megaJ.cu, the key layout it reads,
+# doubled window, limb-major columns)
+KERNELS = {"mega11": (11, "bsk_btj2j", True, True),
+           "mega8": (8, "bsk_btj2", True, False),
+           "mega7": (7, "bsk_btj", False, False)}
+KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
+
+
+def _check_args(p: TFHEParams, name: str, acc0: torch.Tensor,
+                a_t: torch.Tensor, key: torch.Tensor) -> None:
+    _, layout, doubled, _ = KERNELS[name]
+    check_args(p, acc0, a_t, key, layout,
+               2 * p.N // P if doubled else p.N // P)
+
+
+def blind_rotate_plain_btj2(params: TFHEParams, acc0: torch.Tensor,
+                            a_t: torch.Tensor, key: torch.Tensor,
+                            jcq: bool) -> torch.Tensor:
+    """The rotation of ``mega11`` (``jcq``: key ``bsk_btj2j``) or ``mega8``
+    (key ``bsk_btj2``) in plain PyTorch, either device.  Per step: rotate,
+    decompose and pack the digits sub ascending (``pack_digits``); per
+    column tile ct one ``torch._int_mm`` of all the digits with the window
+    of groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``, ``:341-345``);
+    then the recombine of the key's column order into the accumulator."""
+    p = params
+    _check_args(p, "mega11" if jcq else "mega8", acc0, a_t, key)
+    B, kp1, N = acc0.shape
+    HALF = N // P
+    R = kp1 * p.levels
+    acc = acc0
+    for i in range(p.n):
+        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
+        D = pack_digits(p, rot - acc, descending=False)
+        window = key[i].reshape(2 * HALF * R * P, kp1 * 4 * P)
+        tiles = []
+        for ct in range(HALF):
+            o = (HALF - 1 - ct) * R * P
+            total = int8_matmul(D, window[o:o + HALF * R * P])
+            tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
+        acc = acc + torch.cat(tiles, dim=-1)
+    return acc
+
+
+def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
+                           a_t: torch.Tensor,
+                           bsk_btj: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``mega7`` in plain PyTorch, either device: the
+    two-dot of ``_ep_column_total_jmajor_packed`` over the single-width
+    ``bsk_btj`` key, then the per-polynomial recombine of its (c, j, q)
+    columns (``mega.py:150-161``).  ``mega12``'s plain version with the
+    other column order."""
+    return blind_rotate_plain_btjj(params, acc0, a_t, bsk_btj, jcq=False)
+
+
+def plain(name: str):
+    """The plain version of kernel ``name``: fn(params, acc0, a_t, key)."""
+    if name == "mega7":
+        return blind_rotate_plain_btj
+    return functools.partial(blind_rotate_plain_btj2, jcq=KERNELS[name][3])
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/megaJ.cu`` with its C signatures declared."""
+    lib = _build.load("megaJ")
+    lib.megaJ_blind_rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.megaJ_blind_rotate.restype = ctypes.c_int
+    lib.megaJ_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
+    lib.megaJ_ciphertexts_per_block.restype = ctypes.c_int
+    lib.megaJ_error_string.argtypes = [ctypes.c_int]
+    lib.megaJ_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ciphertexts_per_block(p: TFHEParams, B: int,
+                          device: torch.device) -> int:
+    """The G the kernels pick for a rotation of B ciphertexts at ``p`` on
+    the card ``device`` (0 where they take none)."""
+    return _lib().megaJ_ciphertexts_per_block(
+        B, p.N, p.k + 1, (p.k + 1) * p.levels, _sms(device))
+
+
+def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
+            a_t: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    check_params(p, name)
+    _check_args(p, name, acc0, a_t, key)
+    if acc0.device.type == "cpu":
+        return plain(name)(p, acc0, a_t, key)
+    if acc0.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
+    lib = _lib()
+    out = torch.empty_like(acc0)
+    with torch.cuda.device(acc0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.megaJ_blind_rotate(
+            KERNELS[name][0], acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(),
+            out.data_ptr(), acc0.shape[0], p.n, p.N, p.k + 1, p.bg_bits,
+            p.levels, _sms(acc0.device), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.megaJ_error_string(err).decode())
+    wrapper.launches += 1
+    return out
+
+
+def mega11_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                        a_t: torch.Tensor,
+                        bsk_btj2j: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation against the doubled limb-major window: acc0
+    [B, k+1, N] and a_t [n, B] (int32 carriers), bsk_btj2j int8 [n,
+    2*HALF, R, P, (k+1)*4*P] -> acc [B, k+1, N].  CUDA tensors go through
+    the kernel, CPU tensors through ``blind_rotate_plain_btj2``."""
+    return _rotate("mega11", mega11_blind_rotate, params, acc0, a_t,
+                   bsk_btj2j)
+
+
+def mega8_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btj2: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation against the doubled window with (c, j, q)
+    columns; the contract of ``mega11_blind_rotate``."""
+    return _rotate("mega8", mega8_blind_rotate, params, acc0, a_t, bsk_btj2)
+
+
+def mega7_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btj: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation against the single-width ``bsk_btj`` int8 [n,
+    HALF, R, P, (k+1)*4*P] (two runs, the negated one subtracted); CPU
+    tensors go through ``blind_rotate_plain_btj``."""
+    return _rotate("mega7", mega7_blind_rotate, params, acc0, a_t, bsk_btj)
+
+
+mega11_blind_rotate.launches = 0
+mega8_blind_rotate.launches = 0
+mega7_blind_rotate.launches = 0

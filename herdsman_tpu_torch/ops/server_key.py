@@ -26,16 +26,39 @@ once, into:
                                        STD128_K2, so it is built on the
                                        device in step chunks and only for an
                                        engine that reads it.
-- ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
+- ``bsk_btj``   int8  [n, HALF, R, P, (k+1)*4*P]
                                        the same blocks step-major by stored
-                                       diagonal block, with limb-major
+                                       diagonal block (``j_major``), columns
+                                       (c, j, q): the key of the JAX
+                                       package's ``pallas_mega7``
+                                       (``_block_toeplitz_layout_device(...,
+                                       j_major=True)``), read by
+                                       ``csrc/megaJ.cu``.  As big as
+                                       ``bsk_bt``, built the same way.
+- ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
+                                       as ``bsk_btj`` with limb-major
                                        columns (j, c, q): the key of the JAX
                                        package's ``pallas_mega12``
-                                       (``_block_toeplitz_layout_device(...,
-                                       j_major=True, col_order="jcq")``),
-                                       read by ``csrc/mega12.cu``.  As big
-                                       as ``bsk_bt``: 9.0 GiB at
-                                       STD128_SHORTINT, built the same way.
+                                       (``..., j_major=True,
+                                       col_order="jcq"``), read by
+                                       ``csrc/mega12.cu``.  As big as
+                                       ``bsk_bt``: 9.0 GiB at
+                                       STD128_SHORTINT.
+- ``bsk_btj2``  int8  [n, 2*HALF, R, P, (k+1)*4*P]
+- ``bsk_btj2j`` int8  [n, 2*HALF, R, P, (k+1)*4*P]
+                                       the doubled window of the JAX
+                                       package's ``pallas_mega8`` and
+                                       ``pallas_mega11`` (``...,
+                                       windowed=True``, col_order "cjq" and
+                                       "jcq"), read by ``csrc/megaJ.cu``:
+                                       group g holds diagonal block (HALF-1-
+                                       g) mod 2*HALF, the negated blocks
+                                       taken from ext(p)[t+N] = -ext(p)[t],
+                                       so column tile ct's whole contraction
+                                       is groups [HALF-1-ct, 2*HALF-1-ct).
+                                       Twice ``bsk_bt``: 6.75 GiB at
+                                       STD128_K2, 18.0 GiB at
+                                       STD128_SHORTINT.
 - ``bsk_btTc``  int8  [n, k+1, k+1, 4, row_bytes]
                                        the compact step key of the
                                        byte-aligned gadget (bg = 2^8, levels
@@ -68,17 +91,18 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaT
+from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btjj", "bsk_btTc")
+LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btj2",
+           "bsk_btj2j", "bsk_btTc")
 DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
 ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btjj", "bt": "bsk_bt",
                   "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
                   "mega16": "bsk_btTc", "mega17": "bsk_btTc",
-                  "mega15": "bsk_btTc"}
+                  "mega15": "bsk_btTc", **megaJ.KEY_LAYOUTS}
 
 # device memory the key layouts of one session may take: half of an H100's
 # 80 GB, leaving the rest to ciphertext batches and other sessions
@@ -96,7 +120,10 @@ class DeviceServerKey:
     bsk: torch.Tensor | None = None     # int32 [n, R, k+1, N]
     bsk_ext: torch.Tensor | None = None  # int32 [n, R, k+1, 2N]
     bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
+    bsk_btj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btjj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
+    bsk_btj2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
+    bsk_btj2j: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
 
     @property
@@ -119,38 +146,52 @@ def bt_tile(params: TFHEParams) -> tuple[int, int]:
 
 
 def bt_key_bytes(p: TFHEParams) -> int:
-    """Bytes of the ``bsk_bt`` layout at ``p`` (and of ``bsk_btjj``)."""
+    """Bytes of the ``bsk_bt`` layout at ``p`` (and of ``bsk_btj`` and
+    ``bsk_btjj``; the doubled ``bsk_btj2`` and ``bsk_btj2j`` take twice
+    as many)."""
     P, _ = bt_tile(p)
     return p.n * (p.k + 1) * p.levels * (p.k + 1) * 4 * p.N * P
 
 
 def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
-                          jcq: bool = False) -> torch.Tensor:
+                          j_major: bool = False, jcq: bool = False,
+                          windowed: bool = False) -> torch.Tensor:
     """``bsk_bt`` int8 [n, R, HALF, P, (k+1)*4*P] from the int32 ``bsk``
     [n, R, k+1, N], on ``bsk``'s device, a chunk of steps at a time: one
     gather of ext(bsk) and one limb split per chunk, so the working set
     stays near 256 MiB whatever the key's size.  Equal to the JAX package's
-    ``_block_toeplitz_layout`` (tests/test_torch_bt.py).  With ``jcq`` the
-    same blocks as ``bsk_btjj`` [n, HALF, R, P, (k+1)*4*P], columns (j, c,
-    q): the JAX ``_block_toeplitz_layout_device(..., j_major=True,
-    col_order="jcq")`` (tests/test_torch_pbs.py)."""
+    ``_block_toeplitz_layout`` (tests/test_torch_bt.py).  Step-major by
+    stored group ([n, groups, R, P, (k+1)*4*P]) with ``j_major``, ``jcq``
+    or ``windowed``: the JAX ``_block_toeplitz_layout_device(...,
+    j_major=True)``; ``jcq`` orders the columns (j, c, q) (``col_order=
+    "jcq"``); ``windowed`` stores 2*HALF groups, group g diagonal block
+    (HALF-1-g) mod 2*HALF (``windowed=True``).  Blocks HALF..2*HALF-1 are
+    the negated ones: ext(p)[t+N] = -ext(p)[t] (tests/test_torch_pbs.py,
+    tests/test_torch_megaJ.py)."""
     n, R, kp1, N = bsk.shape
     P, HALF = bt_tile(p)
-    m = torch.arange(HALF, device=bsk.device)[:, None, None]
+    M = 2 * HALF if windowed else HALF
+    m = torch.arange(M, device=bsk.device)[:, None, None]
+    if windowed:
+        m = (HALF - 1 - m) % (2 * HALF)
     row = torch.arange(P, device=bsk.device)[None, :, None]
     q = torch.arange(P, device=bsk.device)[None, None, :]
-    idx = (P * m + q - row) % (2 * N)                # [HALF, P(row), P(q)]
-    shape = (HALF, R) if jcq else (R, HALF)
+    idx = (P * m + q - row) % (2 * N)                # [M, P(row), P(q)]
+    step_major = j_major or jcq or windowed
+    shape = (M, R) if step_major else (R, M)
     out = torch.empty(n, *shape, P, kp1 * 4 * P, dtype=torch.int8,
                       device=bsk.device)
-    # limbs [c, R, k+1, HALF, P(row), P(q), 4] -> (R, HALF, row, c, j, q)
-    # or, limb-major, (HALF, R, row, j, c, q)
-    order = (0, 3, 1, 4, 6, 2, 5) if jcq else (0, 1, 3, 4, 2, 6, 5)
-    step = max(1, _BT_CHUNK_BYTES // (R * kp1 * N * P * 4 * 8))
+    # limbs [c, R, k+1, M, P(row), P(q), 4] -> (R, M, row, c, j, q), or
+    # step-major (M, R, row, c, j, q), or limb-major (M, R, row, j, c, q)
+    if not step_major:
+        order = (0, 1, 3, 4, 2, 6, 5)
+    else:
+        order = (0, 3, 1, 4, 6, 2, 5) if jcq else (0, 3, 1, 4, 2, 6, 5)
+    step = max(1, _BT_CHUNK_BYTES // (R * kp1 * M * P * P * 4 * 8))
     for i0 in range(0, n, step):
         i1 = min(i0 + step, n)
         blocks = poly.negacyclic_extend(bsk[i0:i1])[..., idx]
-        limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, HALF, P, P, 4]
+        limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, M, P, P, 4]
         out[i0:i1] = limbs.permute(*order).reshape(
             i1 - i0, *shape, P, kp1 * 4 * P)
     return out
@@ -195,28 +236,37 @@ def layouts_for_engine(engine: str) -> tuple[str, ...]:
 def fit_engine(engine: str, params: TFHEParams,
                budget_bytes: int = KEY_BUDGET_BYTES) -> str:
     """The engine that serves ``params`` on the card, starting from
-    ``engine``: the block-Toeplitz engines (``bt``, ``bt_fused``, and
-    ``mega12``, whose kernel must also take the set) while their key
-    (``bsk_bt`` or ``bsk_btjj``, the same size) fits ``budget_bytes``, else
-    ``mega13`` (raw key, 27 MiB at STD128_K2); and ``mega13`` where its
-    kernel takes the parameter set, else ``bt_fused``; and ``mega16`` /
-    ``mega17`` / ``mega15`` where the set has their own byte-aligned gadget
-    (bg_bits 8 and levels 2 / 3 / 4) and their compact ``bsk_btTc`` key
-    fits ``budget_bytes``, else whatever a ``mega12`` request gets.  The
-    coordinator and the integer tier build every key through this, so none
-    of them can run the card out of memory at key ingest.
+    ``engine`` (the port of ``herdsman_tpu/ops/server_key.py:623-699``,
+    with the port's budget):
 
-    Two routes differ from the JAX package's ``fit_engine``
-    (``herdsman_tpu/ops/server_key.py:623-699``), with equal outputs:
+    - ``bt``, ``bt_fused``, and ``mega12`` / ``mega7``, whose kernel must
+      also take the set, while their single-width key (``bsk_bt``,
+      ``bsk_btjj``, ``bsk_btj``: the same size) fits ``budget_bytes``;
+      else ``mega13``;
+    - ``mega11`` / ``mega8`` while their doubled key (``bsk_btj2j`` /
+      ``bsk_btj2``) fits and their kernel takes the set; else whatever a
+      ``mega12`` request gets;
+    - ``mega16`` / ``mega17`` / ``mega15`` where the set has their own
+      byte-aligned gadget (bg_bits 8 and levels 2 / 3 / 4) and their
+      compact ``bsk_btTc`` key fits; else ``mega11`` where its doubled key
+      fits and its kernel takes the set; else whatever a ``mega12`` request
+      gets;
+    - ``mega13`` where its kernel takes the set, else ``bt_fused``.
+
+    The coordinator and the integer tier build every key through this, so
+    none of them can run the card out of memory at key ingest.
+
+    Two routes differ from the JAX package's, with equal outputs:
 
     - ``mega13`` stays ``mega13`` wherever its kernel takes the set, also
       at STD128_SHORTINT_FAST, where the JAX package moves
       ``pallas_mega13`` to ``pallas_mega16`` because its extended key would
       be 18.5 GiB; the port's ``mega13`` reads the raw 50 MB key.
-    - Where the byte-aligned engines do not serve, the JAX package takes
-      ``pallas_mega11`` if its doubled key fits and ``pallas_mega12``
-      otherwise; ``mega11`` is not ported yet (ROADMAP queue 2), so the
-      port takes ``mega12``'s route."""
+    - The block-Toeplitz kernels of the port tile N by 128 columns, so at a
+      set with N < 128 (TOY) a ``mega12``, ``mega7``, ``mega8`` or
+      ``mega11`` request, and a byte-aligned one that would fall back to
+      them, goes to ``mega13``, where the JAX package (which tiles by
+      min(128, N)) keeps the block-Toeplitz engine."""
 
     def takes(check) -> bool:
         try:
@@ -226,25 +276,33 @@ def fit_engine(engine: str, params: TFHEParams,
         return True
 
     bt_fits = bt_key_bytes(params) <= budget_bytes
-    if engine in megaT.KERNELS:
-        if (takes(lambda p: megaT.check_params(p, engine))
+    route = engine
+    if route in megaT.KERNELS:
+        if (takes(lambda p: megaT.check_params(p, route))
                 and megaT.key_bytes(params) <= budget_bytes):
-            return engine
-        return fit_engine("mega12", params, budget_bytes)
-    if engine in ("bt", "bt_fused", "mega12"):
-        if bt_fits and (engine != "mega12" or takes(mega12.check_params)):
-            return engine
+            return route
+        route = "mega11"
+    # mega11, mega8 and mega7 share mega12's block layout and its limits
+    if route in ("mega11", "mega8"):
+        if (2 * bt_key_bytes(params) <= budget_bytes
+                and takes(mega12.check_params)):
+            return route
+        route = "mega12"
+    if route in ("bt", "bt_fused", "mega12", "mega7"):
+        if bt_fits and (route in ("bt", "bt_fused")
+                        or takes(mega12.check_params)):
+            return route
         if takes(mega13.check_params):
             return "mega13"
-    elif engine == "mega13":
+    elif route == "mega13":
         if takes(mega13.check_params):
-            return engine
+            return route
         if bt_fits:
             return "bt_fused"
-    elif engine == "gather_u32":
-        return engine
+    elif route == "gather_u32":
+        return route
     else:
-        layouts_for_engine(engine)  # raises for an unknown engine
+        layouts_for_engine(route)  # raises for an unknown engine
     raise ValueError(f"no engine of the port serves {params.name} from "
                      f"{engine!r} within {budget_bytes} bytes of key")
 
@@ -282,8 +340,14 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                  if "bsk_ext" in layouts else None),
         bsk_bt=(block_toeplitz_layout(p, bsk)
                 if "bsk_bt" in layouts else None),
+        bsk_btj=(block_toeplitz_layout(p, bsk, j_major=True)
+                 if "bsk_btj" in layouts else None),
         bsk_btjj=(block_toeplitz_layout(p, bsk, jcq=True)
                   if "bsk_btjj" in layouts else None),
+        bsk_btj2=(block_toeplitz_layout(p, bsk, windowed=True)
+                  if "bsk_btj2" in layouts else None),
+        bsk_btj2j=(block_toeplitz_layout(p, bsk, jcq=True, windowed=True)
+                   if "bsk_btj2j" in layouts else None),
         bsk_btTc=(stream_key_layout(p, bsk)
                   if "bsk_btTc" in layouts else None),
     )

@@ -41,7 +41,8 @@ class ConfigError(ValueError):
 ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
                 "pallas_mega13": "mega13", "pallas_mega12": "mega12",
                 "pallas_mega16": "mega16", "pallas_mega17": "mega17",
-                "pallas_mega15": "mega15"}
+                "pallas_mega15": "mega15", "pallas_mega11": "mega11",
+                "pallas_mega8": "mega8", "pallas_mega7": "mega7"}
 
 
 def port_engine(name: str) -> str:
@@ -53,10 +54,10 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; pallas_mega11, 8, 7, 14 and the legacy "
-        f"kernels are ROADMAP queue 2 items 6-9 and 11, and "
-        f"conv_i8/gather_u32 (XLA engines "
-        f"with no kernel) are not served by the port's coordinator")
+        f"{sorted(ENGINE_NAMES)}; pallas_mega14 and the legacy kernels "
+        f"(pallas_mega, pallas_mega2-6, 9, 10) are ROADMAP queue 2 items 9 "
+        f"and 11, and conv_i8/gather_u32 (XLA engines with no kernel) are "
+        f"not served by the port's coordinator")
 
 
 @dataclasses.dataclass

@@ -93,15 +93,17 @@ def rotate_decompose_step(p: TFHEParams, B: int) -> tuple[float, float]:
 
 
 # every function of the JAX package that reaches pl.pallas_call:
-# (kernel body, parameter set of its tier, key layout it reads)
+# (kernel body, parameter set of its tier, key layout it reads); a ported
+# kernel's set is the one chip_smoke.py times it at (mega8 and mega7 serve
+# any gadget: STD128_K2 in path H, STD128_SHORTINT in path J)
 TPU_KERNELS = [
     ("mega.py:793 _mega13_kernel", "std128_k2", "bsk_btT"),
     ("mega.py:625 _mega12_kernel", "std128_shortint", "bsk_btjj"),
     ("mega.py:1495 _mega17_kernel", "std128_shortint_b8", "bsk_btT3"),
     ("mega.py:1323 _mega16_kernel", "std128_shortint_fast", "bsk_btTs"),
     ("mega.py:449 _mega11_kernel", "std128_k2", "bsk_btj2j"),
-    ("mega.py:236 _mega8_kernel", "std128_fast", "bsk_btj2"),
-    ("mega.py:84 _mega7_kernel", "std128_k2", "bsk_btj"),
+    ("mega.py:236 _mega8_kernel", "std128_k2", "bsk_btj2"),
+    ("mega.py:84 _mega7_kernel", "std128_shortint", "bsk_btj"),
     ("mega.py:997 _mega14_kernel", "std128_k2", "bsk_btT2"),
     ("mega.py:1154 _mega15_kernel", "std128_shortint_l4", "bsk_btT4"),
     ("legacy.py:37 _mega_kernel", "std128_k2", "bsk_bt"),

@@ -19,7 +19,8 @@ from herdsman_tpu_torch.core import TOY
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
-from herdsman_tpu_torch.ops.kernels import _build, bt, mega12, mega13, megaT
+from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
+                                            megaJ, megaT)
 from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
 from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
@@ -280,6 +281,59 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
     got = bs.blind_rotate_batch(dsk, ct, tp, engine=name)
     assert torch.equal(got, bs.blind_rotate_batch(dsk, ct, tp,
                                                   engine="mega12"))
+    for i in (0, B - 1):
+        np.testing.assert_array_equal(
+            to_numpy_u32(got[i]),
+            ref.blind_rotate(sk, to_numpy_u32(ct[i]),
+                             ref.make_test_poly(params)))
+
+
+# the j-major kernels (mega11, mega8, mega7 of megaJ.cu) at mega12's geometry
+# classes; B = 129 takes a ragged last block at every ciphertexts-per-block
+# choice
+@pytest.mark.parametrize("B", [1, 9, 129])
+@pytest.mark.parametrize("name", sorted(megaJ.KERNELS))
+@pytest.mark.parametrize("params", MEGA12_SETS,
+                         ids=[q.name for q in MEGA12_SETS])
+def test_megaJ_matches_plain(card, params, name, B):
+    p = params
+    _, _, doubled, _ = megaJ.KERNELS[name]
+    HALF = p.N // megaJ.P
+    R = (p.k + 1) * p.levels
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    rng = np.random.default_rng(B + p.N + p.k + len(name))
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    key = torch.as_tensor(
+        rng.integers(-128, 128, (p.n, 2 * HALF if doubled else HALF, R,
+                                 megaJ.P, (p.k + 1) * 4 * megaJ.P)),
+        dtype=torch.int8, device=card)
+    before = kernel.launches
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert megaJ.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
+    assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
+
+
+@pytest.mark.parametrize("name", sorted(megaJ.KERNELS))
+@pytest.mark.parametrize("params", MEGA12_SETS[:2],
+                         ids=[q.name for q in MEGA12_SETS[:2]])
+def test_megaJ_engines_match_mega13_and_reference(card, params, name):
+    layout = megaJ.KEY_LAYOUTS[name]
+    rng = np.random.default_rng(13)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, layouts=("bsk", layout), device=card)
+    cpu_key = getattr(device_server_key(sk, layouts=(layout,), device="cpu"),
+                      layout)
+    assert torch.equal(getattr(dsk, layout).cpu(), cpu_key)  # built on card
+    B = 13
+    ct = from_numpy_u32(rand_u32(rng, B, params.n + 1), card)
+    tp = bs.make_test_poly(params, device=card)
+    got = bs.blind_rotate_batch(dsk, ct, tp, engine=name)
+    assert torch.equal(got, bs.blind_rotate_batch(dsk, ct, tp,
+                                                  engine="mega13"))
     for i in (0, B - 1):
         np.testing.assert_array_equal(
             to_numpy_u32(got[i]),

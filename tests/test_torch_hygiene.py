@@ -78,7 +78,8 @@ def test_port_modules_import_without_cryptography_or_yaml():
     "herdsman_tpu_torch.ops.pbs", "herdsman_tpu_torch.shortint",
     "herdsman_tpu_torch.radix", "herdsman_tpu_torch.api",
     "herdsman_tpu_torch.ops.kernels.mega12",
-    "herdsman_tpu_torch.ops.kernels.megaT"])
+    "herdsman_tpu_torch.ops.kernels.megaT",
+    "herdsman_tpu_torch.ops.kernels.megaJ"])
 def test_integer_tier_imports_alone(module):
     """Each module of the integer tier, imported alone, loads nothing of
     JAX, the JAX package, PyYAML or cryptography."""

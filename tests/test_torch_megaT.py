@@ -186,8 +186,8 @@ def test_pack_stream_equals_jax_compute_stream(name):
 @pytest.mark.parametrize("name", list(ENGINES))
 def test_fit_engine_routes_byte_aligned(name):
     """Each engine at its own set, at a foreign set and over budget, beside
-    the JAX package's routing (the port falls back to mega12 where the JAX
-    package would take the unported pallas_mega11)."""
+    the JAX package's routing at the port's 40 GiB budget: at a foreign set
+    both take mega11, whose doubled key fits."""
     L, jengine, _ = ENGINES[name]
     own = {2: "std128_shortint_fast", 3: "std128_shortint_b8",
            4: "std128_shortint_l4"}[L]
@@ -200,7 +200,9 @@ def test_fit_engine_routes_byte_aligned(name):
     assert megaT.key_bytes(p) < (1 << 27)
     assert megaT.key_bytes(p) * 64 < jsk_bytes(p, L)
     foreign = "std128_shortint" if L != 3 else "std128_shortint_fast"
-    assert tsk.fit_engine(name, PARAM_SETS[foreign]) == "mega12"
+    assert tsk.fit_engine(name, PARAM_SETS[foreign]) == "mega11"
+    assert jsk.fit_engine(jengine, JAX_SETS[foreign],
+                          hbm_budget_bytes=40 << 30) == "pallas_mega11"
     # over budget: mega12's key does not fit either, so mega13 serves
     assert tsk.fit_engine(name, p, budget_bytes=1 << 20) == "mega13"
     k3 = dc.replace(TOY, name="toy_k3", n=8, N=256, k=3, bg_bits=8,

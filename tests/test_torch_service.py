@@ -300,11 +300,15 @@ def test_unported_calls_raise(inputs, tmp_path):
 
 
 def test_config_maps_byte_aligned_engines():
-    """The byte-aligned kernels of the JAX package map to the port's own."""
+    """The byte-aligned and j-major kernels of the JAX package map to the
+    port's own."""
     assert {e: port_engine(e) for e in
-            ("pallas_mega16", "pallas_mega17", "pallas_mega15", "mega17")} \
+            ("pallas_mega16", "pallas_mega17", "pallas_mega15", "mega17",
+             "pallas_mega11", "pallas_mega8", "pallas_mega7", "mega8")} \
         == {"pallas_mega16": "mega16", "pallas_mega17": "mega17",
-            "pallas_mega15": "mega15", "mega17": "mega17"}
+            "pallas_mega15": "mega15", "mega17": "mega17",
+            "pallas_mega11": "mega11", "pallas_mega8": "mega8",
+            "pallas_mega7": "mega7", "mega8": "mega8"}
 
 
 def test_config_engine_names(tmp_path, monkeypatch):
@@ -316,14 +320,18 @@ def test_config_engine_names(tmp_path, monkeypatch):
         == {"pallas_bt": "bt", "pallas_fused": "bt_fused",
             "pallas_mega13": "mega13", "pallas_mega12": "mega12",
             "bt_fused": "bt_fused", "mega12": "mega12"}
-    for name in ("conv_i8", "gather_u32", "pallas_mega11"):
+    for name in ("conv_i8", "gather_u32", "pallas_mega14", "pallas_mega9"):
         with pytest.raises(ConfigError, match="ROADMAP"):
             port_engine(name)
     cfg = load_config(str(ROOT / "template.yaml"))  # loads as it is
     assert cfg.mesh_workers.engine == "bt_fused"
-    monkeypatch.setenv("HERDSMAN_ENGINE", "pallas_mega8")
+    monkeypatch.setenv("HERDSMAN_ENGINE", "pallas_mega14")
     with pytest.raises(ConfigError, match="not ported"):
         load_config(str(ROOT / "template.yaml"))
+    for name in ("pallas_mega11", "pallas_mega8", "pallas_mega7"):
+        monkeypatch.setenv("HERDSMAN_ENGINE", name)
+        assert load_config(str(ROOT / "template.yaml")).mesh_workers.engine \
+            == name.removeprefix("pallas_")
     monkeypatch.setenv("HERDSMAN_ENGINE", "pallas_bt")
     assert load_config(str(ROOT / "template.yaml")).mesh_workers.engine \
         == "bt"
