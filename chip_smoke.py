@@ -4,10 +4,11 @@ GPU, at the parameter set of record, STD128_K2 (n=768, N=512, k=2, bg=2^8,
 l=2), at the integer tier's, STD128_SHORTINT (n=768, N=2048, k=1, bg=2^7,
 l=3, key switch 2^2 x 12), and at the N=2048 byte-aligned sets
 STD128_SHORTINT_B8 (bg=2^8, l=3), STD128_SHORTINT_FAST (bg=2^8, l=2, key
-switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), with keys made from a
-seed.  The four N=2048 host keygens run in worker processes while the card
-runs the earlier paths.  Ten kernel wrappers (eleven TPU kernel bodies)
-from six CUDA sources.
+switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), and at STD128_K4
+(n=768, N=256, k=4, bg=2^8, l=2), with keys made from a seed.  The five
+host keygens of the N=2048 sets and STD128_K4 run in worker processes while
+the card runs the earlier paths.  Thirteen kernel wrappers (fourteen TPU
+kernel bodies) from six CUDA sources.
 
     python3 chip_smoke.py [--seed S]
 
@@ -46,17 +47,23 @@ Phases, in order; any failure raises and exits non-zero:
    frames must equal the first's byte for byte;
 9. times of the block-Toeplitz kernels per step at B=2048 (with bound,
    plain and library times), a B=2048 gate batch on ``bt`` and
-   ``bt_fused``, path C's jobs with the runner's load / exec / store split,
-   and the kernel device time of a second fused job under
-   ``torch.profiler``;
+   ``bt_fused``, and path C's jobs with the runner's load / exec / store
+   split;
 9b. main path H, the j-major kernels of ``megaJ.cu`` at STD128_K2: path A's
-    gate batch on ``mega11``, ``mega8`` and ``mega7`` in turn (each key
-    built, used and freed), each kernel against its plain version
+    gate batch on ``mega11`` (key ``bsk_btj2j``), ``mega8`` and ``mega9``
+    (``bsk_btj2``), ``mega7`` and ``mega6`` (``bsk_btj``), each key built,
+    used and freed in turn, each kernel against its plain version
     (tolerance 0) on the batch's rotation inputs at B = 2048, 256 and 9,
     each output array-equal to path A's ``mega13`` output and decrypted
-    against the truth table, with times and peak memory; then each kernel
-    on random inputs and keys at B=9 at the geometries of STD128,
-    STD128_FAST and STD128_SHORTINT (n cut to 32 steps);
+    against the truth table, with times (the kernels of one key in turns:
+    mega9 against mega8, mega6 against mega7) and peak memory;
+9b'. main path A': path A's gate batch on ``mega14`` (the extended key
+    ``bsk_btTe``), the kernel against its plain version at B = 2048, 256
+    and 9, the output array-equal to path A's and decrypted, and
+    ``mega14``, ``mega16`` and ``mega13`` timed in turns at STD128_K2; then
+    each ``megaJ.cu`` kernel on random inputs and keys at B=9 at the
+    geometries of STD128, STD128_FAST and STD128_SHORTINT, and ``mega14``
+    at STD128_FAST's and STD128_K4's (n cut to 32 steps);
 9c. main path I: path C's job on a coordinator whose in-code config names
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, frames
     byte-equal to path C's on ``pallas_fused``;
@@ -84,17 +91,28 @@ Phases, in order; any failure raises and exits non-zero:
     ``bsk_btTc`` key to the card; the kernel against its plain version
     (tolerance 0) on E's first rotation inputs at B = 2048, 256 and 9; D1's
     (a*b)+a over 2048 values, decrypted, then the same on a ``mega12``
-    context (same keys and seed), whose ciphertexts must be equal;
+    context (same keys and seed) over the first 256 of those ciphertexts,
+    whose results must equal the first 256 of E's;
 14. main path F, bool gates at STD128_SHORTINT_FAST on ``mega16``: a
     heterogeneous ``gate_batch`` of 2048 gates, the kernel against its
     plain version on its rotation inputs at B = 2048, 256 and 9, decrypted
     against the truth table, then the same batch on ``mega13``, whose
     outputs must be equal;
+14b. main path F': F's batch on ``mega14``, the kernel against its plain
+    version at B = 2048, 256 and 9, the outputs equal to F's on ``mega16``;
 15. main path G, the integer tier at STD128_SHORTINT_L4 on ``mega15``, as
     E, with its rerun on ``mega12``;
 16. for E, F and G: the kernel's time per rotation at B=2048 (beside its
     bound and the plain version's time) and B=256, the path end to end,
-    and the path's peak device memory.
+    and the path's peak device memory;
+17. main path K, the eager API at STD128_K4: ``HerdContext(engine=
+    "mega14")`` (``fit_engine`` keeps ``mega14``, only ``bsk_btTe`` is
+    built), a + b and min over 2048 encrypted u8 pairs, decrypted against
+    (a+b) mod 256 and min(a, b); the kernel against its plain version on a
+    + b's first rotation inputs at B = 2048, 256 and 9; a + b again on a
+    ``HerdContext(engine="mega13")`` with the same keys and seed, whose
+    ciphertexts must be equal; the kernel's time per rotation, the path's
+    gate bootstraps per second and its peak device memory.
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
@@ -110,6 +128,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import dataclasses
+import functools
 import gc
 import json
 import logging
@@ -132,7 +151,7 @@ JOB_ROWS = 2048
 JOB_PARTITIONS = 4
 # the N=2048 parameter sets whose host keys the worker processes make
 KEYGEN_SETS = ("std128_shortint", "std128_shortint_b8",
-               "std128_shortint_fast", "std128_shortint_l4")
+               "std128_shortint_fast", "std128_shortint_l4", "std128_k4")
 
 
 def keygen(name: str, seed: int):
@@ -217,6 +236,7 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     try:
+        from herdsman_tpu_torch.api import HerdContext
         from herdsman_tpu_torch.circuit import (
             DAG, CircuitBuilder, ColumnMeta, DataType, ExecutionPlan,
             InputStage, MapperStage, OutputStage, Policy, ReduceStage,
@@ -242,7 +262,7 @@ def main() -> int:
         from herdsman_tpu_torch.service.coordinator import (
             Coordinator, serialize_server_key)
         from herdsman_tpu_torch.service.execution import JobStatus
-        from herdsman_tpu_torch.shortint import ShortContext
+        from herdsman_tpu_torch.shortint import EncShort, ShortContext
         from herdsman_tpu_torch.utils import bounds, rowcodec
     except ImportError as e:
         print(f"chip_smoke: the herdsman_tpu_torch package must sit beside "
@@ -318,9 +338,12 @@ def main() -> int:
                 "mega16": megaT.mega16_blind_rotate,
                 "mega17": megaT.mega17_blind_rotate,
                 "mega15": megaT.mega15_blind_rotate,
+                "mega14": megaT.mega14_blind_rotate,
                 "mega11": megaJ.mega11_blind_rotate,
                 "mega8": megaJ.mega8_blind_rotate,
-                "mega7": megaJ.mega7_blind_rotate}
+                "mega7": megaJ.mega7_blind_rotate,
+                "mega9": megaJ.mega9_blind_rotate,
+                "mega6": megaJ.mega6_blind_rotate}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -529,7 +552,7 @@ def main() -> int:
     runner_log.propagate = False
     runner_log.addHandler(phase_log)
 
-    def path_c(engine: str, workdir: str, profile: bool) -> dict:
+    def path_c(engine: str, workdir: str) -> dict:
         cfg = Config(server=ServerConfig(key_directory=workdir + "/keys",
                                          storage_directory=workdir + "/st"),
                      security=SecurityConfig(secret_key="chip-smoke"),
@@ -581,19 +604,13 @@ def main() -> int:
             check(len(got) == len(want) and bad == 0,
                   f"path C ({engine}) {name} frame: {len(got)} rows, {bad} "
                   f"decrypt wrong")
-        if profile:  # the same job again, warm, with kernel device times
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                job2, host2 = host_s(run_job)
-            res["profile"] = (job2, host2, prof.key_averages())
         coord.shutdown()
         return res
 
     runs = {}
     for engine in ("pallas_bt", "pallas_fused"):
         with tempfile.TemporaryDirectory() as workdir:
-            runs[engine] = path_c(engine, workdir,
-                                  profile=engine == "pallas_fused")
+            runs[engine] = path_c(engine, workdir)
         torch.cuda.empty_cache()
         r = runs[engine]
         print(f"main path C ({engine}): {JOB_ROWS} rows in {JOB_PARTITIONS} "
@@ -697,54 +714,69 @@ def main() -> int:
               f"runner load {load:.3f} s, exec {exe:.3f} s, store "
               f"{store:.3f} s, key ingest and the rest "
               f"{job.wall_time_s - load - exe - store:.3f} s {card}")
-    job2, host2, ka = runs["pallas_fused"]["profile"]
-    dev_us = {e.key: getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0) for e in ka}
-    dev_us = {k: v for k, v in dev_us.items() if v > 0}
-    total_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    print(f"time: main path C second job on pallas_fused under "
-          f"torch.profiler: wall {job2.wall_time_s:.3f} s, kernels "
-          + (f"{total_ms:.1f} ms on the device = busy share "
-             f"{total_ms / 1e3 / job2.wall_time_s:.4f}; top: "
-             + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top)
-             if total_ms else "not measured (no device time in the trace)")
-          + f" {card}")
     print(f"memory: torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
 
-    def vs_plain(name, plain, p, acc0, a_t, key) -> tuple[int, float]:
+    def vs_plain(name, plain, p, acc0, a_t, key,
+                 cache: dict | None = None) -> tuple[int, float]:
         """Kernel ``name`` against its plain version ``plain`` (tolerance 0)
         on a path's first rotation inputs at B = 2048, 256 and 9:
-        (max_abs_err, plain ms at B=2048)."""
-        err, plain_ms = 0, None
+        (max_abs_err, plain ms at B=2048).  ``cache`` keeps the plain
+        outputs for another kernel of the same function on the same key."""
+        cache = {} if cache is None else cache
+        err = 0
         for B in (B_MAIN, RADIX_VALUES, 9):
             x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
             got = counters[name](p, *x, key)
-            want, ms = timed_call(lambda: plain(p, *x, key))
-            err = max(err, abs_err(got, want))
-            check(torch.equal(got, want), f"{name} != plain version at "
-                  f"{p.name} B={B}")
-            plain_ms = plain_ms or ms
-        return err, plain_ms
+            if B not in cache:
+                cache[B] = timed_call(lambda: plain(p, *x, key))
+            err = max(err, abs_err(got, cache[B][0]))
+            check(torch.equal(got, cache[B][0]), f"{name} != plain version "
+                  f"at {p.name} B={B}")
+        return err, cache[B_MAIN][1]
 
-    def rotation_times(name, p, acc0, a_t, key, per_block) -> dict:
-        """Kernel ``name``'s ms per rotation at B=2048 (warm: it ran at
-        this shape in vs_plain) and at B=256, its bound, and the
-        ciphertexts per block ``per_block`` gives."""
-        _, ms = timed_call(lambda: counters[name](p, acc0, a_t, key))
-        narrow_ms = timed_ms(lambda: counters[name](
-            p, acc0[:RADIX_VALUES].contiguous(),
-            a_t[:, :RADIX_VALUES].contiguous(), key), reps=1)
-        ops, nbytes = bounds.rotation(p, B_MAIN, key.numel())
-        bound, by = bounds.bound_ms(ops, nbytes)
-        # the share of the integer lanes' issue rate its __dp4a use (4 MACs
-        # each, ops / 8 of them), its own ceiling short of tensor cores
-        dp4a = ops / 8 / bounds.PEAK_INT32_OPS / (ms / 1e3)
-        return {"ms": ms, "narrow_ms": narrow_ms, "bound_ms": bound,
-                "bound_by": by, "dp4a_share": dp4a,
-                "G": {B: per_block(p, B, dev)
+    def rotation_times(names, p, acc0, a_t, keys, per_block) -> dict:
+        """ms per rotation at B=2048 and at B=256 of each kernel of
+        ``names`` (warm: each ran at these shapes in vs_plain) on the same
+        inputs, in turns (``names``, then in reverse, where there are
+        several); with each one's bound, its share of the integer lanes'
+        dp4a rate, and the ciphertexts per block ``per_block[name]`` gives
+        (None where the kernel has no such function)."""
+        order = [*names, *names[::-1]] if len(names) > 1 else list(names)
+        narrow = (acc0[:RADIX_VALUES].contiguous(),
+                  a_t[:, :RADIX_VALUES].contiguous())
+        runs = {name: {"ms": [], "narrow_ms": []} for name in names}
+        for key_name, x in (("ms", (acc0, a_t)), ("narrow_ms", narrow)):
+            for name in order:
+                runs[name][key_name].append(timed_call(
+                    lambda: counters[name](p, *x, keys[name]))[1])
+        out = {}
+        for name in names:
+            key = keys[name]
+            ops, nbytes = bounds.rotation(p, B_MAIN,
+                                          key.numel() * key.element_size())
+            bound, by = bounds.bound_ms(ops, nbytes)
+            ms = sum(runs[name]["ms"]) / len(runs[name]["ms"])
+            pb = per_block.get(name)
+            out[name] = {
+                "ms": ms,
+                "narrow_ms": (sum(runs[name]["narrow_ms"])
+                              / len(runs[name]["narrow_ms"])),
+                "bound_ms": bound, "bound_by": by,
+                # the share of the integer lanes' issue rate its __dp4a use
+                # (4 MACs each, ops / 8 of them), its own ceiling short of
+                # tensor cores
+                "dp4a_share": ops / 8 / bounds.PEAK_INT32_OPS / (ms / 1e3),
+                "G": {B: pb(p, B, dev) if pb else None
                       for B in (B_MAIN, RADIX_VALUES, 9)}}
+        return out
+
+    def megaJ_blocks(name):
+        return functools.partial(megaJ.ciphertexts_per_block, name=name)
+
+    def megaT_blocks(name):
+        return functools.partial(megaT.ciphertexts_per_block,
+                                 extended=name in megaT.EXTENDED)
 
     def print_times(name, p, t, plain_ms) -> None:
         print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
@@ -756,49 +788,129 @@ def main() -> int:
               f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
 
     # 9b. main path H: path A's gate batch on the j-major kernels of
-    # megaJ.cu, each key built, used and freed before the next -------------
+    # megaJ.cu, one key at a time (built, used, freed): mega11 on
+    # bsk_btj2j, mega8 and mega9 on bsk_btj2, mega7 and mega6 on bsk_btj;
+    # the kernels that share a key are timed in turns --------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
-    for name in ("mega11", "mega8", "mega7"):
-        check(fit_engine(name, P) == name,
-              f"fit_engine({name!r}, {P.name}) -> {fit_engine(name, P)}")
+    for group in (("mega11",), ("mega8", "mega9"), ("mega7", "mega6")):
+        layout = megaJ.KEY_LAYOUTS[group[0]]
+        for name in group:
+            check(fit_engine(name, P) == name,
+                  f"fit_engine({name!r}, {P.name}) -> {fit_engine(name, P)}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         dsk_h, ingest_h_s = host_s(lambda: device_server_key(
-            sk, layouts=layouts_for_engine(name), device=dev))
-        key_h = getattr(dsk_h, megaJ.KEY_LAYOUTS[name])
-        err_h, plain_h_ms = vs_plain(name, megaJ.plain(name), P, acc0, a_t,
-                                     key_h)
-        errs_j[name] = max(errs_j[name], err_h)
-        reset_counts()
-        out_h, h_s = host_s(lambda: gates.gate_batch(dsk_h, batch,
-                                                     engine=name, device=dev))
-        counts_h = read_counts()
+            sk, layouts=(layout,), device=dev))
+        key_h = getattr(dsk_h, layout)
+        print(f"main path H: keys to the card ({layout} "
+              f"{key_h.numel() / 2**30:.3f} GiB) {ingest_h_s:.1f} s")
+        plain_cache: dict = {}
+        for name in group:
+            err_h, plain_h_ms = vs_plain(name, megaJ.plain(name), P, acc0,
+                                         a_t, key_h, plain_cache)
+            errs_j[name] = max(errs_j[name], err_h)
+            reset_counts()
+            out_h, h_s = host_s(lambda: gates.gate_batch(
+                dsk_h, batch, engine=name, device=dev))
+            counts_h = read_counts()
+            only(counts_h, (name,), f"main path H on {name}")
+            out_h_np = to_numpy_u32(out_h)
+            check(np.array_equal(out_h_np, out_np),
+                  f"H: gate_batch on {name} != on mega13 (path A)")
+            check(np.array_equal(ref.lwe_decrypt_bool(ck, out_h_np), expect),
+                  f"H: gate_batch on {name} decrypts wrong")
+            res_h[name] = {"counts": counts_h, "plain_ms": plain_h_ms,
+                           "path_s": h_s}
+            print(f"main path H ({name}): {name} == its plain version on the "
+                  f"gate batch's rotation inputs at B in "
+                  f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+                  f"{err_h}); gate_batch of {B_MAIN} gates == path A's "
+                  f"mega13 output and decrypts to the truth table; launches "
+                  f"{counts_h}")
+            del out_h
+        times = rotation_times(group, P, acc0, a_t,
+                               {name: key_h for name in group},
+                               {name: megaJ_blocks(name) for name in group})
         peak_h = torch.cuda.max_memory_allocated()
-        only(counts_h, (name,), f"main path H on {name}")
-        out_h_np = to_numpy_u32(out_h)
-        check(np.array_equal(out_h_np, out_np),
-              f"H: gate_batch on {name} != on mega13 (path A)")
-        check(np.array_equal(ref.lwe_decrypt_bool(ck, out_h_np), expect),
-              f"H: gate_batch on {name} decrypts wrong")
-        t = rotation_times(name, P, acc0, a_t, key_h,
-                           megaJ.ciphertexts_per_block)
-        res_h[name] = {"counts": counts_h, "plain_ms": plain_h_ms, **t}
-        print(f"main path H ({name}): keys to the card "
-              f"({megaJ.KEY_LAYOUTS[name]} {key_h.numel() / 2**30:.3f} GiB) "
-              f"{ingest_h_s:.1f} s; {name} == its plain version on the gate "
-              f"batch's rotation inputs at B in {[B_MAIN, RADIX_VALUES, 9]} "
-              f"(array equality, max_abs_err "
-              f"{err_h}); gate_batch of {B_MAIN} gates == path A's mega13 "
-              f"output and decrypts to the truth table; launches {counts_h}")
-        print_times(name, P, t, plain_h_ms)
-        print(f"time: main path H gate_batch B={B_MAIN} on {name} end to end "
-              f"{h_s:.3f} s = {B_MAIN / h_s:.1f} bootstraps/s {card}")
-        print(f"memory: path H on {name} torch.cuda.max_memory_allocated "
+        for name in group:
+            res_h[name].update(times[name])
+            print_times(name, P, res_h[name], res_h[name]["plain_ms"])
+            print(f"time: main path H gate_batch B={B_MAIN} on {name} end to "
+                  f"end {res_h[name]['path_s']:.3f} s = "
+                  f"{B_MAIN / res_h[name]['path_s']:.1f} bootstraps/s {card}")
+        if len(group) > 1:
+            a_, b_ = (times[name] for name in group)
+            print(f"time: {group[1]} / {group[0]} at {P.name} (timed in turns "
+                  f"{[*group, *group[::-1]]}): B={B_MAIN} "
+                  f"{b_['ms'] / a_['ms']:.4f}, B={RADIX_VALUES} "
+                  f"{b_['narrow_ms'] / a_['narrow_ms']:.4f} {card}")
+        print(f"memory: path H on {layout} torch.cuda.max_memory_allocated "
               f"{peak_h / 2**30:.3f} GiB {card}")
-        del dsk_h, key_h, out_h
+        del dsk_h, key_h
+
+    # 9b'. main path A': path A's gate batch on mega14 (the extended key
+    # bsk_btTe), and mega14 timed in turns with mega16 (the compact
+    # bsk_btTc) and mega13 (the raw key) at STD128_K2 ----------------------
+    check(fit_engine("mega14", P) == "mega14",
+          f"fit_engine('mega14', {P.name}) -> {fit_engine('mega14', P)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dsk_t, ingest_t_s = host_s(lambda: device_server_key(
+        sk, layouts=("bsk_btTe", "bsk_btTc"), device=dev))
+    err14, plain14_k2_ms = vs_plain("mega14", megaT.plain("mega14"), P, acc0,
+                                    a_t, dsk_t.bsk_btTe)
+    reset_counts()
+    out_t, t_s = host_s(lambda: gates.gate_batch(dsk_t, batch, engine="mega14",
+                                                 device=dev))
+    counts_a14 = read_counts()
+    only(counts_a14, ("mega14",), "main path A' on mega14")
+    out_t_np = to_numpy_u32(out_t)
+    check(np.array_equal(out_t_np, out_np),
+          "A': gate_batch on mega14 != on mega13 (path A)")
+    check(np.array_equal(ref.lwe_decrypt_bool(ck, out_t_np), expect),
+          "A': gate_batch on mega14 decrypts wrong")
+    for B in (B_MAIN, RADIX_VALUES):  # mega16 at this set, and its warm-up
+        got = megaT.mega16_blind_rotate(P, acc0[:B].contiguous(),
+                                        a_t[:, :B].contiguous(),
+                                        dsk_t.bsk_btTc)
+        check(torch.equal(got, outs[B]), f"mega16 != mega13 at {P.name} B={B}")
+    keys_t = {"mega14": dsk_t.bsk_btTe, "mega16": dsk_t.bsk_btTc,
+              "mega13": dsk.bsk}
+    res_a14 = rotation_times(("mega14", "mega16", "mega13"), P, acc0, a_t,
+                             keys_t, {name: megaT_blocks(name)
+                                      for name in ("mega14", "mega16")})
+    peak_t = torch.cuda.max_memory_allocated()
+    print(f"main path A' (mega14): keys to the card (bsk_btTe "
+          f"{dsk_t.bsk_btTe.numel() / 2**20:.1f} MiB, bsk_btTc "
+          f"{dsk_t.bsk_btTc.numel() / 2**20:.1f} MiB) {ingest_t_s:.1f} s; "
+          f"mega14 == blind_rotate_plain_btTe on the gate batch's rotation "
+          f"inputs at B in {[B_MAIN, RADIX_VALUES, 9]} (array equality, "
+          f"max_abs_err {err14}); gate_batch of {B_MAIN} gates == path A's "
+          f"mega13 output and decrypts to the truth table; launches "
+          f"{counts_a14}; mega16 == mega13 at B in {[B_MAIN, RADIX_VALUES]}")
+    for name in ("mega14", "mega16", "mega13"):
+        t = res_a14[name]
+        print(f"time: {name} at {P.name} (timed in turns mega14, mega16, "
+              f"mega13, mega13, mega16, mega14) B={B_MAIN} {t['ms']:.3f} ms "
+              f"= {B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
+              f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.4f} ms "
+              f"bound ({t['bound_by']}); B={RADIX_VALUES} "
+              f"{t['narrow_ms']:.3f} ms; ciphertexts per block by B {t['G']} "
+              f"{card}")
+    print(f"time: mega14 dp4a share at {P.name} "
+          f"{res_a14['mega14']['dp4a_share']:.4f}, mega16 "
+          f"{res_a14['mega16']['dp4a_share']:.4f}; plain mega14 "
+          f"{plain14_k2_ms:.3f} ms at B={B_MAIN}; main path A' gate_batch "
+          f"B={B_MAIN} end to end {t_s:.3f} s = {B_MAIN / t_s:.1f} "
+          f"bootstraps/s {card}")
+    print(f"memory: path A' torch.cuda.max_memory_allocated "
+          f"{peak_t / 2**30:.3f} GiB {card}")
+    del dsk_t, keys_t, out_t
+
     # each kernel on random keys at B=9 at three more geometries (n cut to 32
-    # steps: the step loop is the same at every n)
+    # steps: the step loop is the same at every n); mega14 at STD128_FAST's
+    # and STD128_K4's
     gen_j = torch.Generator(device=dev)
     gen_j.manual_seed(args.seed + 5)
     geoms = [dataclasses.replace(PARAM_SETS[g], n=32)
@@ -820,16 +932,32 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B=9, random inputs")
             del key_g
+    geoms14 = [dataclasses.replace(PARAM_SETS[g], n=32)
+               for g in ("std128_fast", "std128_k4")]
+    for Gp in geoms14:
+        acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
+                              dtype=torch.int32, device=dev, generator=gen_j)
+        a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
+                            device=dev, generator=gen_j)
+        key_g = torch.randint(-128, 128, (Gp.n, Gp.k + 1, Gp.k + 1, 4,
+                                          megaT.row_bytes(Gp, True)),
+                              dtype=torch.int8, device=dev, generator=gen_j)
+        got = megaT.mega14_blind_rotate(Gp, acc_g, a_g, key_g)
+        want = megaT.blind_rotate_plain_btTe(Gp, acc_g, a_g, key_g)
+        err14 = max(err14, abs_err(got, want))
+        check(torch.equal(got, want), f"mega14 != plain version at "
+              f"{Gp.name}'s geometry, B=9, random inputs")
     torch.cuda.empty_cache()
-    print(f"kernel vs plain: mega11, mega8, mega7 == their plain versions on "
-          f"random inputs and keys at B=9 at the geometries of "
-          f"{[g.name for g in geoms]} (n = 32; array equality, max_abs_err "
-          f"{errs_j})")
+    print(f"kernel vs plain: {', '.join(megaJ.KERNELS)} == their plain "
+          f"versions on random inputs and keys at B=9 at the geometries of "
+          f"{[g.name for g in geoms]}, and mega14 at "
+          f"{[g.name for g in geoms14]} (n = 32; array equality, max_abs_err "
+          f"{errs_j}, mega14 {err14})")
 
     # 9c. main path I: path C's job on pallas_mega11 ------------------------
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as workdir:
-        res_i = path_c("pallas_mega11", workdir, profile=False)
+        res_i = path_c("pallas_mega11", workdir)
     peak_i = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     res_i_counts = res_i["counts"]
@@ -859,7 +987,7 @@ def main() -> int:
     PS = PARAM_SETS["std128_shortint"]
     # path A-C's keys and inputs; the adder job and path C's jobs hold
     # STD128_K2 keys (3.4 GiB of bsk_bt each)
-    del dsk, key_q, full, d8_q, run, runs, r, job, job2, ka, res_i, job_i
+    del dsk, key_q, full, d8_q, run, runs, r, job, res_i, job_i
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1051,8 +1179,8 @@ def main() -> int:
           f"on mega7")
     check(torch.equal(r7.data, d1_out), "J on mega7 != D1 on mega12")
     res_j = {"counts": counts_j, "plain_ms": plain7_ms,
-             **rotation_times("mega7", PS, acc0_j, a_t_j, key7,
-                              megaJ.ciphertexts_per_block)}
+             **rotation_times(("mega7",), PS, acc0_j, a_t_j, {"mega7": key7},
+                              {"mega7": megaJ_blocks("mega7")})["mega7"]}
     print(f"main path J: ShortContext key ingest (fit_engine -> "
           f"{ctx7.engine}, bsk_btj {key7.numel() / 2**30:.3f} GiB built on "
           f"the card) {ingest7_s:.1f} s; mega7 == blind_rotate_plain_btj on "
@@ -1102,22 +1230,28 @@ def main() -> int:
         check(dec == d1_values, f"{label}: {wrong} of {B_MAIN} values "
               f"decrypt wrong at {PX.name}")
         only(counts, (engine,), f"main path {label} on {engine}")
+        # the rerun on mega12 takes the first RADIX_VALUES of the same
+        # ciphertexts (each value's result is its own row)
         ctx12 = ShortContext(PX, msg_bits=2, carry_bits=2, engine="mega12",
                              keys=keys_x, seed=args.seed, device=dev)
         ya, yb = ctx12.encrypt(av), ctx12.encrypt(bv)
         check(ctx12.engine == "mega12" and torch.equal(ya.data, xa.data)
               and torch.equal(yb.data, xb.data),
               f"{label}: the mega12 context differs from the {engine} one")
+        ya, yb = (EncShort(ctx12, y.data[:RADIX_VALUES].contiguous(),
+                           y.max_val) for y in (ya, yb))
         reset_counts()
         (r12x, dec12x), path12_s = host_s(lambda: d1(ctx12, ya, yb))
         counts12 = read_counts()
         only(counts12, ("mega12",), f"main path {label} on mega12")
-        check(torch.equal(r12x.data, r.data) and dec12x == dec,
-              f"{label} on mega12 != {label} on {engine}")
+        check(torch.equal(r12x.data, r.data[:RADIX_VALUES])
+              and dec12x == dec[:RADIX_VALUES],
+              f"{label} on mega12 != {label} on {engine} (first "
+              f"{RADIX_VALUES} values)")
         del ctx12, ya, yb, r12x
         torch.cuda.empty_cache()
-        t = rotation_times(engine, PX, acc0_x, a_t_x, key,
-                           megaT.ciphertexts_per_block)
+        t = rotation_times((engine,), PX, acc0_x, a_t_x, {engine: key},
+                           {engine: megaT_blocks(engine)})[engine]
         print(f"main path {label}: {PX.name} host keygen {keygen_x_s:.1f} s "
               f"(worker process); ShortContext key ingest (fit_engine -> "
               f"{ctx.engine}, bsk_btTc {key.numel() / 2**20:.1f} MiB built on "
@@ -1126,7 +1260,8 @@ def main() -> int:
               f"in {[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
               f"{err}); (a*b)+a over {B_MAIN} values: every value decrypts "
               f"right; {rotations} rotations; launches {counts}; the same on "
-              f"mega12 is array-equal; launches {counts12}")
+              f"mega12 over the first {RADIX_VALUES} values is array-equal; "
+              f"launches {counts12}")
         print(f"time: {engine} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
               f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.2f} ms "
@@ -1136,7 +1271,8 @@ def main() -> int:
               f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
         print(f"time: main path {label} (a*b)+a over {B_MAIN} values end to "
               f"end {path_s:.3f} s on {engine} = {rotations / path_s:.1f} "
-              f"rotations/s, {path12_s:.3f} s on mega12 {card}")
+              f"rotations/s; over {RADIX_VALUES} values {path12_s:.3f} s on "
+              f"mega12 {card}")
         print(f"memory: path {label} on {engine} torch.cuda."
               f"max_memory_allocated {peak / 2**30:.3f} GiB {card}")
         return {"counts": counts, "counts12": counts12, "err": err,
@@ -1150,12 +1286,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ck_f, sk_f, keygen_f_s = keys_of[PF.name].get()
     check(fit_engine("mega16", PF) == "mega16"
-          and fit_engine("mega13", PF) == "mega13",
+          and fit_engine("mega13", PF) == "mega13"
+          and fit_engine("mega14", PF) == "mega14",
           f"fit_engine at {PF.name}: mega16 -> {fit_engine('mega16', PF)}, "
-          f"mega13 -> {fit_engine('mega13', PF)}")
+          f"mega13 -> {fit_engine('mega13', PF)}, mega14 -> "
+          f"{fit_engine('mega14', PF)}")
     dsk_f, ingest_f_s = host_s(lambda: device_server_key(
         sk_f, layouts=layouts_for_engine("mega16") + layouts_for_engine(
-            "mega13"), device=dev))
+            "mega13") + layouts_for_engine("mega14"), device=dev))
     rng_f = np.random.default_rng(args.seed + 7)
     f1 = rng_f.integers(0, 2, B_MAIN).astype(bool)
     f2 = rng_f.integers(0, 2, B_MAIN).astype(bool)
@@ -1190,8 +1328,9 @@ def main() -> int:
     counts_f13 = read_counts()
     only(counts_f13, ("mega13",), "main path F on mega13")
     check(torch.equal(out_f13, out_f), "F on mega13 != F on mega16")
-    t_f = rotation_times("mega16", PF, acc0_f, a_t_f, dsk_f.bsk_btTc,
-                         megaT.ciphertexts_per_block)
+    t_f = rotation_times(("mega16",), PF, acc0_f, a_t_f,
+                         {"mega16": dsk_f.bsk_btTc},
+                         {"mega16": megaT_blocks("mega16")})["mega16"]
     res_f = {"counts": counts_f, "counts13": counts_f13, "err": err16,
              "plain_ms": plain16_ms, **t_f}
     print(f"main path F: {PF.name} host keygen {keygen_f_s:.1f} s (worker "
@@ -1214,11 +1353,125 @@ def main() -> int:
           f"mega13 {card}")
     print(f"memory: path F on mega16 torch.cuda.max_memory_allocated "
           f"{peak_f / 2**30:.3f} GiB {card}")
-    del dsk_f, lin_f, acc0_f, a_t_f, out_f, out_f13
+    # F': the same batch on mega14 (the extended key), equal to F's on mega16
+    e14f, plain14_f_ms = vs_plain("mega14", megaT.blind_rotate_plain_btTe, PF,
+                                  acc0_f, a_t_f, dsk_f.bsk_btTe)
+    err14 = max(err14, e14f)
+    reset_counts()
+    out_f14, f14_s = host_s(lambda: gates.gate_batch(
+        dsk_f, batch_f, engine="mega14", device=dev))
+    counts_f14 = read_counts()
+    only(counts_f14, ("mega14",), "main path F' on mega14")
+    check(torch.equal(out_f14, out_f), "F' on mega14 != F on mega16")
+    _, f14_ms = timed_call(lambda: megaT.mega14_blind_rotate(
+        PF, acc0_f, a_t_f, dsk_f.bsk_btTe))
+    print(f"main path F' (mega14): bsk_btTe "
+          f"{dsk_f.bsk_btTe.numel() / 2**20:.1f} MiB; mega14 == "
+          f"blind_rotate_plain_btTe on F's rotation inputs at B in "
+          f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+          f"{e14f}); gate_batch of {B_MAIN} gates == F's on mega16; "
+          f"launches {counts_f14}")
+    print(f"time: mega14 at {PF.name} B={B_MAIN} {f14_ms:.3f} ms (mega16 "
+          f"{t_f['ms']:.3f} ms, not in turns); plain {plain14_f_ms:.3f} ms; "
+          f"ciphertexts per block {megaT_blocks('mega14')(PF, B_MAIN, dev)}; "
+          f"main path F' end to end {f14_s:.3f} s {card}")
+    del dsk_f, lin_f, acc0_f, a_t_f, out_f, out_f13, out_f14
 
     res_g = integer_path("G", "std128_shortint_l4", "mega15")
+
+    # 17. main path K: the eager HerdContext at STD128_K4 on mega14 --------
+    PK = PARAM_SETS["std128_k4"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    *keys_k, keygen_k_s = keys_of[PK.name].get()
     pool.close()
     pool.join()
+    ctx_k, ingest_k_s = host_s(lambda: HerdContext(
+        PK, engine="mega14", keys=keys_k, seed=args.seed, device=dev))
+    check(ctx_k.engine == "mega14" and ctx_k.dsk.bsk_btTe is not None
+          and ctx_k.dsk.bsk is None,
+          f"HerdContext(engine='mega14') at {PK.name} took engine "
+          f"{ctx_k.engine}")
+    key14 = ctx_k.dsk.bsk_btTe
+    rng_k = np.random.default_rng(args.seed + 11)
+    ak, bk = rng_k.integers(0, 256, B_MAIN), rng_k.integers(0, 256, B_MAIN)
+    xk, yk = ctx_k.encrypt(ak, width=8), ctx_k.encrypt(bk, width=8)
+    # a + b's first rotation: the XOR of the two bits 0 (api.py _ripple)
+    lin_k = gates.gate_linear(
+        PK.n, torch.full((B_MAIN,), gates.GATE_IDS["XOR"], device=dev),
+        xk.data[:, 0, :], yk.data[:, 0, :])
+    acc0_k, a_t_k = bs.rotation_inputs(PK, lin_k,
+                                       bs.make_test_poly(PK, device=dev))
+    e14k, plain14_ms = vs_plain("mega14", megaT.blind_rotate_plain_btTe, PK,
+                                acc0_k, a_t_k, key14)
+    err14 = max(err14, e14k)
+    rotations_k: list[int] = []
+
+    def counting(ctx):
+        """Record the bootstraps of each gate and mux call of ``ctx``."""
+        gate, mux = ctx._gate, ctx._mux
+
+        def _gate(name, a, b):
+            rotations_k.append(a.numel() // (PK.n + 1))
+            return gate(name, a, b)
+
+        def _mux(sel, a, b):
+            rotations_k.append(2 * a.numel() // (PK.n + 1))
+            return mux(sel, a, b)
+        ctx._gate, ctx._mux = _gate, _mux
+
+    counting(ctx_k)
+    reset_counts()
+    sum_k, add_s = host_s(lambda: xk + yk)
+    counts_k_add = read_counts()
+    add_rot = sum(rotations_k)
+    reset_counts()
+    min_k, min_s = host_s(lambda: xk.min(yk))
+    counts_k_min = read_counts()
+    min_rot = sum(rotations_k) - add_rot
+    peak_k = torch.cuda.max_memory_allocated()
+    only(counts_k_add, ("mega14",), "main path K (a + b) on mega14")
+    only(counts_k_min, ("mega14",), "main path K (min) on mega14")
+    for what, got, want in (("a + b", sum_k, (ak + bk) % 256),
+                            ("min", min_k, np.minimum(ak, bk))):
+        check(tuple(got.data.shape) == (B_MAIN, 8, PK.n + 1),
+              f"K: {what} output shape {tuple(got.data.shape)}")
+        dec = ctx_k.decrypt(got)
+        wrong = sum(x != y for x, y in zip(dec, want.tolist()))
+        check(wrong == 0, f"K: {wrong} of {B_MAIN} values of {what} decrypt "
+              f"wrong at {PK.name}")
+    ctx13 = HerdContext(PK, engine="mega13", keys=keys_k, seed=args.seed,
+                        device=dev)
+    xk13, yk13 = ctx13.encrypt(ak, width=8), ctx13.encrypt(bk, width=8)
+    check(ctx13.engine == "mega13" and torch.equal(xk13.data, xk.data)
+          and torch.equal(yk13.data, yk.data),
+          "K: the mega13 context differs from the mega14 one")
+    reset_counts()
+    sum13, add13_s = host_s(lambda: xk13 + yk13)
+    counts_k13 = read_counts()
+    only(counts_k13, ("mega13",), "main path K's rerun on mega13")
+    check(torch.equal(sum13.data, sum_k.data),
+          "K: a + b on mega13 != a + b on mega14")
+    res_k = rotation_times(("mega14",), PK, acc0_k, a_t_k, {"mega14": key14},
+                           {"mega14": megaT_blocks("mega14")})["mega14"]
+    print(f"main path K: {PK.name} host keygen {keygen_k_s:.1f} s (worker "
+          f"process); HerdContext key ingest (fit_engine -> {ctx_k.engine}, "
+          f"bsk_btTe {key14.numel() / 2**20:.1f} MiB built on the card) "
+          f"{ingest_k_s:.1f} s; mega14 == blind_rotate_plain_btTe on a + b's "
+          f"first rotation inputs at B in {[B_MAIN, RADIX_VALUES, 9]} (array "
+          f"equality, max_abs_err {e14k}); a + b and min over {B_MAIN} "
+          f"encrypted u8 pairs decrypt to (a+b) mod 256 and min(a, b); "
+          f"launches {counts_k_add} and {counts_k_min}; a + b on mega13 is "
+          f"array-equal; launches {counts_k13}")
+    print_times("mega14", PK, res_k, plain14_ms)
+    print(f"time: main path K a + b over {B_MAIN} u8 pairs end to end "
+          f"{add_s:.3f} s on mega14 ({add_rot} gate bootstraps = "
+          f"{add_rot / add_s:.1f}/s), {add13_s:.3f} s on mega13 "
+          f"({add_rot / add13_s:.1f}/s); min {min_s:.3f} s on mega14 "
+          f"({min_rot} gate bootstraps = {min_rot / min_s:.1f}/s) {card}")
+    print(f"memory: path K on mega14 torch.cuda.max_memory_allocated "
+          f"{peak_k / 2**30:.3f} GiB {card}")
+    del ctx_k, ctx13, xk, yk, xk13, yk13, sum_k, min_k, sum13
 
     # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
@@ -1235,7 +1488,14 @@ def main() -> int:
                "H_gate_batch_mega8": res_h["mega8"]["counts"],
                "H_gate_batch_mega7": res_h["mega7"]["counts"],
                "I_job_pallas_mega11": res_i_counts,
-               "J_shortint_mega7": res_j["counts"]}
+               "J_shortint_mega7": res_j["counts"],
+               "H_gate_batch_mega9": res_h["mega9"]["counts"],
+               "H_gate_batch_mega6": res_h["mega6"]["counts"],
+               "A_gate_batch_mega14": counts_a14,
+               "F_gate_batch_fast_mega14": counts_f14,
+               "K_herd_add_mega14": counts_k_add,
+               "K_herd_min_mega14": counts_k_min,
+               "K_herd_add_on_mega13": counts_k13}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
@@ -1336,6 +1596,31 @@ def main() -> int:
             "ms_b256": res["narrow_ms"],
         })
     kernels[-1]["ms_std128_k2"] = res_h["mega7"]["ms"]
+    # mega9 and mega6 timed at STD128_K2 in path H, in turns with mega8 and
+    # mega7; mega14 at STD128_K4 (path K), beside its STD128_K2 time (A')
+    for name, line, res, err_k in (
+            ("mega9", "legacy.py:874", res_h["mega9"], errs_j["mega9"]),
+            ("mega6", "legacy.py:705", res_h["mega6"], errs_j["mega6"]),
+            ("mega14", "mega.py:997", {**res_k, "plain_ms": plain14_ms},
+             err14)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": ("herdsman_tpu_torch/csrc/megaT.cu" if name == "mega14"
+                       else "herdsman_tpu_torch/csrc/megaJ.cu"),
+            "replaces": f"herdsman_tpu/ops/pallas/{line}",
+            **launches(name),
+            "matches_plain": err_k == 0,
+            "max_abs_err": err_k,
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "ms_b256": res["narrow_ms"],
+        })
+    kernels[-1]["ms_std128_k2"] = res_a14["mega14"]["ms"]
+    kernels[-1]["ms_std128_shortint_fast"] = f14_ms
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,12 +16,15 @@ through one of three kinds of engine:
   ``csrc/mega12.cu`` against the ``bsk_btjj`` key; ``mega16``, ``mega17``
   and ``mega15`` (the JAX package's engines of the same names, at the
   byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
-  ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key; ``mega11``,
-  ``mega8`` and ``mega7`` (the JAX package's engines of the same names,
-  any gadget) are ``csrc/megaJ.cu`` against the j-major block-Toeplitz
-  keys ``bsk_btj2j`` and ``bsk_btj2`` (doubled window, one contraction
-  per column tile) and ``bsk_btj`` (single width, the negated run
-  subtracted).
+  ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key, and ``mega14``
+  (levels 2, N >= 256) the same source against the extended ``bsk_btTe``
+  (one run per column tile); ``mega11``, ``mega8`` and ``mega7`` (the JAX
+  package's engines of the same names, any gadget) are ``csrc/megaJ.cu``
+  against the j-major block-Toeplitz keys ``bsk_btj2j`` and ``bsk_btj2``
+  (doubled window, one contraction per column tile) and ``bsk_btj``
+  (single width, the negated run subtracted), and ``mega9`` and ``mega6``
+  (the JAX package's legacy engines) the same source on ``mega8``'s and
+  ``mega7``'s keys with another schedule.
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -106,9 +109,12 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega16": (megaT.mega16_blind_rotate, "bsk_btTc"),
     "mega17": (megaT.mega17_blind_rotate, "bsk_btTc"),
     "mega15": (megaT.mega15_blind_rotate, "bsk_btTc"),
+    "mega14": (megaT.mega14_blind_rotate, "bsk_btTe"),
     "mega11": (megaJ.mega11_blind_rotate, "bsk_btj2j"),
     "mega8": (megaJ.mega8_blind_rotate, "bsk_btj2"),
     "mega7": (megaJ.mega7_blind_rotate, "bsk_btj"),
+    "mega9": (megaJ.mega9_blind_rotate, "bsk_btj2"),
+    "mega6": (megaJ.mega6_blind_rotate, "bsk_btj"),
 }
 
 

@@ -3,10 +3,19 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
 Libraries go to ``herdsman_tpu_torch/_build/`` (listed in ``.gitignore``)
-under a name that carries a hash of the source, so an edited source is
-rebuilt and a built one is reused.  Nothing is built at import time:
-``load`` builds what it needs (a kernel's wrapper loads its library once),
-and ``build`` compiles several sources at once, one ``nvcc`` process each.
+under a name that carries a hash of the source and of ``NVCC_FLAGS``, so an
+edited source or a changed flag is rebuilt and a built one is reused.
+Nothing is built at import time: ``load`` builds what it needs (a kernel's
+wrapper loads its library once), and ``build`` compiles several sources at
+once, one ``nvcc`` process each.
+
+One module lock serialises ``build`` and ``load``, so threads that launch a
+kernel for the first time together (the plan compiler's stage pool, the
+executor's concurrent job slots) compile it once; each compile writes to a
+temporary file of its own in ``_build/`` and renames it into place.  A
+``_build/`` owned by another user, or writable by its group or by others,
+is refused, and so is a library in it that is: ``load`` runs the code it
+finds there.
 """
 
 from __future__ import annotations
@@ -16,7 +25,10 @@ import hashlib
 import os
 import pathlib
 import shutil
+import stat
 import subprocess
+import tempfile
+import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -25,6 +37,10 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.RLock()
+_LOADED: dict[pathlib.Path, ctypes.CDLL] = {}
+
 
 def sources() -> list[str]:
     """Names of every kernel source under ``csrc/``."""
@@ -43,8 +59,29 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _check_trusted(path: pathlib.Path) -> None:
+    """Raise unless ``path`` is owned by this process's user and writable by
+    no one else."""
+    st = path.stat()
+    if st.st_uid != os.getuid():
+        raise RuntimeError(f"refusing {path}: it is owned by uid {st.st_uid}, "
+                           f"not by this process's uid {os.getuid()}")
+    if st.st_mode & (stat.S_IWGRP | stat.S_IWOTH):
+        raise RuntimeError(f"refusing {path}: it is writable by its group or "
+                           f"by others (mode {stat.filemode(st.st_mode)}), so "
+                           f"another user could replace the kernels it holds")
+
+
+def _build_dir() -> pathlib.Path:
+    """``BUILD_DIR``, made (mode 0700) if it is missing, once trusted."""
+    BUILD_DIR.mkdir(mode=0o700, exist_ok=True)
+    _check_trusted(BUILD_DIR)
+    return BUILD_DIR
 
 
 def build(names: list[str] | None = None) -> dict[str, tuple[float, str]]:
@@ -52,32 +89,42 @@ def build(names: list[str] | None = None) -> dict[str, tuple[float, str]]:
     all at once.  Returns name -> (seconds, compiler output) for each source
     compiled; raises if any compile fails."""
     names = sources() if names is None else names
-    BUILD_DIR.mkdir(exist_ok=True)
-    procs = {}
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target, time.perf_counter())
-    report, failed = {}, []
-    for name, (proc, tmp, target, t0) in procs.items():
-        log, _ = proc.communicate()
-        report[name] = (time.perf_counter() - t0, log)
-        if proc.returncode:
-            failed.append(f"{name}:\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return report
+    with _LOCK:
+        build_dir = _build_dir()
+        procs = {}
+        for name in names:
+            target = _target(name)
+            if target.exists():
+                continue
+            fd, tmp = tempfile.mkstemp(prefix=f"lib{name}-", suffix=".tmp",
+                                       dir=build_dir)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True),
+                           pathlib.Path(tmp), target, time.perf_counter())
+        report, failed = {}, []
+        for name, (proc, tmp, target, t0) in procs.items():
+            log, _ = proc.communicate()
+            report[name] = (time.perf_counter() - t0, log)
+            if proc.returncode:
+                failed.append(f"{name}:\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                tmp.chmod(0o755)
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return report
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it on first use."""
-    build([name])
-    return ctypes.CDLL(str(_target(name)))
+    with _LOCK:
+        build([name])
+        target = _target(name)
+        if target not in _LOADED:
+            _check_trusted(target)
+            _LOADED[target] = ctypes.CDLL(str(target))
+        return _LOADED[target]

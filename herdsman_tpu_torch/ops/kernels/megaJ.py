@@ -1,10 +1,10 @@
 """Whole-rotation blind-rotation kernels against the j-major block-Toeplitz
 keys (``csrc/megaJ.cu``), and their plain PyTorch versions.
 
-The three kernels compute the GINX rotation of ``mega12`` at any gadget
+The five kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
 wrappers they replace; they differ from ``mega12`` and from each other in
-the key they read:
+the key they read and in how a block schedules a step:
 
 - ``mega11_blind_rotate``: ``herdsman_tpu/ops/pallas/mega.py::
   _mega11_kernel``, the doubled window ``bsk_btj2j`` with limb-major
@@ -12,7 +12,14 @@ the key they read:
 - ``mega8_blind_rotate``: ``mega.py::_mega8_kernel``, the doubled window
   ``bsk_btj2`` with columns (c, j, q);
 - ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single-width
-  ``bsk_btj`` with columns (c, j, q).
+  ``bsk_btj`` with columns (c, j, q);
+- ``mega9_blind_rotate``: ``herdsman_tpu/ops/pallas/legacy.py::
+  _mega9_kernel``, ``mega8``'s function and key, with a producer warp
+  building one half's digits while four consumer groups contract the
+  other's (named-barrier hand-off);
+- ``mega6_blind_rotate``: ``legacy.py::_mega6_kernel``, ``mega7``'s
+  function and key, with each group's key rows double-buffered in shared
+  memory by ``cp.async``.
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -39,19 +46,45 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.kernels import _build
-# the kernels share mega12's block layout, so they take the same sets:
-# check_params(p, name) raises on any other
-from herdsman_tpu_torch.ops.kernels.mega12 import (P, blind_rotate_plain_btjj,
-                                                   check_args, check_params,
-                                                   pack_digits, recombine)
+# the kernels share mega12's block layout, so they take the same sets
+from herdsman_tpu_torch.ops.kernels.mega12 import (SMEM_LIMIT, P,
+                                                   blind_rotate_plain_btjj,
+                                                   check_args, pack_digits,
+                                                   recombine, smem_bytes)
+from herdsman_tpu_torch.ops.kernels.mega12 import \
+    check_params as mega12_check_params
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 
 # kernel -> (its variant number in csrc/megaJ.cu, the key layout it reads,
 # doubled window, limb-major columns)
 KERNELS = {"mega11": (11, "bsk_btj2j", True, True),
            "mega8": (8, "bsk_btj2", True, False),
-           "mega7": (7, "bsk_btj", False, False)}
+           "mega7": (7, "bsk_btj", False, False),
+           "mega9": (9, "bsk_btj2", True, False),
+           "mega6": (6, "bsk_btj", False, False)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
+# the kernels whose block holds two halves of G ciphertexts (overlap), or
+# stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
+# per group at least)
+OVERLAP, STAGED = ("mega9",), ("mega6",)
+STAGED_BYTES = 4 * 2 * 16 * 512
+
+
+def check_params(p: TFHEParams, name: str) -> None:
+    """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
+    limits (the same block layout), and one block of its schedule within
+    the card's shared memory."""
+    mega12_check_params(p, name)
+    one = smem_bytes(p, 1)
+    if name in OVERLAP:
+        need = 2 * one - 4
+    elif name in STAGED:
+        need = one + STAGED_BYTES
+    else:
+        return
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{name} at {p.name} needs {need} bytes of shared "
+                         f"memory per block, over {SMEM_LIMIT}")
 
 
 def _check_args(p: TFHEParams, name: str, acc0: torch.Tensor,
@@ -101,10 +134,12 @@ def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
 
 
 def plain(name: str):
-    """The plain version of kernel ``name``: fn(params, acc0, a_t, key)."""
-    if name == "mega7":
+    """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
+    (``mega9`` shares ``mega8``'s, ``mega6`` ``mega7``'s)."""
+    _, _, doubled, jcq = KERNELS[name]
+    if not doubled:
         return blind_rotate_plain_btj
-    return functools.partial(blind_rotate_plain_btj2, jcq=KERNELS[name][3])
+    return functools.partial(blind_rotate_plain_btj2, jcq=jcq)
 
 
 @functools.cache
@@ -114,7 +149,7 @@ def _lib() -> ctypes.CDLL:
     lib.megaJ_blind_rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.megaJ_blind_rotate.restype = ctypes.c_int
-    lib.megaJ_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
+    lib.megaJ_ciphertexts_per_block.argtypes = [ctypes.c_int] * 6
     lib.megaJ_ciphertexts_per_block.restype = ctypes.c_int
     lib.megaJ_error_string.argtypes = [ctypes.c_int]
     lib.megaJ_error_string.restype = ctypes.c_char_p
@@ -125,12 +160,14 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def ciphertexts_per_block(p: TFHEParams, B: int,
-                          device: torch.device) -> int:
-    """The G the kernels pick for a rotation of B ciphertexts at ``p`` on
-    the card ``device`` (0 where they take none)."""
+def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
+                          name: str = "mega11") -> int:
+    """The ciphertexts one block of kernel ``name`` owns in a rotation of B
+    ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
+    G, or two halves of G for ``mega9``."""
     return _lib().megaJ_ciphertexts_per_block(
-        B, p.N, p.k + 1, (p.k + 1) * p.levels, _sms(device))
+        KERNELS[name][0], B, p.N, p.k + 1, (p.k + 1) * p.levels,
+        _sms(device))
 
 
 def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
@@ -184,6 +221,26 @@ def mega7_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     return _rotate("mega7", mega7_blind_rotate, params, acc0, a_t, bsk_btj)
 
 
+def mega9_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btj2: torch.Tensor) -> torch.Tensor:
+    """``mega8``'s rotation on the doubled ``bsk_btj2``, the digit phase on
+    a producer warp beside the contraction; the contract of
+    ``mega11_blind_rotate``, CPU tensors through ``blind_rotate_plain_btj2``."""
+    return _rotate("mega9", mega9_blind_rotate, params, acc0, a_t, bsk_btj2)
+
+
+def mega6_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btj: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation on the single-width ``bsk_btj``, its key rows
+    double-buffered in shared memory by ``cp.async``; CPU tensors go
+    through ``blind_rotate_plain_btj``."""
+    return _rotate("mega6", mega6_blind_rotate, params, acc0, a_t, bsk_btj)
+
+
 mega11_blind_rotate.launches = 0
 mega8_blind_rotate.launches = 0
 mega7_blind_rotate.launches = 0
+mega9_blind_rotate.launches = 0
+mega6_blind_rotate.launches = 0

@@ -1,15 +1,18 @@
-"""Whole-rotation blind-rotation kernels of the single-width bitcast-stream
-class (``csrc/megaT.cu``) and their plain PyTorch version.
+"""Whole-rotation blind-rotation kernels of the bitcast-stream class
+(``csrc/megaT.cu``) and their plain PyTorch versions.
 
-The three kernels serve the byte-aligned gadget bg = 2^8 at its three depths
-and keep the contract of the JAX package's wrappers they replace:
+The four kernels serve the byte-aligned gadget bg = 2^8 and keep the
+contract of the JAX package's wrappers they replace:
 
 - ``mega16_blind_rotate``: levels 2, ``herdsman_tpu/ops/pallas/mega.py::
   _mega16_kernel`` (STD128_SHORTINT_FAST, the N=2048 bool-gate tier);
 - ``mega17_blind_rotate``: levels 3, ``mega.py::_mega17_kernel``
   (STD128_SHORTINT_B8, the integer tier);
 - ``mega15_blind_rotate``: levels 4, ``mega.py::_mega15_kernel``
-  (STD128_SHORTINT_L4, the exact gadget).
+  (STD128_SHORTINT_L4, the exact gadget);
+- ``mega14_blind_rotate``: levels 2 against the extended key ``bsk_btTe``,
+  ``mega.py::_mega14_kernel`` (STD128_K2, STD128_K4, STD128_FAST and
+  STD128_SHORTINT_FAST: N >= 256).
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  Each step packs
@@ -33,10 +36,18 @@ Row q of the JAX package's single-width key ``[n, k+1, (k+1)*4*P, L*N]``
 (N+P-1)/(P*N) of the bytes: 80 MB instead of 9.0 GiB at
 STD128_SHORTINT_B8.
 
+``mega14`` reads the extended key ``bsk_btTe`` int8 [n, k+1, k+1, 4,
+row_bytes(p, extended=True)]: per (step, c_in, c_out, j) the limb sequence
+Te[L*v + lb] = limb_j(ext(bsk[i, c_in*levels + levels-1-lb, c_out])[(N-1-v)
+mod 2N]) of length L*(2N-1), so that output coefficient y reads the whole
+stream as one run from offset (N-1-y)*L, the negated wrap already in the
+key's values (``ext_tile_rows``): the JAX package's pt-major window
+``bsk_btT2`` in 80 MB at STD128_K4 and 101 MB at STD128_SHORTINT_FAST.
+
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
-``blind_rotate_plain_btTc``.  The source note in ``csrc/megaT.cu`` gives the
-kernels' design and bound.
+``blind_rotate_plain_btTc`` (``blind_rotate_plain_btTe`` for ``mega14``).
+The source note in ``csrc/megaT.cu`` gives the kernels' design and bound.
 """
 
 from __future__ import annotations
@@ -56,58 +67,78 @@ I32 = torch.int32
 I8 = torch.int8
 
 P = 128                    # column tile: the kernels take N >= 128 only
+NGROUP = 4                 # column tiles one block contracts at once
 SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 # kernel -> the gadget depth it serves at bg = 2^8
-KERNELS = {"mega16": 2, "mega17": 3, "mega15": 4}
+KERNELS = {"mega16": 2, "mega17": 3, "mega15": 4, "mega14": 2}
+# the kernels that read the extended key
+EXTENDED = ("mega14",)
+# kernel -> the key layout it reads
+KEY_LAYOUTS = {name: "bsk_btTe" if name in EXTENDED else "bsk_btTc"
+               for name in KERNELS}
 
 
-def row_bytes(p: TFHEParams) -> int:
-    """Bytes of one limb sequence of ``bsk_btTc``: L*(N+P-1) and one word
-    of slack for the kernel's shifted key reads, rounded up to 16."""
-    return -(-(p.levels * (p.N + P - 1) + 4) // 16) * 16
+def row_bytes(p: TFHEParams, extended: bool = False) -> int:
+    """Bytes of one limb sequence of ``bsk_btTc`` (L*(N+P-1)) or of
+    ``bsk_btTe`` (L*(2N-1)), with one word of slack for the kernel's shifted
+    key reads, rounded up to 16."""
+    span = 2 * p.N - 1 if extended else p.N + P - 1
+    return -(-(p.levels * span + 4) // 16) * 16
 
 
-def key_bytes(p: TFHEParams) -> int:
-    """Bytes of the ``bsk_btTc`` layout at ``p``."""
-    return p.n * (p.k + 1) ** 2 * 4 * row_bytes(p)
+def key_bytes(p: TFHEParams, extended: bool = False) -> int:
+    """Bytes of the ``bsk_btTc`` (or ``bsk_btTe``) layout at ``p``."""
+    return p.n * (p.k + 1) ** 2 * 4 * row_bytes(p, extended)
 
 
-def smem_bytes(p: TFHEParams, G: int) -> int:
+def c_out_slices(p: TFHEParams) -> int:
+    """c_out slices of the step key a block stages at once: enough (tile,
+    c_out) units for its 4 groups where N has fewer than 4 column tiles."""
+    half = p.N // P
+    return 1 if half >= NGROUP else min(NGROUP // half, p.k + 1)
+
+
+def smem_bytes(p: TFHEParams, G: int, extended: bool = False) -> int:
     """Shared memory of one block of G ciphertexts: their accumulators
-    (u32), one step's digit streams and rotation amounts, and one staged
-    (c_in, c_out) slice of the step key."""
+    (u32), one step's digit streams and rotation amounts, and the staged
+    (c_in, c_out) slices of the step key."""
     kp1 = p.k + 1
-    return G * (kp1 * p.N * 4 + kp1 * p.levels * p.N + 4) + 4 * row_bytes(p)
+    return (G * (kp1 * p.N * 4 + kp1 * p.levels * p.N + 4)
+            + 4 * c_out_slices(p) * row_bytes(p, extended))
 
 
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: its own
     gadget (bg_bits 8, levels KERNELS[name]), k+1 in (2, 3, 5), N a power
-    of two in [128, 2048], and one ciphertext within a block's shared
-    memory."""
+    of two in [128, 2048] ([256, 2048] for ``mega14``, the JAX kernel's N
+    >= 2P), and one ciphertext within a block's shared memory."""
     L = KERNELS[name]
+    extended = name in EXTENDED
     if p.bg_bits != 8 or p.levels != L:
         raise ValueError(f"{name} takes bg_bits 8 and levels {L}, not "
                          f"{p.bg_bits} and {p.levels} ({p.name})")
     if p.k + 1 not in (2, 3, 5):
         raise ValueError(f"{name} takes k+1 in (2, 3, 5), not {p.k + 1} "
                          f"({p.name})")
-    if p.N & (p.N - 1) or not P <= p.N <= 2048:
-        raise ValueError(f"{name} takes N a power of two in [{P}, 2048], "
+    lo = 2 * P if extended else P
+    if p.N & (p.N - 1) or not lo <= p.N <= 2048:
+        raise ValueError(f"{name} takes N a power of two in [{lo}, 2048], "
                          f"not {p.N} ({p.name})")
-    if smem_bytes(p, 1) > SMEM_LIMIT:
-        raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} bytes "
-                         f"of shared memory per ciphertext, over {SMEM_LIMIT}")
+    if smem_bytes(p, 1, extended) > SMEM_LIMIT:
+        raise ValueError(f"{name} at {p.name} needs "
+                         f"{smem_bytes(p, 1, extended)} bytes of shared "
+                         f"memory per ciphertext, over {SMEM_LIMIT}")
 
 
 def _check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
-                key: torch.Tensor) -> None:
+                key: torch.Tensor, extended: bool = False) -> None:
     kp1 = p.k + 1
     B = acc0.shape[0] if acc0.dim() == 3 else -1
+    layout = "bsk_btTe" if extended else "bsk_btTc"
     shapes = {"acc0": (acc0, I32, (B, kp1, p.N)),
               "a_t": (a_t, I32, (p.n, B)),
-              "bsk_btTc": (key, I8, (p.n, kp1, kp1, 4, row_bytes(p)))}
+              layout: (key, I8, (p.n, kp1, kp1, 4, row_bytes(p, extended)))}
     for name, (t, dtype, shape) in shapes.items():
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
@@ -193,6 +224,53 @@ def blind_rotate_plain_btTc(params: TFHEParams, acc0: torch.Tensor,
     return acc
 
 
+def ext_tile_rows(p: TFHEParams, step_key: torch.Tensor,
+                  ct: int) -> torch.Tensor:
+    """Rows of output column tile ct from one step of ``bsk_btTe`` [k+1,
+    k+1, 4, row_bytes]: [k+1 (c_in), (k+1)*4*P (j, c_out, q), L*N], row (j,
+    c_out, q) the run of L*N bytes at offset (N-1-ct*P-q)*L of its limb
+    sequence, byte L*z + lb the coefficient of stream byte L*z + lb."""
+    kp1 = step_key.shape[0]
+    L, N = p.levels, p.N
+    windows = step_key[..., :L * (2 * N - 1)].unfold(-1, L * N, L)
+    rows = windows[..., N - (ct + 1) * P:N - ct * P, :].flip(-2)
+    # [c_in, c_out, j, q, LN] -> [c_in, j, c_out, q, LN]
+    return rows.permute(0, 2, 1, 3, 4).reshape(kp1, 4 * kp1 * P, L * N)
+
+
+def blind_rotate_plain_btTe(params: TFHEParams, acc0: torch.Tensor,
+                            a_t: torch.Tensor,
+                            bsk_btTe: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``mega14`` in plain PyTorch, either device, reading
+    the same ``bsk_btTe`` key.  Per step: rotate, pack the digit stream
+    (``pack_stream``); per column tile one ``torch._int_mm`` of the whole
+    stream, summed over c_in, with the tile's rows (``ext_tile_rows``): no
+    wrap split; then the limb-major recombine into the accumulator."""
+    p = params
+    _check_args(p, acc0, a_t, bsk_btTe, extended=True)
+    B, kp1, N = acc0.shape
+    C4P = kp1 * 4 * P
+    acc = acc0
+    for i in range(p.n):
+        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
+        D = pack_stream(p, rot - acc).transpose(1, 2).reshape(B, -1)
+        tiles = []
+        for ct in range(N // P):
+            rows = ext_tile_rows(p, bsk_btTe[i], ct)   # [c_in, C4P, L*N]
+            total = int8_matmul(D.contiguous(),
+                                rows.permute(2, 0, 1).reshape(-1, C4P))
+            limbs = total.reshape(B, 4, kp1, P).permute(0, 2, 3, 1)
+            tiles.append(poly.from_i32_limb_partials(limbs))  # [B, k+1, P]
+        acc = acc + torch.cat(tiles, dim=-1)
+    return acc
+
+
+def plain(name: str):
+    """The plain version of kernel ``name``: fn(params, acc0, a_t, key)."""
+    return (blind_rotate_plain_btTe if name in EXTENDED
+            else blind_rotate_plain_btTc)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/megaT.cu`` with its C signatures declared."""
@@ -202,7 +280,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
+    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 6
     lib.megaT_ciphertexts_per_block.restype = ctypes.c_int
     lib.megaT_error_string.argtypes = [ctypes.c_int]
     lib.megaT_error_string.restype = ctypes.c_char_p
@@ -213,20 +291,21 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def ciphertexts_per_block(p: TFHEParams, B: int,
-                          device: torch.device) -> int:
-    """The G the kernels pick for a rotation of B ciphertexts at ``p`` on
-    the card ``device`` (0 where they take none)."""
+def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
+                          extended: bool = False) -> int:
+    """The G the kernels (on the extended key if ``extended``) pick for a
+    rotation of B ciphertexts at ``p`` on the card ``device`` (0 where they
+    take none)."""
     return _lib().megaT_ciphertexts_per_block(B, p.N, p.k + 1, p.levels,
-                                              _sms(device))
+                                              int(extended), _sms(device))
 
 
 def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
             a_t: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     check_params(p, name)
-    _check_args(p, acc0, a_t, key)
+    _check_args(p, acc0, a_t, key, extended=name in EXTENDED)
     if acc0.device.type == "cpu":
-        return blind_rotate_plain_btTc(p, acc0, a_t, key)
+        return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
     lib = _lib()
@@ -269,6 +348,18 @@ def mega15_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     return _rotate("mega15", mega15_blind_rotate, params, acc0, a_t, bsk_btTc)
 
 
+def mega14_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                        a_t: torch.Tensor,
+                        bsk_btTe: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation at bg = 2^8, levels 2, against the extended key
+    (one run per column tile, no wrap split): acc0 [B, k+1, N] and a_t [n,
+    B] (int32 carriers), bsk_btTe int8 [n, k+1, k+1, 4, row_bytes(p,
+    extended=True)] -> acc [B, k+1, N].  CUDA tensors go through the kernel,
+    CPU tensors through ``blind_rotate_plain_btTe``."""
+    return _rotate("mega14", mega14_blind_rotate, params, acc0, a_t, bsk_btTe)
+
+
 mega16_blind_rotate.launches = 0
 mega17_blind_rotate.launches = 0
 mega15_blind_rotate.launches = 0
+mega14_blind_rotate.launches = 0

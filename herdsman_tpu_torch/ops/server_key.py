@@ -73,6 +73,19 @@ once, into:
                                        (``ops/kernels/megaT.expand_key``).
                                        80 MB at STD128_SHORTINT_B8, where
                                        the expanded key is 9.0 GiB.
+- ``bsk_btTe``  int8  [n, k+1, k+1, 4, row_bytes(p, extended=True)]
+                                       the extended step key of ``mega14``
+                                       (bg = 2^8, levels 2, N >= 256), read
+                                       by ``csrc/megaT.cu``: the same limb
+                                       sequences over the whole negacyclic
+                                       period, L*(2N-1) bytes, so that every
+                                       output column reads one unwrapped run
+                                       (``ops/kernels/megaT.ext_tile_rows``
+                                       is the JAX package's pt-major
+                                       ``bsk_btT2`` window).  80 MB at
+                                       STD128_K4, 101 MB at
+                                       STD128_SHORTINT_FAST, where the JAX
+                                       layout takes 17.25 GiB.
 - ``ksk_limbs`` int8  [kN*t, C]        the key-switching key as balanced int8
                                        limbs for one ``torch._int_mm``;
                                        C = (n+1)*4 padded to a multiple of 8,
@@ -91,18 +104,17 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaT
+from herdsman_tpu_torch.ops.kernels import mega13, megaJ, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
 LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btj2",
-           "bsk_btj2j", "bsk_btTc")
+           "bsk_btj2j", "bsk_btTc", "bsk_btTe")
 DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
 ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btjj", "bt": "bsk_bt",
                   "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
-                  "mega16": "bsk_btTc", "mega17": "bsk_btTc",
-                  "mega15": "bsk_btTc", **megaJ.KEY_LAYOUTS}
+                  **megaT.KEY_LAYOUTS, **megaJ.KEY_LAYOUTS}
 
 # device memory the key layouts of one session may take: half of an H100's
 # 80 GB, leaving the rest to ciphertext batches and other sessions
@@ -125,6 +137,7 @@ class DeviceServerKey:
     bsk_btj2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btj2j: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
+    bsk_btTe: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
 
     @property
     def R(self) -> int:
@@ -197,23 +210,29 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     return out
 
 
-def stream_key_layout(p: TFHEParams, bsk: torch.Tensor) -> torch.Tensor:
+def stream_key_layout(p: TFHEParams, bsk: torch.Tensor,
+                      extended: bool = False) -> torch.Tensor:
     """``bsk_btTc`` int8 [n, k+1 (c_in), k+1 (c_out), 4 (j), row_bytes]
     from the int32 ``bsk`` [n, R, k+1, N] at the byte-aligned gadget, on
     ``bsk``'s device, a chunk of steps at a time: T[L*u + lb] =
     limb_j(ext(bsk[i, c_in*levels + levels-1-lb, c_out])[(P-1-u) mod 2N])
     for u < N+P-1, zeros after.  Its expansion equals the JAX package's
-    ``_btTs/_btT3/_btT4_layout_device`` (tests/test_torch_megaT.py)."""
+    ``_btTs/_btT3/_btT4_layout_device`` (tests/test_torch_megaT.py).  With
+    ``extended``, ``bsk_btTe``: Te[L*v + lb] = limb_j(ext(...)[(N-1-v) mod
+    2N]) for v < 2N-1, zeros after, whose tiles equal the JAX package's
+    ``bsk_btT2`` windows (tests/test_torch_mega14.py)."""
+    name = "bsk_btTe" if extended else "bsk_btTc"
     if p.bg_bits != 8 or not 2 <= p.levels <= 4 or p.N % megaT.P:
-        raise ValueError(f"bsk_btTc needs bg_bits 8, levels 2-4 and N a "
+        raise ValueError(f"{name} needs bg_bits 8, levels 2-4 and N a "
                          f"multiple of {megaT.P}, not {p.bg_bits}, "
                          f"{p.levels} and {p.N} ({p.name})")
     n, R, kp1, N = bsk.shape
     P = megaT.P
-    L, U = p.levels, N + P - 1
-    idx = (P - 1 - torch.arange(U, device=bsk.device)) % (2 * N)
-    out = torch.zeros(n, kp1, kp1, 4, megaT.row_bytes(p), dtype=torch.int8,
-                      device=bsk.device)
+    L = p.levels
+    U, top = (2 * N - 1, N - 1) if extended else (N + P - 1, P - 1)
+    idx = (top - torch.arange(U, device=bsk.device)) % (2 * N)
+    out = torch.zeros(n, kp1, kp1, 4, megaT.row_bytes(p, extended),
+                      dtype=torch.int8, device=bsk.device)
     step = max(1, _BT_CHUNK_BYTES // (R * kp1 * U * 4 * 2))
     for i0 in range(0, n, step):
         i1 = min(i0 + step, n)
@@ -246,11 +265,17 @@ def fit_engine(engine: str, params: TFHEParams,
     - ``mega11`` / ``mega8`` while their doubled key (``bsk_btj2j`` /
       ``bsk_btj2``) fits and their kernel takes the set; else whatever a
       ``mega12`` request gets;
+    - ``mega14`` where the set has bg_bits 8, levels 2 and N >= 256 and its
+      extended ``bsk_btTe`` key fits (the JAX package's ``btT_bytes``
+      check, ``pallas_mega14`` beside ``pallas_mega13``); else whatever a
+      ``mega16`` request gets;
     - ``mega16`` / ``mega17`` / ``mega15`` where the set has their own
       byte-aligned gadget (bg_bits 8 and levels 2 / 3 / 4) and their
       compact ``bsk_btTc`` key fits; else ``mega11`` where its doubled key
       fits and its kernel takes the set; else whatever a ``mega12`` request
       gets;
+    - ``mega9`` as ``mega8`` (the doubled ``bsk_btj2``), ``mega6`` as
+      ``mega7`` (the single-width ``bsk_btj``);
     - ``mega13`` where its kernel takes the set, else ``bt_fused``.
 
     The coordinator and the integer tier build every key through this, so
@@ -258,10 +283,16 @@ def fit_engine(engine: str, params: TFHEParams,
 
     Two routes differ from the JAX package's, with equal outputs:
 
-    - ``mega13`` stays ``mega13`` wherever its kernel takes the set, also
-      at STD128_SHORTINT_FAST, where the JAX package moves
-      ``pallas_mega13`` to ``pallas_mega16`` because its extended key would
-      be 18.5 GiB; the port's ``mega13`` reads the raw 50 MB key.
+    - ``mega13`` stays ``mega13`` wherever its kernel takes the set; the
+      port's ``mega13`` reads the raw key (50 MB at STD128_SHORTINT_FAST).
+      The JAX package's ``pallas_mega13`` reads the extended pt-major key
+      and is kept only at the sets with the bg = 2^8, l = 2 gadget and N >=
+      256 (STD128_FAST, STD128_K2, STD128_K4, STD128_SHORTINT_FAST) where
+      it fits: at the port's 40 GiB budget it sends every other set
+      (STD128, STD128_SHORTINT, _B8, _L4, TEST_PBS, TEST_SMALL, TOY) to
+      ``pallas_mega11``, and at its own 12 GiB default also
+      STD128_SHORTINT_FAST (17.25 GiB) to ``pallas_mega16``
+      (tests/test_torch_megaJ.py pins both, set by set).
     - The block-Toeplitz kernels of the port tile N by 128 columns, so at a
       set with N < 128 (TOY) a ``mega12``, ``mega7``, ``mega8`` or
       ``mega11`` request, and a byte-aligned one that would fall back to
@@ -277,20 +308,25 @@ def fit_engine(engine: str, params: TFHEParams,
 
     bt_fits = bt_key_bytes(params) <= budget_bytes
     route = engine
+    if route in megaT.EXTENDED:
+        if (takes(lambda p: megaT.check_params(p, route))
+                and megaT.key_bytes(params, extended=True) <= budget_bytes):
+            return route
+        route = "mega16"
     if route in megaT.KERNELS:
         if (takes(lambda p: megaT.check_params(p, route))
                 and megaT.key_bytes(params) <= budget_bytes):
             return route
         route = "mega11"
-    # mega11, mega8 and mega7 share mega12's block layout and its limits
-    if route in ("mega11", "mega8"):
+    # the megaJ.cu kernels share mega12's block layout and its limits
+    if route in ("mega11", "mega8", "mega9"):
         if (2 * bt_key_bytes(params) <= budget_bytes
-                and takes(mega12.check_params)):
+                and takes(lambda p: megaJ.check_params(p, route))):
             return route
         route = "mega12"
-    if route in ("bt", "bt_fused", "mega12", "mega7"):
+    if route in ("bt", "bt_fused", "mega12", "mega7", "mega6"):
         if bt_fits and (route in ("bt", "bt_fused")
-                        or takes(mega12.check_params)):
+                        or takes(lambda p: megaJ.check_params(p, route))):
             return route
         if takes(mega13.check_params):
             return "mega13"
@@ -350,4 +386,6 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                    if "bsk_btj2j" in layouts else None),
         bsk_btTc=(stream_key_layout(p, bsk)
                   if "bsk_btTc" in layouts else None),
+        bsk_btTe=(stream_key_layout(p, bsk, extended=True)
+                  if "bsk_btTe" in layouts else None),
     )

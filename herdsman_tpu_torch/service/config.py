@@ -42,7 +42,9 @@ ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
                 "pallas_mega13": "mega13", "pallas_mega12": "mega12",
                 "pallas_mega16": "mega16", "pallas_mega17": "mega17",
                 "pallas_mega15": "mega15", "pallas_mega11": "mega11",
-                "pallas_mega8": "mega8", "pallas_mega7": "mega7"}
+                "pallas_mega8": "mega8", "pallas_mega7": "mega7",
+                "pallas_mega14": "mega14", "pallas_mega9": "mega9",
+                "pallas_mega6": "mega6"}
 
 
 def port_engine(name: str) -> str:
@@ -54,10 +56,10 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; pallas_mega14 and the legacy kernels "
-        f"(pallas_mega, pallas_mega2-6, 9, 10) are ROADMAP queue 2 items 9 "
-        f"and 11, and conv_i8/gather_u32 (XLA engines with no kernel) are "
-        f"not served by the port's coordinator")
+        f"{sorted(ENGINE_NAMES)}; the legacy kernels pallas_mega, "
+        f"pallas_mega2-5 and pallas_mega10 are ROADMAP queue 2 item 11, and "
+        f"conv_i8/gather_u32 (XLA engines with no kernel) are not served by "
+        f"the port's coordinator")
 
 
 @dataclasses.dataclass

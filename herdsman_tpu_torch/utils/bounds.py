@@ -117,6 +117,13 @@ TPU_KERNELS = [
 ]
 
 
+# ported kernels the smoke run also times at another set: mega14 serves the
+# eager API at STD128_K4 (path K) beside STD128_K2 (path A')
+FURTHER_SETS = [
+    ("mega.py:997 _mega14_kernel", "std128_k4", "bsk_btT2"),
+]
+
+
 def table(B: int = 2048) -> list[tuple[str, str, float, str]]:
     """(kernel, parameter set, bound ms, what bounds it) of every TPU
     kernel: whole rotations per call, the two per-step kernels per step."""
@@ -134,8 +141,15 @@ def table(B: int = 2048) -> list[tuple[str, str, float, str]]:
     return rows
 
 
+def further_table(B: int = 2048) -> list[tuple[str, str, float, str]]:
+    """The rows of ``table`` for ``FURTHER_SETS``."""
+    return [(kernel, pset, *bound_ms(*rotation(
+        PARAM_SETS[pset], B, key_layout_bytes(PARAM_SETS[pset], layout))))
+        for kernel, pset, layout in FURTHER_SETS]
+
+
 if __name__ == "__main__":
     print(f"bounds on one H100 at B=2048 (int8 {PEAK_INT8_OPS:.4g} op/s, "
           f"int32 {PEAK_INT32_OPS:.4g} op/s, {PEAK_BYTES:.4g} B/s)")
-    for kernel, pset, ms, by in table():
+    for kernel, pset, ms, by in table() + further_table():
         print(f"{kernel:45s} {pset:22s} {ms:12.4f} ms ({by})")

@@ -231,8 +231,9 @@ def test_mega12_engine_matches_mega13_and_reference(card, params):
 
 
 # the byte-aligned kernels' geometry classes (mega16 / mega17 / mega15 at
-# levels 2 / 3 / 4): k+1 in (2, 3, 5), N from 256 to 2048 (HALF 2 to 16);
-# B = 129 and 2001 take ragged last blocks (B = 2001 at G = 8 or 4)
+# levels 2 / 3 / 4, mega14 at levels 2 on the extended key): k+1 in (2, 3,
+# 5), N from 256 to 2048 (HALF 2 to 16); B = 129 and 2001 take ragged last
+# blocks (B = 2001 at G = 8 or 4)
 MEGAT_GEOMETRIES = [(1, 256), (2, 512), (4, 256), (1, 1024), (1, 2048),
                     (2, 2048)]
 MEGAT_SETS = [dc.replace(TOY, name=f"{name}_k{k}_n{N}", n=4, N=N, k=k,
@@ -247,6 +248,7 @@ MEGAT_SETS = [dc.replace(TOY, name=f"{name}_k{k}_n{N}", n=4, N=N, k=k,
 def test_megaT_matches_plain(card, params, B):
     p = params
     name = p.name.split("_")[0]
+    extended = name in megaT.EXTENDED
     kernel = getattr(megaT, f"{name}_blind_rotate")
     rng = np.random.default_rng(B + p.N + p.k + p.levels)
     acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
@@ -254,27 +256,27 @@ def test_megaT_matches_plain(card, params, B):
                           dtype=torch.int32, device=card)
     key = torch.as_tensor(
         rng.integers(-128, 128, (p.n, p.k + 1, p.k + 1, 4,
-                                 megaT.row_bytes(p))),
+                                 megaT.row_bytes(p, extended))),
         dtype=torch.int8, device=card)
     before = kernel.launches
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert megaT.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
-    assert torch.equal(got, megaT.blind_rotate_plain_btTc(p, acc0, a_t, key))
+    assert megaT.ciphertexts_per_block(p, B, card, extended) in (1, 2, 4, 8)
+    assert torch.equal(got, megaT.plain(name)(p, acc0, a_t, key))
 
 
 @pytest.mark.parametrize("name", sorted(megaT.KERNELS))
 def test_megaT_engines_match_mega12_and_reference(card, name):
     params = dc.replace(TOY, name=f"{name}_k1_n512", n=8, N=512, k=1,
                         bg_bits=8, levels=megaT.KERNELS[name])
+    layout = megaT.KEY_LAYOUTS[name]
     rng = np.random.default_rng(12)
     ck, sk = ref.keygen(params, rng)
-    dsk = device_server_key(sk, layouts=("bsk_btjj", "bsk_btTc"),
-                            device=card)
-    cpu_tc = device_server_key(sk, layouts=("bsk_btTc",),
-                               device="cpu").bsk_btTc
-    assert torch.equal(dsk.bsk_btTc.cpu(), cpu_tc)  # built on the card
+    dsk = device_server_key(sk, layouts=("bsk_btjj", layout), device=card)
+    cpu_key = getattr(device_server_key(sk, layouts=(layout,), device="cpu"),
+                      layout)
+    assert torch.equal(getattr(dsk, layout).cpu(), cpu_key)  # built on card
     B = 37
     ct = from_numpy_u32(rand_u32(rng, B, params.n + 1), card)
     tp = bs.make_test_poly(params, device=card)
@@ -288,9 +290,9 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
                              ref.make_test_poly(params)))
 
 
-# the j-major kernels (mega11, mega8, mega7 of megaJ.cu) at mega12's geometry
-# classes; B = 129 takes a ragged last block at every ciphertexts-per-block
-# choice
+# the j-major kernels (mega11, mega8, mega7, mega9, mega6 of megaJ.cu) at
+# mega12's geometry classes; B = 129 takes a ragged last block at every
+# ciphertexts-per-block choice
 @pytest.mark.parametrize("B", [1, 9, 129])
 @pytest.mark.parametrize("name", sorted(megaJ.KERNELS))
 @pytest.mark.parametrize("params", MEGA12_SETS,
@@ -313,7 +315,7 @@ def test_megaJ_matches_plain(card, params, name, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert megaJ.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
+    assert megaJ.ciphertexts_per_block(p, B, card, name) in (1, 2, 4, 8, 16)
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
 
 
@@ -339,3 +341,45 @@ def test_megaJ_engines_match_mega13_and_reference(card, params, name):
             to_numpy_u32(got[i]),
             ref.blind_rotate(sk, to_numpy_u32(ct[i]),
                              ref.make_test_poly(params)))
+
+
+# the three kernels of this slice at the widths of the smoke run's paths
+# (B = 2048 fills the card: mega9 takes 16 ciphertexts a block at
+# STD128_K2's geometry, mega6 stages 32 key rows a chunk there and 16 at
+# N = 2048), n cut to 4 steps
+WIDE_SETS = [
+    dc.replace(TOY, name="mega14_k2_n512", n=4, N=512, k=2, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="mega14_k4_n256", n=4, N=256, k=4, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="mega9_k2_n512", n=4, N=512, k=2, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="mega6_k2_n512", n=4, N=512, k=2, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="mega6_k1_n2048", n=2, N=2048, k=1, bg_bits=7,
+               levels=3),
+]
+
+
+@pytest.mark.parametrize("params", WIDE_SETS, ids=[q.name for q in WIDE_SETS])
+def test_new_kernels_match_plain_at_width(card, params):
+    p = params
+    name = p.name.split("_")[0]
+    module = megaT if name in megaT.KERNELS else megaJ
+    kernel = getattr(module, f"{name}_blind_rotate")
+    B = 2048
+    rng = np.random.default_rng(p.N + p.k)
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    if module is megaT:
+        shape = (p.n, p.k + 1, p.k + 1, 4, megaT.row_bytes(p, True))
+    else:
+        HALF, R = p.N // megaJ.P, (p.k + 1) * p.levels
+        groups = 2 * HALF if megaJ.KERNELS[name][2] else HALF
+        shape = (p.n, groups, R, megaJ.P, (p.k + 1) * 4 * megaJ.P)
+    key = torch.as_tensor(rng.integers(-128, 128, shape), dtype=torch.int8,
+                          device=card)
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))

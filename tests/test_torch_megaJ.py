@@ -49,7 +49,9 @@ from herdsman_tpu_torch.utils import rowcodec
 # interpret-mode rotations stay fast
 MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
-ENGINES = list(megaJ.KERNELS)
+# the serial-schedule kernels; the legacy mega9 and mega6 (the same source,
+# other schedules) are tests/test_torch_legacy.py's
+ENGINES = ["mega11", "mega8", "mega7"]
 # layout -> the JAX package's _block_toeplitz_layout_device arguments
 JAX_LAYOUTS = {"bsk_btj": {"j_major": True},
                "bsk_btj2": {"windowed": True},
@@ -346,6 +348,41 @@ def test_fit_engine_parity_with_jax():
                                                                      jname)
             checked += 1
     assert checked == (len(ENGINE_NAMES) - 1) * (len(PARAM_SETS) - 1)
+
+
+# the JAX package's route of pallas_mega13, set by set, at the port's 40 GiB
+# budget and at the JAX package's own 12 GiB default
+JAX_MEGA13_ROUTES = {
+    "toy": ("pallas_mega11", "pallas_mega11"),
+    "test_small": ("pallas_mega11", "pallas_mega11"),
+    "test_pbs": ("pallas_mega11", "pallas_mega11"),
+    "std128": ("pallas_mega11", "pallas_mega11"),
+    "std128_fast": ("pallas_mega13", "pallas_mega13"),
+    "std128_shortint": ("pallas_mega11", "pallas_mega12"),
+    "std128_shortint_fast": ("pallas_mega13", "pallas_mega16"),
+    "std128_shortint_b8": ("pallas_mega11", "pallas_mega12"),
+    "std128_shortint_l4": ("pallas_mega11", "pallas_mega12"),
+    "std128_k2": ("pallas_mega13", "pallas_mega13"),
+    "std128_k4": ("pallas_mega13", "pallas_mega13"),
+}
+
+
+def test_fit_engine_mega13_divergence_set_by_set():
+    """The pairs the parity test skips: the port keeps ``mega13`` at every
+    named set (its kernel reads the raw key), where the JAX package keeps
+    ``pallas_mega13`` (the extended pt-major key) only at the bg = 2^8, l =
+    2 sets with N >= 256 and sends the others to ``pallas_mega11`` at 40
+    GiB, and at its 12 GiB default also STD128_SHORTINT_FAST (17.25 GiB)
+    to ``pallas_mega16``.  The outputs are equal either way."""
+    assert set(JAX_MEGA13_ROUTES) == set(PARAM_SETS)
+    for name, p in PARAM_SETS.items():
+        at40, at12 = JAX_MEGA13_ROUTES[name]
+        assert tsk.fit_engine("mega13", p) == "mega13", name
+        assert jsk.fit_engine("pallas_mega13", JAX_SETS[name],
+                              hbm_budget_bytes=tsk.KEY_BUDGET_BYTES) == at40
+        assert jsk.fit_engine("pallas_mega13", JAX_SETS[name]) == at12
+        b8l2 = p.bg_bits == 8 and p.levels == 2 and p.N >= 256
+        assert (at40 == "pallas_mega13") == b8l2, name
 
 
 def test_fit_engine_doubled_key_routes():

@@ -218,8 +218,9 @@ def jsk_bytes(p, L: int) -> int:
 
 def test_fit_engine_keeps_mega13_at_shortint_fast():
     """The documented divergence: the port's mega13 reads the raw key, so
-    it stays on mega13 at STD128_SHORTINT_FAST, where the JAX package moves
-    pallas_mega13 to pallas_mega16."""
+    it stays on mega13 at STD128_SHORTINT_FAST, where the JAX package at
+    its default 12 GiB budget moves pallas_mega13 to pallas_mega16 (at 40
+    GiB it keeps it: tests/test_torch_megaJ.py)."""
     fast = PARAM_SETS["std128_shortint_fast"]
     assert tsk.fit_engine("mega13", fast) == "mega13"
     assert jsk.fit_engine("pallas_mega13", JAX_SETS["std128_shortint_fast"]) \
