@@ -4,11 +4,12 @@ GPU, at the parameter set of record, STD128_K2 (n=768, N=512, k=2, bg=2^8,
 l=2), at the integer tier's, STD128_SHORTINT (n=768, N=2048, k=1, bg=2^7,
 l=3, key switch 2^2 x 12), and at the N=2048 byte-aligned sets
 STD128_SHORTINT_B8 (bg=2^8, l=3), STD128_SHORTINT_FAST (bg=2^8, l=2, key
-switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), and at STD128_K4
-(n=768, N=256, k=4, bg=2^8, l=2), with keys made from a seed.  The five
-host keygens of the N=2048 sets and STD128_K4 run in worker processes while
-the card runs the earlier paths.  Thirteen kernel wrappers (fourteen TPU
-kernel bodies) from six CUDA sources.
+switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
+(n=768, N=256, k=4, bg=2^8, l=2) and at the classic bool set STD128
+(n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
+host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
+processes while the card runs the earlier paths.  Seventeen kernel wrappers
+(eighteen TPU kernel bodies) from seven CUDA sources.
 
     python3 chip_smoke.py [--seed S]
 
@@ -49,24 +50,39 @@ Phases, in order; any failure raises and exits non-zero:
    plain and library times), a B=2048 gate batch on ``bt`` and
    ``bt_fused``, and path C's jobs with the runner's load / exec / store
    split;
-9b. main path H, the j-major kernels of ``megaJ.cu`` at STD128_K2: path A's
-    gate batch on ``mega11`` (key ``bsk_btj2j``), ``mega8`` and ``mega9``
-    (``bsk_btj2``), ``mega7`` and ``mega6`` (``bsk_btj``), each key built,
-    used and freed in turn, each kernel against its plain version
-    (tolerance 0) on the batch's rotation inputs at B = 2048, 256 and 9,
-    each output array-equal to path A's ``mega13`` output and decrypted
-    against the truth table, with times (the kernels of one key in turns:
-    mega9 against mega8, mega6 against mega7) and peak memory;
+9b. main path H, the j-major kernels of ``megaJ.cu`` and
+    ``megaJ_legacy.cu`` at STD128_K2: path A's gate batch on ``mega11``
+    (key ``bsk_btj2j``), ``mega8``, ``mega9`` and ``mega10``
+    (``bsk_btj2``), ``mega7``, ``mega6``, ``mega4``, ``mega5`` (``bsk_btj``)
+    and ``mega3`` (``bsk_btjm``), the keys of one function built, used and
+    freed in turn, each kernel against its plain version (tolerance 0) on
+    the batch's rotation inputs at B = 2048, 256 and 9, each output
+    array-equal to path A's ``mega13`` output and decrypted against the
+    truth table, with times (the kernels of one function in turns) and
+    peak memory;
 9b'. main path A': path A's gate batch on ``mega14`` (the extended key
     ``bsk_btTe``), the kernel against its plain version at B = 2048, 256
     and 9, the output array-equal to path A's and decrypted, and
     ``mega14``, ``mega16`` and ``mega13`` timed in turns at STD128_K2; then
-    each ``megaJ.cu`` kernel on random inputs and keys at B=9 at the
-    geometries of STD128, STD128_FAST and STD128_SHORTINT, and ``mega14``
-    at STD128_FAST's and STD128_K4's (n cut to 32 steps);
-9c. main path I: path C's job on a coordinator whose in-code config names
-    ``pallas_mega11``: COMPLETED with no retry, every row decrypted, frames
-    byte-equal to path C's on ``pallas_fused``;
+    each ``megaJ.cu`` and ``megaJ_legacy.cu`` kernel on random inputs and
+    keys at B=9 at the geometries of STD128, STD128_FAST, STD128_SHORTINT
+    and STD128_K4, and ``mega14`` at STD128_FAST's and STD128_K4's (n cut
+    to 32 steps);
+9b''. main path L, the classic bool set STD128 (n=768, N=1024, k=1,
+    bg=2^7, l=3; host keygen in a worker): path A's 2048-gate batch (the
+    same gates and plaintexts) on ``mega13``, decrypted against the truth
+    table and one gate against the NumPy ``bootstrap_bool``; then on
+    ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), ``mega4`` and
+    ``mega5`` (``bsk_btj``), one key at a time (built, used, freed), each
+    output array-equal to ``mega13``'s and decrypted, each kernel equal to
+    ``mega13`` and to its plain version (tolerance 0) on the batch's
+    rotation inputs at B = 2048; end-to-end seconds, gate bootstraps/s,
+    the kernels' times and the path's peak memory;
+9c. main path I: path C's job over the rows of its first partition (512
+    rows, one partition) on a coordinator whose in-code config names
+    ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
+    intermediate frame byte-equal to the first partition of path C's on
+    ``pallas_fused``;
 10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
     (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
     the card as ``bsk_btjj``; then the whole-rotation kernel ``mega12``
@@ -149,8 +165,8 @@ ROWS = 128
 RADIX_VALUES = 256  # path D2: bench.py's radix metric uses B_MAIN
 JOB_ROWS = 2048
 JOB_PARTITIONS = 4
-# the N=2048 parameter sets whose host keys the worker processes make
-KEYGEN_SETS = ("std128_shortint", "std128_shortint_b8",
+# the parameter sets whose host keys the worker processes make
+KEYGEN_SETS = ("std128", "std128_shortint", "std128_shortint_b8",
                "std128_shortint_fast", "std128_shortint_l4", "std128_k4")
 
 
@@ -343,7 +359,11 @@ def main() -> int:
                 "mega8": megaJ.mega8_blind_rotate,
                 "mega7": megaJ.mega7_blind_rotate,
                 "mega9": megaJ.mega9_blind_rotate,
-                "mega6": megaJ.mega6_blind_rotate}
+                "mega6": megaJ.mega6_blind_rotate,
+                "mega10": megaJ.mega10_blind_rotate,
+                "mega3": megaJ.mega3_blind_rotate,
+                "mega4": megaJ.mega4_blind_rotate,
+                "mega5": megaJ.mega5_blind_rotate}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -538,21 +558,24 @@ def main() -> int:
     job_in = client.encrypt_rows(ck, JOB_IN_COLS, table.tolist(), rng)
     payloads = frame_codec.rows_to_payloads(job_in)
     per_chunk = max(1, (1 << 20) // (len(payloads[0]) + 4))
-    upload = [rowcodec.frame_rows(payloads[i:i + per_chunk])
-              for i in range(0, len(payloads), per_chunk)]
     key_bytes = serialize_server_key(sk)
     xs = table[:, 0] ^ table[:, 1]
     odd = np.array([bin(int(v)).count("1") & 1 for v in xs])
     want_rows = [{"x": int(a), "odd": int(b)} for a, b in zip(xs, odd)]
-    want_out = [{"x": int(np.bitwise_xor.reduce(xs)),
-                 "odd": int(np.bitwise_xor.reduce(odd))}]
     phase_log = PhaseLog()
     runner_log = logging.getLogger("herdsman.runner")
     runner_log.setLevel(logging.DEBUG)
     runner_log.propagate = False
     runner_log.addHandler(phase_log)
 
-    def path_c(engine: str, workdir: str) -> dict:
+    def path_c(engine: str, workdir: str, rows: int = JOB_ROWS,
+               partitions: int = JOB_PARTITIONS) -> dict:
+        """Path C's job on ``engine`` over the first ``rows`` rows of the
+        table in ``partitions`` partitions."""
+        upload = [rowcodec.frame_rows(payloads[i:min(i + per_chunk, rows)])
+                  for i in range(0, rows, per_chunk)]
+        want_out = [{"x": int(np.bitwise_xor.reduce(xs[:rows])),
+                     "odd": int(np.bitwise_xor.reduce(odd[:rows]))}]
         cfg = Config(server=ServerConfig(key_directory=workdir + "/keys",
                                          storage_directory=workdir + "/st"),
                      security=SecurityConfig(secret_key="chip-smoke"),
@@ -565,8 +588,8 @@ def main() -> int:
                       (key_bytes[i:i + (1 << 16)]
                        for i in range(0, len(key_bytes), 1 << 16)))
         meta = coord.begin_data_frame_upload(
-            tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, JOB_ROWS,
-            JOB_PARTITIONS)
+            tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, rows,
+            partitions)
         for chunk in upload:
             coord.append_data_frame(tok, sess, meta.uuid, chunk)
         coord.finish_data_frame_upload(tok, sess, meta.uuid)
@@ -595,7 +618,8 @@ def main() -> int:
         (mid,) = [f.uuid for f in coord.list_data_frames(tok, sess)
                   if f.name.startswith(f"intermediate-{job.job_uuid}-")]
         res["out"], res["mid"] = frame_bytes(out_uuid), frame_bytes(mid)
-        for name, parts, want in (("intermediate", res["mid"], want_rows),
+        for name, parts, want in (("intermediate", res["mid"],
+                                   want_rows[:rows]),
                                   ("output", res["out"], want_out)):
             rows = [pl for part in parts for pl in rowcodec.parse_rows(part)]
             cts = frame_codec.payloads_to_rows(rows, 9, P)
@@ -779,36 +803,45 @@ def main() -> int:
                                  extended=name in megaT.EXTENDED)
 
     def print_times(name, p, t, plain_ms) -> None:
+        lanes = ("on tensor cores" if name in megaJ.MMA else
+                 f"{t['dp4a_share']:.4f} of the integer lanes' dp4a rate")
         print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
               f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.4f} ms "
-              f"bound ({t['bound_by']}), {t['dp4a_share']:.4f} of the "
-              f"integer lanes' dp4a rate; B={RADIX_VALUES} "
+              f"bound ({t['bound_by']}), {lanes}; B={RADIX_VALUES} "
               f"{t['narrow_ms']:.3f} ms; plain {plain_ms:.3f} ms at "
               f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
 
     # 9b. main path H: path A's gate batch on the j-major kernels of
-    # megaJ.cu, one key at a time (built, used, freed): mega11 on
-    # bsk_btj2j, mega8 and mega9 on bsk_btj2, mega7 and mega6 on bsk_btj;
-    # the kernels that share a key are timed in turns --------------------
+    # megaJ.cu and megaJ_legacy.cu, one function's keys at a time (built,
+    # used, freed): mega11 on bsk_btj2j; mega8, mega9 and mega10 on
+    # bsk_btj2; mega7, mega6, mega4 and mega5 on bsk_btj and mega3 on
+    # bsk_btjm (bsk_btj in fragment order); the kernels of one function are
+    # timed in turns ---------------------------------------------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
-    for group in (("mega11",), ("mega8", "mega9"), ("mega7", "mega6")):
-        layout = megaJ.KEY_LAYOUTS[group[0]]
+    for group in (("mega11",), ("mega8", "mega9", "mega10"),
+                  ("mega7", "mega6", "mega3", "mega4", "mega5")):
+        layouts_h = tuple(dict.fromkeys(megaJ.KEY_LAYOUTS[n] for n in group))
         for name in group:
             check(fit_engine(name, P) == name,
                   f"fit_engine({name!r}, {P.name}) -> {fit_engine(name, P)}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         dsk_h, ingest_h_s = host_s(lambda: device_server_key(
-            sk, layouts=(layout,), device=dev))
-        key_h = getattr(dsk_h, layout)
-        print(f"main path H: keys to the card ({layout} "
-              f"{key_h.numel() / 2**30:.3f} GiB) {ingest_h_s:.1f} s")
+            sk, layouts=layouts_h, device=dev))
+        keys_h = {name: getattr(dsk_h, megaJ.KEY_LAYOUTS[name])
+                  for name in group}
+        print(f"main path H: keys to the card ("
+              + ", ".join(f"{lay} {getattr(dsk_h, lay).numel() / 2**30:.3f} "
+                          f"GiB" for lay in layouts_h)
+              + f") {ingest_h_s:.1f} s")
         plain_cache: dict = {}
         for name in group:
+            # one cache per key: mega3's plain version reads its own
+            cache = plain_cache.setdefault(megaJ.KEY_LAYOUTS[name], {})
             err_h, plain_h_ms = vs_plain(name, megaJ.plain(name), P, acc0,
-                                         a_t, key_h, plain_cache)
+                                         a_t, keys_h[name], cache)
             errs_j[name] = max(errs_j[name], err_h)
             reset_counts()
             out_h, h_s = host_s(lambda: gates.gate_batch(
@@ -829,8 +862,7 @@ def main() -> int:
                   f"mega13 output and decrypts to the truth table; launches "
                   f"{counts_h}")
             del out_h
-        times = rotation_times(group, P, acc0, a_t,
-                               {name: key_h for name in group},
+        times = rotation_times(group, P, acc0, a_t, keys_h,
                                {name: megaJ_blocks(name) for name in group})
         peak_h = torch.cuda.max_memory_allocated()
         for name in group:
@@ -839,15 +871,16 @@ def main() -> int:
             print(f"time: main path H gate_batch B={B_MAIN} on {name} end to "
                   f"end {res_h[name]['path_s']:.3f} s = "
                   f"{B_MAIN / res_h[name]['path_s']:.1f} bootstraps/s {card}")
-        if len(group) > 1:
-            a_, b_ = (times[name] for name in group)
-            print(f"time: {group[1]} / {group[0]} at {P.name} (timed in turns "
+        for other in group[1:]:
+            a_, b_ = times[group[0]], times[other]
+            print(f"time: {other} / {group[0]} at {P.name} (timed in turns "
                   f"{[*group, *group[::-1]]}): B={B_MAIN} "
                   f"{b_['ms'] / a_['ms']:.4f}, B={RADIX_VALUES} "
                   f"{b_['narrow_ms'] / a_['narrow_ms']:.4f} {card}")
-        print(f"memory: path H on {layout} torch.cuda.max_memory_allocated "
-              f"{peak_h / 2**30:.3f} GiB {card}")
-        del dsk_h, key_h
+        print(f"memory: path H on {', '.join(layouts_h)} "
+              f"torch.cuda.max_memory_allocated {peak_h / 2**30:.3f} GiB "
+              f"{card}")
+        del dsk_h, keys_h
 
     # 9b'. main path A': path A's gate batch on mega14 (the extended key
     # bsk_btTe), and mega14 timed in turns with mega16 (the compact
@@ -908,13 +941,14 @@ def main() -> int:
           f"{peak_t / 2**30:.3f} GiB {card}")
     del dsk_t, keys_t, out_t
 
-    # each kernel on random keys at B=9 at three more geometries (n cut to 32
+    # each kernel on random keys at B=9 at four more geometries (n cut to 32
     # steps: the step loop is the same at every n); mega14 at STD128_FAST's
     # and STD128_K4's
     gen_j = torch.Generator(device=dev)
     gen_j.manual_seed(args.seed + 5)
     geoms = [dataclasses.replace(PARAM_SETS[g], n=32)
-             for g in ("std128", "std128_fast", "std128_shortint")]
+             for g in ("std128", "std128_fast", "std128_shortint",
+                       "std128_k4")]
     for Gp in geoms:
         HALF_g, R_g = Gp.N // 128, (Gp.k + 1) * Gp.levels
         acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
@@ -922,6 +956,7 @@ def main() -> int:
         a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
                             device=dev, generator=gen_j)
         for name, (_, _, doubled, _) in megaJ.KERNELS.items():
+            megaJ.check_params(Gp, name)  # every kernel takes these sets
             key_g = torch.randint(
                 -128, 128, (Gp.n, 2 * HALF_g if doubled else HALF_g, R_g,
                             128, (Gp.k + 1) * 512),
@@ -954,25 +989,132 @@ def main() -> int:
           f"{[g.name for g in geoms14]} (n = 32; array equality, max_abs_err "
           f"{errs_j}, mega14 {err14})")
 
-    # 9c. main path I: path C's job on pallas_mega11 ------------------------
+    # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
+    # each kernel of megaJ_legacy.cu, one key at a time (built, used,
+    # freed) ------------------------------------------------------------------
+    PL = STD128
+    legacy_j = ("mega10", "mega3", "mega4", "mega5")
+    for name in ("mega13", *legacy_j):
+        check(fit_engine(name, PL) == name,
+              f"fit_engine({name!r}, {PL.name}) -> {fit_engine(name, PL)}")
+    ck_l, sk_l, keygen_l_s = keys_of[PL.name].get()
+    rng_l = np.random.default_rng(args.seed + 7)
+    c1_l, c2_l = ref.encrypt_bool(ck_l, b1, rng_l), ref.encrypt_bool(
+        ck_l, b2, rng_l)
+    batch_l = gates.GateBatch(ids, c1_l, c2_l)
+    lin_l = gates.gate_linear(PL.n, torch.as_tensor(ids, device=dev),
+                              from_numpy_u32(c1_l, dev),
+                              from_numpy_u32(c2_l, dev))
+    acc0_l, a_t_l = bs.rotation_inputs(PL, lin_l,
+                                       bs.make_test_poly(PL, device=dev))
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    dsk_l = device_server_key(sk_l, layouts=("bsk",), device=dev)
+    reset_counts()
+    out_l, l13_s = host_s(lambda: gates.gate_batch(dsk_l, batch_l,
+                                                   device=dev))
+    counts_l13 = read_counts()
+    only(counts_l13, ("mega13",), "main path L on mega13")
+    out_l_np = to_numpy_u32(out_l)
+    check(out_l_np.shape == (B_MAIN, PL.n + 1),
+          f"path L gate output {out_l_np.shape}")
+    check(np.array_equal(ref.lwe_decrypt_bool(ck_l, out_l_np), expect),
+          f"path L: gate_batch at {PL.name} on mega13 decrypts wrong")
+    w1, w2, bias = gates.GATE_COEFFS[names[ids[0]]]
+    lin_0 = (np.uint32(w1 & 0xFFFFFFFF) * c1_l[0]
+             + np.uint32(w2 & 0xFFFFFFFF) * c2_l[0])
+    lin_0[PL.n:] += np.uint32(bias & 0xFFFFFFFF)
+    check(np.array_equal(out_l_np[0], ref.bootstrap_bool(sk_l, lin_0)),
+          "path L: gate 0 != reference.bootstrap_bool")
+    rot_l, m13_l_ms = timed_call(lambda: mega13.mega13_blind_rotate(
+        PL, acc0_l, a_t_l, dsk_l.bsk))
+    peak_l = torch.cuda.max_memory_allocated()
+    print(f"main path L ({PL.name}, host keygen {keygen_l_s:.1f} s): "
+          f"gate_batch of {B_MAIN} gates on mega13 decrypts to the truth "
+          f"table; gate 0 == reference.bootstrap_bool; launches {counts_l13}")
+    print(f"time: main path L gate_batch B={B_MAIN} on mega13 end to end "
+          f"{l13_s:.3f} s = {B_MAIN / l13_s:.1f} bootstraps/s; mega13 "
+          f"{m13_l_ms:.3f} ms per rotation {card}")
+    del dsk_l
+    res_l, plain_l = {}, {}
+    for group_l in (("mega10",), ("mega3",), ("mega4", "mega5")):
+        layout_l = megaJ.KEY_LAYOUTS[group_l[0]]
+        torch.cuda.empty_cache()
+        dsk_lk, ingest_l_s = host_s(lambda: device_server_key(
+            sk_l, layouts=(layout_l,), device=dev))
+        key_l = getattr(dsk_lk, layout_l)
+        print(f"main path L: keys to the card ({layout_l} "
+              f"{key_l.numel() / 2**30:.3f} GiB) {ingest_l_s:.1f} s")
+        for name in group_l:
+            reset_counts()
+            out_lk, lk_s = host_s(lambda: gates.gate_batch(
+                dsk_lk, batch_l, engine=name, device=dev))
+            counts_lk = read_counts()
+            only(counts_lk, (name,), f"main path L on {name}")
+            out_lk_np = to_numpy_u32(out_lk)
+            check(np.array_equal(out_lk_np, out_l_np),
+                  f"L: gate_batch on {name} != on mega13")
+            check(np.array_equal(ref.lwe_decrypt_bool(ck_l, out_lk_np),
+                                 expect),
+                  f"L: gate_batch on {name} decrypts wrong")
+            got_l, kernel_l_ms = timed_call(lambda: counters[name](
+                PL, acc0_l, a_t_l, key_l))
+            check(torch.equal(got_l, rot_l),
+                  f"L: {name} != mega13 on the batch's rotation inputs")
+            if layout_l not in plain_l:
+                plain_l[layout_l] = timed_call(lambda: megaJ.plain(name)(
+                    PL, acc0_l, a_t_l, key_l))
+            want_l, plain_l_ms = plain_l[layout_l]
+            err_l = abs_err(got_l, want_l)
+            errs_j[name] = max(errs_j[name], err_l)
+            check(torch.equal(got_l, want_l), f"L: {name} != plain version "
+                  f"at {PL.name} B={B_MAIN}")
+            bound_l, by_l = bounds.bound_ms(*bounds.rotation(
+                PL, B_MAIN, key_l.numel() * key_l.element_size()))
+            res_l[name] = {"counts": counts_lk, "path_s": lk_s,
+                           "ms": kernel_l_ms, "plain_ms": plain_l_ms,
+                           "bound_ms": bound_l,
+                           "bound_by": by_l}
+            print(f"main path L ({name}): gate_batch of {B_MAIN} gates == "
+                  f"mega13's and decrypts to the truth table; {name} == "
+                  f"mega13 and its plain version on the batch's rotation "
+                  f"inputs at B={B_MAIN} (array equality, max_abs_err "
+                  f"{err_l}); launches {counts_lk}")
+            print(f"time: main path L gate_batch B={B_MAIN} on {name} end to "
+                  f"end {lk_s:.3f} s = {B_MAIN / lk_s:.1f} bootstraps/s; "
+                  f"{name} {kernel_l_ms:.3f} ms per rotation, "
+                  f"{bound_l / kernel_l_ms:.4f} of the {bound_l:.4f} ms bound "
+                  f"({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts per block "
+                  f"{megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
+            del out_lk, got_l, want_l
+        peak_l = max(peak_l, torch.cuda.max_memory_allocated())
+        del dsk_lk, key_l
+    del plain_l, rot_l
+    torch.cuda.empty_cache()
+    print(f"memory: path L torch.cuda.max_memory_allocated "
+          f"{peak_l / 2**30:.3f} GiB {card}")
+
+    # 9c. main path I: path C's job on pallas_mega11, over the rows of path
+    # C's first partition in one partition ------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    rows_i = JOB_ROWS // JOB_PARTITIONS
     with tempfile.TemporaryDirectory() as workdir:
-        res_i = path_c("pallas_mega11", workdir)
+        res_i = path_c("pallas_mega11", workdir, rows=rows_i, partitions=1)
     peak_i = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     res_i_counts = res_i["counts"]
     only(res_i_counts, ("mega11",), "path I on pallas_mega11")
-    for frame in ("out", "mid"):
-        check(res_i[frame] == runs["pallas_fused"][frame],
-              f"path I {frame} frame differs from path C's on pallas_fused")
+    check(res_i["mid"] == runs["pallas_fused"]["mid"][:1],
+          "path I intermediate frame differs from the first partition of "
+          "path C's on pallas_fused")
     job_i = res_i["job"]
     load, exe, store = res_i["phases"]
-    print(f"main path I (pallas_mega11): {JOB_ROWS} rows in {JOB_PARTITIONS} "
-          f"partitions, map + PARALLEL reduce: COMPLETED, retries 0, "
-          f"{job_i.bootstraps_executed} bootstraps; all {JOB_ROWS} "
-          f"intermediate rows and the reduced row decrypt right; output and "
-          f"intermediate frames byte-equal to path C's on pallas_fused; "
-          f"launches {res_i['counts']}")
+    print(f"main path I (pallas_mega11): {rows_i} rows (path C's first "
+          f"partition) in 1 partition, map + PARALLEL reduce: COMPLETED, "
+          f"retries 0, {job_i.bootstraps_executed} bootstraps; all {rows_i} "
+          f"intermediate rows and the reduced row decrypt right; the "
+          f"intermediate frame byte-equal to the first partition of path C's "
+          f"on pallas_fused; launches {res_i['counts']}")
     print(f"time: main path I job on pallas_mega11 wall "
           f"{job_i.wall_time_s:.3f} s (host {res_i['host_s']:.3f} s), "
           f"{job_i.bootstraps_executed} bootstraps = "
@@ -1495,7 +1637,12 @@ def main() -> int:
                "F_gate_batch_fast_mega14": counts_f14,
                "K_herd_add_mega14": counts_k_add,
                "K_herd_min_mega14": counts_k_min,
-               "K_herd_add_on_mega13": counts_k13}
+               "K_herd_add_on_mega13": counts_k13,
+               **{f"H_gate_batch_{name}": res_h[name]["counts"]
+                  for name in legacy_j},
+               "L_gate_batch_on_mega13": counts_l13,
+               **{f"L_gate_batch_{name}": res_l[name]["counts"]
+                  for name in legacy_j}}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
@@ -1621,6 +1768,29 @@ def main() -> int:
         })
     kernels[-1]["ms_std128_k2"] = res_a14["mega14"]["ms"]
     kernels[-1]["ms_std128_shortint_fast"] = f14_ms
+    # the kernels of megaJ_legacy.cu timed at STD128_K2 in path H, in turns
+    # with the serial kernel of their function, and at STD128 in path L
+    for name, line in (("mega10", 1019), ("mega3", 295), ("mega4", 423),
+                       ("mega5", 575)):
+        res, res_std = res_h[name], res_l[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "herdsman_tpu_torch/csrc/megaJ_legacy.cu",
+            "replaces": f"herdsman_tpu/ops/pallas/legacy.py:{line}",
+            **launches(name),
+            "matches_plain": errs_j[name] == 0,
+            "max_abs_err": errs_j[name],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "ms_b256": res["narrow_ms"],
+            "ms_std128": res_std["ms"],
+            "plain_ms_std128": res_std["plain_ms"],
+            "bound_ms_std128": res_std["bound_ms"],
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

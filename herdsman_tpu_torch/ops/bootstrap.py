@@ -24,7 +24,10 @@ through one of three kinds of engine:
   (doubled window, one contraction per column tile) and ``bsk_btj``
   (single width, the negated run subtracted), and ``mega9`` and ``mega6``
   (the JAX package's legacy engines) the same source on ``mega8``'s and
-  ``mega7``'s keys with another schedule.
+  ``mega7``'s keys with another schedule; the legacy ``mega10`` (on
+  ``mega8``'s key), ``mega4`` and ``mega5`` (on ``mega7``'s) are
+  ``csrc/megaJ_legacy.cu``'s further schedules, and ``mega3`` its
+  tensor-core kernel on ``bsk_btj`` in fragment order (``bsk_btjm``).
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -115,6 +118,10 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega7": (megaJ.mega7_blind_rotate, "bsk_btj"),
     "mega9": (megaJ.mega9_blind_rotate, "bsk_btj2"),
     "mega6": (megaJ.mega6_blind_rotate, "bsk_btj"),
+    "mega10": (megaJ.mega10_blind_rotate, "bsk_btj2"),
+    "mega3": (megaJ.mega3_blind_rotate, "bsk_btjm"),
+    "mega4": (megaJ.mega4_blind_rotate, "bsk_btj"),
+    "mega5": (megaJ.mega5_blind_rotate, "bsk_btj"),
 }
 
 

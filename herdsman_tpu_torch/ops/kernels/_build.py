@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
 Libraries go to ``herdsman_tpu_torch/_build/`` (listed in ``.gitignore``)
-under a name that carries a hash of the source and of ``NVCC_FLAGS``, so an
-edited source or a changed flag is rebuilt and a built one is reused.
+under a name that carries a hash of the source, of every header
+``csrc/*.cuh`` (which the sources include) and of ``NVCC_FLAGS``, so an
+edited source or header or a changed flag is rebuilt and a built one is
+reused.
 Nothing is built at import time: ``load`` builds what it needs (a kernel's
 wrapper loads its library once), and ``build`` compiles several sources at
 once, one ``nvcc`` process each.
@@ -60,6 +62,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,7 +1,8 @@
 """Whole-rotation blind-rotation kernels against the j-major block-Toeplitz
-keys (``csrc/megaJ.cu``), and their plain PyTorch versions.
+keys (``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``), and their plain
+PyTorch versions.
 
-The five kernels compute the GINX rotation of ``mega12`` at any gadget
+The nine kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
 wrappers they replace; they differ from ``mega12`` and from each other in
 the key they read and in how a block schedules a step:
@@ -19,7 +20,19 @@ the key they read and in how a block schedules a step:
   other's (named-barrier hand-off);
 - ``mega6_blind_rotate``: ``legacy.py::_mega6_kernel``, ``mega7``'s
   function and key, with each group's key rows double-buffered in shared
-  memory by ``cp.async``.
+  memory by ``cp.async``;
+- ``mega10_blind_rotate`` (``csrc/megaJ_legacy.cu``): ``legacy.py::
+  _mega10_kernel``, ``mega8``'s function and key, its digits built by a
+  pass fused across the k+1 polynomials;
+- ``mega3_blind_rotate``: ``legacy.py::_mega3_kernel``, ``mega7``'s
+  function on int8 tensor cores (``mma.sync`` m16n8k32), reading
+  ``bsk_btj``'s blocks in fragment order (``bsk_btjm``, ``fragment_order``);
+- ``mega4_blind_rotate``: ``legacy.py::_mega4_kernel``, ``mega7``'s
+  function and key, ``mega6``'s staged rows shared by the two blocks of a
+  thread block cluster, each copying half of them;
+- ``mega5_blind_rotate``: ``legacy.py::_mega5_kernel``, ``mega7``'s
+  function and key, ``mega6``'s staged rows applied to up to 16
+  ciphertexts of one wide block.
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -32,8 +45,8 @@ single-width key contracts the negated run apart and subtracts it
 
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
-``blind_rotate_plain_btj2`` or ``blind_rotate_plain_btj``.  The source
-note in ``csrc/megaJ.cu`` gives the kernels' design and bound.
+its plain version (``plain``).  The source notes in ``csrc/megaJ.cu`` and
+``csrc/megaJ_legacy.cu`` give the kernels' design and bound.
 """
 
 from __future__ import annotations
@@ -55,19 +68,28 @@ from herdsman_tpu_torch.ops.kernels.mega12 import \
     check_params as mega12_check_params
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 
-# kernel -> (its variant number in csrc/megaJ.cu, the key layout it reads,
+# kernel -> (its variant number in its source, the key layout it reads,
 # doubled window, limb-major columns)
 KERNELS = {"mega11": (11, "bsk_btj2j", True, True),
            "mega8": (8, "bsk_btj2", True, False),
            "mega7": (7, "bsk_btj", False, False),
            "mega9": (9, "bsk_btj2", True, False),
-           "mega6": (6, "bsk_btj", False, False)}
+           "mega6": (6, "bsk_btj", False, False),
+           "mega10": (10, "bsk_btj2", True, False),
+           "mega3": (3, "bsk_btjm", False, False),
+           "mega4": (4, "bsk_btj", False, False),
+           "mega5": (5, "bsk_btj", False, False)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
+# the kernels of csrc/megaJ_legacy.cu; the others are csrc/megaJ.cu's
+LEGACY_SOURCE = ("mega10", "mega3", "mega4", "mega5")
 # the kernels whose block holds two halves of G ciphertexts (overlap), or
 # stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
-# per group at least)
-OVERLAP, STAGED = ("mega9",), ("mega6",)
+# per group at least; the wide block's 8 rows); mega3 (tensor cores) holds
+# G in {8, 4, 2, 1}, zeros on the rest of its n8 side
+OVERLAP, STAGED, WIDE, MMA = ("mega9",), ("mega6", "mega4"), ("mega5",), \
+    ("mega3",)
 STAGED_BYTES = 4 * 2 * 16 * 512
+WIDE_BYTES = 4 * 2 * 8 * 512
 
 
 def check_params(p: TFHEParams, name: str) -> None:
@@ -80,6 +102,8 @@ def check_params(p: TFHEParams, name: str) -> None:
         need = 2 * one - 4
     elif name in STAGED:
         need = one + STAGED_BYTES
+    elif name in WIDE:
+        need = one + WIDE_BYTES
     else:
         return
     if need > SMEM_LIMIT:
@@ -133,27 +157,87 @@ def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
     return blind_rotate_plain_btjj(params, acc0, a_t, bsk_btj, jcq=False)
 
 
+# bsk_btj's [P, C4P] block as (K chunk kc, K half kh, tq, byte b, 16-column
+# tile mt, column half ch, gq): K row kc*32 + kh*16 + 4*tq + b, column
+# mt*16 + ch*8 + gq; in fragment order the same bytes run (kc, mt, gq, tq,
+# kh, ch, b), lane 4*gq + tq's A fragment of m16n8k32 (register kh*2 + ch)
+_TO_FRAGMENT = (0, 4, 6, 2, 1, 5, 3)
+_FROM_FRAGMENT = (0, 4, 3, 6, 1, 5, 2)
+
+
+def _permute_blocks(key: torch.Tensor, dims: tuple[int, ...],
+                    order: tuple[int, ...]) -> torch.Tensor:
+    lead = key.shape[:-2]
+    nl = len(lead)
+    return key.reshape(*lead, *dims).permute(
+        *range(nl), *(nl + d for d in order)).reshape(key.shape)
+
+
+def fragment_order(bsk_btj: torch.Tensor) -> torch.Tensor:
+    """``bsk_btjm``, the key of ``mega3``, from ``bsk_btj`` (any leading
+    dimensions, then [P, C4P] blocks): each block's bytes in the order of
+    ``mma.sync`` m16n8k32's A fragments, [P/32 (kc), C4P/16 (mt), 32
+    (lane), 16 (byte)], byte 4*reg + b of lane 4*gq + tq holding column
+    mt*16 + gq + 8*(reg & 1), K row kc*32 + 4*tq + 16*(reg >> 1) + b.  The
+    same shape and size as ``bsk_btj``."""
+    mt = bsk_btj.shape[-1] // 16
+    return _permute_blocks(bsk_btj, (P // 32, 2, 4, 4, mt, 2, 8),
+                           _TO_FRAGMENT)
+
+
+def from_fragment_order(bsk_btjm: torch.Tensor) -> torch.Tensor:
+    """``bsk_btj`` from ``bsk_btjm``: the inverse of ``fragment_order``."""
+    mt = bsk_btjm.shape[-1] // 16
+    return _permute_blocks(bsk_btjm, (P // 32, mt, 8, 4, 2, 2, 4),
+                           _FROM_FRAGMENT)
+
+
+def blind_rotate_plain_btjm(params: TFHEParams, acc0: torch.Tensor,
+                            a_t: torch.Tensor,
+                            bsk_btjm: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``mega3`` in plain PyTorch, either device: ``mega7``'s
+    (``blind_rotate_plain_btj``) on the key taken back out of fragment
+    order."""
+    _check_args(params, "mega3", acc0, a_t, bsk_btjm)
+    return blind_rotate_plain_btj(params, acc0, a_t,
+                                  from_fragment_order(bsk_btjm))
+
+
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` shares ``mega8``'s, ``mega6`` ``mega7``'s)."""
+    (``mega9`` and ``mega10`` share ``mega8``'s, ``mega6``, ``mega4`` and
+    ``mega5`` ``mega7``'s; ``mega3``'s is ``mega7``'s on its key out of
+    fragment order)."""
     _, _, doubled, jcq = KERNELS[name]
+    if name in MMA:
+        return blind_rotate_plain_btjm
     if not doubled:
         return blind_rotate_plain_btj
     return functools.partial(blind_rotate_plain_btj2, jcq=jcq)
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/megaJ.cu`` with its C signatures declared."""
-    lib = _build.load("megaJ")
-    lib.megaJ_blind_rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
+def _entry_points(source: str):
+    """(blind_rotate, ciphertexts_per_block, error_string) of the built
+    ``csrc/<source>.cu`` (``megaJ`` or ``megaJ_legacy``), their C
+    signatures declared."""
+    lib = _build.load(source)
+    rotate = getattr(lib, f"{source}_blind_rotate")
+    rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.megaJ_blind_rotate.restype = ctypes.c_int
-    lib.megaJ_ciphertexts_per_block.argtypes = [ctypes.c_int] * 6
-    lib.megaJ_ciphertexts_per_block.restype = ctypes.c_int
-    lib.megaJ_error_string.argtypes = [ctypes.c_int]
-    lib.megaJ_error_string.restype = ctypes.c_char_p
-    return lib
+    rotate.restype = ctypes.c_int
+    per_block = getattr(lib, f"{source}_ciphertexts_per_block")
+    per_block.argtypes = [ctypes.c_int] * 6
+    per_block.restype = ctypes.c_int
+    error = getattr(lib, f"{source}_error_string")
+    error.argtypes = [ctypes.c_int]
+    error.restype = ctypes.c_char_p
+    return rotate, per_block, error
+
+
+def _kernel_entry_points(name: str):
+    return _entry_points("megaJ_legacy" if name in LEGACY_SOURCE
+                         else "megaJ")
 
 
 def _sms(device: torch.device) -> int:
@@ -164,8 +248,9 @@ def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
                           name: str = "mega11") -> int:
     """The ciphertexts one block of kernel ``name`` owns in a rotation of B
     ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
-    G, or two halves of G for ``mega9``."""
-    return _lib().megaJ_ciphertexts_per_block(
+    G, two halves of G for ``mega9``, up to 16 for ``mega5``."""
+    _, per_block, _ = _kernel_entry_points(name)
+    return per_block(
         KERNELS[name][0], B, p.N, p.k + 1, (p.k + 1) * p.levels,
         _sms(device))
 
@@ -178,17 +263,16 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
-    lib = _lib()
+    rotate, _, error = _kernel_entry_points(name)
     out = torch.empty_like(acc0)
     with torch.cuda.device(acc0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.megaJ_blind_rotate(
+        err = rotate(
             KERNELS[name][0], acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(),
             out.data_ptr(), acc0.shape[0], p.n, p.N, p.k + 1, p.bg_bits,
             p.levels, _sms(acc0.device), stream)
     if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.megaJ_error_string(err).decode())
+        raise RuntimeError(f"{name} launch failed: " + error(err).decode())
     wrapper.launches += 1
     return out
 
@@ -239,8 +323,51 @@ def mega6_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     return _rotate("mega6", mega6_blind_rotate, params, acc0, a_t, bsk_btj)
 
 
+def mega10_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                        a_t: torch.Tensor,
+                        bsk_btj2: torch.Tensor) -> torch.Tensor:
+    """``mega8``'s rotation on the doubled ``bsk_btj2``, the digits built by
+    one pass over (ciphertext, coefficient quad) for all k+1 polynomials;
+    the contract of ``mega11_blind_rotate``, CPU tensors through
+    ``blind_rotate_plain_btj2``."""
+    return _rotate("mega10", mega10_blind_rotate, params, acc0, a_t,
+                   bsk_btj2)
+
+
+def mega3_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btjm: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation on int8 tensor cores (``mma.sync`` m16n8k32),
+    against ``bsk_btjm`` int8 [n, HALF, R, P, (k+1)*4*P] (``bsk_btj`` in
+    fragment order, ``fragment_order``); CPU tensors go through
+    ``blind_rotate_plain_btjm``."""
+    return _rotate("mega3", mega3_blind_rotate, params, acc0, a_t, bsk_btjm)
+
+
+def mega4_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btj: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation on the single-width ``bsk_btj``, each chunk of
+    staged key rows copied half by each block of a two-block cluster and
+    read by both; CPU tensors go through ``blind_rotate_plain_btj``."""
+    return _rotate("mega4", mega4_blind_rotate, params, acc0, a_t, bsk_btj)
+
+
+def mega5_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_btj: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation on the single-width ``bsk_btj``, each chunk of
+    staged key rows applied to all of a wide block's ciphertexts (up to
+    16); CPU tensors go through ``blind_rotate_plain_btj``."""
+    return _rotate("mega5", mega5_blind_rotate, params, acc0, a_t, bsk_btj)
+
+
 mega11_blind_rotate.launches = 0
 mega8_blind_rotate.launches = 0
 mega7_blind_rotate.launches = 0
 mega9_blind_rotate.launches = 0
 mega6_blind_rotate.launches = 0
+mega10_blind_rotate.launches = 0
+mega3_blind_rotate.launches = 0
+mega4_blind_rotate.launches = 0
+mega5_blind_rotate.launches = 0

@@ -44,6 +44,16 @@ once, into:
                                        ``csrc/mega12.cu``.  As big as
                                        ``bsk_bt``: 9.0 GiB at
                                        STD128_SHORTINT.
+- ``bsk_btjm``  int8  [n, HALF, R, P, (k+1)*4*P]
+                                       ``bsk_btj`` with each [P, (k+1)*4*P]
+                                       block's bytes in the order of the
+                                       A fragments of int8 ``mma.sync``
+                                       m16n8k32 (``megaJ.fragment_order``:
+                                       4 consecutive K rows of one column
+                                       per 32-bit word), read by ``mega3``
+                                       of ``csrc/megaJ_legacy.cu``.  As big
+                                       as ``bsk_btj``: 3.375 GiB at
+                                       STD128_K2, 4.5 GiB at STD128.
 - ``bsk_btj2``  int8  [n, 2*HALF, R, P, (k+1)*4*P]
 - ``bsk_btj2j`` int8  [n, 2*HALF, R, P, (k+1)*4*P]
                                        the doubled window of the JAX
@@ -107,8 +117,8 @@ from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.kernels import mega13, megaJ, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btj2",
-           "bsk_btj2j", "bsk_btTc", "bsk_btTe")
+LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btjm",
+           "bsk_btj2", "bsk_btj2j", "bsk_btTc", "bsk_btTe")
 DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
@@ -134,6 +144,7 @@ class DeviceServerKey:
     bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
     bsk_btj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btjj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
+    bsk_btjm: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btj2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btj2j: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
@@ -168,7 +179,8 @@ def bt_key_bytes(p: TFHEParams) -> int:
 
 def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
                           j_major: bool = False, jcq: bool = False,
-                          windowed: bool = False) -> torch.Tensor:
+                          windowed: bool = False,
+                          fragment: bool = False) -> torch.Tensor:
     """``bsk_bt`` int8 [n, R, HALF, P, (k+1)*4*P] from the int32 ``bsk``
     [n, R, k+1, N], on ``bsk``'s device, a chunk of steps at a time: one
     gather of ext(bsk) and one limb split per chunk, so the working set
@@ -178,7 +190,9 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     or ``windowed``: the JAX ``_block_toeplitz_layout_device(...,
     j_major=True)``; ``jcq`` orders the columns (j, c, q) (``col_order=
     "jcq"``); ``windowed`` stores 2*HALF groups, group g diagonal block
-    (HALF-1-g) mod 2*HALF (``windowed=True``).  Blocks HALF..2*HALF-1 are
+    (HALF-1-g) mod 2*HALF (``windowed=True``); ``fragment`` stores each
+    [P, (k+1)*4*P] block of ``j_major`` in ``mma.sync``'s fragment order
+    (``bsk_btjm``, ``megaJ.fragment_order``).  Blocks HALF..2*HALF-1 are
     the negated ones: ext(p)[t+N] = -ext(p)[t] (tests/test_torch_pbs.py,
     tests/test_torch_megaJ.py)."""
     n, R, kp1, N = bsk.shape
@@ -190,7 +204,7 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     row = torch.arange(P, device=bsk.device)[None, :, None]
     q = torch.arange(P, device=bsk.device)[None, None, :]
     idx = (P * m + q - row) % (2 * N)                # [M, P(row), P(q)]
-    step_major = j_major or jcq or windowed
+    step_major = j_major or jcq or windowed or fragment
     shape = (M, R) if step_major else (R, M)
     out = torch.empty(n, *shape, P, kp1 * 4 * P, dtype=torch.int8,
                       device=bsk.device)
@@ -205,8 +219,9 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
         i1 = min(i0 + step, n)
         blocks = poly.negacyclic_extend(bsk[i0:i1])[..., idx]
         limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, M, P, P, 4]
-        out[i0:i1] = limbs.permute(*order).reshape(
-            i1 - i0, *shape, P, kp1 * 4 * P)
+        chunk = limbs.permute(*order).reshape(i1 - i0, *shape, P,
+                                              kp1 * 4 * P)
+        out[i0:i1] = megaJ.fragment_order(chunk) if fragment else chunk
     return out
 
 
@@ -258,13 +273,16 @@ def fit_engine(engine: str, params: TFHEParams,
     ``engine`` (the port of ``herdsman_tpu/ops/server_key.py:623-699``,
     with the port's budget):
 
-    - ``bt``, ``bt_fused``, and ``mega12`` / ``mega7``, whose kernel must
-      also take the set, while their single-width key (``bsk_bt``,
-      ``bsk_btjj``, ``bsk_btj``: the same size) fits ``budget_bytes``;
-      else ``mega13``;
-    - ``mega11`` / ``mega8`` while their doubled key (``bsk_btj2j`` /
-      ``bsk_btj2``) fits and their kernel takes the set; else whatever a
-      ``mega12`` request gets;
+    - ``bt``, ``bt_fused``, and ``mega12`` / ``mega7`` / ``mega6`` /
+      ``mega3`` / ``mega4`` / ``mega5``, whose kernel must also take the
+      set, while their single-width key (``bsk_bt``, ``bsk_btjj``,
+      ``bsk_btj``, ``bsk_btjm``: the same size) fits ``budget_bytes``;
+      else ``mega13`` (the JAX package keeps ``pallas_mega3``, ``_4`` and
+      ``_5`` at every set; their keys fit the budget at every named set);
+    - ``mega11`` / ``mega8`` / ``mega9`` / ``mega10`` while their doubled
+      key (``bsk_btj2j`` / ``bsk_btj2``) fits and their kernel takes the
+      set (the JAX package's doubled-key check, ``server_key.py:694-699``);
+      else whatever a ``mega12`` request gets;
     - ``mega14`` where the set has bg_bits 8, levels 2 and N >= 256 and its
       extended ``bsk_btTe`` key fits (the JAX package's ``btT_bytes``
       check, ``pallas_mega14`` beside ``pallas_mega13``); else whatever a
@@ -274,8 +292,6 @@ def fit_engine(engine: str, params: TFHEParams,
       compact ``bsk_btTc`` key fits; else ``mega11`` where its doubled key
       fits and its kernel takes the set; else whatever a ``mega12`` request
       gets;
-    - ``mega9`` as ``mega8`` (the doubled ``bsk_btj2``), ``mega6`` as
-      ``mega7`` (the single-width ``bsk_btj``);
     - ``mega13`` where its kernel takes the set, else ``bt_fused``.
 
     The coordinator and the integer tier build every key through this, so
@@ -319,12 +335,13 @@ def fit_engine(engine: str, params: TFHEParams,
             return route
         route = "mega11"
     # the megaJ.cu kernels share mega12's block layout and its limits
-    if route in ("mega11", "mega8", "mega9"):
+    if route in ("mega11", "mega8", "mega9", "mega10"):
         if (2 * bt_key_bytes(params) <= budget_bytes
                 and takes(lambda p: megaJ.check_params(p, route))):
             return route
         route = "mega12"
-    if route in ("bt", "bt_fused", "mega12", "mega7", "mega6"):
+    if route in ("bt", "bt_fused", "mega12", "mega7", "mega6", "mega3",
+                 "mega4", "mega5"):
         if bt_fits and (route in ("bt", "bt_fused")
                         or takes(lambda p: megaJ.check_params(p, route))):
             return route
@@ -380,6 +397,8 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                  if "bsk_btj" in layouts else None),
         bsk_btjj=(block_toeplitz_layout(p, bsk, jcq=True)
                   if "bsk_btjj" in layouts else None),
+        bsk_btjm=(block_toeplitz_layout(p, bsk, fragment=True)
+                  if "bsk_btjm" in layouts else None),
         bsk_btj2=(block_toeplitz_layout(p, bsk, windowed=True)
                   if "bsk_btj2" in layouts else None),
         bsk_btj2j=(block_toeplitz_layout(p, bsk, jcq=True, windowed=True)

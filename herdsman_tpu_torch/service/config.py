@@ -44,7 +44,9 @@ ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
                 "pallas_mega15": "mega15", "pallas_mega11": "mega11",
                 "pallas_mega8": "mega8", "pallas_mega7": "mega7",
                 "pallas_mega14": "mega14", "pallas_mega9": "mega9",
-                "pallas_mega6": "mega6"}
+                "pallas_mega6": "mega6", "pallas_mega10": "mega10",
+                "pallas_mega3": "mega3", "pallas_mega4": "mega4",
+                "pallas_mega5": "mega5"}
 
 
 def port_engine(name: str) -> str:
@@ -56,8 +58,8 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; the legacy kernels pallas_mega, "
-        f"pallas_mega2-5 and pallas_mega10 are ROADMAP queue 2 item 11, and "
+        f"{sorted(ENGINE_NAMES)}; the legacy kernels pallas_mega and "
+        f"pallas_mega2 are ROADMAP queue 2 item 11, and "
         f"conv_i8/gather_u32 (XLA engines with no kernel) are not served by "
         f"the port's coordinator")
 

@@ -47,6 +47,7 @@ def key_layout_bytes(p: TFHEParams, layout: str) -> int:
     single = p.n * R * kp1 * 4 * p.N * P
     sizes = {
         "bsk_bt": single, "bsk_btj": single, "bsk_btjj": single,
+        "bsk_btjm": single,
         "bsk_btj2": 2 * single, "bsk_btj2j": 2 * single,
         "bsk_btT": p.n * kp1 * 4 * kp1 * P * (p.N // (2 * P) + HALF - 1)
         * P * 4,
@@ -118,9 +119,14 @@ TPU_KERNELS = [
 
 
 # ported kernels the smoke run also times at another set: mega14 serves the
-# eager API at STD128_K4 (path K) beside STD128_K2 (path A')
+# eager API at STD128_K4 (path K) beside STD128_K2 (path A'); mega10, mega3,
+# mega4 and mega5 serve path L's gate batch at STD128 beside path H's
 FURTHER_SETS = [
     ("mega.py:997 _mega14_kernel", "std128_k4", "bsk_btT2"),
+    ("legacy.py:1019 _mega10_kernel", "std128", "bsk_btj2"),
+    ("legacy.py:295 _mega3_kernel", "std128", "bsk_btjm"),
+    ("legacy.py:423 _mega4_kernel", "std128", "bsk_btj"),
+    ("legacy.py:575 _mega5_kernel", "std128", "bsk_btj"),
 ]
 
 

@@ -189,7 +189,7 @@ def test_fit_engine_card_memory_guard():
     # the doubled key of mega8 (6.75 GiB) fits; an unported engine raises
     assert tsk.fit_engine("mega8", k2) == "mega8"
     with pytest.raises(ValueError):
-        tsk.fit_engine("mega3", k2)
+        tsk.fit_engine("mega2", k2)
     # N = 2048, l = 3: a 9 GiB key fits the card's budget, not an 8 GiB one
     assert tsk.fit_engine("bt_fused", shortint) == "bt_fused"
     assert tsk.fit_engine("bt_fused", shortint, budget_bytes=8 << 30) \

@@ -111,3 +111,18 @@ def test_flags_change_the_library_name(cache, monkeypatch):
     assert after.parent == before.parent and after.name.startswith("libk-")
     (_build.SRC_DIR / "k.cu").write_text("// another kernel\n")
     assert _build._target("k") not in (before, after)
+
+
+def test_header_change_renames_and_rebuilds(cache):
+    """A source's library carries a hash of the headers ``csrc/*.cuh`` (the
+    sources include them): editing one is a new library, built anew, and
+    ``sources`` names no header."""
+    (_build.SRC_DIR / "common.cuh").write_text("// shared device code\n")
+    before = _build._target("k")
+    _build.build(["k"])
+    assert _build.sources() == ["k"]
+    (_build.SRC_DIR / "common.cuh").write_text("// edited device code\n")
+    after = _build._target("k")
+    assert after != before and not after.exists()
+    assert list(_build.build(["k"])) == ["k"]
+    assert after.exists() and len(cache.read_text().splitlines()) == 2

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from herdsman_tpu_torch.core import TOY
+from herdsman_tpu_torch.core import PARAM_SETS, TOY
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
@@ -315,7 +315,8 @@ def test_megaJ_matches_plain(card, params, name, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert megaJ.ciphertexts_per_block(p, B, card, name) in (1, 2, 4, 8, 16)
+    assert megaJ.ciphertexts_per_block(p, B, card, name) in (1, 2, 4, 6, 8,
+                                                            12, 16)
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
 
 
@@ -383,3 +384,56 @@ def test_new_kernels_match_plain_at_width(card, params):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))
+
+
+# the four kernels of csrc/megaJ_legacy.cu (mega10, mega3, mega4, mega5) on
+# random keys at the geometries of STD128_K2, STD128 and STD128_SHORTINT
+# (n cut to 2 steps), at the smoke run's widths and a ragged 37: B = 2048
+# fills the card (mega5 takes 16, 12 and 6 ciphertexts a block there, mega4
+# pads its launch to whole clusters, mega3 holds 8)
+LEGACY_J_SETS = [dc.replace(PARAM_SETS[name], n=2)
+                 for name in ("std128_k2", "std128", "std128_shortint")]
+
+
+@pytest.mark.parametrize("B", [2048, 256, 37, 9])
+@pytest.mark.parametrize("name", list(megaJ.LEGACY_SOURCE))
+@pytest.mark.parametrize("params", LEGACY_J_SETS,
+                         ids=[q.name for q in LEGACY_J_SETS])
+def test_legacy_j_matches_plain(card, params, name, B):
+    p = params
+    _, _, doubled, _ = megaJ.KERNELS[name]
+    HALF, R = p.N // megaJ.P, (p.k + 1) * p.levels
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    gen = torch.Generator(device=card)
+    gen.manual_seed(B + p.N + len(name))
+    acc0 = torch.randint(-2**31, 2**31, (B, p.k + 1, p.N), dtype=torch.int32,
+                         device=card, generator=gen)
+    a_t = torch.randint(0, 2 * p.N, (p.n, B), dtype=torch.int32, device=card,
+                        generator=gen)
+    key = torch.randint(-128, 128, (p.n, 2 * HALF if doubled else HALF, R,
+                                    megaJ.P, (p.k + 1) * 4 * megaJ.P),
+                        dtype=torch.int8, device=card, generator=gen)
+    before = kernel.launches
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
+
+
+@pytest.mark.parametrize("name", list(megaJ.LEGACY_SOURCE))
+def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
+    """A set whose one ciphertext leaves no room for the staged kernels' key
+    buffers (and, with wider digits, none for mega3's block) raises on a
+    card tensor before any launch, naming the shared memory."""
+    wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
+                      bg_bits=2, levels=16)
+    if name in ("mega3", "mega10"):
+        wide = dc.replace(wide, bg_bits=1, levels=32)
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    acc0 = torch.zeros(1, wide.k + 1, wide.N, dtype=torch.int32, device=card)
+    a_t = torch.zeros(wide.n, 1, dtype=torch.int32, device=card)
+    key = torch.zeros(1, dtype=torch.int8, device=card)  # checked after
+    before = kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel(wide, acc0, a_t, key)
+    assert kernel.launches == before

@@ -1,0 +1,503 @@
+"""The port's ``mega10``, ``mega3``, ``mega4`` and ``mega5`` engines
+(``ops/kernels/megaJ.py``, ``csrc/megaJ_legacy.cu``) against the JAX
+package's legacy Pallas kernels, on the CPU:
+
+- each plain rotation against ``legacy.py::_mega10_kernel``,
+  ``_mega3_kernel``, ``_mega4_kernel`` and ``_mega5_kernel`` in interpret
+  mode (run as the JAX package's own tests run them, each once per kernel
+  and set) and against the NumPy reference;
+- NumPy emulations of the kernels' new address and fragment arithmetic,
+  each held against the plain version: ``mega3``'s lane -> (row, K) maps
+  of the ``mma.sync`` m16n8k32 A, B and C fragments over the ``bsk_btjm``
+  key, ``mega4``'s split of each staged chunk's rows across the two blocks
+  of a cluster, and ``mega10``'s poly-fused digit pass;
+- the byte map of ``bsk_btjm`` onto ``bsk_btj``;
+- the wrappers' checks, the gate path on each engine, and
+  ``layouts_for_engine``, ``fit_engine`` and ``port_engine`` against the
+  JAX package, set by set, at 40 and 12 GiB.
+
+Array equality throughout: the arithmetic is exact mod 2^32.
+"""
+
+import dataclasses as dc
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from herdsman_tpu.core import PARAM_SETS as JAX_SETS
+from herdsman_tpu.core import TOY
+from herdsman_tpu.core import reference as jref
+from herdsman_tpu.ops import bootstrap as jbs
+from herdsman_tpu.ops import server_key as jsk
+from herdsman_tpu_torch.core import PARAM_SETS
+from herdsman_tpu_torch.ops import bootstrap as tbs
+from herdsman_tpu_torch.ops import gates as tgates
+from herdsman_tpu_torch.ops import poly
+from herdsman_tpu_torch.ops import server_key as tsk
+from herdsman_tpu_torch.ops.decomp import signed_decompose
+from herdsman_tpu_torch.ops.kernels import megaJ
+from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
+from herdsman_tpu_torch.service.config import ConfigError, port_engine
+
+# HALF = 2 at N = 256 moves the window and the negated run, at k = 1 and
+# k = 2; n is cut to 8 steps so that interpret-mode rotations stay fast
+MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
+MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
+SETS = {"k1": MULTITILE, "k2": MULTITILE_K2}
+# the new kernel -> the serial kernel whose function it computes
+LEGACY = {"mega10": "mega8", "mega3": "mega7", "mega4": "mega7",
+          "mega5": "mega7"}
+B = 37
+GIB = 1 << 30
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for these small tensors: under parallel test
+    workers, torch's thread pool would contend for cores with the others'
+    XLA threads and run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def rand_u32(rng, *shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+@functools.cache
+def keys(params):
+    """(client key, server key, JAX key in ``bsk_btj2`` and ``bsk_btj``,
+    port key in those and ``bsk_btjm``)."""
+    ck, sk = jref.keygen(params, np.random.default_rng(29))
+    layouts = ("bsk_btj2", "bsk_btj")
+    return (ck, sk, jsk.device_server_key(sk, layouts=layouts),
+            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btjm"),
+                                  device="cpu"))
+
+
+@functools.cache
+def ciphertexts(params):
+    return rand_u32(np.random.default_rng(params.k + 41), B, params.n + 1)
+
+
+@functools.cache
+def jax_rotation(name, set_id):
+    """The JAX package's ``pallas_<name>`` rotation of ``ciphertexts``, in
+    interpret mode: computed once per kernel and set."""
+    params = SETS[set_id]
+    jdsk = keys(params)[2]
+    return np.asarray(jbs.blind_rotate_batch(
+        jdsk, jnp.asarray(ciphertexts(params)), jbs.make_test_poly(params),
+        engine=f"pallas_{name}", unroll=True))
+
+
+@functools.cache
+def port_rotation(name, set_id):
+    params = SETS[set_id]
+    tdsk = keys(params)[3]
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    before = kernel.launches
+    got = to_numpy_u32(tbs.blind_rotate_batch(
+        tdsk, from_numpy_u32(ciphertexts(params)),
+        tbs.make_test_poly(tdsk.params), engine=name))
+    assert kernel.launches == before  # no kernel on the CPU
+    return got
+
+
+@pytest.mark.parametrize("name", list(LEGACY))
+@pytest.mark.parametrize("set_id", list(SETS))
+def test_plain_rotation_equals_jax_legacy_pallas(set_id, name):
+    np.testing.assert_array_equal(port_rotation(name, set_id),
+                                  jax_rotation(name, set_id))
+
+
+@pytest.mark.parametrize("name", list(LEGACY))
+@pytest.mark.parametrize("set_id", list(SETS))
+def test_plain_rotation_equals_reference(set_id, name):
+    params = SETS[set_id]
+    sk = keys(params)[1]
+    ct = ciphertexts(params)
+    got = port_rotation(name, set_id)
+    for i in (0, B - 1):
+        np.testing.assert_array_equal(
+            got[i], jref.blind_rotate(sk, ct[i], jref.make_test_poly(params)))
+
+
+# --- NumPy emulations of the kernels' arithmetic (csrc/megaJ_legacy.cu,
+# csrc/megaJ_common.cuh) on one CMux step -----------------------------------
+
+def step_inputs(p, G, seed):
+    """acc [G, k+1, N] u32, rotation amounts [G], and one step's random
+    single-width key [HALF, R, P, C4P] int8."""
+    rng = np.random.default_rng(seed)
+    HALF, R = p.N // megaJ.P, (p.k + 1) * p.levels
+    acc = rand_u32(rng, G, p.k + 1, p.N)
+    rot = rng.integers(0, 2 * p.N, G)
+    key = rng.integers(-128, 128, (HALF, R, megaJ.P, (p.k + 1) * 4 * megaJ.P),
+                       dtype=np.int8)
+    return acc, rot, key
+
+
+def plain_step(p, acc, rot, key):
+    """One step of ``mega7``'s plain rotation on those inputs."""
+    p1 = dc.replace(p, n=1)
+    out = megaJ.blind_rotate_plain_btj(
+        p1, from_numpy_u32(acc), torch.as_tensor(rot[None], dtype=torch.int32),
+        torch.as_tensor(key[None]))
+    return to_numpy_u32(out)
+
+
+def digit_buffer(p, acc, rot):
+    """The kernels' digit buffer [R][N/4][G] of 32-bit words, byte u of word
+    (r, y4, g) digit r of coefficient 4*y4+u of ciphertext g."""
+    G = acc.shape[0]
+    x = from_numpy_u32(acc)
+    d = poly.negacyclic_monomial_mul(x, torch.as_tensor(rot)[:, None]) - x
+    digits = signed_decompose(d, p.bg_bits, p.levels)  # [G, k+1, N, levels]
+    d8 = digits.permute(1, 3, 2, 0).reshape(-1, p.N, G).to(torch.int8)
+    words = d8.numpy().astype(np.uint8).reshape(-1, p.N // 4, 4, G)
+    return (words.astype(np.uint32) << (8 * np.arange(4))[:, None]).sum(
+        axis=2).astype(np.uint32)  # [R, N/4, G]
+
+
+def bytes_s8(words):
+    """int32 words -> their 4 bytes as int8 (byte 0 first)."""
+    return np.asarray(words, dtype=np.uint32).view(np.uint8).reshape(
+        *np.shape(words), 4).view(np.int8)
+
+
+def test_emulated_mma_fragments_equal_plain_step():
+    """``mega3``'s m16n8k32 contraction, lane by lane: A from ``bsk_btjm`` at
+    the kernel's address (kc*MT*512 + mt*512 + lane*16), B from the digit
+    buffer at (r*N/4 + sub*PW + kc*8 + tq [+4])*8 + gq, D = A @ B with the
+    PTX fragment maps, the negated run's fragments subtracted once, then
+    the recombine of c0..c3 into the accumulators."""
+    p = dc.replace(TOY, n=1, N=256, k=1, bg_bits=8, levels=2)
+    G, P = 8, megaJ.P
+    acc, rot, key = step_inputs(p, G, 3)
+    kp1, R, HALF = p.k + 1, (p.k + 1) * p.levels, p.N // P
+    C4P, MT, PW, N4 = kp1 * 4 * P, kp1 * 4 * P // 16, P // 4, p.N // 4
+    btjm = megaJ.fragment_order(torch.as_tensor(key)).numpy().reshape(-1)
+    BLOCK = P * C4P
+    dig = digit_buffer(p, acc, rot).reshape(-1)
+    lane = np.arange(32)
+    gq, tq = lane >> 2, lane & 3
+    e = np.arange(16)
+    reg, byte = e // 4, e % 4
+    # A (16 x 32): lane's register reg, byte b -> row gq + 8*(reg&1), K
+    # 4*tq + 16*(reg>>1) + b
+    a_row = gq[:, None] + 8 * (reg & 1)[None]
+    a_k = 4 * tq[:, None] + 16 * (reg >> 1)[None] + byte[None]
+    out = acc.astype(np.uint32).copy()
+    for ct in range(HALF):
+        for mt in range(MT):
+            frags = {False: np.zeros((16, 8), np.int64),
+                     True: np.zeros((16, 8), np.int64)}
+            for m in range(HALF):
+                negrun = m > ct
+                sub = HALF + ct - m if negrun else ct - m
+                for r in range(R):
+                    for kc in range(P // 32):
+                        at = ((m * R + r) * BLOCK + kc * MT * 512 + mt * 512
+                              + lane[:, None] * 16 + e[None])
+                        A = np.zeros((16, 32), np.int64)
+                        A[a_row, a_k] = btjm[at]
+                        w = (r * N4 + sub * PW + kc * 8 + tq) * G + gq
+                        b0, b1 = bytes_s8(dig[w]), bytes_s8(dig[w + 4 * G])
+                        Bm = np.zeros((32, 8), np.int64)
+                        for half, bb in ((0, b0), (1, b1)):
+                            Bm[(4 * tq + 16 * half)[:, None] + np.arange(4),
+                               gq[:, None]] = bb
+                        frags[negrun] += A @ Bm
+            D = (frags[False] - frags[True]).astype(np.uint32)
+            col0 = mt * 16
+            c, j = col0 // (4 * P), (col0 // P) & 3
+            for x in range(4):
+                row = gq + 8 * (x >> 1)
+                b = 2 * tq + (x & 1)
+                np.add.at(out, (b, c, ct * P + col0 % P + row),
+                          (D[row, b] << np.uint32(8 * j)).astype(np.uint32))
+    np.testing.assert_array_equal(out, plain_step(p, acc, rot, key))
+
+
+def test_emulated_cluster_split_equals_plain_step():
+    """``mega4``'s staged contraction across a two-block cluster: every
+    group walks the chunks of the group with the most units (kc rows of its
+    unit's 512 columns per chunk); block b copies rows [b*kc/2, (b+1)*kc/2)
+    of each chunk into its own buffer f&1, and every row is read from the
+    block that copied it.  At k = 2 the 6 units fall 2, 2, 1, 1 on the four
+    groups, so two groups walk chunks they do not contract."""
+    p = dc.replace(TOY, n=2, N=256, k=2, bg_bits=8, levels=2)
+    G, P, NB, kc = 2, megaJ.P, 2, 16
+    acc, _, _ = step_inputs(p, G, 5)
+    rng = np.random.default_rng(6)
+    kp1, R, HALF = p.k + 1, (p.k + 1) * p.levels, p.N // P
+    C4P, N4, PW = kp1 * 4 * P, p.N // 4, P // 4
+    rots = rng.integers(0, 2 * p.N, (p.n, G))
+    keys_ = rng.integers(-128, 128, (p.n, HALF, R, P, C4P), dtype=np.int8)
+    units = HALF * kp1
+    cpb, kcs = P // kc, kc // NB
+    per_unit = HALF * R * cpb
+    walk = (units + 3) // 4 * per_unit
+    assert walk % 2 == 0  # a step's first chunk goes to buffer 0
+    out = acc.copy()
+    for i in range(p.n):
+        dig = digit_buffer(p, out, rots[i])
+        step = keys_[i].reshape(-1)
+        bufs = np.zeros((NB, 4, 2, kc, 4 * P), np.int8)
+        part = [None] * 4
+        for f in range(walk):
+            located = {}
+            for grp in range(4):
+                nu = (units - grp + 3) // 4 if grp < units else 0
+                if f >= nu * per_unit:
+                    continue
+                ui, rem = divmod(f, per_unit)
+                bi, xc = divmod(rem, cpb)
+                ct, c = divmod(grp + 4 * ui, kp1)
+                nneg = HALF - 1 - ct
+                mb, r = divmod(bi, R)
+                m = ct + 1 + mb if mb < nneg else mb - nneg
+                sub = HALF + ct - m if mb < nneg else ct - m
+                src = (m * R + r) * P * C4P + xc * kc * C4P + c * 4 * P
+                for rank in range(NB):  # each block copies its rows
+                    for row in range(rank * kcs, (rank + 1) * kcs):
+                        at = src + row * C4P
+                        bufs[rank, grp, f & 1, row] = step[at:at + 4 * P]
+                located[grp] = (ct, c, bi, xc, sub, r)
+            for grp, (ct, c, bi, xc, sub, r) in located.items():
+                if bi == 0 and xc == 0:
+                    part[grp] = np.zeros((G, 4 * P), np.int64)
+                if bi == (HALF - 1 - ct) * R and xc == 0:
+                    part[grp] = -part[grp]
+                rows = np.zeros((kc, 4 * P), np.int64)
+                for pw in range(kc // 4):
+                    owner = 0
+                    for b in range(1, NB):
+                        if 4 * pw >= b * kcs:
+                            owner = b
+                    rows[4 * pw:4 * pw + 4] = \
+                        bufs[owner, grp, f & 1, 4 * pw:4 * pw + 4]
+                w = dig[r, sub * PW + xc * (kc // 4):
+                        sub * PW + (xc + 1) * (kc // 4)]  # [kc/4, G]
+                d = bytes_s8(w).transpose(1, 0, 2).reshape(G, kc)
+                part[grp] += d.astype(np.int64) @ rows
+                if bi == HALF * R - 1 and xc == cpb - 1:
+                    limbs = part[grp].astype(np.uint32).reshape(G, 4, P)
+                    total = sum(limbs[:, jj] << np.uint32(8 * jj)
+                                for jj in range(4))
+                    out[:, c, ct * P:(ct + 1) * P] += total.astype(np.uint32)
+    want = acc
+    for i in range(p.n):
+        want = plain_step(p, want, rots[i], keys_[i])
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("N", [128, 256])
+def test_emulated_fused_digit_pass_equals_rotation(N):
+    """``mega10``'s digit pass: for every rotation s, the source quads q0,
+    q1 = q0+1 mod N/2 of ext(a), their wrap signs and the offset off =
+    (4*y4 - s) & 3 give X^s a - a, whose digits fill the buffer as the
+    per-polynomial pass fills it."""
+    p = dc.replace(TOY, n=1, N=N, k=1, bg_bits=7, levels=3)
+    rng = np.random.default_rng(N)
+    a = rand_u32(rng, 2 * N, 2, N)  # one ciphertext per s
+    s = np.arange(2 * N)
+    y4 = np.arange(N // 4)
+    t0 = (4 * y4[None] - s[:, None]) & (2 * N - 1)
+    off, q0 = t0 & 3, t0 >> 2
+    q1 = (q0 + 1) & (N // 2 - 1)
+
+    def ext_quad(q):  # [2N, N/4, 4] per polynomial c, then stacked
+        idx = (4 * q)[..., None] % N + np.arange(4)
+        sign = np.where(4 * q >= N, -1, 1).astype(np.int64)[..., None]
+        return np.stack([(np.take_along_axis(
+            a[:, c, :], idx.reshape(2 * N, -1), axis=1).reshape(idx.shape)
+            .astype(np.int64) * sign) for c in range(2)], axis=1)
+
+    both = np.concatenate([ext_quad(q0), ext_quad(q1)], axis=-1)
+    pick = off[:, None, :, None] + np.arange(4)  # [2N, 1, N/4, 4]
+    rotated = np.take_along_axis(both, np.broadcast_to(
+        pick, both.shape[:3] + (4,)), axis=-1).reshape(2 * N, 2, N)
+    got = (rotated.astype(np.uint32) - a).astype(np.uint32)
+    want = poly.negacyclic_monomial_mul(from_numpy_u32(a),
+                                        torch.as_tensor(s)[:, None]) \
+        - from_numpy_u32(a)
+    np.testing.assert_array_equal(got, to_numpy_u32(want))
+    # level_words on those differences, row c*levels + lev of ciphertext g
+    # at dig + y4*G + g + (c*levels + lev)*N/4*G: the per-polynomial
+    # pass's buffer
+    G, W = 4, p.bg_bits * p.levels
+    half = 1 << (p.bg_bits - 1)
+    offset = sum(half << (p.bg_bits * t) for t in range(p.levels))
+    v = ((got[:G].astype(np.uint64) + (1 << (31 - W))) >> (32 - W)) + offset
+    v = (v & 0xFFFFFFFF).reshape(G, 2, N // 4, 4)
+    dig = np.zeros(2 * p.levels * (N // 4) * G, np.uint32)
+    for c in range(2):
+        for lev in range(p.levels):
+            sh = p.bg_bits * (p.levels - 1 - lev)
+            d = (((v[:, c] >> sh) & ((1 << p.bg_bits) - 1)) - half) & 0xFF
+            words = (d << (8 * np.arange(4, dtype=np.uint64))).sum(axis=-1)
+            at = (y4[None] * G + np.arange(G)[:, None]
+                  + (c * p.levels + lev) * (N // 4) * G)
+            dig[at] = words
+    np.testing.assert_array_equal(dig, digit_buffer(p, a[:G], s[:G]).reshape(-1))
+
+
+# --- the key layout, wrappers, engines and routes --------------------------
+
+@pytest.mark.parametrize("set_id", list(SETS))
+def test_btjm_byte_map_onto_btj(set_id):
+    """Byte 4*reg + b of lane 4*gq + tq of A tile (kc, mt) of each block of
+    ``bsk_btjm`` is ``bsk_btj``'s column mt*16 + gq + 8*(reg & 1), K row
+    kc*32 + 4*tq + 16*(reg >> 1) + b, and the port's ``bsk_btj`` is the JAX
+    package's; the two are one size."""
+    params = SETS[set_id]
+    _, _, jdsk, tdsk = keys(params)
+    btj, btjm = tdsk.bsk_btj.numpy(), tdsk.bsk_btjm.numpy()
+    np.testing.assert_array_equal(btj, np.asarray(jdsk.bsk_btj))
+    assert btjm.shape == btj.shape and btjm.dtype == btj.dtype
+    np.testing.assert_array_equal(
+        megaJ.from_fragment_order(tdsk.bsk_btjm).numpy(), btj)
+    assert tsk.bt_key_bytes(params) == btjm.size
+    MT = btj.shape[-1] // 16
+    btj, btjm = btj[::5], btjm[::5]  # every fifth step: 2 of 8
+    flat = btjm.reshape(*btj.shape[:3], -1)
+    kc, mt, lane, e = np.meshgrid(np.arange(4), np.arange(MT), np.arange(32),
+                                  np.arange(16), indexing="ij")
+    gq, tq, reg, b = lane >> 2, lane & 3, e >> 2, e & 3
+    col = mt * 16 + gq + 8 * (reg & 1)
+    K = kc * 32 + 4 * tq + 16 * (reg >> 1) + b
+    at = kc * MT * 512 + mt * 512 + lane * 16 + e
+    np.testing.assert_array_equal(flat[..., at], btj[..., K, col])
+
+
+@pytest.mark.parametrize("name", list(LEGACY))
+def test_legacy_j_wrapper_checks(name):
+    _, _, _, tdsk = keys(MULTITILE_K2)
+    p = tdsk.params
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
+    other = tdsk.bsk_btj if name == "mega10" else tdsk.bsk_btj2
+    acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
+    a_t = torch.zeros(p.n, 2, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        kernel(p, acc, a_t.long(), key)
+    with pytest.raises(ValueError):
+        kernel(p, acc, a_t[:, :1].contiguous(), key)
+    with pytest.raises(ValueError):  # the other window width
+        kernel(p, acc, a_t, other)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(p, acc.transpose(1, 2).contiguous().transpose(1, 2), a_t, key)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernel(p, acc.to("meta"), a_t.to("meta"), key.to("meta"))
+    for bad in (dc.replace(p, N=64), dc.replace(p, k=3)):
+        with pytest.raises(ValueError):
+            megaJ.check_params(bad, name)
+    for pset in ("std128_k2", "std128", "std128_fast", "std128_shortint",
+                 "std128_k4"):
+        megaJ.check_params(PARAM_SETS[pset], name)
+    assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
+    assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
+    assert name in megaJ.LEGACY_SOURCE
+    assert port_engine(f"pallas_{name}") == name
+
+
+@pytest.mark.parametrize("name", ["mega4", "mega5", "mega3"])
+def test_check_params_names_shared_memory(name):
+    """A set whose ciphertext nearly fills a block fits ``mega7``'s block of
+    one, but not the staged blocks' key buffers beside one; ``mega3``
+    (whose block may hold one ciphertext, zeros on the rest of its n8
+    side) takes what ``mega7`` takes.  A refusal names the shared
+    memory."""
+    wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
+                      bg_bits=2, levels=16)
+    megaJ.check_params(wide, "mega7")
+    if name in megaJ.MMA:
+        megaJ.check_params(wide, name)
+        wider = dc.replace(wide, bg_bits=1, levels=32)
+        with pytest.raises(ValueError, match="shared memory"):
+            megaJ.check_params(wider, name)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            megaJ.check_params(wide, name)
+
+
+@pytest.mark.parametrize("name", list(LEGACY))
+def test_plain_versions_share_the_serial_function(name):
+    """``mega10`` shares ``mega8``'s plain version; ``mega4`` and ``mega5``
+    ``mega7``'s; ``mega3``'s is ``mega7``'s on its key out of fragment
+    order: each gives the serial kernel's rotation on the same inputs."""
+    _, _, _, tdsk = keys(MULTITILE)
+    p = tdsk.params
+    rng = np.random.default_rng(len(name))
+    acc = from_numpy_u32(rand_u32(rng, 5, p.k + 1, p.N))
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, 5)),
+                          dtype=torch.int32)
+    serial = LEGACY[name]
+    want = megaJ.plain(serial)(p, acc, a_t,
+                               getattr(tdsk, megaJ.KEY_LAYOUTS[serial]))
+    got = megaJ.plain(name)(p, acc, a_t, getattr(tdsk, megaJ.KEY_LAYOUTS[name]))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(LEGACY))
+def test_gate_batch_equals_serial_engine(name):
+    """``gate_batch`` on each engine gives the serial engine's outputs, which
+    decrypt to the truth table."""
+    ck, _, _, tdsk = keys(MULTITILE_K2)
+    rng = np.random.default_rng(43)
+    n_gates = 12
+    b1, b2 = (rng.integers(0, 2, n_gates).astype(bool) for _ in range(2))
+    ids = np.arange(n_gates) % len(tgates.GATE_IDS)
+    c1, c2 = jref.encrypt_bool(ck, b1, rng), jref.encrypt_bool(ck, b2, rng)
+    batch = tgates.GateBatch(ids, c1, c2)
+    got = to_numpy_u32(tgates.gate_batch(tdsk, batch, engine=name,
+                                         device="cpu"))
+    want = to_numpy_u32(tgates.gate_batch(tdsk, batch, engine=LEGACY[name],
+                                          device="cpu"))
+    np.testing.assert_array_equal(got, want)
+    truth = {"AND": b1 & b2, "OR": b1 | b2, "NAND": ~(b1 & b2),
+             "NOR": ~(b1 | b2), "XOR": b1 ^ b2, "XNOR": ~(b1 ^ b2)}
+    names = list(tgates.GATE_IDS)
+    np.testing.assert_array_equal(
+        jref.lwe_decrypt_bool(ck, got),
+        [truth[names[g]][i] for i, g in enumerate(ids)])
+
+
+@pytest.mark.parametrize("budget_gib", [40, 12])
+@pytest.mark.parametrize("name", list(LEGACY))
+def test_routes_equal_jax(name, budget_gib):
+    """``fit_engine`` routes each name as the JAX package routes
+    ``pallas_<name>`` on every named set at 40 and 12 GiB: ``mega10``
+    through the doubled key's check (``server_key.py:694-699``: at 12 GiB
+    STD128_SHORTINT's 18 GiB ``bsk_btj2`` goes to ``mega12``), the others
+    kept; ``layouts_for_engine`` is the JAX package's but for ``mega3``,
+    whose ``bsk_btjm`` is ``bsk_btj`` in fragment order (one size)."""
+    budget = budget_gib * GIB
+    for pset, p in PARAM_SETS.items():
+        if p.N < 128:  # below the port's tile: mega13 (documented)
+            assert tsk.fit_engine(name, p, budget_bytes=budget) == "mega13"
+            continue
+        want = jsk.fit_engine(f"pallas_{name}", JAX_SETS[pset],
+                              hbm_budget_bytes=budget)
+        assert tsk.fit_engine(name, p, budget_bytes=budget) \
+            == want.removeprefix("pallas_"), pset
+    jax_layouts = jsk.layouts_for_engine(f"pallas_{name}")
+    if name == "mega3":
+        assert jax_layouts == ("bsk_btj",)
+        assert tsk.layouts_for_engine(name) == ("bsk_btjm",)
+    else:
+        assert tsk.layouts_for_engine(name) == jax_layouts
+    assert port_engine(f"pallas_{name}") == name
+
+
+def test_port_engine_refuses_mega_and_mega2():
+    for name in ("pallas_mega", "pallas_mega2"):
+        with pytest.raises(ConfigError, match="queue 2 item 11"):
+            port_engine(name)
