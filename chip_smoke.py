@@ -8,8 +8,8 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=256, k=4, bg=2^8, l=2) and at the classic bool set STD128
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
-processes while the card runs the earlier paths.  Seventeen kernel wrappers
-(eighteen TPU kernel bodies) from seven CUDA sources.
+processes while the card runs the earlier paths.  Nineteen kernel wrappers
+(all twenty TPU kernel bodies) from eight CUDA sources.
 
     python3 chip_smoke.py [--seed S]
 
@@ -83,6 +83,19 @@ Phases, in order; any failure raises and exits non-zero:
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
     intermediate frame byte-equal to the first partition of path C's on
     ``pallas_fused``;
+9d. main path M, the R-major kernels of ``megaR.cu`` on path A's
+    ``bsk_bt`` at STD128_K2: M1, path A's gate batch on ``mega`` and
+    ``mega2``, each kernel against its plain version (tolerance 0) on the
+    batch's rotation inputs at B = 2048, 256 and 9 (and on random keys at
+    B=9 in phase 9b' with the others), each ``blind_rotate_batch`` equal
+    to ``mega13``'s, each gate batch equal to path A's and decrypted; both
+    timed in turns with ``bt_fused`` (the same function and key, 2n
+    launches) and ``mega7`` (the same blocks j-major: ``bsk_bt`` with its
+    block axes swapped, built, used, freed); M2, path I's job on
+    ``pallas_mega2`` then ``pallas_mega``, each COMPLETED with no retry,
+    launching only its engine, its intermediate frame byte-equal to path
+    C's first partition on ``pallas_fused``, with wall, load / exec /
+    store seconds and peak memory;
 10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
     (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
     the card as ``bsk_btjj``; then the whole-rotation kernel ``mega12``
@@ -363,7 +376,9 @@ def main() -> int:
                 "mega10": megaJ.mega10_blind_rotate,
                 "mega3": megaJ.mega3_blind_rotate,
                 "mega4": megaJ.mega4_blind_rotate,
-                "mega5": megaJ.mega5_blind_rotate}
+                "mega5": megaJ.mega5_blind_rotate,
+                "mega": megaJ.mega_blind_rotate,
+                "mega2": megaJ.mega2_blind_rotate}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -759,21 +774,25 @@ def main() -> int:
                   f"at {p.name} B={B}")
         return err, cache[B_MAIN][1]
 
-    def rotation_times(names, p, acc0, a_t, keys, per_block) -> dict:
+    def rotation_times(names, p, acc0, a_t, keys, per_block,
+                       fns: dict | None = None) -> dict:
         """ms per rotation at B=2048 and at B=256 of each kernel of
         ``names`` (warm: each ran at these shapes in vs_plain) on the same
         inputs, in turns (``names``, then in reverse, where there are
         several); with each one's bound, its share of the integer lanes'
         dp4a rate, and the ciphertexts per block ``per_block[name]`` gives
-        (None where the kernel has no such function)."""
+        (None where the kernel has no such function).  ``fns`` names a
+        rotation that is no kernel wrapper (fn(params, acc0, a_t, key))."""
+        fns = fns or {}
         order = [*names, *names[::-1]] if len(names) > 1 else list(names)
         narrow = (acc0[:RADIX_VALUES].contiguous(),
                   a_t[:, :RADIX_VALUES].contiguous())
         runs = {name: {"ms": [], "narrow_ms": []} for name in names}
         for key_name, x in (("ms", (acc0, a_t)), ("narrow_ms", narrow)):
             for name in order:
+                fn = fns.get(name, counters.get(name))
                 runs[name][key_name].append(timed_call(
-                    lambda: counters[name](p, *x, keys[name]))[1])
+                    lambda: fn(p, *x, keys[name]))[1])
         out = {}
         for name in names:
             key = keys[name]
@@ -950,17 +969,15 @@ def main() -> int:
              for g in ("std128", "std128_fast", "std128_shortint",
                        "std128_k4")]
     for Gp in geoms:
-        HALF_g, R_g = Gp.N // 128, (Gp.k + 1) * Gp.levels
         acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
                               dtype=torch.int32, device=dev, generator=gen_j)
         a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
                             device=dev, generator=gen_j)
-        for name, (_, _, doubled, _) in megaJ.KERNELS.items():
+        for name in megaJ.KERNELS:
             megaJ.check_params(Gp, name)  # every kernel takes these sets
-            key_g = torch.randint(
-                -128, 128, (Gp.n, 2 * HALF_g if doubled else HALF_g, R_g,
-                            128, (Gp.k + 1) * 512),
-                dtype=torch.int8, device=dev, generator=gen_j)
+            key_g = torch.randint(-128, 128, megaJ.key_shape(Gp, name),
+                                  dtype=torch.int8, device=dev,
+                                  generator=gen_j)
             got = counters[name](Gp, acc_g, a_g, key_g)
             want = megaJ.plain(name)(Gp, acc_g, a_g, key_g)
             errs_j[name] = max(errs_j[name], abs_err(got, want))
@@ -1124,6 +1141,125 @@ def main() -> int:
           f"s {card}")
     print(f"memory: path I torch.cuda.max_memory_allocated "
           f"{peak_i / 2**30:.3f} GiB {card}")
+
+    # 9d. main path M: the R-major kernels of megaR.cu on path A's bsk_bt.
+    # M1: path A's gate batch on mega and mega2, timed in turns with
+    # bt_fused (the same function and key in 2n launches) and mega7 (the
+    # same blocks j-major) -------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    row_j = megaJ.ROW_SOURCE
+    res_m, plain_m = {}, {}
+    for name in row_j:
+        check(fit_engine(name, P) == name and layouts_for_engine(name)
+              == ("bsk_bt",), f"fit_engine({name!r}, {P.name}) -> "
+              f"{fit_engine(name, P)}")
+        err_m, plain_m_ms = vs_plain(name, megaJ.plain(name), P, acc0, a_t,
+                                     dsk.bsk_bt, plain_m)
+        errs_j[name] = max(errs_j[name], err_m)
+        check(torch.equal(bs.blind_rotate_batch(dsk, lin, tp, engine=name),
+                          outs[B_MAIN]),
+              f"M: blind_rotate_batch on {name} != mega13 at B={B_MAIN}")
+        reset_counts()
+        out_m, m_s = host_s(lambda: gates.gate_batch(dsk, batch, engine=name,
+                                                     device=dev))
+        counts_m = read_counts()
+        only(counts_m, (name,), f"main path M1 on {name}")
+        out_m_np = to_numpy_u32(out_m)
+        check(np.array_equal(out_m_np, out_np),
+              f"M1: gate_batch on {name} != on mega13 (path A)")
+        check(np.array_equal(ref.lwe_decrypt_bool(ck, out_m_np), expect),
+              f"M1: gate_batch on {name} decrypts wrong")
+        res_m[name] = {"counts": counts_m, "plain_ms": plain_m_ms,
+                       "path_s": m_s}
+        print(f"main path M1 ({name}): {name} == blind_rotate_plain_bt on "
+              f"the gate batch's rotation inputs at B in "
+              f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+              f"{err_m}); blind_rotate_batch == mega13's; gate_batch of "
+              f"{B_MAIN} gates == path A's mega13 output and decrypts to the "
+              f"truth table; launches {counts_m}")
+        del out_m
+    del plain_m
+    # mega7 on the same blocks j-major: bsk_btj is bsk_bt, block axes swapped
+    key_j = dsk.bsk_bt.transpose(1, 2).contiguous()
+    for B in (B_MAIN, RADIX_VALUES):  # mega7's warm-up at these shapes
+        check(torch.equal(megaJ.mega7_blind_rotate(
+            P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), key_j),
+            outs[B]), f"M1: mega7 on bsk_bt's blocks j-major != mega13 at "
+            f"B={B}")
+
+    def bt_fused_rotation(p, acc, a_t, key):
+        """The bt_fused engine's rotation: 2n launches."""
+        for i in range(p.n):
+            acc = bt.external_product_bt(p, rd.rotate_decompose(p, acc,
+                                                                a_t[i]),
+                                         key[i], glwe=acc)
+        return acc
+
+    bt_fused_rotation(P, acc0[:RADIX_VALUES].contiguous(),
+                      a_t[:, :RADIX_VALUES].contiguous(), dsk.bsk_bt)
+    names_m = (*row_j, "bt_fused", "mega7")
+    times_m = rotation_times(
+        names_m, P, acc0, a_t, {**{n_: dsk.bsk_bt for n_ in row_j},
+                                "bt_fused": dsk.bsk_bt, "mega7": key_j},
+        {name: megaJ_blocks(name) for name in (*row_j, "mega7")},
+        fns={"bt_fused": bt_fused_rotation})
+    del key_j
+    torch.cuda.empty_cache()
+    peak_m = torch.cuda.max_memory_allocated()
+    for name in row_j:
+        res_m[name].update(times_m[name])
+        print_times(name, P, res_m[name], res_m[name]["plain_ms"])
+        print(f"time: main path M1 gate_batch B={B_MAIN} on {name} end to "
+              f"end {res_m[name]['path_s']:.3f} s = "
+              f"{B_MAIN / res_m[name]['path_s']:.1f} bootstraps/s {card}")
+    for other in ("bt_fused", "mega7"):
+        t = times_m[other]
+        print(f"time: {other} at {P.name} B={B_MAIN} {t['ms']:.3f} ms, "
+              f"B={RADIX_VALUES} {t['narrow_ms']:.3f} ms (timed in turns "
+              f"{[*names_m, *names_m[::-1]]}) {card}")
+    for name in row_j:
+        for other in ("bt_fused", "mega7"):
+            a_, b_ = times_m[other], times_m[name]
+            print(f"time: {name} / {other} at {P.name}: B={B_MAIN} "
+                  f"{b_['ms'] / a_['ms']:.4f}, B={RADIX_VALUES} "
+                  f"{b_['narrow_ms'] / a_['narrow_ms']:.4f} {card}")
+    print(f"memory: path M1 torch.cuda.max_memory_allocated "
+          f"{peak_m / 2**30:.3f} GiB {card}")
+
+    # M2: path I's job (path C's first partition) on pallas_mega2, then on
+    # pallas_mega ------------------------------------------------------------
+    res_m2 = {}
+    for engine in ("pallas_mega2", "pallas_mega"):
+        name = engine.removeprefix("pallas_")
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as workdir:
+            r_m = path_c(engine, workdir, rows=rows_i, partitions=1)
+        peak_m2 = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        only(r_m["counts"], (name,), f"path M2 on {engine}")
+        check(r_m["mid"] == runs["pallas_fused"]["mid"][:1],
+              f"path M2 ({engine}) intermediate frame differs from the "
+              f"first partition of path C's on pallas_fused")
+        job_m = r_m["job"]
+        load, exe, store = r_m["phases"]
+        res_m2[name] = r_m["counts"]
+        print(f"main path M2 ({engine}): {rows_i} rows (path C's first "
+              f"partition) in 1 partition, map + PARALLEL reduce: COMPLETED, "
+              f"retries {job_m.retries}, {job_m.bootstraps_executed} "
+              f"bootstraps; all {rows_i} intermediate rows and the reduced "
+              f"row decrypt right; the intermediate frame byte-equal to the "
+              f"first partition of path C's on pallas_fused; launches "
+              f"{r_m['counts']}")
+        print(f"time: main path M2 job on {engine} wall "
+              f"{job_m.wall_time_s:.3f} s (host {r_m['host_s']:.3f} s), "
+              f"{job_m.bootstraps_executed} bootstraps = "
+              f"{job_m.bootstraps_per_sec:.1f} bootstraps/s; runner load "
+              f"{load:.3f} s, exec {exe:.3f} s, store {store:.3f} s, key "
+              f"ingest and the rest "
+              f"{job_m.wall_time_s - load - exe - store:.3f} s; "
+              f"torch.cuda.max_memory_allocated {peak_m2 / 2**30:.3f} GiB "
+              f"{card}")
+        del r_m, job_m
 
     # 10. path D setup: the integer tier at STD128_SHORTINT -----------------
     PS = PARAM_SETS["std128_shortint"]
@@ -1642,7 +1778,10 @@ def main() -> int:
                   for name in legacy_j},
                "L_gate_batch_on_mega13": counts_l13,
                **{f"L_gate_batch_{name}": res_l[name]["counts"]
-                  for name in legacy_j}}
+                  for name in legacy_j},
+               **{f"M1_gate_batch_{name}": res_m[name]["counts"]
+                  for name in row_j},
+               **{f"M2_job_pallas_{name}": res_m2[name] for name in row_j}}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
@@ -1790,6 +1929,27 @@ def main() -> int:
             "ms_std128": res_std["ms"],
             "plain_ms_std128": res_std["plain_ms"],
             "bound_ms_std128": res_std["bound_ms"],
+        })
+    # the kernels of megaR.cu timed at STD128_K2 in path M1, in turns with
+    # bt_fused and mega7
+    for name, line in (("mega", 37), ("mega2", 165)):
+        res = res_m[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "herdsman_tpu_torch/csrc/megaR.cu",
+            "replaces": f"herdsman_tpu/ops/pallas/legacy.py:{line}",
+            **launches(name),
+            "matches_plain": errs_j[name] == 0,
+            "max_abs_err": errs_j[name],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "ms_b256": res["narrow_ms"],
+            "ms_bt_fused": times_m["bt_fused"]["ms"],
+            "ms_mega7": times_m["mega7"]["ms"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,14 @@
 // megaJ_common.cuh: the device code and launch helpers that csrc/megaJ.cu
-// (variants 11, 8, 7, 9, 6) and csrc/megaJ_legacy.cu (variants 10, 4, 5, and
-// the tensor-core variant 3) share: the block layout, the digit phase, the
-// dp4a contraction of one (column tile, output polynomial) unit, the staged
+// (variants 11, 8, 7, 9, 6), csrc/megaJ_legacy.cu (variants 10, 4, 5, and
+// the tensor-core variant 3) and csrc/megaR.cu (variants 1 and 2, on the
+// R-major key) share: the block layout, the digit phase, the dp4a
+// contraction of one (column tile, output polynomial) unit, the staged
 // contraction of key rows in shared memory, and megaJ_kernel, the template
 // of every dp4a schedule.  csrc/megaJ.cu's note gives the arithmetic, the
 // bound and the serial, overlap and staged designs; csrc/megaJ_legacy.cu's
-// the poly-fused (10), cluster (4) and wide (5) ones.  Each source that
-// includes this file builds into a library of its own.
+// the poly-fused (10), cluster (4) and wide (5) ones; csrc/megaR.cu's the
+// row-phased (1) and inline (2) ones.  Each source that includes this file
+// builds into a library of its own.
 
 #pragma once
 
@@ -275,13 +277,16 @@ __device__ __forceinline__ void digit_phase(const uint32_t* acc, uint32_t* dig,
 }
 
 // unit (ct, c) of the serial and overlap schedules: this thread's limb j
-// and 4 columns from qq on, key words from L2 (__ldg)
-template <int G, int KP1, bool DOUBLED, bool LIMB_MAJOR>
+// and 4 columns from qq on, key words from L2 (__ldg).  A single-width step
+// key holds block (m, r) at (m * R + r) * BLOCK (step-major by stored block,
+// bsk_btj), or with R_MAJOR at (r * HALF + m) * BLOCK (bsk_bt)
+template <int G, int KP1, bool DOUBLED, bool LIMB_MAJOR, bool R_MAJOR = false>
 __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
                                               const uint32_t* __restrict__ dig,
                                               int ct, int c, int j, int qq,
                                               int R, int HALF, int N4,
                                               int (&part)[G][4]) {
+  static_assert(!(DOUBLED && R_MAJOR), "the doubled window is step-major");
   constexpr int C4P = KP1 * 4 * P;
   constexpr size_t BLOCK = static_cast<size_t>(P) * C4P;  // one (group, r)
 #pragma unroll
@@ -307,7 +312,8 @@ __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
         const int sub = pass == 0 ? HALF + ct - m : ct - m;
         for (int r = 0; r < R; ++r)
           contract_block<G, C4P>(
-              kcol + static_cast<size_t>(m * R + r) * BLOCK,
+              kcol + static_cast<size_t>(R_MAJOR ? r * HALF + m : m * R + r) *
+                         BLOCK,
               dig + (static_cast<size_t>(r) * N4 + sub * PW) * G, part);
       }
       if (pass == 0) {  // subtract the negated run's partial

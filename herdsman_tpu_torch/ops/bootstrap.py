@@ -27,7 +27,10 @@ through one of three kinds of engine:
   ``mega7``'s keys with another schedule; the legacy ``mega10`` (on
   ``mega8``'s key), ``mega4`` and ``mega5`` (on ``mega7``'s) are
   ``csrc/megaJ_legacy.cu``'s further schedules, and ``mega3`` its
-  tensor-core kernel on ``bsk_btj`` in fragment order (``bsk_btjm``).
+  tensor-core kernel on ``bsk_btj`` in fragment order (``bsk_btjm``); the
+  legacy ``mega`` (row-phased, TMA-staged key rows) and ``mega2`` (inline,
+  the next step's key prefetched to L2) are ``csrc/megaR.cu`` against the
+  per-step engines' R-major ``bsk_bt``.
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -122,6 +125,8 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega3": (megaJ.mega3_blind_rotate, "bsk_btjm"),
     "mega4": (megaJ.mega4_blind_rotate, "bsk_btj"),
     "mega5": (megaJ.mega5_blind_rotate, "bsk_btj"),
+    "mega": (megaJ.mega_blind_rotate, "bsk_bt"),
+    "mega2": (megaJ.mega2_blind_rotate, "bsk_bt"),
 }
 
 

@@ -62,17 +62,17 @@ def check_params(p: TFHEParams, name: str = "mega12") -> None:
 
 def check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
                key: torch.Tensor, layout: str = "bsk_btjj",
-               groups: int | None = None) -> None:
+               key_shape: tuple[int, ...] | None = None) -> None:
     """Raise unless acc0 [B, k+1, N] and a_t [n, B] are int32, the key
-    ``layout`` int8 [n, groups, R, P, (k+1)*4*P] (groups HALF by default),
-    all contiguous and on acc0's device, and B >= 1."""
+    ``layout`` int8 of ``key_shape`` ([n, HALF, R, P, (k+1)*4*P] by
+    default), all contiguous and on acc0's device, and B >= 1."""
     HALF = p.N // P
     R = (p.k + 1) * p.levels
     B = acc0.shape[0] if acc0.dim() == 3 else -1
     shapes = {"acc0": (acc0, I32, (B, p.k + 1, p.N)),
               "a_t": (a_t, I32, (p.n, B)),
-              layout: (key, I8, (p.n, groups or HALF, R, P,
-                                 (p.k + 1) * 4 * P))}
+              layout: (key, I8, key_shape or (p.n, HALF, R, P,
+                                              (p.k + 1) * 4 * P))}
     for what, (t, dtype, shape) in shapes.items():
         if t.dtype != dtype:
             raise TypeError(f"{what} must be {dtype}, not {t.dtype}")

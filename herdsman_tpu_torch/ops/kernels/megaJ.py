@@ -1,8 +1,8 @@
 """Whole-rotation blind-rotation kernels against the j-major block-Toeplitz
-keys (``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``), and their plain
-PyTorch versions.
+keys (``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``) and against the
+R-major ``bsk_bt`` (``csrc/megaR.cu``), and their plain PyTorch versions.
 
-The nine kernels compute the GINX rotation of ``mega12`` at any gadget
+The eleven kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
 wrappers they replace; they differ from ``mega12`` and from each other in
 the key they read and in how a block schedules a step:
@@ -32,7 +32,15 @@ the key they read and in how a block schedules a step:
   thread block cluster, each copying half of them;
 - ``mega5_blind_rotate``: ``legacy.py::_mega5_kernel``, ``mega7``'s
   function and key, ``mega6``'s staged rows applied to up to 16
-  ciphertexts of one wide block.
+  ciphertexts of one wide block;
+- ``mega_blind_rotate`` (``csrc/megaR.cu``): ``legacy.py::_mega_kernel``,
+  ``mega7``'s function on the R-major ``bsk_bt`` [n, R, HALF, P,
+  (k+1)*4*P] (``bsk_btj`` with the two block axes swapped), row-phased: R
+  row phases per step, each key chunk staged in shared memory by TMA and
+  applied to every column tile that reads it;
+- ``mega2_blind_rotate``: ``legacy.py::_mega2_kernel``, the same function
+  and key, ``mega7``'s serial loop on the R-major offsets with the next
+  step's key prefetched to L2.
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -41,12 +49,15 @@ mod 2*HALF, the blocks past HALF negated, so column tile ct's whole
 contraction is one product of the step's digits (sub ascending, r minor)
 with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
-(``_ep_column_total_jmajor_packed``), as ``mega12`` does.
+(``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
+version of ``mega`` and ``mega2`` is ``blind_rotate_plain_bt``: n steps of
+``bt_fused``'s plain step on ``bsk_bt``, independent of the j-major ones.
 
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
-its plain version (``plain``).  The source notes in ``csrc/megaJ.cu`` and
-``csrc/megaJ_legacy.cu`` give the kernels' design and bound.
+its plain version (``plain``).  The source notes in ``csrc/megaJ.cu``,
+``csrc/megaJ_legacy.cu`` and ``csrc/megaR.cu`` give the kernels' design and
+bound.
 """
 
 from __future__ import annotations
@@ -78,10 +89,14 @@ KERNELS = {"mega11": (11, "bsk_btj2j", True, True),
            "mega10": (10, "bsk_btj2", True, False),
            "mega3": (3, "bsk_btjm", False, False),
            "mega4": (4, "bsk_btj", False, False),
-           "mega5": (5, "bsk_btj", False, False)}
+           "mega5": (5, "bsk_btj", False, False),
+           "mega": (1, "bsk_bt", False, False),
+           "mega2": (2, "bsk_bt", False, False)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
-# the kernels of csrc/megaJ_legacy.cu; the others are csrc/megaJ.cu's
+# the kernels of csrc/megaJ_legacy.cu and of csrc/megaR.cu (the R-major
+# bsk_bt); the others are csrc/megaJ.cu's
 LEGACY_SOURCE = ("mega10", "mega3", "mega4", "mega5")
+ROW_SOURCE = ("mega", "mega2")
 # the kernels whose block holds two halves of G ciphertexts (overlap), or
 # stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
 # per group at least; the wide block's 8 rows); mega3 (tensor cores) holds
@@ -90,6 +105,14 @@ OVERLAP, STAGED, WIDE, MMA = ("mega9",), ("mega6", "mega4"), ("mega5",), \
     ("mega3",)
 STAGED_BYTES = 4 * 2 * 16 * 512
 WIDE_BYTES = 4 * 2 * 8 * 512
+# mega's ring at its least: two stages of 8 K rows of (k+1)*4*P bytes, and
+# their barriers (mega2 holds what mega7 holds)
+ROW = ("mega",)
+
+
+def ring_bytes(p: TFHEParams) -> int:
+    """Shared memory of ``mega``'s smallest ring of staged key rows."""
+    return 2 * 8 * (p.k + 1) * 4 * P + 2 * 2 * 8
 
 
 def check_params(p: TFHEParams, name: str) -> None:
@@ -104,6 +127,8 @@ def check_params(p: TFHEParams, name: str) -> None:
         need = one + STAGED_BYTES
     elif name in WIDE:
         need = one + WIDE_BYTES
+    elif name in ROW:
+        need = one + ring_bytes(p)
     else:
         return
     if need > SMEM_LIMIT:
@@ -111,11 +136,21 @@ def check_params(p: TFHEParams, name: str) -> None:
                          f"memory per block, over {SMEM_LIMIT}")
 
 
+def key_shape(p: TFHEParams, name: str) -> tuple[int, ...]:
+    """The shape of kernel ``name``'s key at ``p``: [n, groups, R, P,
+    (k+1)*4*P] (groups 2*HALF for the doubled window, else HALF), or
+    ``bsk_bt``'s R-major [n, R, HALF, P, (k+1)*4*P]."""
+    _, layout, doubled, _ = KERNELS[name]
+    HALF, R, C4P = p.N // P, (p.k + 1) * p.levels, (p.k + 1) * 4 * P
+    if layout == "bsk_bt":
+        return (p.n, R, HALF, P, C4P)
+    return (p.n, 2 * HALF if doubled else HALF, R, P, C4P)
+
+
 def _check_args(p: TFHEParams, name: str, acc0: torch.Tensor,
                 a_t: torch.Tensor, key: torch.Tensor) -> None:
-    _, layout, doubled, _ = KERNELS[name]
-    check_args(p, acc0, a_t, key, layout,
-               2 * p.N // P if doubled else p.N // P)
+    check_args(p, acc0, a_t, key, KERNELS[name][1],
+               key_shape=key_shape(p, name))
 
 
 def blind_rotate_plain_btj2(params: TFHEParams, acc0: torch.Tensor,
@@ -203,14 +238,35 @@ def blind_rotate_plain_btjm(params: TFHEParams, acc0: torch.Tensor,
                                   from_fragment_order(bsk_btjm))
 
 
+def blind_rotate_plain_bt(params: TFHEParams, acc0: torch.Tensor,
+                          a_t: torch.Tensor,
+                          bsk_bt: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``mega`` and ``mega2`` in plain PyTorch, either
+    device: n steps of ``bt_fused``'s plain step on the R-major ``bsk_bt``,
+    ``rotate_decompose_plain`` then ``external_product_bt_plain`` with the
+    accumulate (``glwe=acc``)."""
+    # imported here: both modules import ops.server_key, which imports this
+    from herdsman_tpu_torch.ops.kernels.bt import external_product_bt_plain
+    from herdsman_tpu_torch.ops.kernels.rotate_decompose import \
+        rotate_decompose_plain
+    _check_args(params, "mega", acc0, a_t, bsk_bt)
+    acc = acc0
+    for i in range(params.n):
+        d8 = rotate_decompose_plain(params, acc, a_t[i])
+        acc = external_product_bt_plain(params, d8, bsk_bt[i], glwe=acc)
+    return acc
+
+
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
     (``mega9`` and ``mega10`` share ``mega8``'s, ``mega6``, ``mega4`` and
     ``mega5`` ``mega7``'s; ``mega3``'s is ``mega7``'s on its key out of
-    fragment order)."""
-    _, _, doubled, jcq = KERNELS[name]
+    fragment order; ``mega`` and ``mega2`` share ``blind_rotate_plain_bt``)."""
+    _, layout, doubled, jcq = KERNELS[name]
     if name in MMA:
         return blind_rotate_plain_btjm
+    if layout == "bsk_bt":
+        return blind_rotate_plain_bt
     if not doubled:
         return blind_rotate_plain_btj
     return functools.partial(blind_rotate_plain_btj2, jcq=jcq)
@@ -219,8 +275,8 @@ def plain(name: str):
 @functools.cache
 def _entry_points(source: str):
     """(blind_rotate, ciphertexts_per_block, error_string) of the built
-    ``csrc/<source>.cu`` (``megaJ`` or ``megaJ_legacy``), their C
-    signatures declared."""
+    ``csrc/<source>.cu`` (``megaJ``, ``megaJ_legacy`` or ``megaR``), their
+    C signatures declared."""
     lib = _build.load(source)
     rotate = getattr(lib, f"{source}_blind_rotate")
     rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
@@ -236,6 +292,8 @@ def _entry_points(source: str):
 
 
 def _kernel_entry_points(name: str):
+    if name in ROW_SOURCE:
+        return _entry_points("megaR")
     return _entry_points("megaJ_legacy" if name in LEGACY_SOURCE
                          else "megaJ")
 
@@ -248,7 +306,8 @@ def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
                           name: str = "mega11") -> int:
     """The ciphertexts one block of kernel ``name`` owns in a rotation of B
     ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
-    G, two halves of G for ``mega9``, up to 16 for ``mega5``."""
+    G, two halves of G for ``mega9``, up to 16 for ``mega5`` and up to
+    16*128/N for ``mega``."""
     _, per_block, _ = _kernel_entry_points(name)
     return per_block(
         KERNELS[name][0], B, p.N, p.k + 1, (p.k + 1) * p.levels,
@@ -263,6 +322,8 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
+    if name in ROW_SOURCE and key.data_ptr() % 16:  # TMA's alignment
+        raise ValueError(f"{name} takes a key on a 16-byte boundary")
     rotate, _, error = _kernel_entry_points(name)
     out = torch.empty_like(acc0)
     with torch.cuda.device(acc0.device):
@@ -362,6 +423,24 @@ def mega5_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     return _rotate("mega5", mega5_blind_rotate, params, acc0, a_t, bsk_btj)
 
 
+def mega_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                      a_t: torch.Tensor, bsk_bt: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation against the R-major ``bsk_bt`` int8 [n, R, HALF,
+    P, (k+1)*4*P], row-phased (each step's key rows in TMA-staged chunks,
+    each chunk applied to every column tile); CPU tensors go through
+    ``blind_rotate_plain_bt``."""
+    return _rotate("mega", mega_blind_rotate, params, acc0, a_t, bsk_bt)
+
+
+def mega2_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
+                       a_t: torch.Tensor,
+                       bsk_bt: torch.Tensor) -> torch.Tensor:
+    """``mega``'s rotation on ``bsk_bt``, inline (``mega7``'s serial loop on
+    the R-major offsets, the next step's key prefetched to L2); CPU tensors
+    go through ``blind_rotate_plain_bt``."""
+    return _rotate("mega2", mega2_blind_rotate, params, acc0, a_t, bsk_bt)
+
+
 mega11_blind_rotate.launches = 0
 mega8_blind_rotate.launches = 0
 mega7_blind_rotate.launches = 0
@@ -371,3 +450,5 @@ mega10_blind_rotate.launches = 0
 mega3_blind_rotate.launches = 0
 mega4_blind_rotate.launches = 0
 mega5_blind_rotate.launches = 0
+mega_blind_rotate.launches = 0
+mega2_blind_rotate.launches = 0

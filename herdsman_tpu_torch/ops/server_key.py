@@ -18,7 +18,9 @@ once, into:
                                        the block-Toeplitz key of the JAX
                                        package's ``pallas_bt`` engines
                                        (``_block_toeplitz_layout``), read by
-                                       ``csrc/bt_external_product.cu``:
+                                       ``csrc/bt_external_product.cu`` and
+                                       ``csrc/megaR.cu`` (``mega``,
+                                       ``mega2``):
                                        stored diagonal block m at (p, (c, j,
                                        q)) is limb j of ext(bsk[i, r, c])
                                        [(P*m + q - p) mod 2N].  It is
@@ -274,11 +276,12 @@ def fit_engine(engine: str, params: TFHEParams,
     with the port's budget):
 
     - ``bt``, ``bt_fused``, and ``mega12`` / ``mega7`` / ``mega6`` /
-      ``mega3`` / ``mega4`` / ``mega5``, whose kernel must also take the
-      set, while their single-width key (``bsk_bt``, ``bsk_btjj``,
-      ``bsk_btj``, ``bsk_btjm``: the same size) fits ``budget_bytes``;
-      else ``mega13`` (the JAX package keeps ``pallas_mega3``, ``_4`` and
-      ``_5`` at every set; their keys fit the budget at every named set);
+      ``mega3`` / ``mega4`` / ``mega5`` / ``mega`` / ``mega2``, whose
+      kernel must also take the set, while their single-width key
+      (``bsk_bt``, ``bsk_btjj``, ``bsk_btj``, ``bsk_btjm``: the same size)
+      fits ``budget_bytes``; else ``mega13`` (the JAX package keeps
+      ``pallas_mega3``, ``_4``, ``_5``, ``pallas_mega`` and ``_mega2`` at
+      every set; their keys fit the budget at every named set);
     - ``mega11`` / ``mega8`` / ``mega9`` / ``mega10`` while their doubled
       key (``bsk_btj2j`` / ``bsk_btj2``) fits and their kernel takes the
       set (the JAX package's doubled-key check, ``server_key.py:694-699``);
@@ -310,9 +313,10 @@ def fit_engine(engine: str, params: TFHEParams,
       STD128_SHORTINT_FAST (17.25 GiB) to ``pallas_mega16``
       (tests/test_torch_megaJ.py pins both, set by set).
     - The block-Toeplitz kernels of the port tile N by 128 columns, so at a
-      set with N < 128 (TOY) a ``mega12``, ``mega7``, ``mega8`` or
-      ``mega11`` request, and a byte-aligned one that would fall back to
-      them, goes to ``mega13``, where the JAX package (which tiles by
+      set with N < 128 (TOY) a request for any of them (``mega12``,
+      ``mega7``, ``mega8``, ``mega11``, the legacy ``mega3`` .. ``mega10``,
+      ``mega`` and ``mega2``), and a byte-aligned one that would fall back
+      to them, goes to ``mega13``, where the JAX package (which tiles by
       min(128, N)) keeps the block-Toeplitz engine."""
 
     def takes(check) -> bool:
@@ -341,7 +345,7 @@ def fit_engine(engine: str, params: TFHEParams,
             return route
         route = "mega12"
     if route in ("bt", "bt_fused", "mega12", "mega7", "mega6", "mega3",
-                 "mega4", "mega5"):
+                 "mega4", "mega5", "mega", "mega2"):
         if bt_fits and (route in ("bt", "bt_fused")
                         or takes(lambda p: megaJ.check_params(p, route))):
             return route

@@ -46,7 +46,8 @@ ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
                 "pallas_mega14": "mega14", "pallas_mega9": "mega9",
                 "pallas_mega6": "mega6", "pallas_mega10": "mega10",
                 "pallas_mega3": "mega3", "pallas_mega4": "mega4",
-                "pallas_mega5": "mega5"}
+                "pallas_mega5": "mega5", "pallas_mega": "mega",
+                "pallas_mega2": "mega2"}
 
 
 def port_engine(name: str) -> str:
@@ -58,10 +59,9 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; the legacy kernels pallas_mega and "
-        f"pallas_mega2 are ROADMAP queue 2 item 11, and "
-        f"conv_i8/gather_u32 (XLA engines with no kernel) are not served by "
-        f"the port's coordinator")
+        f"{sorted(ENGINE_NAMES)}; conv_i8/gather_u32 (XLA engines with no "
+        f"kernel) are not served by the port's coordinator (ROADMAP queue 1 "
+        f"item 19)")
 
 
 @dataclasses.dataclass

@@ -186,10 +186,12 @@ def test_fit_engine_card_memory_guard():
     assert tsk.fit_engine("mega13", k3) == "bt_fused"
     with pytest.raises(ValueError):
         tsk.fit_engine("mega13", k3, budget_bytes=1)
-    # the doubled key of mega8 (6.75 GiB) fits; an unported engine raises
+    # the doubled key of mega8 (6.75 GiB) fits, and so does mega2's bsk_bt;
+    # a name no engine has raises
     assert tsk.fit_engine("mega8", k2) == "mega8"
+    assert tsk.fit_engine("mega2", k2) == "mega2"
     with pytest.raises(ValueError):
-        tsk.fit_engine("mega2", k2)
+        tsk.fit_engine("mega99", k2)
     # N = 2048, l = 3: a 9 GiB key fits the card's budget, not an 8 GiB one
     assert tsk.fit_engine("bt_fused", shortint) == "bt_fused"
     assert tsk.fit_engine("bt_fused", shortint, budget_bytes=8 << 30) \

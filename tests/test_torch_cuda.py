@@ -299,17 +299,13 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
                          ids=[q.name for q in MEGA12_SETS])
 def test_megaJ_matches_plain(card, params, name, B):
     p = params
-    _, _, doubled, _ = megaJ.KERNELS[name]
-    HALF = p.N // megaJ.P
-    R = (p.k + 1) * p.levels
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     rng = np.random.default_rng(B + p.N + p.k + len(name))
     acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
     a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
                           dtype=torch.int32, device=card)
     key = torch.as_tensor(
-        rng.integers(-128, 128, (p.n, 2 * HALF if doubled else HALF, R,
-                                 megaJ.P, (p.k + 1) * 4 * megaJ.P)),
+        rng.integers(-128, 128, megaJ.key_shape(p, name)),
         dtype=torch.int8, device=card)
     before = kernel.launches
     got = kernel(p, acc0, a_t, key)
@@ -437,3 +433,57 @@ def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
     with pytest.raises(ValueError, match="shared memory"):
         kernel(wide, acc0, a_t, key)
     assert kernel.launches == before
+
+
+# the two kernels of csrc/megaR.cu (mega, mega2) on the R-major bsk_bt, on
+# random keys at the geometries of STD128_K2, STD128 and STD128_SHORTINT
+# (n cut to 2 steps) and at N = 128 (one column tile, mega's widest block
+# of 16) and k+1 = 5, at the smoke run's widths and a ragged 37
+MEGAR_SETS = [dc.replace(PARAM_SETS[name], n=2)
+              for name in ("std128_k2", "std128", "std128_shortint")] + [
+    dc.replace(TOY, name="megaR_k1_n128_b8l2", n=3, N=128, k=1, bg_bits=8,
+               levels=2),
+    dc.replace(TOY, name="megaR_k4_n256_b8l2", n=3, N=256, k=4, bg_bits=8,
+               levels=2),
+]
+
+
+@pytest.mark.parametrize("B", [2048, 256, 37, 9])
+@pytest.mark.parametrize("name", list(megaJ.ROW_SOURCE))
+@pytest.mark.parametrize("params", MEGAR_SETS,
+                         ids=[q.name for q in MEGAR_SETS])
+def test_megaR_matches_plain(card, params, name, B):
+    p = params
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    gen = torch.Generator(device=card)
+    gen.manual_seed(B + p.N + p.k + len(name))
+    acc0 = torch.randint(-2**31, 2**31, (B, p.k + 1, p.N), dtype=torch.int32,
+                         device=card, generator=gen)
+    a_t = torch.randint(0, 2 * p.N, (p.n, B), dtype=torch.int32, device=card,
+                        generator=gen)
+    key = torch.randint(-128, 128, megaJ.key_shape(p, name), dtype=torch.int8,
+                        device=card, generator=gen)
+    before = kernel.launches
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    G = megaJ.ciphertexts_per_block(p, B, card, name)
+    assert G in (1, 2, 4, 8, 16) and (name == "mega2"
+                                      or G * p.N // megaJ.P <= 16)
+    assert torch.equal(got, megaJ.blind_rotate_plain_bt(p, acc0, a_t, key))
+
+
+def test_mega_refuses_a_set_without_room_for_its_ring(card):
+    """A set whose one ciphertext leaves no room for two stages of 8 key
+    rows raises on a card tensor before any launch, naming the shared
+    memory; mega2 (mega7's block) takes it."""
+    wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
+                      bg_bits=2, levels=16)
+    acc0 = torch.zeros(1, wide.k + 1, wide.N, dtype=torch.int32, device=card)
+    a_t = torch.zeros(wide.n, 1, dtype=torch.int32, device=card)
+    key = torch.zeros(1, dtype=torch.int8, device=card)  # checked after
+    before = megaJ.mega_blind_rotate.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        megaJ.mega_blind_rotate(wide, acc0, a_t, key)
+    assert megaJ.mega_blind_rotate.launches == before
+    megaJ.check_params(wide, "mega2")

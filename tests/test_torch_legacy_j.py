@@ -471,14 +471,15 @@ def test_gate_batch_equals_serial_engine(name):
 
 
 @pytest.mark.parametrize("budget_gib", [40, 12])
-@pytest.mark.parametrize("name", list(LEGACY))
+@pytest.mark.parametrize("name", [*LEGACY, *megaJ.ROW_SOURCE])
 def test_routes_equal_jax(name, budget_gib):
     """``fit_engine`` routes each name as the JAX package routes
     ``pallas_<name>`` on every named set at 40 and 12 GiB: ``mega10``
     through the doubled key's check (``server_key.py:694-699``: at 12 GiB
     STD128_SHORTINT's 18 GiB ``bsk_btj2`` goes to ``mega12``), the others
-    kept; ``layouts_for_engine`` is the JAX package's but for ``mega3``,
-    whose ``bsk_btjm`` is ``bsk_btj`` in fragment order (one size)."""
+    (``mega`` and ``mega2`` on ``bsk_bt`` too) kept; ``layouts_for_engine``
+    is the JAX package's but for ``mega3``, whose ``bsk_btjm`` is
+    ``bsk_btj`` in fragment order (one size)."""
     budget = budget_gib * GIB
     for pset, p in PARAM_SETS.items():
         if p.N < 128:  # below the port's tile: mega13 (documented)
@@ -498,6 +499,11 @@ def test_routes_equal_jax(name, budget_gib):
 
 
 def test_port_engine_refuses_mega_and_mega2():
+    """Refused until they were ported (``csrc/megaR.cu``): a config's
+    ``pallas_mega`` and ``pallas_mega2`` now map to the port's engines, and
+    the port's own names pass through."""
     for name in ("pallas_mega", "pallas_mega2"):
-        with pytest.raises(ConfigError, match="queue 2 item 11"):
-            port_engine(name)
+        assert port_engine(name) == name.removeprefix("pallas_")
+        assert port_engine(port_engine(name)) == port_engine(name)
+    with pytest.raises(ConfigError, match="not ported"):
+        port_engine("pallas_mega99")
