@@ -33,8 +33,9 @@ Phases, in order; any failure raises and exits non-zero:
 7. kernel vs plain for the block-Toeplitz kernels (tolerance 0):
    ``bt_external_product`` (unfused and fused) and ``rotate_decompose``
    against their plain PyTorch versions on the card, on step 0 of the
-   gate batch's rotation at B = 2048, 9 and 1, and on one random step at
-   STD128's geometry (k=1, N=1024, bg=2^7, l=3); then
+   gate batch's rotation at B = 2048, 288, 9 and 1, and on one random step
+   at STD128's geometry (k=1, N=1024, bg=2^7, l=3) at B = 2048, 9 and 1;
+   then
    ``blind_rotate_batch`` with engines ``bt`` and ``bt_fused`` at B=2048
    against mega13's output of phase 3;
 8. main path C, the coordinator's job path: a ``Coordinator`` built from an
@@ -45,11 +46,16 @@ Phases, in order; any failure raises and exits non-zero:
    as JSON -> wait (COMPLETED, no retry) -> download of the output and the
    map's intermediate frame, every row decrypted against the plaintext;
    then the same on a second coordinator with ``pallas_fused``, whose
-   frames must equal the first's byte for byte;
+   frames must equal the first's byte for byte; each job's rotation widths
+   with their counts and the host milliseconds per step at each width;
 9. times of the block-Toeplitz kernels per step at B=2048 (with bound,
-   plain and library times), a B=2048 gate batch on ``bt`` and
-   ``bt_fused``, and path C's jobs with the runner's load / exec / store
-   split;
+   plain and library times), fused at path C's narrow widths B=288 and 9
+   and unfused at STD128's geometry (each with its share of the bound and
+   its library yardstick, a ``torch._int_mm`` of the same shapes), the
+   per-step kernels also replayed from a CUDA graph (their device time
+   without the launches' host cost), a
+   B=2048 gate batch on ``bt`` and ``bt_fused``, and path C's jobs with
+   the runner's load / exec / store split;
 9b. main path H, the j-major kernels of ``megaJ.cu`` and
     ``megaJ_legacy.cu`` at STD128_K2: path A's gate batch on ``mega11``
     (key ``bsk_btj2j``), ``mega8``, ``mega9`` and ``mega10``
@@ -207,6 +213,30 @@ def timed_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls replayed from one
+    CUDA graph: the launches' host cost (the wrapper's checks, ctypes) is
+    paid once, at capture."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -543,7 +573,10 @@ def main() -> int:
                   f"({'fused' if glwe is not None else 'unfused'}) != plain "
                   f"at {label}")
 
-    for B in (B_MAIN, 9, 1):  # step 0 of the gate batch's rotation
+    # step 0 of the gate batch's rotation, at a width of every plan path C
+    # runs: 128-row tiles, 64-row ones, and K split 2 and 5 ways
+    step_widths = (B_MAIN, 288, 72, 9, 1)
+    for B in step_widths:
         compare_step(P, acc0[:B], a_t[0, :B], dsk.bsk_bt[0],
                      f"{P.name} B={B}")
     Q = STD128  # the other gadget and N, on random inputs and key step
@@ -562,8 +595,9 @@ def main() -> int:
               f"blind_rotate_batch engine {engine} != mega13 at B={B_MAIN}")
     print(f"kernel vs plain: rotate_decompose == rotate_decompose_plain and "
           f"bt_external_product (unfused, fused) == external_product_bt_plain "
-          f"at {P.name} (step 0 of the gate batch) and {Q.name} (random "
-          f"step), B in {[B_MAIN, 9, 1]} (array equality, max_abs_err "
+          f"at {P.name} (step 0 of the gate batch; B in {list(step_widths)})"
+          f" and {Q.name} (random step; B in {[B_MAIN, 9, 1]}) (array "
+          f"equality, max_abs_err "
           f"{errs}); blind_rotate_batch engines bt and bt_fused == mega13 "
           f"at B={B_MAIN}")
 
@@ -620,11 +654,26 @@ def main() -> int:
                   f"{job.message}")
             return job
 
+        # the rotations the job runs: (width, host seconds of the call)
+        rotations: list[tuple[int, float]] = []
+        rotate_batch = bs.blind_rotate_batch
+
+        def recording(dsk_, ct, *a, **kw):
+            t0 = time.perf_counter()
+            out = rotate_batch(dsk_, ct, *a, **kw)
+            rotations.append((int(ct.shape[0]), time.perf_counter() - t0))
+            return out
+
+        bs.blind_rotate_batch = recording
         reset_counts()
-        job, host = host_s(run_job)
+        try:
+            job, host = host_s(run_job)
+        finally:
+            bs.blind_rotate_batch = rotate_batch
         counts = read_counts()
         res = {"job": job, "host_s": host, "counts": counts,
-               "phases": phase_log.phases[job.job_uuid]}
+               "phases": phase_log.phases[job.job_uuid],
+               "rotations": rotations}
 
         def frame_bytes(uuid):
             return list(coord.download_data_frame(tok, sess, uuid))
@@ -667,6 +716,18 @@ def main() -> int:
               f"pallas_fused")
     print("main path C: pallas_bt and pallas_fused output and intermediate "
           "frames are byte-equal")
+    for engine, r in runs.items():  # the widths the job's rotations ran at
+        by_width: dict[int, list[float]] = {}
+        for B, secs in r["rotations"]:
+            by_width.setdefault(B, []).append(secs)
+        host_ms = {B: round(sum(v) / len(v) / P.n * 1e3, 4)
+                   for B, v in sorted(by_width.items(), reverse=True)}
+        print(f"main path C ({engine}): rotation widths with their counts "
+              f"{ {B: len(v) for B, v in sorted(by_width.items(), reverse=True)} }"
+              f" ({len(r['rotations'])} rotations, "
+              f"{len(r['rotations']) * P.n} steps); host ms per step (the "
+              f"rotation's Python loop issuing its {P.n} steps, host clock "
+              f"without a synchronize) by width {host_ms} {card}")
 
     # 9. times of the block-Toeplitz engines --------------------------------
     R = (P.k + 1) * P.levels
@@ -679,6 +740,10 @@ def main() -> int:
         return dsk.bsk_bt[next(steps) % P.n]
 
     rd_ms = timed_ms(lambda: rd.rotate_decompose(P, acc_s, a_s), reps=50)
+    # replayed from one CUDA graph: the device time without the launches'
+    # host cost, which the loop above pays once per launch
+    rd_graph_ms = graph_ms(lambda: rd.rotate_decompose(P, acc_s, a_s),
+                                   reps=50)
     rd_plain_ms = timed_ms(lambda: rd.rotate_decompose_plain(P, acc_s, a_s),
                            reps=5)
     rd_bound_ms, rd_by = bounds.bound_ms(
@@ -689,6 +754,8 @@ def main() -> int:
         glwe = acc_s if fused else None
         ep[fused] = {
             "ms": timed_ms(lambda: bt.external_product_bt(
+                P, d8_s, step_key(), glwe=glwe), reps=20),
+            "graph_ms": graph_ms(lambda: bt.external_product_bt(
                 P, d8_s, step_key(), glwe=glwe), reps=20),
             "plain_ms": timed_ms(lambda: bt.external_product_bt_plain(
                 P, d8_s, step_key(), glwe=glwe), reps=3),
@@ -704,24 +771,48 @@ def main() -> int:
     d_flat = d8_s.reshape(R, HALF, B_MAIN, -1).permute(2, 0, 1, 3).reshape(
         B_MAIN, R * P.N)
     lib_ms = timed_ms(lambda: torch._int_mm(d_flat, full), reps=20)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for fused in (False, True):
         e = ep[fused]
         print(f"time: bt_external_product {'fused' if fused else 'unfused'} "
-              f"one step B={B_MAIN} {e['ms']:.4f} ms ({e['ms'] * P.n:.1f} ms "
+              f"one step B={B_MAIN} {e['ms']:.4f} ms ({e['graph_ms']:.4f} ms "
+              f"replayed from a CUDA graph; {e['ms'] * P.n:.1f} ms "
               f"per {P.n}-step rotation); {e['bound_ms'] / e['ms']:.4f} of "
               f"the {e['bound_ms']:.4f} ms bound ({e['bound_by']}); plain "
               f"{e['plain_ms']:.4f} ms; torch._int_mm [{B_MAIN}, {R * P.N}] x "
-              f"{list(full.shape)} {lib_ms:.4f} ms {card}")
+              f"{list(full.shape)} {lib_ms:.4f} ms; "
+              f"{bt.plan(P, B_MAIN, sms)} {card}")
+    narrow = {}
     for B in (288, 9):  # path C's narrow reduce levels
         acc_n, a_n = acc0[:B], a_t[0, :B]
         d8_n = rd.rotate_decompose(P, acc_n, a_n)
         n_ms = timed_ms(lambda: bt.external_product_bt(
             P, d8_n, step_key(), glwe=acc_n), reps=20)
         nrd_ms = timed_ms(lambda: rd.rotate_decompose(P, acc_n, a_n), reps=20)
+        # the library call on the same product, rows padded to 32 as
+        # mega13.int8_matmul pads them
+        d_flat_n = d8_n.reshape(R, HALF, B, -1).permute(2, 0, 1, 3).reshape(
+            B, R * P.N)
+        nlib_ms = timed_ms(lambda: mega13.int8_matmul(d_flat_n, full),
+                           reps=20)
+        # the same launches replayed from one CUDA graph: the device time
+        # alone, without the wrapper's host cost per launch
+        ng_ms = graph_ms(lambda: bt.external_product_bt(
+            P, d8_n, step_key(), glwe=acc_n), reps=20)
+        n_bound, n_by = bounds.bound_ms(
+            *bounds.external_product_step(P, B, fused=True))
+        narrow[B] = {"ms": n_ms, "graph_ms": ng_ms, "library_ms": nlib_ms,
+                     "bound_ms": n_bound}
         print(f"time: bt_external_product fused one step B={B} {n_ms:.4f} "
-              f"ms, rotate_decompose {nrd_ms:.4f} ms "
-              f"({(n_ms + nrd_ms) * P.n:.1f} ms per rotation) {card}")
-    print(f"time: rotate_decompose one step B={B_MAIN} {rd_ms:.4f} ms; "
+              f"ms ({ng_ms:.4f} ms replayed from a CUDA graph), "
+              f"{n_bound / n_ms:.4f} of the {n_bound:.4f} ms bound "
+              f"({n_by}); mega13.int8_matmul (torch._int_mm, rows padded to "
+              f"{max(32, -(-B // 8) * 8)}) x {list(full.shape)} "
+              f"{nlib_ms:.4f} ms; rotate_decompose {nrd_ms:.4f} ms "
+              f"({(n_ms + nrd_ms) * P.n:.1f} ms per rotation); "
+              f"{bt.plan(P, B, sms)} {card}")
+    print(f"time: rotate_decompose one step B={B_MAIN} {rd_ms:.4f} ms "
+          f"({rd_graph_ms:.4f} ms replayed from a CUDA graph); "
           f"{rd_bound_ms / rd_ms:.4f} of the {rd_bound_ms:.4f} ms bound "
           f"({rd_by}); plain {rd_plain_ms:.4f} ms {card}")
     d8_q = rd.rotate_decompose(
@@ -731,9 +822,20 @@ def main() -> int:
     q_ms = timed_ms(lambda: bt.external_product_bt(Q, d8_q, key_q), reps=10)
     q_bound, q_by = bounds.bound_ms(
         *bounds.external_product_step(Q, d8_q.shape[1], fused=False))
+    # STD128's library yardstick: one int8 product of the same shapes
+    # (expanded step matrix [R*N, (k+1)*4*N], random: the time does not
+    # depend on the values)
+    full_q = torch.randint(-128, 128, (RQ * Q.N, (Q.k + 1) * 4 * Q.N),
+                           dtype=torch.int8, device=dev)
+    d_flat_q = d8_q.reshape(RQ, HALFQ, B_MAIN, -1).permute(
+        2, 0, 1, 3).reshape(B_MAIN, RQ * Q.N)
+    q_lib_ms = timed_ms(lambda: torch._int_mm(d_flat_q, full_q), reps=10)
+    del full_q, d_flat_q
     print(f"time: bt_external_product unfused one step at {Q.name} B={B_MAIN} "
           f"{q_ms:.4f} ms; {q_bound / q_ms:.4f} of the {q_bound:.4f} ms "
-          f"bound ({q_by}) {card}")
+          f"bound ({q_by}); torch._int_mm [{B_MAIN}, {RQ * Q.N}] x "
+          f"[{RQ * Q.N}, {(Q.k + 1) * 4 * Q.N}] {q_lib_ms:.4f} ms; "
+          f"{bt.plan(Q, B_MAIN, sms)} {card}")
     for engine in ("bt", "bt_fused"):
         got, s1 = host_s(lambda: gates.gate_batch(dsk, batch, engine=engine,
                                                   device=dev))
@@ -1827,9 +1929,17 @@ def main() -> int:
         "bound_ms": ep[False]["bound_ms"],
         "bound_by": ep[False]["bound_by"],
         "library_ms": lib_ms,
+        "graph_ms": ep[False]["graph_ms"],
         "ms_fused": ep[True]["ms"],
+        "graph_ms_fused": ep[True]["graph_ms"],
         "plain_ms_fused": ep[True]["plain_ms"],
         "bound_ms_fused": ep[True]["bound_ms"],
+        "library_ms_fused": lib_ms,
+        **{f"{k}_fused_b{B}": v for B, n in narrow.items()
+           for k, v in n.items()},
+        "ms_std128": q_ms,
+        "bound_ms_std128": q_bound,
+        "library_ms_std128": q_lib_ms,
     }, {
         "name": "rotate_decompose",
         "route": "cuda",
@@ -1839,6 +1949,7 @@ def main() -> int:
         "matches_plain": errs["rotate_decompose"] == 0,
         "max_abs_err": errs["rotate_decompose"],
         "ms": rd_ms,
+        "graph_ms": rd_graph_ms,
         "plain_ms": rd_plain_ms,
         "bound_ms": rd_bound_ms,
         "bound_by": rd_by,

@@ -8,13 +8,16 @@ int8 [R*HALF, B, P] (row-tile major), one step's key ``bsk_bt[i]`` int8
 fused CMux accumulate).  On a CUDA tensor it launches the hand-written
 kernel (counted in ``external_product_bt.launches``) or raises; on a CPU
 tensor it runs ``external_product_bt_plain``.  The source note in
-``csrc/bt_external_product.cu`` gives the kernel's design and bound.
+``csrc/bt_external_product.cu`` gives the kernel's design and bound: int8
+tensor cores (``wgmma``) on a K-major staged key, with the tile plan and
+the K splits of narrow widths that ``plan`` mirrors here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +29,34 @@ from herdsman_tpu_torch.ops.server_key import bt_tile
 
 I32 = torch.int32
 I8 = torch.int8
+
+
+QB_MAX = 64  # q columns of one limb in a kernel block
+
+
+class Plan(NamedTuple):
+    """The kernel's tiling of one call: ``bm`` ciphertexts a block (64 or
+    128), ``splits`` K splits, and the grid (M tiles, column tiles, splits),
+    a column tile being (ct, c, q block) of ``qb`` q columns of 4 limbs."""
+    bm: int
+    splits: int
+    qb: int
+    grid: tuple[int, int, int]
+
+
+def plan(p: TFHEParams, B: int, n_sms: int) -> Plan:
+    """``make_plan`` of ``csrc/bt_external_product.cu`` on a card of
+    ``n_sms`` SMs: 128-row tiles where they alone give every SM a block,
+    else 64; then K splits over the R*HALF (r, m) blocks while the blocks
+    still fit one wave."""
+    P, HALF = bt_tile(p)
+    qb = min(P, QB_MAX)
+    tiles_n = HALF * (p.k + 1) * (P // qb)
+    KB = (p.k + 1) * p.levels * HALF
+    bm = 128 if -(-B // 128) * tiles_n >= n_sms else 64
+    blocks = -(-B // bm) * tiles_n
+    splits = max(1, min(KB, n_sms // blocks))
+    return Plan(bm, splits, qb, (-(-B // bm), tiles_n, splits))
 
 
 def check_params(p: TFHEParams) -> None:
@@ -55,8 +86,10 @@ def _check_args(p: TFHEParams, d8: torch.Tensor, key: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, d8 on {d8.device}")
     if B < 1:
         raise ValueError("empty batch")
-    if d8.data_ptr() % 16:  # the kernel stages digits in 16-byte loads
-        raise ValueError("d8 must start on a 16-byte boundary")
+    # d8 and key are staged in 16-byte loads, glwe read in 8-byte ones
+    for name, t, align in (("d8", d8, 16), ("key", key, 16), ("glwe", glwe, 8)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def external_product_bt_plain(params: TFHEParams, d8: torch.Tensor,
@@ -100,15 +133,30 @@ def _lib() -> ctypes.CDLL:
     lib.bt_external_product.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.bt_external_product.restype = ctypes.c_int
+    lib.bt_plan.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.bt_plan.restype = ctypes.c_int
     lib.bt_error_string.argtypes = [ctypes.c_int]
     lib.bt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_plan(p: TFHEParams, B: int, n_sms: int) -> tuple[int, int]:
+    """(bm, splits) that the built kernel's own ``bt_plan`` picks (the card
+    tests hold it equal to ``plan``)."""
+    bm, splits = ctypes.c_int(), ctypes.c_int()
+    err = _lib().bt_plan(B, p.N, p.k + 1, (p.k + 1) * p.levels, n_sms,
+                         ctypes.byref(bm), ctypes.byref(splits))
+    if err:
+        raise ValueError(f"bt_plan refused B={B} at {p.name}")
+    return bm.value, splits.value
 
 
 def _launch(p: TFHEParams, d8: torch.Tensor, key: torch.Tensor,
             glwe: torch.Tensor | None) -> torch.Tensor:
     lib = _lib()
     B = d8.shape[1]
+    # with K splits the entry point first sets out to 0 (or to glwe)
     out = torch.empty(B, p.k + 1, p.N, dtype=I32, device=d8.device)
     with torch.cuda.device(d8.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -105,8 +105,12 @@ def test_gate_batch_on_card(card):
 
 
 # the block-Toeplitz kernels' geometry classes: k+1 in (2, 3, 5), N from
-# 256 to 2048 (HALF 2 to 16), the two gadgets (2^8, 2) and (2^7, 3)
+# 32 to 2048 (P = 32 and 64 with one column tile, then P = 128 and HALF 2
+# to 16), the two gadgets (2^8, 2) and (2^7, 3)
 BT_SETS = [
+    dc.replace(TOY, name="bt_k1_n32_b6l3", n=4, N=32, k=1),
+    dc.replace(TOY, name="bt_k2_n64_b8l2", n=4, N=64, k=2, bg_bits=8,
+               levels=2),
     dc.replace(TOY, name="bt_k1_n256_b8l2", n=4, N=256, k=1, bg_bits=8,
                levels=2),
     dc.replace(TOY, name="bt_k2_n512_b8l2", n=4, N=512, k=2, bg_bits=8,
@@ -120,7 +124,10 @@ BT_SETS = [
 ]
 
 
-@pytest.mark.parametrize("B", [1, 9, 129, 2048])
+# every plan of the H100 (bt.plan): 64-row tiles split over K (1, 9, 63,
+# 64, 65), 64-row tiles whole (129, 288), 128-row tiles (2048, 16384),
+# ragged last tiles beside full ones
+@pytest.mark.parametrize("B", [1, 9, 63, 64, 65, 129, 288, 2048, 16384])
 @pytest.mark.parametrize("params", BT_SETS, ids=[q.name for q in BT_SETS])
 def test_bt_kernels_match_plain(card, params, B):
     p = params
@@ -146,8 +153,19 @@ def test_bt_kernels_match_plain(card, params, B):
                                                              glwe=glwe))
 
 
-@pytest.mark.parametrize("params", BT_SETS[:3], ids=[q.name for q in
-                                                     BT_SETS[:3]])
+@pytest.mark.parametrize("params", BT_SETS, ids=[q.name for q in BT_SETS])
+def test_bt_kernel_plan_matches_python(card, params):
+    """The built kernel's own ``bt_plan`` equals ``bt.plan`` on this card and
+    on others' SM counts."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for n_sms in (sms, 8, 132, 2048):
+        for B in (1, 9, 63, 64, 65, 129, 288, 2048, 16384):
+            assert bt.kernel_plan(params, B, n_sms) == \
+                bt.plan(params, B, n_sms)[:2], (B, n_sms)
+
+
+@pytest.mark.parametrize("params", BT_SETS[2:5], ids=[q.name for q in
+                                                      BT_SETS[2:5]])
 def test_bt_engines_match_mega13_and_reference(card, params):
     rng = np.random.default_rng(9)
     ck, sk = ref.keygen(params, rng)
