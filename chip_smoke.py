@@ -104,10 +104,11 @@ Phases, in order; any failure raises and exits non-zero:
     store seconds and peak memory;
 10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
     (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
-    the card as ``bsk_btjj``; then the whole-rotation kernel ``mega12``
-    against its plain PyTorch version (tolerance 0) on D1's first rotation
-    inputs at B = 2048, 9 and 1, and on random inputs and keys at B=9 at
-    STD128_K2's and STD128's geometries;
+    the card as ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s byte order); then
+    the whole-rotation kernel ``mega12`` (int8 ``wgmma``) against its plain
+    PyTorch version (tolerance 0) on D1's first rotation inputs at B =
+    2048, 256, 65, 9 and 1, and on random inputs and keys at B=9 at
+    STD128_K2's, STD128's and STD128_SHORTINT_L4's geometries;
 11. main path D1, shortint: (a*b)+a over 2048 encrypted 2-bit values
     (``bench.py``'s shortint metric), decrypted against the plaintext, then
     the same on a second context on ``mega13`` (same keys and seed), whose
@@ -115,8 +116,12 @@ Phases, in order; any failure raises and exits non-zero:
     multiply (4 blocks of 2 bits) over 256 values on ``mega12``, decrypted
     against (a*b) mod 256, with its rotation widths;
 12. times of ``mega12`` per rotation at B=2048 (beside its bound and the
-    plain version's time) and at D2's narrow width, D1 and D2 end to end
-    with rotations/s, and the peak device memory of path D;
+    plain version's time) and at D2's narrow width B=256, each with its
+    share of the bound and its tile plan, in turns with ``bt_fused``'s
+    rotation (2n launches of ``rotate_decompose`` and the tensor-core
+    ``bt_external_product`` on ``bsk_bt``, built for it and freed) on the
+    same inputs, whose outputs must be equal; D1 and D2 end to end with
+    rotations/s, and the peak device memory of path D;
 12b. main path J: D1 on a ``ShortContext(engine="mega7")`` (the JAX
     bench's ``mega12 -> mega7`` step) with path D's keys and seed, ``mega7``
     against its plain version on its first rotation inputs, ciphertexts
@@ -1378,10 +1383,10 @@ def main() -> int:
     check(short.engine == "mega12" and short.many_lut,
           f"ShortContext at {PS.name} took engine {short.engine}, many-LUT "
           f"{short.many_lut}")
-    key12 = short.dsk.bsk_btjj
+    key12 = short.dsk.bsk_btk
     print(f"setup: {PS.name} host keygen {keygen_s:.1f} s (worker "
           f"process); ShortContext "
-          f"key ingest (fit_engine -> {short.engine}, bsk_btjj "
+          f"key ingest (fit_engine -> {short.engine}, bsk_btk "
           f"{key12.numel() / 2**30:.3f} GiB built on the card) "
           f"{ingest_s:.1f} s")
     vals = np.random.default_rng(args.seed + 99)
@@ -1395,10 +1400,11 @@ def main() -> int:
         PS, a.data * m + b.data,
         pbs.lut_test_poly(PS, mul_t, short.space_bits, device=dev))
     err12 = 0
-    for B in (B_MAIN, 9, 1):
+    widths12 = (B_MAIN, RADIX_VALUES, 65, 9, 1)
+    for B in widths12:
         x = acc0_d[:B].contiguous(), a_t_d[:, :B].contiguous()
         got = mega12.mega12_blind_rotate(PS, *x, key12)
-        want, ms = timed_call(lambda: mega12.blind_rotate_plain_btjj(
+        want, ms = timed_call(lambda: mega12.blind_rotate_plain_btk(
             PS, *x, key12))
         err12 = max(err12, abs_err(got, want))
         check(torch.equal(got, want), f"mega12 != plain version at {PS.name} "
@@ -1407,29 +1413,33 @@ def main() -> int:
             plain12_ms = ms
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    for Gp in (P, Q):  # STD128_K2's and STD128's geometries, random
-        R_g = (Gp.k + 1) * Gp.levels
-        key_g = torch.randint(-128, 128, (Gp.n, Gp.N // 128, R_g, 128,
-                                          (Gp.k + 1) * 512),
+    # STD128_K2's, STD128's and STD128_SHORTINT_L4's geometries, random
+    for Gp in (P, Q, PARAM_SETS["std128_shortint_l4"]):
+        key_g = torch.randint(-128, 128, mega12.key_shape(Gp),
                               dtype=torch.int8, device=dev, generator=gen)
         acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
                               dtype=torch.int32, device=dev, generator=gen)
         a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
                             device=dev, generator=gen)
         got = mega12.mega12_blind_rotate(Gp, acc_g, a_g, key_g)
-        want = mega12.blind_rotate_plain_btjj(Gp, acc_g, a_g, key_g)
+        want = mega12.blind_rotate_plain_btk(Gp, acc_g, a_g, key_g)
         err12 = max(err12, abs_err(got, want))
         check(torch.equal(got, want), f"mega12 != plain version at "
               f"{Gp.name}'s geometry, B=9, random inputs")
         del key_g
     torch.cuda.empty_cache()
-    per_block = {B: mega12.ciphertexts_per_block(PS, B, dev)
-                 for B in (2560, B_MAIN, 1536, RADIX_VALUES, 9, 1)}
-    print(f"kernel vs plain: mega12 == blind_rotate_plain_btjj at {PS.name} "
-          f"on D1's first rotation inputs, B in {[B_MAIN, 9, 1]}, and on "
-          f"random inputs and keys at B=9 at {P.name}'s and {Q.name}'s "
-          f"geometries (array equality, max_abs_err {err12}); ciphertexts "
-          f"per block by B: {per_block}")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans12 = {B: mega12.kernel_plan(PS, B, n_sms)
+               for B in (2560, B_MAIN, 1536, RADIX_VALUES, 65, 9, 1)}
+    check(all(pl == tuple(mega12.plan(PS, B, n_sms))[:3]
+              for B, pl in plans12.items()),
+          f"mega12's plan {plans12} differs from mega12.plan")
+    print(f"kernel vs plain: mega12 == blind_rotate_plain_btk at {PS.name} "
+          f"on D1's first rotation inputs, B in {list(widths12)}, and on "
+          f"random inputs and keys at B=9 at {P.name}'s, {Q.name}'s and "
+          f"std128_shortint_l4's geometries (array equality, max_abs_err "
+          f"{err12}); (rows a tile, K splits, blocks a cluster) by B: "
+          f"{plans12}")
 
     # 11. main paths D1 (shortint) and D2 (radix) ---------------------------
     def d1(ctx, a, b):
@@ -1503,20 +1513,46 @@ def main() -> int:
           f"rotations; launches {counts_d2}")
 
     # 12. times of path D ---------------------------------------------------
-    # warm: the kernel ran at these shapes in phase 10
-    _, m12_ms = timed_call(lambda: mega12.mega12_blind_rotate(
-        PS, acc0_d, a_t_d, key12))
+    # mega12 in turns with bt_fused's rotation (2n launches of the per-step
+    # kernels) on the same inputs; bsk_bt (9 GiB) is built for it and freed
+    key_bt = device_server_key(keys_d[1], layouts=("bsk_bt",),
+                               device=dev).bsk_bt
+    step_fused = bs.STEP_ENGINES["bt_fused"][0]
+
+    def fused_rotation(acc0, a_t):
+        acc = acc0
+        for i in range(PS.n):
+            acc = step_fused(PS, acc, a_t[i], key_bt[i])
+        return acc
+
+    t12: dict[int, dict[str, float]] = {}
+    for B in (B_MAIN, RADIX_VALUES):  # each engine's best of two turns
+        x = acc0_d[:B].contiguous(), a_t_d[:, :B].contiguous()
+        outs, ms = {}, {"mega12": [], "bt_fused": []}
+        for name in ("mega12", "bt_fused", "bt_fused", "mega12"):
+            outs[name], t = timed_call(
+                (lambda: fused_rotation(*x)) if name == "bt_fused"
+                else (lambda: mega12.mega12_blind_rotate(PS, *x, key12)))
+            ms[name].append(t)
+        check(torch.equal(outs["mega12"], outs["bt_fused"]),
+              f"mega12 != bt_fused's rotation at {PS.name} B={B}")
+        t12[B] = {k: min(v) for k, v in ms.items()}
+    del key_bt, outs
+    torch.cuda.empty_cache()
+    m12_ms, narrow12_ms = t12[B_MAIN]["mega12"], t12[RADIX_VALUES]["mega12"]
     bound12_ms, bound12_by = bounds.bound_ms(
         *bounds.rotation(PS, B_MAIN, key12.numel()))
-    narrow12_ms = timed_ms(lambda: mega12.mega12_blind_rotate(
-        PS, acc0_d[:RADIX_VALUES].contiguous(),
-        a_t_d[:, :RADIX_VALUES].contiguous(), key12), reps=1)
-    print(f"time: mega12 B={B_MAIN} {m12_ms:.3f} ms = "
-          f"{B_MAIN / m12_ms * 1e3:.1f} bootstraps/s, "
-          f"{bound12_ms / m12_ms:.4f} of the {bound12_ms:.2f} ms bound "
-          f"({bound12_by}); plain {plain12_ms:.3f} ms {card}")
-    print(f"time: mega12 B={RADIX_VALUES} {narrow12_ms:.3f} ms = "
-          f"{RADIX_VALUES / narrow12_ms * 1e3:.1f} bootstraps/s {card}")
+    for B, t in t12.items():
+        b_ms, b_by = bounds.bound_ms(*bounds.rotation(PS, B, key12.numel()))
+        print(f"time: mega12 B={B} {t['mega12']:.3f} ms = "
+              f"{B / t['mega12'] * 1e3:.1f} bootstraps/s, "
+              f"{b_ms / t['mega12']:.4f} of the {b_ms:.4f} ms bound ({b_by}), "
+              f"plan (rows, splits, cluster) {plans12[B]}; bt_fused's "
+              f"rotation (2n launches) {t['bt_fused']:.3f} ms in turns on "
+              f"the same inputs, array-equal; mega12 / bt_fused "
+              f"{t['mega12'] / t['bt_fused']:.4f}"
+              + (f"; plain {plain12_ms:.3f} ms" if B == B_MAIN else "")
+              + f" {card}")
     print(f"time: main path D1 (a*b)+a over {B_MAIN} values end to end "
           f"{d1_s:.3f} s on mega12 = {d1_rot / d1_s:.1f} rotations/s, "
           f"{d1_13_s:.3f} s on mega13 {card}")
@@ -1536,7 +1572,7 @@ def main() -> int:
         PS, msg_bits=2, carry_bits=2, engine="mega7", keys=keys_d,
         seed=args.seed, device=dev))
     check(ctx7.engine == "mega7" and ctx7.dsk.bsk_btj is not None
-          and ctx7.dsk.bsk_btjj is None,
+          and ctx7.dsk.bsk_btk is None,
           f"ShortContext(engine='mega7') at {PS.name} took engine "
           f"{ctx7.engine}")
     key7 = ctx7.dsk.bsk_btj
@@ -1590,7 +1626,7 @@ def main() -> int:
             PX, msg_bits=2, carry_bits=2, engine=engine, keys=keys_x,
             seed=args.seed, device=dev))
         check(ctx.engine == engine and ctx.dsk.bsk_btTc is not None
-              and ctx.dsk.bsk_btjj is None,
+              and ctx.dsk.bsk_btk is None,
               f"ShortContext(engine={engine!r}) at {PX.name} took engine "
               f"{ctx.engine}")
         key = ctx.dsk.bsk_btTc
@@ -1902,6 +1938,11 @@ def main() -> int:
         "bound_ms": bound12_ms,
         "bound_by": bound12_by,
         "library_ms": None,
+        "ms_b256": narrow12_ms,
+        "ms_bt_fused": t12[B_MAIN]["bt_fused"],
+        "ms_bt_fused_b256": t12[RADIX_VALUES]["bt_fused"],
+        "plan": plans12[B_MAIN],
+        "plan_b256": plans12[RADIX_VALUES],
     }, {
         "name": "mega13",
         "route": "cuda",

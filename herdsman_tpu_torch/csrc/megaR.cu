@@ -74,6 +74,7 @@
 // per SM: 4.7 MB / 132, about 36 KB at STD128_K2), so that the step's key
 // is in the 50 MB L2 when the blocks reach it.
 
+#include "hopper.cuh"
 #include "megaJ_common.cuh"
 
 namespace {
@@ -81,63 +82,6 @@ namespace {
 constexpr int ROW = 1;     // variant 1 (mega): row-phased, TMA-staged
 constexpr int INLINE = 2;  // variant 2 (mega2): inline, L2 prefetch
 constexpr int MAX_TILES = 16;  // HALF * G of variant 1: its partials / 4
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16) from src to dst (both 16-byte aligned), their
-// arrival counted on bar's transaction count
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src),
-               "r"(bytes)
-               : "memory");
-}
 
 // ---- variant 1: row-phased ------------------------------------------------
 

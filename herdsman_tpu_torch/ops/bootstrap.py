@@ -13,7 +13,8 @@ through one of three kinds of engine:
   default) is the hand-written CUDA kernel ``csrc/mega13.cu`` on a CUDA
   tensor and its plain PyTorch version on a CPU tensor; ``mega12`` (the
   integer tier's engine, the JAX package's ``pallas_mega12``) is
-  ``csrc/mega12.cu`` against the ``bsk_btjj`` key; ``mega16``, ``mega17``
+  ``csrc/mega12.cu`` on int8 tensor cores against ``bsk_btk`` (the JAX
+  package's ``bsk_btjj`` in ``wgmma``'s byte order); ``mega16``, ``mega17``
   and ``mega15`` (the JAX package's engines of the same names, at the
   byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
   ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key, and ``mega14``
@@ -111,7 +112,7 @@ STEP_ENGINES: dict[str, tuple[Callable, str]] = {
 # runs the whole n-step rotation
 ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega13": (mega13.mega13_blind_rotate, "bsk"),
-    "mega12": (mega12.mega12_blind_rotate, "bsk_btjj"),
+    "mega12": (mega12.mega12_blind_rotate, "bsk_btk"),
     "mega16": (megaT.mega16_blind_rotate, "bsk_btTc"),
     "mega17": (megaT.mega17_blind_rotate, "bsk_btTc"),
     "mega15": (megaT.mega15_blind_rotate, "bsk_btTc"),

@@ -1,21 +1,28 @@
-"""Whole-rotation blind-rotation kernel against the limb-major block-Toeplitz
-key (``csrc/mega12.cu``), and its plain PyTorch version.
+"""Whole-rotation blind-rotation kernel on int8 tensor cores against the
+K-major block-Toeplitz key (``csrc/mega12.cu``), and its plain PyTorch
+version.
 
 ``mega12_blind_rotate`` replaces ``herdsman_tpu/ops/pallas/mega.py::
 _mega12_kernel`` (the integer tier's engine, ``pallas_mega12``) and keeps its
-wrapper's contract: acc0 [B, k+1, N], a_t [n, B] in [0, 2N) and the
-``bsk_btjj`` key int8 [n, HALF, R, P, (k+1)*4*P] in, the accumulator after
-the n CMux steps out, exact mod 2^32.  On a CUDA tensor it launches the
-hand-written kernel (one launch per rotation, counted in
+wrapper's contract: acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in, the
+accumulator after the n CMux steps out, exact mod 2^32.  The key is
+``bsk_btk`` int8 [n, HALF, R, k+1, 2, 256, 128]: the bytes of the JAX
+package's limb-major ``bsk_btjj`` [n, HALF, R, P, (k+1)*4*P] in the order
+the kernel's ``wgmma`` reads them (``kmajor_order``).  On a CUDA tensor it
+launches the hand-written kernel (one launch per rotation, counted in
 ``mega12_blind_rotate.launches``) or raises; on a CPU tensor it runs
-``blind_rotate_plain_btjj``.  The source note in ``csrc/mega12.cu`` gives
-the kernel's design and bound.
+``blind_rotate_plain_btk``.  The source note in ``csrc/mega12.cu`` gives
+the kernel's design and bound; ``plan`` mirrors its tiling.
+
+``check_args``, ``pack_digits``, ``recombine`` and the j-major contraction
+``blind_rotate_plain_btjj`` also serve ``megaJ``'s plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,23 +35,43 @@ from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 I32 = torch.int32
 I8 = torch.int8
 
-P = 128                    # column tile: the kernel takes N >= 128 only
-SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
+P = 128      # column tile and K block: the kernel takes N >= 128 only
+QH = 64      # q columns of one limb in a kernel tile (a q half)
+BN = 4 * QH  # rows of a key tile: (limb j, q')
 
 
-def smem_bytes(p: TFHEParams, G: int) -> int:
-    """Shared memory of one block of G ciphertexts: their accumulators
-    (u32) and one step's int8 digits, plus the G rotation amounts."""
-    R = (p.k + 1) * p.levels
-    return G * ((p.k + 1) * p.N * 4 + R * p.N + 4)
+class Plan(NamedTuple):
+    """The kernel's tiling of one step: ``bm`` ciphertexts a tile (64 or
+    128), ``splits`` K splits, ``cluster`` blocks a cluster (their M tiles
+    side by side, sharing each key tile), ``units`` column units (ct, c, q
+    half) and ``tiles`` = cluster M tiles * units * splits, walked
+    M-tile-major."""
+    bm: int
+    splits: int
+    cluster: int
+    units: int
+    tiles: int
+
+
+def plan(p: TFHEParams, B: int, n_sms: int) -> Plan:
+    """``make_plan`` of ``csrc/mega12.cu`` on a card of ``n_sms`` SMs:
+    128-row tiles where they fill three quarters of a wave, else 64; then
+    K splits over the R*HALF (m, r) blocks while the tiles fit one wave;
+    two-block clusters where there are two 128-row M tiles or more."""
+    HALF = p.N // P
+    units = HALF * (p.k + 1) * 2
+    KB = (p.k + 1) * p.levels * HALF
+    bm = 128 if 4 * -(-B // 128) * units >= 3 * n_sms else 64
+    mts = -(-B // bm)
+    splits = max(1, min(KB, n_sms // (mts * units)))
+    cluster = 2 if bm == 128 and mts >= 2 else 1
+    return Plan(bm, splits, cluster, units,
+                -(-mts // cluster) * units * splits)
 
 
 def check_params(p: TFHEParams, name: str = "mega12") -> None:
-    """Raise on a parameter set the kernel ``name`` (``mega12``, or one of
-    ``megaJ.cu``'s, which share its block layout) does not take: k+1 in (2,
-    3, 5), N a power of two in [128, 2048], bg_bits <= 8 (int8 digits), and
-    one ciphertext's accumulator and digits within a block's shared
-    memory."""
+    """Raise on a parameter set the kernel does not take: k+1 in (2, 3, 5),
+    N a power of two in [128, 2048] and bg_bits <= 8 (int8 digits)."""
     if p.k + 1 not in (2, 3, 5):
         raise ValueError(f"{name} takes k+1 in (2, 3, 5), not {p.k + 1} "
                          f"({p.name})")
@@ -54,10 +81,11 @@ def check_params(p: TFHEParams, name: str = "mega12") -> None:
     if p.bg_bits > 8:
         raise ValueError(f"{name} takes bg_bits <= 8, not {p.bg_bits} "
                          f"({p.name})")
-    if smem_bytes(p, 1) > SMEM_LIMIT:
-        raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} "
-                         f"bytes of shared memory per ciphertext, over "
-                         f"{SMEM_LIMIT}")
+
+
+def key_shape(p: TFHEParams) -> tuple[int, ...]:
+    """Shape of ``bsk_btk`` at ``p``: [n, HALF, R, k+1, 2, 256, 128]."""
+    return (p.n, p.N // P, (p.k + 1) * p.levels, p.k + 1, P // QH, BN, P)
 
 
 def check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
@@ -84,6 +112,41 @@ def check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
             raise ValueError(f"{what} is on {t.device}, acc0 on {acc0.device}")
     if B < 1:
         raise ValueError("empty batch")
+
+
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """Rows of 128 bytes (any leading dimensions, then [rows, 128], rows a
+    multiple of 8) with each row n's 16-byte chunk ch moved to chunk ch ^
+    (n % 8): the 128-byte swizzle, its own inverse."""
+    lead = t.shape[:-2]
+    v = torch.arange(8, device=t.device)[:, None]
+    chunks = t.reshape(*lead, -1, 8, 8, 16)  # [.., n // 8, n % 8, ch, 16]
+    return chunks[..., v, v ^ torch.arange(8, device=t.device), :].reshape(
+        t.shape)
+
+
+def kmajor_order(bsk_btjj: torch.Tensor, kp1: int) -> torch.Tensor:
+    """``bsk_btk`` from ``bsk_btjj`` (leading dimensions, then [HALF, R, P,
+    (k+1)*4*P] with columns (j, c, q)): [..., HALF, R, k+1, 2, 256, 128],
+    key tile (m, r, c, q half) holding at row n = 64j + q' the K bytes p of
+    column (j, c, 64*qhalf + q'), each row 128-byte swizzled.  The same
+    bytes, in the order the kernel's bulk copies stage them."""
+    *lead, HALF, R, _, _ = bsk_btjj.shape
+    nl = len(lead)
+    t = bsk_btjj.reshape(*lead, HALF, R, P, 4, kp1, P // QH, QH)
+    t = t.permute(*range(nl), nl, nl + 1, nl + 4, nl + 5, nl + 3, nl + 6,
+                  nl + 2)
+    return _swizzle128(t.reshape(*lead, HALF, R, kp1, P // QH, BN, P))
+
+
+def from_kmajor_order(bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``bsk_btjj`` from ``bsk_btk``: the inverse of ``kmajor_order``."""
+    *lead, HALF, R, kp1, nqh, _, _ = bsk_btk.shape
+    nl = len(lead)
+    t = _swizzle128(bsk_btk).reshape(*lead, HALF, R, kp1, nqh, 4, QH, P)
+    t = t.permute(*range(nl), nl, nl + 1, nl + 6, nl + 4, nl + 2, nl + 3,
+                  nl + 5)
+    return t.reshape(*lead, HALF, R, P, kp1 * 4 * P)
 
 
 def pack_digits(p: TFHEParams, rot_minus_acc: torch.Tensor,
@@ -116,38 +179,58 @@ def recombine(total: torch.Tensor, kp1: int, jcq: bool) -> torch.Tensor:
     return poly.from_i32_limb_partials(limbs)
 
 
+def _plain_step(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
+                key_i: torch.Tensor, jcq: bool) -> torch.Tensor:
+    """One CMux step against one step's j-major key [HALF, R, P,
+    (k+1)*4*P]: rotate, decompose and pack the digits; per column tile ct
+    the digits' tail against stored blocks 0..ct minus their head against
+    the negated blocks ct+1..HALF-1 (``torch._int_mm``); the recombine."""
+    B, kp1, N = acc.shape
+    HALF = N // P
+    R = kp1 * p.levels
+    rot = poly.negacyclic_monomial_mul(acc, a_i[:, None])
+    D = pack_digits(p, rot - acc)
+    key = key_i.reshape(HALF * R * P, kp1 * 4 * P)
+    tiles = []
+    for ct in range(HALF):
+        split = (HALF - 1 - ct) * R * P
+        total = int8_matmul(D[:, split:].contiguous(), key[:(ct + 1) * R * P])
+        if split:
+            total = total - int8_matmul(D[:, :split].contiguous(),
+                                        key[(ct + 1) * R * P:])
+        tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
+    return acc + torch.cat(tiles, dim=-1)
+
+
 def blind_rotate_plain_btjj(params: TFHEParams, acc0: torch.Tensor,
                             a_t: torch.Tensor, bsk_btjj: torch.Tensor,
                             jcq: bool = True) -> torch.Tensor:
-    """The same rotation in plain PyTorch, either device, reading the same
-    ``bsk_btjj`` key.  Per step: rotate, decompose and pack the digits
-    (``pack_digits``); per column tile ct, the two-dot contraction of
+    """The rotation in plain PyTorch, either device, on the JAX package's
+    ``bsk_btjj`` key: per step the two-dot contraction of
     ``_ep_column_total_jmajor_packed`` (``ops/pallas/blind_rotate.py:129``)
-    through ``torch._int_mm``: the digits' tail against stored blocks
-    0..ct, minus their head against the negated blocks ct+1..HALF-1; then
-    the limb-major recombine (``mega.py:703-715``) into the accumulator.
-    With ``jcq`` false the key's columns are (c, j, q): the ``bsk_btj``
-    key of ``megaJ.mega7_blind_rotate``."""
+    and the limb-major recombine (``mega.py:703-715``).  With ``jcq`` false
+    the key's columns are (c, j, q): the ``bsk_btj`` key of
+    ``megaJ.mega7_blind_rotate``."""
     p = params
     check_args(p, acc0, a_t, bsk_btjj)
-    B, kp1, N = acc0.shape
-    HALF = N // P
-    R = kp1 * p.levels
     acc = acc0
     for i in range(p.n):
-        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
-        D = pack_digits(p, rot - acc)
-        key = bsk_btjj[i].reshape(HALF * R * P, kp1 * 4 * P)
-        tiles = []
-        for ct in range(HALF):
-            split = (HALF - 1 - ct) * R * P
-            total = int8_matmul(D[:, split:].contiguous(),
-                                key[:(ct + 1) * R * P])
-            if split:
-                total = total - int8_matmul(D[:, :split].contiguous(),
-                                            key[(ct + 1) * R * P:])
-            tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
-        acc = acc + torch.cat(tiles, dim=-1)
+        acc = _plain_step(p, acc, a_t[i], bsk_btjj[i], jcq)
+    return acc
+
+
+def blind_rotate_plain_btk(params: TFHEParams, acc0: torch.Tensor,
+                           a_t: torch.Tensor,
+                           bsk_btk: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``mega12`` in plain PyTorch, either device, reading
+    the same ``bsk_btk``: ``blind_rotate_plain_btjj``'s steps, each on its
+    step key taken back to j-major order (``from_kmajor_order``)."""
+    p = params
+    check_args(p, acc0, a_t, bsk_btk, "bsk_btk", key_shape(p))
+    acc = acc0
+    for i in range(p.n):
+        acc = _plain_step(p, acc, a_t[i], from_kmajor_order(bsk_btk[i]),
+                          True)
     return acc
 
 
@@ -155,38 +238,50 @@ def blind_rotate_plain_btjj(params: TFHEParams, acc0: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/mega12.cu`` with its C signatures declared."""
     lib = _build.load("mega12")
-    lib.mega12_blind_rotate.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.mega12_blind_rotate.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.mega12_blind_rotate.restype = ctypes.c_int
-    lib.mega12_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
-    lib.mega12_ciphertexts_per_block.restype = ctypes.c_int
+    lib.mega12_plan.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.mega12_plan.restype = ctypes.c_int
     lib.mega12_error_string.argtypes = [ctypes.c_int]
     lib.mega12_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def kernel_plan(p: TFHEParams, B: int, n_sms: int) -> tuple[int, int, int]:
+    """(bm, splits, cluster) that the built kernel's own ``mega12_plan``
+    picks (the card tests hold it equal to ``plan``)."""
+    bm, splits, cluster = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().mega12_plan(B, p.N, p.k + 1, (p.k + 1) * p.levels, n_sms,
+                             ctypes.byref(bm), ctypes.byref(splits),
+                             ctypes.byref(cluster))
+    if err:
+        raise ValueError(f"mega12_plan refused B={B} at {p.name}")
+    return bm.value, splits.value, cluster.value
 
 
-def ciphertexts_per_block(p: TFHEParams, B: int,
-                          device: torch.device) -> int:
-    """The G the kernel picks for a rotation of B ciphertexts at ``p`` on
-    the card ``device`` (0 where it takes none)."""
-    return _lib().mega12_ciphertexts_per_block(
-        B, p.N, p.k + 1, (p.k + 1) * p.levels, _sms(device))
+def scratch_bytes(p: TFHEParams, B: int) -> int:
+    """Bytes of the kernel's digit scratch for B ciphertexts."""
+    return (p.k + 1) * p.levels * p.N * (-(-B // 256) * 256)
 
 
 def _launch(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
             key: torch.Tensor) -> torch.Tensor:
     lib = _lib()
-    out = torch.empty_like(acc0)
+    B = acc0.shape[0]
+    # the kernel adds into out in place; its digit scratch holds B rounded
+    # up to 256 rows (to whole cluster M tiles: 64, 128 or 256 rows), and
+    # the barrier word is set to 0 by the entry point
+    out = acc0.clone()
+    dig = torch.empty(scratch_bytes(p, B), dtype=I8, device=acc0.device)
+    bar = torch.empty(1, dtype=I32, device=acc0.device)
     with torch.cuda.device(acc0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mega12_blind_rotate(
-            acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(), out.data_ptr(),
-            acc0.shape[0], p.n, p.N, p.k + 1, p.bg_bits, p.levels,
-            _sms(acc0.device), stream)
+            a_t.data_ptr(), key.data_ptr(), out.data_ptr(), dig.data_ptr(),
+            bar.data_ptr(), B, p.n, p.N, p.k + 1, p.bg_bits, p.levels,
+            stream)
     if err:
         raise RuntimeError("mega12 launch failed: "
                            + lib.mega12_error_string(err).decode())
@@ -196,17 +291,19 @@ def _launch(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
 
 def mega12_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                         a_t: torch.Tensor,
-                        bsk_btjj: torch.Tensor) -> torch.Tensor:
+                        bsk_btk: torch.Tensor) -> torch.Tensor:
     """Whole blind rotation: acc0 [B, k+1, N] and a_t [n, B] (int32
-    carriers), bsk_btjj int8 [n, HALF, R, P, (k+1)*4*P] -> acc [B, k+1, N].
-    CUDA tensors go through the kernel, CPU tensors through
-    ``blind_rotate_plain_btjj``."""
+    carriers), bsk_btk int8 [n, HALF, R, k+1, 2, 256, 128] -> acc [B, k+1,
+    N].  CUDA tensors go through the kernel, CPU tensors through
+    ``blind_rotate_plain_btk``."""
     check_params(params)
-    check_args(params, acc0, a_t, bsk_btjj)
+    check_args(params, acc0, a_t, bsk_btk, "bsk_btk", key_shape(params))
+    if bsk_btk.data_ptr() % 16:  # the bulk copies' alignment
+        raise ValueError("bsk_btk must be 16-byte aligned")
     if acc0.device.type == "cuda":
-        return _launch(params, acc0, a_t, bsk_btjj)
+        return _launch(params, acc0, a_t, bsk_btk)
     if acc0.device.type == "cpu":
-        return blind_rotate_plain_btjj(params, acc0, a_t, bsk_btjj)
+        return blind_rotate_plain_btk(params, acc0, a_t, bsk_btk)
     raise ValueError(f"mega12 runs on cuda or cpu, not {acc0.device}")
 
 

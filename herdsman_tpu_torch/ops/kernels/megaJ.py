@@ -70,14 +70,15 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.kernels import _build
-# the kernels share mega12's block layout, so they take the same sets
-from herdsman_tpu_torch.ops.kernels.mega12 import (SMEM_LIMIT, P,
+from herdsman_tpu_torch.ops.kernels.mega12 import (P,
                                                    blind_rotate_plain_btjj,
                                                    check_args, pack_digits,
-                                                   recombine, smem_bytes)
+                                                   recombine)
 from herdsman_tpu_torch.ops.kernels.mega12 import \
     check_params as mega12_check_params
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
+
+SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 # kernel -> (its variant number in its source, the key layout it reads,
 # doubled window, limb-major columns)
@@ -115,12 +116,23 @@ def ring_bytes(p: TFHEParams) -> int:
     return 2 * 8 * (p.k + 1) * 4 * P + 2 * 2 * 8
 
 
+def smem_bytes(p: TFHEParams, G: int) -> int:
+    """Shared memory of one block of G ciphertexts: their accumulators
+    (u32) and one step's int8 digits, plus the G rotation amounts."""
+    R = (p.k + 1) * p.levels
+    return G * ((p.k + 1) * p.N * 4 + R * p.N + 4)
+
+
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
-    limits (the same block layout), and one block of its schedule within
-    the card's shared memory."""
+    geometry, one ciphertext's accumulator and digits within a block's
+    shared memory (the block layout every kernel here shares), and one
+    block of its schedule within the card's shared memory."""
     mega12_check_params(p, name)
     one = smem_bytes(p, 1)
+    if one > SMEM_LIMIT:
+        raise ValueError(f"{name} at {p.name} needs {one} bytes of shared "
+                         f"memory per ciphertext, over {SMEM_LIMIT}")
     if name in OVERLAP:
         need = 2 * one - 4
     elif name in STAGED:
@@ -187,8 +199,9 @@ def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
     """The rotation of ``mega7`` in plain PyTorch, either device: the
     two-dot of ``_ep_column_total_jmajor_packed`` over the single-width
     ``bsk_btj`` key, then the per-polynomial recombine of its (c, j, q)
-    columns (``mega.py:150-161``).  ``mega12``'s plain version with the
-    other column order."""
+    columns (``mega.py:150-161``).  ``blind_rotate_plain_btjj`` (the
+    contraction ``mega12``'s plain version runs) with the other column
+    order."""
     return blind_rotate_plain_btjj(params, acc0, a_t, bsk_btj, jcq=False)
 
 

@@ -42,10 +42,21 @@ once, into:
                                        columns (j, c, q): the key of the JAX
                                        package's ``pallas_mega12``
                                        (``..., j_major=True,
-                                       col_order="jcq"``), read by
-                                       ``csrc/mega12.cu``.  As big as
-                                       ``bsk_bt``: 9.0 GiB at
-                                       STD128_SHORTINT.
+                                       col_order="jcq"``), read by the plain
+                                       j-major contraction and held equal to
+                                       ``bsk_btk``.  As big as ``bsk_bt``:
+                                       9.0 GiB at STD128_SHORTINT.
+- ``bsk_btk``   int8  [n, HALF, R, k+1, 2, 256, 128]
+                                       ``bsk_btjj``'s bytes in the order
+                                       ``csrc/mega12.cu``'s ``wgmma`` reads
+                                       them (``mega12.kmajor_order``): one
+                                       32 KB tile per (step, stored block
+                                       m, row r, polynomial c, q half), row
+                                       64j + q' the 128 K bytes of column
+                                       (j, c, q), K-major and 128-byte
+                                       swizzled, so one bulk copy stages
+                                       it.  The ``mega12`` engine's key,
+                                       as big as ``bsk_btjj``.
 - ``bsk_btjm``  int8  [n, HALF, R, P, (k+1)*4*P]
                                        ``bsk_btj`` with each [P, (k+1)*4*P]
                                        block's bytes in the order of the
@@ -116,15 +127,15 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import mega13, megaJ, megaT
+from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btjm",
-           "bsk_btj2", "bsk_btj2j", "bsk_btTc", "bsk_btTe")
+LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btk",
+           "bsk_btjm", "bsk_btj2", "bsk_btj2j", "bsk_btTc", "bsk_btTe")
 DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
-ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btjj", "bt": "bsk_bt",
+ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btk", "bt": "bsk_bt",
                   "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
                   **megaT.KEY_LAYOUTS, **megaJ.KEY_LAYOUTS}
 
@@ -146,6 +157,7 @@ class DeviceServerKey:
     bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
     bsk_btj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btjj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
+    bsk_btk: torch.Tensor | None = None  # int8 [n, HALF, R, k+1, 2, 256, 128]
     bsk_btjm: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btj2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btj2j: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
@@ -172,17 +184,17 @@ def bt_tile(params: TFHEParams) -> tuple[int, int]:
 
 
 def bt_key_bytes(p: TFHEParams) -> int:
-    """Bytes of the ``bsk_bt`` layout at ``p`` (and of ``bsk_btj`` and
-    ``bsk_btjj``; the doubled ``bsk_btj2`` and ``bsk_btj2j`` take twice
-    as many)."""
+    """Bytes of the ``bsk_bt`` layout at ``p`` (and of ``bsk_btj``,
+    ``bsk_btjj`` and ``bsk_btk``; the doubled ``bsk_btj2`` and
+    ``bsk_btj2j`` take twice as many)."""
     P, _ = bt_tile(p)
     return p.n * (p.k + 1) * p.levels * (p.k + 1) * 4 * p.N * P
 
 
 def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
                           j_major: bool = False, jcq: bool = False,
-                          windowed: bool = False,
-                          fragment: bool = False) -> torch.Tensor:
+                          windowed: bool = False, fragment: bool = False,
+                          kmajor: bool = False) -> torch.Tensor:
     """``bsk_bt`` int8 [n, R, HALF, P, (k+1)*4*P] from the int32 ``bsk``
     [n, R, k+1, N], on ``bsk``'s device, a chunk of steps at a time: one
     gather of ext(bsk) and one limb split per chunk, so the working set
@@ -194,9 +206,11 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     "jcq"``); ``windowed`` stores 2*HALF groups, group g diagonal block
     (HALF-1-g) mod 2*HALF (``windowed=True``); ``fragment`` stores each
     [P, (k+1)*4*P] block of ``j_major`` in ``mma.sync``'s fragment order
-    (``bsk_btjm``, ``megaJ.fragment_order``).  Blocks HALF..2*HALF-1 are
-    the negated ones: ext(p)[t+N] = -ext(p)[t] (tests/test_torch_pbs.py,
-    tests/test_torch_megaJ.py)."""
+    (``bsk_btjm``, ``megaJ.fragment_order``); ``kmajor`` stores ``jcq``'s
+    blocks as ``mega12``'s K-major swizzled key tiles (``bsk_btk`` [n,
+    HALF, R, k+1, 2, 256, 128], ``mega12.kmajor_order``).  Blocks
+    HALF..2*HALF-1 are the negated ones: ext(p)[t+N] = -ext(p)[t]
+    (tests/test_torch_pbs.py, tests/test_torch_megaJ.py)."""
     n, R, kp1, N = bsk.shape
     P, HALF = bt_tile(p)
     M = 2 * HALF if windowed else HALF
@@ -206,10 +220,12 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     row = torch.arange(P, device=bsk.device)[None, :, None]
     q = torch.arange(P, device=bsk.device)[None, None, :]
     idx = (P * m + q - row) % (2 * N)                # [M, P(row), P(q)]
+    jcq = jcq or kmajor
     step_major = j_major or jcq or windowed or fragment
     shape = (M, R) if step_major else (R, M)
-    out = torch.empty(n, *shape, P, kp1 * 4 * P, dtype=torch.int8,
-                      device=bsk.device)
+    out = torch.empty(n, *shape, *((kp1, P // mega12.QH, mega12.BN, P)
+                                   if kmajor else (P, kp1 * 4 * P)),
+                      dtype=torch.int8, device=bsk.device)
     # limbs [c, R, k+1, M, P(row), P(q), 4] -> (R, M, row, c, j, q), or
     # step-major (M, R, row, c, j, q), or limb-major (M, R, row, j, c, q)
     if not step_major:
@@ -223,7 +239,11 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
         limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, M, P, P, 4]
         chunk = limbs.permute(*order).reshape(i1 - i0, *shape, P,
                                               kp1 * 4 * P)
-        out[i0:i1] = megaJ.fragment_order(chunk) if fragment else chunk
+        if fragment:
+            chunk = megaJ.fragment_order(chunk)
+        elif kmajor:
+            chunk = mega12.kmajor_order(chunk, kp1)
+        out[i0:i1] = chunk
     return out
 
 
@@ -278,7 +298,7 @@ def fit_engine(engine: str, params: TFHEParams,
     - ``bt``, ``bt_fused``, and ``mega12`` / ``mega7`` / ``mega6`` /
       ``mega3`` / ``mega4`` / ``mega5`` / ``mega`` / ``mega2``, whose
       kernel must also take the set, while their single-width key
-      (``bsk_bt``, ``bsk_btjj``, ``bsk_btj``, ``bsk_btjm``: the same size)
+      (``bsk_bt``, ``bsk_btk``, ``bsk_btj``, ``bsk_btjm``: the same size)
       fits ``budget_bytes``; else ``mega13`` (the JAX package keeps
       ``pallas_mega3``, ``_4``, ``_5``, ``pallas_mega`` and ``_mega2`` at
       every set; their keys fit the budget at every named set);
@@ -338,7 +358,6 @@ def fit_engine(engine: str, params: TFHEParams,
                 and megaT.key_bytes(params) <= budget_bytes):
             return route
         route = "mega11"
-    # the megaJ.cu kernels share mega12's block layout and its limits
     if route in ("mega11", "mega8", "mega9", "mega10"):
         if (2 * bt_key_bytes(params) <= budget_bytes
                 and takes(lambda p: megaJ.check_params(p, route))):
@@ -347,7 +366,8 @@ def fit_engine(engine: str, params: TFHEParams,
     if route in ("bt", "bt_fused", "mega12", "mega7", "mega6", "mega3",
                  "mega4", "mega5", "mega", "mega2"):
         if bt_fits and (route in ("bt", "bt_fused")
-                        or takes(lambda p: megaJ.check_params(p, route))):
+                        or takes(mega12.check_params if route == "mega12"
+                                 else lambda p: megaJ.check_params(p, route))):
             return route
         if takes(mega13.check_params):
             return "mega13"
@@ -401,6 +421,8 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                  if "bsk_btj" in layouts else None),
         bsk_btjj=(block_toeplitz_layout(p, bsk, jcq=True)
                   if "bsk_btjj" in layouts else None),
+        bsk_btk=(block_toeplitz_layout(p, bsk, kmajor=True)
+                 if "bsk_btk" in layouts else None),
         bsk_btjm=(block_toeplitz_layout(p, bsk, fragment=True)
                   if "bsk_btjm" in layouts else None),
         bsk_btj2=(block_toeplitz_layout(p, bsk, windowed=True)

@@ -41,13 +41,14 @@ def _tile(p: TFHEParams) -> tuple[int, int]:
 
 def key_layout_bytes(p: TFHEParams, layout: str) -> int:
     """Bytes of a JAX package key layout (int8), from the sizes its
-    ``ops/server_key.py`` builds and ``fit_engine`` budgets."""
+    ``ops/server_key.py`` builds and ``fit_engine`` budgets, or of the
+    port's ``bsk_btk`` (``bsk_btjj`` reordered for ``mega12``)."""
     P, HALF = _tile(p)
     kp1, R = p.k + 1, (p.k + 1) * p.levels
     single = p.n * R * kp1 * 4 * p.N * P
     sizes = {
         "bsk_bt": single, "bsk_btj": single, "bsk_btjj": single,
-        "bsk_btjm": single,
+        "bsk_btk": single, "bsk_btjm": single,
         "bsk_btj2": 2 * single, "bsk_btj2j": 2 * single,
         "bsk_btT": p.n * kp1 * 4 * kp1 * P * (p.N // (2 * P) + HALF - 1)
         * P * 4,
@@ -99,7 +100,7 @@ def rotate_decompose_step(p: TFHEParams, B: int) -> tuple[float, float]:
 # any gadget: STD128_K2 in path H, STD128_SHORTINT in path J)
 TPU_KERNELS = [
     ("mega.py:793 _mega13_kernel", "std128_k2", "bsk_btT"),
-    ("mega.py:625 _mega12_kernel", "std128_shortint", "bsk_btjj"),
+    ("mega.py:625 _mega12_kernel", "std128_shortint", "bsk_btk"),
     ("mega.py:1495 _mega17_kernel", "std128_shortint_b8", "bsk_btT3"),
     ("mega.py:1323 _mega16_kernel", "std128_shortint_fast", "bsk_btTs"),
     ("mega.py:449 _mega11_kernel", "std128_k2", "bsk_btj2j"),

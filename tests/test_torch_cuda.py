@@ -186,7 +186,8 @@ def test_bt_engines_match_mega13_and_reference(card, params):
 
 # mega12's geometry classes: k+1 in (2, 3) (and 5), N from 256 to 2048
 # (HALF 2 to 16), the two gadgets (2^8, 2) and (2^7, 3); B = 129 takes a
-# ragged last block at every ciphertexts-per-block choice
+# ragged last block at every ciphertexts-per-block choice of the j-major
+# kernels
 MEGA12_SETS = [
     dc.replace(TOY, name="m12_k1_n256_b8l2", n=4, N=256, k=1, bg_bits=8,
                levels=2),
@@ -203,28 +204,42 @@ MEGA12_SETS = [
     dc.replace(TOY, name="m12_k4_n256_b8l2", n=4, N=256, k=4, bg_bits=8,
                levels=2),
 ]
+# the tensor-core mega12 also at STD128_SHORTINT_L4's gadget (W = 32)
+MEGA12_TC_SETS = [*MEGA12_SETS, dc.replace(
+    TOY, name="m12_k1_n2048_b8l4", n=4, N=2048, k=1, bg_bits=8, levels=4)]
 
 
-@pytest.mark.parametrize("B", [1, 9, 129])
-@pytest.mark.parametrize("params", MEGA12_SETS,
-                         ids=[q.name for q in MEGA12_SETS])
+# every plan of mega12.plan on the H100 at N = 2048: 64-row tiles split 2
+# ways (B = 1, 9), 64-row tiles (65), 128-row tiles in two-block clusters
+# in one wave (129, 256), with a lone M tile beside pad rows (384) and in
+# 7.8 waves (2048)
+@pytest.mark.parametrize("B", [1, 9, 129, 65, 256, 2048, 384])
+@pytest.mark.parametrize("params", MEGA12_TC_SETS,
+                         ids=[q.name for q in MEGA12_TC_SETS])
 def test_mega12_matches_plain(card, params, B):
     p = params
-    HALF = p.N // mega12.P
-    R = (p.k + 1) * p.levels
     rng = np.random.default_rng(B + p.N + p.k)
     acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
     a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
                           dtype=torch.int32, device=card)
-    key = torch.as_tensor(
-        rng.integers(-128, 128, (p.n, HALF, R, mega12.P,
-                                 (p.k + 1) * 4 * mega12.P)),
-        dtype=torch.int8, device=card)
+    key = torch.as_tensor(rng.integers(-128, 128, mega12.key_shape(p)),
+                          dtype=torch.int8, device=card)
     before = mega12.mega12_blind_rotate.launches
     got = mega12.mega12_blind_rotate(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert mega12.mega12_blind_rotate.launches == before + 1
-    assert torch.equal(got, mega12.blind_rotate_plain_btjj(p, acc0, a_t, key))
+    assert torch.equal(got, mega12.blind_rotate_plain_btk(p, acc0, a_t, key))
+    # again on the same inputs: the barrier count starts anew each launch
+    assert torch.equal(mega12.mega12_blind_rotate(p, acc0, a_t, key), got)
+
+
+def test_mega12_kernel_plan_matches_python(card):
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for p in [*MEGA12_TC_SETS, PARAM_SETS["std128_shortint"]]:
+        for B in (1, 9, 65, 129, 256, 2048, 16384):
+            pl = mega12.plan(p, B, n_sms)
+            assert mega12.kernel_plan(p, B, n_sms) == (pl.bm, pl.splits,
+                                                        pl.cluster)
 
 
 @pytest.mark.parametrize("params", MEGA12_SETS[:2],
@@ -232,10 +247,9 @@ def test_mega12_matches_plain(card, params, B):
 def test_mega12_engine_matches_mega13_and_reference(card, params):
     rng = np.random.default_rng(10)
     ck, sk = ref.keygen(params, rng)
-    dsk = device_server_key(sk, layouts=("bsk", "bsk_btjj"), device=card)
-    cpu_jj = device_server_key(sk, layouts=("bsk_btjj",),
-                               device="cpu").bsk_btjj
-    assert torch.equal(dsk.bsk_btjj.cpu(), cpu_jj)  # built on the card
+    dsk = device_server_key(sk, layouts=("bsk", "bsk_btk"), device=card)
+    cpu_k = device_server_key(sk, layouts=("bsk_btk",), device="cpu").bsk_btk
+    assert torch.equal(dsk.bsk_btk.cpu(), cpu_k)  # built on the card
     B = 13
     ct = from_numpy_u32(rand_u32(rng, B, params.n + 1), card)
     tp = bs.make_test_poly(params, device=card)
@@ -291,7 +305,7 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
     layout = megaT.KEY_LAYOUTS[name]
     rng = np.random.default_rng(12)
     ck, sk = ref.keygen(params, rng)
-    dsk = device_server_key(sk, layouts=("bsk_btjj", layout), device=card)
+    dsk = device_server_key(sk, layouts=("bsk_btk", layout), device=card)
     cpu_key = getattr(device_server_key(sk, layouts=(layout,), device="cpu"),
                       layout)
     assert torch.equal(getattr(dsk, layout).cpu(), cpu_key)  # built on card

@@ -184,6 +184,21 @@ def test_megaJ_wrapper_checks(geometry, name):
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
 
 
+def test_block_layout_limits():
+    """The dp4a block layout the kernels share (moved here from ``mega12``,
+    which left it): one block of 8 ciphertexts fits the card's shared
+    memory at N = 2048, and a set whose one ciphertext does not fit is
+    refused by every kernel of the family."""
+    si = PARAM_SETS["std128_shortint"]
+    assert megaJ.smem_bytes(si, 8) == 229_408 <= megaJ.SMEM_LIMIT
+    big = dc.replace(si, N=2048, k=4, bg_bits=1, levels=32)
+    assert megaJ.smem_bytes(big, 1) > megaJ.SMEM_LIMIT
+    for name in megaJ.KERNELS:
+        with pytest.raises(ValueError, match="shared memory"):
+            megaJ.check_params(big, name)
+        megaJ.check_params(si, name)
+
+
 @pytest.mark.parametrize("name", ENGINES)
 def test_gate_batch_equals_jax(name):
     _, ck, _, jdsk, tdsk = keys(MULTITILE_K2)

@@ -1,8 +1,9 @@
 """The port's programmable bootstrapping and its rotation engine against the
-JAX package, on the CPU: the ``bsk_btjj`` key layout, the plain version of
-the ``mega12`` CUDA kernel (``blind_rotate_plain_btjj``) against the Pallas
-``_mega12_kernel`` in interpret mode, the LUT test polynomials, and
-``pbs_batch`` / ``pbs_many_batch`` against the JAX package's.  Array
+JAX package, on the CPU: the ``bsk_btjj`` key layout and the ``mega12``
+kernel's ``bsk_btk`` (the same bytes in ``wgmma``'s order), the plain
+version of the ``mega12`` CUDA kernel (``blind_rotate_plain_btk``) against
+the Pallas ``_mega12_kernel`` in interpret mode, the LUT test polynomials,
+and ``pbs_batch`` / ``pbs_many_batch`` against the JAX package's.  Array
 equality throughout: the arithmetic is exact mod 2^32.
 """
 
@@ -55,7 +56,8 @@ def geometry(request):
     rng = np.random.default_rng(11)
     ck, sk = jref.keygen(params, rng)
     jdsk = jsk.device_server_key(sk, layouts=("bsk_btjj",))
-    tdsk = tsk.device_server_key(sk, layouts=("bsk_btjj",), device="cpu")
+    tdsk = tsk.device_server_key(sk, layouts=("bsk_btjj", "bsk_btk"),
+                                 device="cpu")
     return params, rng, sk, jdsk, tdsk
 
 
@@ -71,6 +73,27 @@ def test_bsk_btjj_equals_jax_layout(geometry):
     kp1 = params.k + 1
     jcq = bt.reshape(n, R, HALF, P, kp1, 4, P).permute(0, 2, 1, 3, 5, 4, 6)
     assert torch.equal(jcq.reshape(n, HALF, R, P, C), tdsk.bsk_btjj)
+
+
+def test_bsk_btk_is_bsk_btjj_reordered(geometry):
+    """``mega12``'s key holds ``bsk_btjj``'s bytes: tile (i, m, r, c, q
+    half) row 64j + q' is column (j, c, q) of block (i, m, r), K bytes in
+    16-byte chunks at chunk ch ^ (row % 8) (the 128-byte swizzle)."""
+    params, _, _, _, tdsk = geometry
+    jj, btk = tdsk.bsk_btjj, tdsk.bsk_btk
+    kp1 = params.k + 1
+    n, HALF, R, P, C = jj.shape
+    assert tuple(btk.shape) == mega12.key_shape(tdsk.params) \
+        == (n, HALF, R, kp1, 2, 256, 128)
+    assert btk.numel() == jj.numel() == tsk.bt_key_bytes(tdsk.params)
+    assert torch.equal(mega12.from_kmajor_order(btk), jj)
+    assert torch.equal(mega12.kmajor_order(jj, kp1), btk)
+    rows = jj.reshape(n, HALF, R, P, 4, kp1, 2, 64).permute(
+        0, 1, 2, 5, 6, 4, 7, 3).reshape(n, HALF, R, kp1, 2, 256, 8, 16)
+    v = torch.arange(256) % 8
+    ch = torch.arange(8)[None, :] ^ v[:, None]    # stored chunk -> chunk
+    assert torch.equal(rows[..., torch.arange(256)[:, None], ch, :]
+                       .reshape(btk.shape), btk)
 
 
 @pytest.mark.parametrize("B", [1, 3])
@@ -94,7 +117,7 @@ def test_mega12_plain_equals_jax_pallas(geometry, B):
 def test_mega12_plain_equals_mega13_with_many_lut_switch(geometry):
     """The coarse (many-LUT) mod switch feeds both rotation engines alike."""
     params, rng, sk, _, tdsk = geometry
-    both = tsk.device_server_key(sk, layouts=("bsk", "bsk_btjj"),
+    both = tsk.device_server_key(sk, layouts=("bsk", "bsk_btk"),
                                  device="cpu")
     ct = from_numpy_u32(rand_u32(rng, 5, params.n + 1))
     tp = tbs.make_test_poly(both.params)
@@ -108,7 +131,7 @@ def test_mega12_wrapper_checks(geometry):
     p = tdsk.params
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
-    key = tdsk.bsk_btjj
+    key = tdsk.bsk_btk
     with pytest.raises(TypeError):
         mega12.mega12_blind_rotate(p, acc, a_t.long(), key)
     with pytest.raises(ValueError):
@@ -117,20 +140,25 @@ def test_mega12_wrapper_checks(geometry):
         mega12.mega12_blind_rotate(p, acc, a_t, key[:, :1])
     with pytest.raises(ValueError):
         mega12.mega12_blind_rotate(p, acc[:, :, ::2], a_t, key)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mega12.mega12_blind_rotate(p, acc, a_t, torch.zeros(
+            key.numel() + 1, dtype=torch.int8)[1:].view(key.shape))
     for bad in (dc.replace(p, N=64), dc.replace(p, k=3),
-                dc.replace(p, N=2048, k=4, bg_bits=1, levels=32)):
+                dc.replace(p, N=4096)):
         with pytest.raises(ValueError):
             mega12.check_params(bad)
     mega12.check_params(PARAM_SETS["std128_shortint"])
-    # one block of 8 ciphertexts fits the card's shared memory at N = 2048
-    assert mega12.smem_bytes(PARAM_SETS["std128_shortint"], 8) == 229_408
+    # no shared-memory limit per ciphertext: the accumulators live in
+    # device memory (the dp4a block layout's limit is megaJ's,
+    # tests/test_torch_megaJ.py)
+    mega12.check_params(dc.replace(p, N=2048, k=4, bg_bits=1, levels=32))
 
 
 def test_fit_engine_routes_mega12():
     """The integer tier names mega12 while its 9 GiB key fits the budget,
     else falls back to mega13 where that kernel takes the set."""
     shortint = PARAM_SETS["std128_shortint"]
-    assert tsk.layouts_for_engine("mega12") == ("bsk_btjj",)
+    assert tsk.layouts_for_engine("mega12") == ("bsk_btk",)
     assert tsk.fit_engine("mega12", shortint) == "mega12"
     assert tsk.bt_key_bytes(shortint) == 768 * 6 * 8 * 128 * 2048  # 9 GiB
     assert tsk.fit_engine("mega12", shortint, budget_bytes=8 << 30) \
@@ -176,7 +204,7 @@ def pbs_keys():
     rng = np.random.default_rng(4321)
     ck, sk = jref.keygen(TEST_PBS, rng)
     return (ck, sk, rng, jsk.device_server_key(sk, layouts=("bsk_conv",)),
-            tsk.device_server_key(sk, layouts=("bsk_btjj",), device="cpu"))
+            tsk.device_server_key(sk, layouts=("bsk_btk",), device="cpu"))
 
 
 @pytest.mark.parametrize("msg_bits,fn", [(2, lambda m: (m * m) % 4),
@@ -220,7 +248,7 @@ def test_many_lut_n1024_equals_jax():
     rng = np.random.default_rng(7)
     ck, sk = jref.keygen(p, rng)
     jdsk = jsk.device_server_key(sk, layouts=("bsk_conv",))
-    tdsk = tsk.device_server_key(sk, layouts=("bsk_btjj",), device="cpu")
+    tdsk = tsk.device_server_key(sk, layouts=("bsk_btk",), device="cpu")
     assert tpbs.many_lut_capacity(tdsk.params, 4) == 2
     lo = [t % 4 for t in range(16)]
     hi = [t >> 2 for t in range(16)]

@@ -48,7 +48,7 @@ def same(jx, tx):
 
 def test_context_routes_mega12_and_encrypts_like_jax(pair):
     j, t = pair
-    assert t.engine == "mega12" and t.dsk.bsk_btjj is not None
+    assert t.engine == "mega12" and t.dsk.bsk_btk is not None
     assert t.dsk.device.type == "cpu"
     assert (t.many_lut, t.max_noise) == (j.many_lut, j.max_noise)
     vals = [0, 1, 2, 3, 7]
