@@ -9,7 +9,9 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
-(all twenty TPU kernel bodies) from eight CUDA sources.
+(all twenty TPU kernel bodies) from eight CUDA sources; ``mega13`` and
+``mega14`` are the two instantiations of ``csrc/megaS.cu`` (int8 tensor
+cores, the key a register operand built from its compact stream).
 
     python3 chip_smoke.py [--seed S]
 
@@ -18,18 +20,20 @@ Phases, in order; any failure raises and exits non-zero:
 1. card: nvidia-smi's name and power limit, torch's device name;
 2. build: every kernel under ``herdsman_tpu_torch/csrc/``, one nvcc each,
    all at once;
-3. kernel vs plain: the blind-rotation kernel (mega13) against its plain
-   PyTorch version on the card, by array equality, on the rotation inputs
-   of main path A's gate batch at every width the main paths give it
-   (2048, and the adder's 256 and 128), and two ciphertexts against the
-   NumPy reference;
+3. kernel vs plain: the blind-rotation kernel (mega13, on the stream key
+   ``bsk_btS``) against its plain PyTorch version on the card, by array
+   equality, on the rotation inputs of main path A's gate batch at every
+   width the main paths give it (2048, and the adder's 256 and 128) and at
+   9 and 1, and two ciphertexts against the NumPy reference;
 4. main path A: ``gates.gate_batch`` on 2048 gates of all six kinds;
    decrypted against the truth table, two of them array-compared with the
    NumPy ``bootstrap_bool`` of the same linear combination;
 5. main path B: ``compiler.lower.compile_circuit`` on an 8-bit ripple adder
    (a + b, UINT8) over 128 rows, decrypted against ``evaluate_plain``;
-6. times (CUDA events, after warm-up) of the kernel at B=2048, the key
-   switch, the plain version and both main paths end to end;
+6. times (CUDA events, after warm-up) of the kernel at B=2048, 256 and
+   128, the key switch, the plain version and both main paths end to end;
+   the kernel in turns with its yardsticks at B = 2048 and 256: bt_fused's
+   rotation on the same key (array-equal) and mega12 on a random key;
 7. kernel vs plain for the block-Toeplitz kernels (tolerance 0):
    ``bt_external_product`` (unfused and fused) and ``rotate_decompose``
    against their plain PyTorch versions on the card, on step 0 of the
@@ -67,17 +71,20 @@ Phases, in order; any failure raises and exits non-zero:
     truth table, with times (the kernels of one function in turns) and
     peak memory;
 9b'. main path A': path A's gate batch on ``mega14`` (the extended key
-    ``bsk_btTe``), the kernel against its plain version at B = 2048, 256
-    and 9, the output array-equal to path A's and decrypted, and
+    ``bsk_btTe``), the kernel against its plain version at B = 2048, 256,
+    128, 9 and 1, the output array-equal to path A's and decrypted, and
     ``mega14``, ``mega16`` and ``mega13`` timed in turns at STD128_K2; then
     each ``megaJ.cu`` and ``megaJ_legacy.cu`` kernel on random inputs and
     keys at B=9 at the geometries of STD128, STD128_FAST, STD128_SHORTINT
-    and STD128_K4, and ``mega14`` at STD128_FAST's and STD128_K4's (n cut
+    and STD128_K4, ``mega14`` at STD128_FAST's, STD128_K4's,
+    STD128_SHORTINT_FAST's and N = 256's, and ``mega13`` at
+    STD128_SHORTINT_FAST's and TOY's, those two at B = 2048 and 9 (n cut
     to 32 steps);
 9b''. main path L, the classic bool set STD128 (n=768, N=1024, k=1,
     bg=2^7, l=3; host keygen in a worker): path A's 2048-gate batch (the
     same gates and plaintexts) on ``mega13``, decrypted against the truth
-    table and one gate against the NumPy ``bootstrap_bool``; then on
+    table and one gate against the NumPy ``bootstrap_bool``, the kernel
+    against its plain version at B = 2048, 256, 128, 9 and 1; then on
     ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), ``mega4`` and
     ``mega5`` (``bsk_btj``), one key at a time (built, used, freed), each
     output array-equal to ``mega13``'s and decrypted, each kernel equal to
@@ -112,7 +119,9 @@ Phases, in order; any failure raises and exits non-zero:
 11. main path D1, shortint: (a*b)+a over 2048 encrypted 2-bit values
     (``bench.py``'s shortint metric), decrypted against the plaintext, then
     the same on a second context on ``mega13`` (same keys and seed), whose
-    ciphertexts must equal the first's; main path D2, radix: an 8-bit
+    ciphertexts must equal the first's, ``mega13`` against its plain
+    version on D1's first rotation inputs at B = 2048, 256, 128, 9 and 1;
+    main path D2, radix: an 8-bit
     multiply (4 blocks of 2 bits) over 256 values on ``mega12``, decrypted
     against (a*b) mod 256, with its rotation widths;
 12. times of ``mega12`` per rotation at B=2048 (beside its bound and the
@@ -139,7 +148,8 @@ Phases, in order; any failure raises and exits non-zero:
     against the truth table, then the same batch on ``mega13``, whose
     outputs must be equal;
 14b. main path F': F's batch on ``mega14``, the kernel against its plain
-    version at B = 2048, 256 and 9, the outputs equal to F's on ``mega16``;
+    version at B = 2048, 256, 128, 9 and 1, the outputs equal to F's on
+    ``mega16``;
 15. main path G, the integer tier at STD128_SHORTINT_L4 on ``mega15``, as
     E, with its rerun on ``mega12``;
 16. for E, F and G: the kernel's time per rotation at B=2048 (beside its
@@ -149,10 +159,12 @@ Phases, in order; any failure raises and exits non-zero:
     "mega14")`` (``fit_engine`` keeps ``mega14``, only ``bsk_btTe`` is
     built), a + b and min over 2048 encrypted u8 pairs, decrypted against
     (a+b) mod 256 and min(a, b); the kernel against its plain version on a
-    + b's first rotation inputs at B = 2048, 256 and 9; a + b again on a
-    ``HerdContext(engine="mega13")`` with the same keys and seed, whose
-    ciphertexts must be equal; the kernel's time per rotation, the path's
-    gate bootstraps per second and its peak device memory.
+    + b's first rotation inputs at B = 2048, 256, 128, 9 and 1; a + b again
+    on a ``HerdContext(engine="mega13")`` with the same keys and seed, whose
+    ciphertexts must be equal; the kernel's time per rotation, in turns
+    with ``mega13`` on the same inputs, bt_fused's rotation and ``mega12``
+    (random keys) at B = 2048 and 256, the path's gate bootstraps per
+    second and its peak device memory.
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
@@ -187,6 +199,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 B_MAIN = 2048
 ROWS = 128
 RADIX_VALUES = 256  # path D2: bench.py's radix metric uses B_MAIN
+# the widths at which csrc/megaS.cu's kernels (mega13, mega14) are held to
+# their plain versions on each path's rotation inputs
+WIDTHS_S = (B_MAIN, RADIX_VALUES, ROWS, 9, 1)
 JOB_ROWS = 2048
 JOB_PARTITIONS = 4
 # the parameter sets whose host keys the worker processes make
@@ -314,7 +329,7 @@ def main() -> int:
         from herdsman_tpu_torch.ops import gates, pbs, poly
         from herdsman_tpu_torch.ops.decomp import signed_decompose
         from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
-                                                    megaJ, megaT)
+                                                    megaJ, megaS, megaT)
         from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
         from herdsman_tpu_torch.ops.server_key import (
             bt_tile, device_server_key, fit_engine, layouts_for_engine)
@@ -389,7 +404,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     ck, sk = ref.keygen(P, rng)
-    layouts = ("bsk", "bsk_ext", "bsk_bt")
+    layouts = ("bsk_btS", "bsk_ext", "bsk_bt")
     dsk = device_server_key(sk, layouts=layouts, device=dev)
     torch.cuda.synchronize()
     print(f"keys: {P.name} keygen + carry to the card in layouts {layouts} "
@@ -430,6 +445,44 @@ def main() -> int:
               f"{path} launched {counts}, not {' and '.join(kernels)} alone")
     tp = bs.make_test_poly(P, device=dev)
 
+    def bt_fused_rotation(p, acc, a_t, key):
+        """The bt_fused engine's rotation: 2n launches."""
+        for i in range(p.n):
+            acc = bt.external_product_bt(p, rd.rotate_decompose(p, acc,
+                                                                a_t[i]),
+                                         key[i], glwe=acc)
+        return acc
+
+    def in_turns(p, acc0, a_t, fns: dict, same=()) -> dict:
+        """ms per rotation at B = 2048 and 256 of each of ``fns`` (name ->
+        (fn(params, acc0, a_t, key), key)) on the same inputs, in turns
+        (the names, then reversed, after a warm-up of each), best of two;
+        the outputs of the rotations named in ``same`` must be equal."""
+        res: dict[int, dict[str, float]] = {}
+        for B in (B_MAIN, RADIX_VALUES):
+            x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
+            outs_t = {k: fn(p, *x, key) for k, (fn, key) in fns.items()}
+            check(all(torch.equal(outs_t[k], outs_t[same[0]])
+                      for k in same), f"{same} differ at {p.name} B={B}")
+            del outs_t
+            ms = {k: [] for k in fns}
+            for k in [*fns, *list(fns)[::-1]]:
+                fn, key = fns[k]
+                ms[k].append(timed_call(lambda: fn(p, *x, key))[1])
+            res[B] = {k: min(v) for k, v in ms.items()}
+        return res
+
+    def report_turns(name, p, turns, key_bytes) -> None:
+        for B, t in turns.items():
+            b_ms, b_by = bounds.bound_ms(*bounds.rotation(p, B, key_bytes))
+            print(f"time: {name} at {p.name} B={B} {t[name]:.3f} ms, "
+                  f"{b_ms / t[name]:.4f} of the {b_ms:.4f} ms bound ({b_by}); "
+                  f"in turns on the same inputs: "
+                  + ", ".join(f"{k} {v:.3f} ms ({name} / {k} "
+                              f"{t[name] / v:.4f})"
+                              for k, v in t.items() if k != name)
+                  + f" {card}")
+
     # the main path A's gate batch, made here so that phase 3 compares the
     # kernel on the rotation inputs the main path gives it
     names = list(gates.GATE_COEFFS)
@@ -443,12 +496,13 @@ def main() -> int:
     acc0, a_t = bs.rotation_inputs(P, lin, tp)
 
     # 3. kernel vs plain, tolerance 0 (exact mod 2^32 arithmetic) -----------
-    # at every rotation width of the main paths (the adder's rows * 1, 2, 16)
+    # at every rotation width of the main paths (the adder's rows * 1, 2,
+    # 16), a ragged tile and one ciphertext
     err, outs = 0, {}
-    for B in (B_MAIN, 2 * ROWS, ROWS):
+    for B in WIDTHS_S:
         x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
-        outs[B] = mega13.mega13_blind_rotate(P, *x, dsk.bsk)
-        plain = mega13.blind_rotate_plain(P, *x, dsk.bsk_ext)
+        outs[B] = mega13.mega13_blind_rotate(P, *x, dsk.bsk_btS)
+        plain = mega13.blind_rotate_plain_btS(P, *x, dsk.bsk_btS)
         err = max(err, int(np.abs(to_numpy_u32(outs[B]).astype(np.int64)
                                   - to_numpy_u32(plain).astype(np.int64)).max()))
         check(torch.equal(outs[B], plain), f"mega13 != plain version at B={B}")
@@ -457,7 +511,8 @@ def main() -> int:
         want = ref.blind_rotate(sk, lin_np[i], ref.make_test_poly(P))
         check(np.array_equal(to_numpy_u32(outs[B_MAIN][i]), want),
               f"mega13 != reference.blind_rotate for ciphertext {i}")
-    print(f"kernel vs plain: mega13 == blind_rotate_plain at B in {list(outs)} "
+    print(f"kernel vs plain: mega13 (csrc/megaS.cu) == "
+          f"blind_rotate_plain_btS at B in {list(outs)} "
           f"on the gate batch's rotation inputs (array equality, max_abs_err "
           f"{err}); ciphertexts 0 and {B_MAIN - 1} == reference.blind_rotate")
 
@@ -520,14 +575,14 @@ def main() -> int:
     # 6. times ---------------------------------------------------------------
     def rotate(B):
         return lambda: mega13.mega13_blind_rotate(
-            P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), dsk.bsk)
+            P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), dsk.bsk_btS)
 
     kernel_ms = timed_ms(rotate(B_MAIN), reps=3)
     narrow_ms = {B: timed_ms(rotate(B), reps=3) for B in (ROWS, 2 * ROWS)}
-    plain_ms = timed_ms(lambda: mega13.blind_rotate_plain(P, acc0, a_t,
-                                                          dsk.bsk_ext), reps=1)
+    plain_ms = timed_ms(lambda: mega13.blind_rotate_plain_btS(
+        P, acc0, a_t, dsk.bsk_btS), reps=1)
     bound_ms, bound_by = bounds.bound_ms(
-        *bounds.rotation(P, B_MAIN, 4 * dsk.bsk.numel()))
+        *bounds.rotation(P, B_MAIN, dsk.bsk_btS.numel()))
     print(f"time: mega13 B={B_MAIN} {kernel_ms:.3f} ms = "
           f"{B_MAIN / kernel_ms * 1e3:.1f} bootstraps/s, "
           f"{bound_ms / kernel_ms:.4f} of the {bound_ms:.2f} ms bound "
@@ -535,7 +590,23 @@ def main() -> int:
     for B, ms in narrow_ms.items():  # the adder's narrow level widths
         print(f"time: mega13 B={B} {ms:.3f} ms = "
               f"{B / ms * 1e3:.1f} bootstraps/s {card}")
-    print(f"time: blind_rotate_plain B={B_MAIN} {plain_ms:.3f} ms {card}")
+    print(f"time: blind_rotate_plain_btS B={B_MAIN} {plain_ms:.3f} ms {card}")
+
+    # mega13 in turns with its yardsticks on the same inputs: bt_fused's
+    # rotation (2n launches, the same function on bsk_bt, array-equal) and
+    # mega12 (the persistent wgmma kernel on bsk_btjj's 3.4 GiB, random)
+    gen_y = torch.Generator(device=dev)
+    gen_y.manual_seed(args.seed + 3)
+    key12_y = torch.randint(-128, 128, mega12.key_shape(P), dtype=torch.int8,
+                            device=dev, generator=gen_y)
+    turns13 = in_turns(P, acc0, a_t, {
+        "mega13": (mega13.mega13_blind_rotate, dsk.bsk_btS),
+        "bt_fused": (bt_fused_rotation, dsk.bsk_bt),
+        "mega12": (mega12.mega12_blind_rotate, key12_y)}, same=("mega13",
+                                                               "bt_fused"))
+    del key12_y
+    torch.cuda.empty_cache()
+    report_turns("mega13", P, turns13, dsk.bsk_btS.numel())
 
     raw = bs.sample_extract_batch(P, rotate(B_MAIN)())
     ks_ms = timed_ms(lambda: bs.key_switch_batch(dsk, raw), reps=10)
@@ -864,14 +935,16 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}")
 
     def vs_plain(name, plain, p, acc0, a_t, key,
-                 cache: dict | None = None) -> tuple[int, float]:
+                 cache: dict | None = None,
+                 widths=(B_MAIN, RADIX_VALUES, 9)) -> tuple[int, float]:
         """Kernel ``name`` against its plain version ``plain`` (tolerance 0)
-        on a path's first rotation inputs at B = 2048, 256 and 9:
-        (max_abs_err, plain ms at B=2048).  ``cache`` keeps the plain
-        outputs for another kernel of the same function on the same key."""
+        on a path's first rotation inputs at B = 2048, 256 and 9 (or
+        ``widths``): (max_abs_err, plain ms at B=2048).  ``cache`` keeps
+        the plain outputs for another kernel of the same function on the
+        same key."""
         cache = {} if cache is None else cache
         err = 0
-        for B in (B_MAIN, RADIX_VALUES, 9):
+        for B in widths:
             x = acc0[:B].contiguous(), a_t[:, :B].contiguous()
             got = counters[name](p, *x, key)
             if B not in cache:
@@ -924,12 +997,9 @@ def main() -> int:
     def megaJ_blocks(name):
         return functools.partial(megaJ.ciphertexts_per_block, name=name)
 
-    def megaT_blocks(name):
-        return functools.partial(megaT.ciphertexts_per_block,
-                                 extended=name in megaT.EXTENDED)
-
     def print_times(name, p, t, plain_ms) -> None:
-        lanes = ("on tensor cores" if name in megaJ.MMA else
+        lanes = ("on tensor cores" if name in megaJ.MMA or name in
+                 megaS.KERNELS else
                  f"{t['dp4a_share']:.4f} of the integer lanes' dp4a rate")
         print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
@@ -1018,7 +1088,7 @@ def main() -> int:
     dsk_t, ingest_t_s = host_s(lambda: device_server_key(
         sk, layouts=("bsk_btTe", "bsk_btTc"), device=dev))
     err14, plain14_k2_ms = vs_plain("mega14", megaT.plain("mega14"), P, acc0,
-                                    a_t, dsk_t.bsk_btTe)
+                                    a_t, dsk_t.bsk_btTe, widths=WIDTHS_S)
     reset_counts()
     out_t, t_s = host_s(lambda: gates.gate_batch(dsk_t, batch, engine="mega14",
                                                  device=dev))
@@ -1035,16 +1105,15 @@ def main() -> int:
                                         dsk_t.bsk_btTc)
         check(torch.equal(got, outs[B]), f"mega16 != mega13 at {P.name} B={B}")
     keys_t = {"mega14": dsk_t.bsk_btTe, "mega16": dsk_t.bsk_btTc,
-              "mega13": dsk.bsk}
+              "mega13": dsk.bsk_btS}
     res_a14 = rotation_times(("mega14", "mega16", "mega13"), P, acc0, a_t,
-                             keys_t, {name: megaT_blocks(name)
-                                      for name in ("mega14", "mega16")})
+                             keys_t, {"mega16": megaT.ciphertexts_per_block})
     peak_t = torch.cuda.max_memory_allocated()
     print(f"main path A' (mega14): keys to the card (bsk_btTe "
           f"{dsk_t.bsk_btTe.numel() / 2**20:.1f} MiB, bsk_btTc "
           f"{dsk_t.bsk_btTc.numel() / 2**20:.1f} MiB) {ingest_t_s:.1f} s; "
           f"mega14 == blind_rotate_plain_btTe on the gate batch's rotation "
-          f"inputs at B in {[B_MAIN, RADIX_VALUES, 9]} (array equality, "
+          f"inputs at B in {list(WIDTHS_S)} (array equality, "
           f"max_abs_err {err14}); gate_batch of {B_MAIN} gates == path A's "
           f"mega13 output and decrypts to the truth table; launches "
           f"{counts_a14}; mega16 == mega13 at B in {[B_MAIN, RADIX_VALUES]}")
@@ -1057,8 +1126,7 @@ def main() -> int:
               f"bound ({t['bound_by']}); B={RADIX_VALUES} "
               f"{t['narrow_ms']:.3f} ms; ciphertexts per block by B {t['G']} "
               f"{card}")
-    print(f"time: mega14 dp4a share at {P.name} "
-          f"{res_a14['mega14']['dp4a_share']:.4f}, mega16 "
+    print(f"time: mega16 dp4a share at {P.name} "
           f"{res_a14['mega16']['dp4a_share']:.4f}; plain mega14 "
           f"{plain14_k2_ms:.3f} ms at B={B_MAIN}; main path A' gate_batch "
           f"B={B_MAIN} end to end {t_s:.3f} s = {B_MAIN / t_s:.1f} "
@@ -1091,27 +1159,44 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B=9, random inputs")
             del key_g
-    geoms14 = [dataclasses.replace(PARAM_SETS[g], n=32)
-               for g in ("std128_fast", "std128_k4")]
-    for Gp in geoms14:
-        acc_g = torch.randint(-2**31, 2**31, (9, Gp.k + 1, Gp.N),
-                              dtype=torch.int32, device=dev, generator=gen_j)
-        a_g = torch.randint(0, 2 * Gp.N, (Gp.n, 9), dtype=torch.int32,
-                            device=dev, generator=gen_j)
-        key_g = torch.randint(-128, 128, (Gp.n, Gp.k + 1, Gp.k + 1, 4,
-                                          megaT.row_bytes(Gp, True)),
+    # csrc/megaS.cu's kernels on random keys: mega14 at STD128_FAST's,
+    # STD128_K4's and STD128_SHORTINT_FAST's geometries and its least N
+    # (256); mega13 at STD128_SHORTINT_FAST's and TOY's (N = 64: the tile is
+    # N, the stream padded), at B = 2048 and 9
+    geomsS = [("mega14", dataclasses.replace(PARAM_SETS[g], n=32))
+              for g in ("std128_fast", "std128_k4", "std128_shortint_fast")]
+    geomsS += [("mega14", dataclasses.replace(
+        PARAM_SETS["std128_shortint_fast"], name="n256_b8l2", n=32, N=256))]
+    geomsS += [("mega13", dataclasses.replace(PARAM_SETS[g], n=32))
+               for g in ("std128_shortint_fast", "toy")]
+    errS_random = {"mega13": 0, "mega14": 0}
+    for name, Gp in geomsS:
+        extended = megaS.KERNELS[name]
+        key_g = torch.randint(-128, 128, megaS.key_shape(Gp, extended),
                               dtype=torch.int8, device=dev, generator=gen_j)
-        got = megaT.mega14_blind_rotate(Gp, acc_g, a_g, key_g)
-        want = megaT.blind_rotate_plain_btTe(Gp, acc_g, a_g, key_g)
-        err14 = max(err14, abs_err(got, want))
-        check(torch.equal(got, want), f"mega14 != plain version at "
-              f"{Gp.name}'s geometry, B=9, random inputs")
+        for Bg in (B_MAIN, 9):
+            acc_g = torch.randint(-2**31, 2**31, (Bg, Gp.k + 1, Gp.N),
+                                  dtype=torch.int32, device=dev,
+                                  generator=gen_j)
+            a_g = torch.randint(0, 2 * Gp.N, (Gp.n, Bg), dtype=torch.int32,
+                                device=dev, generator=gen_j)
+            got = counters[name](Gp, acc_g, a_g, key_g)
+            want = (megaT.blind_rotate_plain_btTe if extended
+                    else mega13.blind_rotate_plain_btS)(Gp, acc_g, a_g, key_g)
+            errS_random[name] = max(errS_random[name], abs_err(got, want))
+            check(torch.equal(got, want), f"{name} != plain version at "
+                  f"{Gp.name}'s geometry, B={Bg}, random inputs")
+        del key_g
+    err14 = max(err14, errS_random["mega14"])
+    err = max(err, errS_random["mega13"])
     torch.cuda.empty_cache()
     print(f"kernel vs plain: {', '.join(megaJ.KERNELS)} == their plain "
           f"versions on random inputs and keys at B=9 at the geometries of "
-          f"{[g.name for g in geoms]}, and mega14 at "
-          f"{[g.name for g in geoms14]} (n = 32; array equality, max_abs_err "
-          f"{errs_j}, mega14 {err14})")
+          f"{[g.name for g in geoms]} (n = 32; array equality, max_abs_err "
+          f"{errs_j}); mega13 and mega14 == their plain versions on random "
+          f"inputs and keys at B in {[B_MAIN, 9]} at "
+          f"{[(k, g.name) for k, g in geomsS]} (n = 32; max_abs_err "
+          f"{errS_random})")
 
     # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
     # each kernel of megaJ_legacy.cu, one key at a time (built, used,
@@ -1133,7 +1218,7 @@ def main() -> int:
                                        bs.make_test_poly(PL, device=dev))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    dsk_l = device_server_key(sk_l, layouts=("bsk",), device=dev)
+    dsk_l = device_server_key(sk_l, layouts=("bsk_btS",), device=dev)
     reset_counts()
     out_l, l13_s = host_s(lambda: gates.gate_batch(dsk_l, batch_l,
                                                    device=dev))
@@ -1150,15 +1235,23 @@ def main() -> int:
     lin_0[PL.n:] += np.uint32(bias & 0xFFFFFFFF)
     check(np.array_equal(out_l_np[0], ref.bootstrap_bool(sk_l, lin_0)),
           "path L: gate 0 != reference.bootstrap_bool")
+    err13_l, plain13_l_ms = vs_plain("mega13", mega13.blind_rotate_plain_btS,
+                                     PL, acc0_l, a_t_l, dsk_l.bsk_btS,
+                                     widths=WIDTHS_S)
+    err = max(err, err13_l)
     rot_l, m13_l_ms = timed_call(lambda: mega13.mega13_blind_rotate(
-        PL, acc0_l, a_t_l, dsk_l.bsk))
+        PL, acc0_l, a_t_l, dsk_l.bsk_btS))
     peak_l = torch.cuda.max_memory_allocated()
     print(f"main path L ({PL.name}, host keygen {keygen_l_s:.1f} s): "
           f"gate_batch of {B_MAIN} gates on mega13 decrypts to the truth "
-          f"table; gate 0 == reference.bootstrap_bool; launches {counts_l13}")
+          f"table; gate 0 == reference.bootstrap_bool; launches "
+          f"{counts_l13}; mega13 == blind_rotate_plain_btS on the batch's "
+          f"rotation inputs at B in {list(WIDTHS_S)} (array equality, "
+          f"max_abs_err {err13_l})")
     print(f"time: main path L gate_batch B={B_MAIN} on mega13 end to end "
           f"{l13_s:.3f} s = {B_MAIN / l13_s:.1f} bootstraps/s; mega13 "
-          f"{m13_l_ms:.3f} ms per rotation {card}")
+          f"{m13_l_ms:.3f} ms per rotation; plain {plain13_l_ms:.3f} ms "
+          f"{card}")
     del dsk_l
     res_l, plain_l = {}, {}
     for group_l in (("mega10",), ("mega3",), ("mega4", "mega5")):
@@ -1293,14 +1386,6 @@ def main() -> int:
             P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), key_j),
             outs[B]), f"M1: mega7 on bsk_bt's blocks j-major != mega13 at "
             f"B={B}")
-
-    def bt_fused_rotation(p, acc, a_t, key):
-        """The bt_fused engine's rotation: 2n launches."""
-        for i in range(p.n):
-            acc = bt.external_product_bt(p, rd.rotate_decompose(p, acc,
-                                                                a_t[i]),
-                                         key[i], glwe=acc)
-        return acc
 
     bt_fused_rotation(P, acc0[:RADIX_VALUES].contiguous(),
                       a_t[:, :RADIX_VALUES].contiguous(), dsk.bsk_bt)
@@ -1464,6 +1549,12 @@ def main() -> int:
     a13, b13 = short13.encrypt(av), short13.encrypt(bv)
     check(torch.equal(a13.data, a.data) and torch.equal(b13.data, b.data),
           "the mega13 context's encryptions differ from the mega12 one's")
+    err13_d, plain13_d_ms = vs_plain("mega13", mega13.blind_rotate_plain_btS,
+                                     PS, acc0_d, a_t_d, short13.dsk.bsk_btS,
+                                     widths=WIDTHS_S)
+    err = max(err, err13_d)
+    _, m13_d_ms = timed_call(lambda: mega13.mega13_blind_rotate(
+        PS, acc0_d, a_t_d, short13.dsk.bsk_btS))
     reset_counts()
     (r13, dec13), d1_13_s = host_s(lambda: d1(short13, a13, b13))
     counts_d1_13 = read_counts()
@@ -1474,7 +1565,11 @@ def main() -> int:
     print(f"main path D1: ShortContext (a*b)+a over {B_MAIN} encrypted 2-bit "
           f"values on mega12: every value decrypts right; {d1_rot} "
           f"rotations; launches {counts_d1}; the same on mega13 is "
-          f"array-equal; launches {counts_d1_13}")
+          f"array-equal; launches {counts_d1_13}; mega13 == "
+          f"blind_rotate_plain_btS on D1's first rotation inputs at B in "
+          f"{list(WIDTHS_S)} (array equality, max_abs_err {err13_d}); mega13 "
+          f"{m13_d_ms:.3f} ms per rotation at B={B_MAIN}, plain "
+          f"{plain13_d_ms:.3f} ms {card}")
 
     rctx = RadixContext(short, n_blocks=4)
     av2 = vals.integers(0, 256, RADIX_VALUES)
@@ -1667,7 +1762,7 @@ def main() -> int:
         del ctx12, ya, yb, r12x
         torch.cuda.empty_cache()
         t = rotation_times((engine,), PX, acc0_x, a_t_x, {engine: key},
-                           {engine: megaT_blocks(engine)})[engine]
+                           {engine: megaT.ciphertexts_per_block})[engine]
         print(f"main path {label}: {PX.name} host keygen {keygen_x_s:.1f} s "
               f"(worker process); ShortContext key ingest (fit_engine -> "
               f"{ctx.engine}, bsk_btTc {key.numel() / 2**20:.1f} MiB built on "
@@ -1746,12 +1841,13 @@ def main() -> int:
     check(torch.equal(out_f13, out_f), "F on mega13 != F on mega16")
     t_f = rotation_times(("mega16",), PF, acc0_f, a_t_f,
                          {"mega16": dsk_f.bsk_btTc},
-                         {"mega16": megaT_blocks("mega16")})["mega16"]
+                         {"mega16": megaT.ciphertexts_per_block})["mega16"]
     res_f = {"counts": counts_f, "counts13": counts_f13, "err": err16,
              "plain_ms": plain16_ms, **t_f}
     print(f"main path F: {PF.name} host keygen {keygen_f_s:.1f} s (worker "
           f"process); keys to the card (bsk_btTc "
-          f"{dsk_f.bsk_btTc.numel() / 2**20:.1f} MiB, bsk) {ingest_f_s:.1f} "
+          f"{dsk_f.bsk_btTc.numel() / 2**20:.1f} MiB, bsk_btS, bsk_btTe) "
+          f"{ingest_f_s:.1f} "
           f"s; mega16 == blind_rotate_plain_btTc on the gate batch's "
           f"rotation inputs at B in {[B_MAIN, RADIX_VALUES, 9]} (array "
           f"equality, max_abs_err {err16}); gate_batch of {B_MAIN} gates "
@@ -1771,7 +1867,8 @@ def main() -> int:
           f"{peak_f / 2**30:.3f} GiB {card}")
     # F': the same batch on mega14 (the extended key), equal to F's on mega16
     e14f, plain14_f_ms = vs_plain("mega14", megaT.blind_rotate_plain_btTe, PF,
-                                  acc0_f, a_t_f, dsk_f.bsk_btTe)
+                                  acc0_f, a_t_f, dsk_f.bsk_btTe,
+                                  widths=WIDTHS_S)
     err14 = max(err14, e14f)
     reset_counts()
     out_f14, f14_s = host_s(lambda: gates.gate_batch(
@@ -1784,12 +1881,11 @@ def main() -> int:
     print(f"main path F' (mega14): bsk_btTe "
           f"{dsk_f.bsk_btTe.numel() / 2**20:.1f} MiB; mega14 == "
           f"blind_rotate_plain_btTe on F's rotation inputs at B in "
-          f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+          f"{list(WIDTHS_S)} (array equality, max_abs_err "
           f"{e14f}); gate_batch of {B_MAIN} gates == F's on mega16; "
           f"launches {counts_f14}")
     print(f"time: mega14 at {PF.name} B={B_MAIN} {f14_ms:.3f} ms (mega16 "
           f"{t_f['ms']:.3f} ms, not in turns); plain {plain14_f_ms:.3f} ms; "
-          f"ciphertexts per block {megaT_blocks('mega14')(PF, B_MAIN, dev)}; "
           f"main path F' end to end {f14_s:.3f} s {card}")
     del dsk_f, lin_f, acc0_f, a_t_f, out_f, out_f13, out_f14
 
@@ -1805,7 +1901,7 @@ def main() -> int:
     ctx_k, ingest_k_s = host_s(lambda: HerdContext(
         PK, engine="mega14", keys=keys_k, seed=args.seed, device=dev))
     check(ctx_k.engine == "mega14" and ctx_k.dsk.bsk_btTe is not None
-          and ctx_k.dsk.bsk is None,
+          and ctx_k.dsk.bsk_btS is None,
           f"HerdContext(engine='mega14') at {PK.name} took engine "
           f"{ctx_k.engine}")
     key14 = ctx_k.dsk.bsk_btTe
@@ -1819,7 +1915,7 @@ def main() -> int:
     acc0_k, a_t_k = bs.rotation_inputs(PK, lin_k,
                                        bs.make_test_poly(PK, device=dev))
     e14k, plain14_ms = vs_plain("mega14", megaT.blind_rotate_plain_btTe, PK,
-                                acc0_k, a_t_k, key14)
+                                acc0_k, a_t_k, key14, widths=WIDTHS_S)
     err14 = max(err14, e14k)
     rotations_k: list[int] = []
 
@@ -1869,17 +1965,36 @@ def main() -> int:
     check(torch.equal(sum13.data, sum_k.data),
           "K: a + b on mega13 != a + b on mega14")
     res_k = rotation_times(("mega14",), PK, acc0_k, a_t_k, {"mega14": key14},
-                           {"mega14": megaT_blocks("mega14")})["mega14"]
+                           {})["mega14"]
+    # mega14 in turns with mega13 (on the same keys), bt_fused's rotation
+    # and mega12 (random keys: bsk_bt and bsk_btk, 4.7 GiB each)
+    gen_k = torch.Generator(device=dev)
+    gen_k.manual_seed(args.seed + 13)
+    HALF_K, R_K = PK.N // 128, (PK.k + 1) * PK.levels
+    bt_k = torch.randint(-128, 128, (PK.n, R_K, HALF_K, 128,
+                                     (PK.k + 1) * 4 * 128), dtype=torch.int8,
+                         device=dev, generator=gen_k)
+    key12_k = torch.randint(-128, 128, mega12.key_shape(PK),
+                            dtype=torch.int8, device=dev, generator=gen_k)
+    turns14 = in_turns(PK, acc0_k, a_t_k, {
+        "mega14": (megaT.mega14_blind_rotate, key14),
+        "mega13": (mega13.mega13_blind_rotate, ctx13.dsk.bsk_btS),
+        "bt_fused": (bt_fused_rotation, bt_k),
+        "mega12": (mega12.mega12_blind_rotate, key12_k)},
+        same=("mega14", "mega13"))
+    del bt_k, key12_k
+    torch.cuda.empty_cache()
     print(f"main path K: {PK.name} host keygen {keygen_k_s:.1f} s (worker "
           f"process); HerdContext key ingest (fit_engine -> {ctx_k.engine}, "
           f"bsk_btTe {key14.numel() / 2**20:.1f} MiB built on the card) "
           f"{ingest_k_s:.1f} s; mega14 == blind_rotate_plain_btTe on a + b's "
-          f"first rotation inputs at B in {[B_MAIN, RADIX_VALUES, 9]} (array "
+          f"first rotation inputs at B in {list(WIDTHS_S)} (array "
           f"equality, max_abs_err {e14k}); a + b and min over {B_MAIN} "
           f"encrypted u8 pairs decrypt to (a+b) mod 256 and min(a, b); "
           f"launches {counts_k_add} and {counts_k_min}; a + b on mega13 is "
           f"array-equal; launches {counts_k13}")
     print_times("mega14", PK, res_k, plain14_ms)
+    report_turns("mega14", PK, turns14, key14.numel())
     print(f"time: main path K a + b over {B_MAIN} u8 pairs end to end "
           f"{add_s:.3f} s on mega14 ({add_rot} gate bootstraps = "
           f"{add_rot / add_s:.1f}/s), {add13_s:.3f} s on mega13 "
@@ -1946,7 +2061,7 @@ def main() -> int:
     }, {
         "name": "mega13",
         "route": "cuda",
-        "source": "herdsman_tpu_torch/csrc/mega13.cu",
+        "source": "herdsman_tpu_torch/csrc/megaS.cu",
         "replaces": "herdsman_tpu/ops/pallas/mega.py:793",
         **launches("mega13"),
         "matches_plain": err == 0,
@@ -1956,6 +2071,15 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "ms_b256": narrow_ms[2 * ROWS],
+        "ms_b128": narrow_ms[ROWS],
+        **{f"ms_{k}_in_turns_b{B}": v for B, t in turns13.items()
+           for k, v in t.items()},
+        "ms_std128": m13_l_ms,
+        "plain_ms_std128": plain13_l_ms,
+        "ms_std128_shortint": m13_d_ms,
+        "plain_ms_std128_shortint": plain13_d_ms,
+        "ms_std128_k4_in_turns": turns14[B_MAIN]["mega13"],
     }, {
         "name": "bt_external_product",
         "route": "cuda",
@@ -2044,7 +2168,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("herdsman_tpu_torch/csrc/megaT.cu" if name == "mega14"
+            "source": ("herdsman_tpu_torch/csrc/megaS.cu" if name == "mega14"
                        else "herdsman_tpu_torch/csrc/megaJ.cu"),
             "replaces": f"herdsman_tpu/ops/pallas/{line}",
             **launches(name),
@@ -2059,6 +2183,8 @@ def main() -> int:
         })
     kernels[-1]["ms_std128_k2"] = res_a14["mega14"]["ms"]
     kernels[-1]["ms_std128_shortint_fast"] = f14_ms
+    kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
+                        for B, t in turns14.items() for k, v in t.items()})
     # the kernels of megaJ_legacy.cu timed at STD128_K2 in path H, in turns
     # with the serial kernel of their function, and at STD128 in path L
     for name, line in (("mega10", 1019), ("mega3", 295), ("mega4", 423),

@@ -1,11 +1,11 @@
 // megaT: the whole GINX blind rotation of a ciphertext batch in one launch,
 // for the bitcast-stream class at the byte-aligned gadget bg = 2^8: levels
-// L = 2 (mega16), 3 (mega17) and 4 (mega15) on the single-width key, and
-// L = 2 on the extended key (mega14).
+// L = 2 (mega16), 3 (mega17) and 4 (mega15) on the single-width key.
 //
 // Replaces herdsman_tpu/ops/pallas/mega.py::_mega16_kernel,
-// _mega17_kernel, _mega15_kernel and _mega14_kernel (wrappers
-// mega16/17/15/14_blind_rotate).
+// _mega17_kernel and _mega15_kernel (wrappers mega16/17/15_blind_rotate).
+// _mega14_kernel, once an extended-key variant of this source, is
+// csrc/megaS.cu's (int8 tensor cores on the same key bsk_btTe).
 // Same function: for i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
@@ -41,37 +41,17 @@
 // word is a ready __dp4a operand; the key word at byte (P-1-q)*L + s is
 // unaligned for L = 2, 3 and is one funnel shift of two aligned words.
 //
-// The extended key (mega14).  The JAX kernel _mega14_kernel reads a key
-// window extended over the negacyclic period (bsk_btT2, mega.py:1073-1082),
-// so each output tile is one dot with no wrap split.  Its port reads
-// bsk_btTe int8 [n, k+1, k+1, 4, RBE]: per (step, c_in, c_out, j) the
-// L-fold interleaved limb sequence Te[L*v + lb] = limb_j(ext(bsk[i, c*L +
-// L-1-lb, c_out])[(N-1-v) mod 2N]) for v < 2N-1, where row (j, c_out, y) of
-// output coefficient y = ct*P + q is the run of L*N bytes from offset
-// (N-1-y)*L: the whole stream D_c, unwrapped,
-//
-//   part_j[q] = sum_c sum_{s < L*N} Te_c,j[(N-1-ct*P-q)*L + s] D_c[s]
-//
-// and the negation of the wrapped run is in the key values themselves
-// (ext(p)[t] = -p[t-N] for t >= N, the limbs of the negated u32
-// coefficient, as bsk_btj2 holds its negated blocks): no negated partials
-// and no negated digits.  RBE = L*(2N-1) + 4 rounded up to 16: 8.2 KB per
-// limb sequence at N = 2048, about twice the single-width sequence, so
-// 80 MB at STD128_K4 and 101 MB at STD128_SHORTINT_FAST against 9.4 and
-// 17.25 GiB for the JAX layout at those sets (fit_engine's btT_bytes).
-//
 // Exactness.  |digit| <= 128 and limbs are balanced int8, so one partial
 // is at most L*N*2^14 in size per (c_in, c_out) (1.3e8 at L = 4, N =
 // 2048): under 2^31, and the recombine is linear mod 2^32 in any case.
 //
 // Bound.  One rotation is n * B * ((k+1)*L*N) * ((k+1)*4*N) int8 MACs:
 // 3.17e14 at STD128_SHORTINT_B8 and B = 2048, 320.02 ms at the H100's
-// 1,979 int8 TOP/s (213.35 ms at L = 2, 426.69 ms at L = 4; mega14 30.00
-// ms at STD128_K2 and 20.83 ms at STD128_K4, 2.06e13 MACs, where the key
-// bytes, 80 MB, take 0.024 ms at 3.35 TB/s).  This kernel
+// 1,979 int8 TOP/s (213.35 ms at L = 2, 426.69 ms at L = 4).  This kernel
 // runs them on the SMs' integer lanes as __dp4a (4 MACs each), so it is
 // bound by dp4a issue, about 16 times the tensor-core bound.  Right and
-// simple first; mma with the key as the A fragment is later work.
+// simple first; csrc/megaS.cu shows the tensor-core form (the key as
+// wgmma's register A operand) for mega13 and mega14.
 //
 // Design.  Hopper blocks run in no order, so each block owns G
 // ciphertexts for all n steps and loops over i itself.  Per step the block
@@ -94,8 +74,7 @@
 // waves (one block per SM) times its per-word issue cost (4*G dp4a and
 // about 10 other instructions) is least, the largest G on a tie, within
 // the shared-memory limit: G = 8 at L = 2 and G = 4 at L = 3, 4 for N =
-// 2048, k = 1; the extended key takes G = 8 there too (229,472 of the
-// 232,448 bytes).  Missing ciphertexts of a ragged batch rotate zeros and
+// 2048, k = 1.  Missing ciphertexts of a ragged batch rotate zeros and
 // store nothing.
 
 #include <cuda_runtime.h>
@@ -108,11 +87,10 @@ constexpr int NGROUP = 4;         // column tiles contracted at once
 constexpr int BD = NGROUP * P;    // threads per block
 constexpr int SMEM_PER_BLOCK = 232448;  // bytes one H100 block may use
 
-// bytes of one limb sequence of the compact key, L*(N+P-1), or of the
-// extended key, L*(2N-1), and one word of slack for the shifted reads,
-// rounded up to 16 (ops/kernels/megaT.py)
-__host__ __device__ constexpr int row_bytes(int L, int N, bool ext) {
-  return (L * (ext ? 2 * N - 1 : N + P - 1) + 4 + 15) / 16 * 16;
+// bytes of one limb sequence of the compact key, L*(N+P-1), and one word
+// of slack for the shifted reads, rounded up to 16 (ops/kernels/megaT.py)
+__host__ __device__ constexpr int row_bytes(int L, int N) {
+  return (L * (N + P - 1) + 4 + 15) / 16 * 16;
 }
 
 // c_out slices staged at once: enough (tile, c_out) units for every group
@@ -199,7 +177,7 @@ __device__ __forceinline__ void run(const uint32_t* __restrict__ ks, int tw,
   }
 }
 
-template <int L, int G, int KP1, bool EXT>
+template <int L, int G, int KP1>
 __global__ void __launch_bounds__(BD, 1)
 megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
              const int32_t* __restrict__ a_t,    // [n, B] in [0, 2N)
@@ -210,7 +188,7 @@ megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   const int LN4 = L * N / 4;          // stream words per polynomial
   const int HALF = N / P;
   const int CS = c_out_slices(KP1, N);
-  const int tw = row_bytes(L, N, EXT) / 4;  // words per staged limb sequence
+  const int tw = row_bytes(L, N) / 4;  // words per staged limb sequence
   uint32_t* acc = smem;                                     // [G][KP1][N]
   uint32_t* dig = acc + G * KP1 * N;                        // [KP1][LN4][G]
   uint32_t* ks = dig + static_cast<size_t>(KP1) * LN4 * G;  // [CS][4][tw]
@@ -282,22 +260,17 @@ megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
           for (int g = 0; g < G; ++g)
 #pragma unroll
             for (int j = 0; j < 4; ++j) part[g][j] = 0;
-          if constexpr (EXT) {
-            // one run: the whole stream from this row's offset
-            run<G>(kss, tw, (N - 1 - ct * P - q) * L, dc, 0, LN4, part);
-          } else {
-            const int o = (P - 1 - q) * L;  // the row's offset in a sequence
-            const int cut = L * ct * P;   // stream bytes that wrap
-            const int split = L * N - cut;
-            // the wrapped run, then its negation, then the unwrapped run
-            run<G>(kss, tw, o + split, dc, 0, cut / 4, part);
+          const int o = (P - 1 - q) * L;  // the row's offset in a sequence
+          const int cut = L * ct * P;   // stream bytes that wrap
+          const int split = L * N - cut;
+          // the wrapped run, then its negation, then the unwrapped run
+          run<G>(kss, tw, o + split, dc, 0, cut / 4, part);
 #pragma unroll
-            for (int g = 0; g < G; ++g)
+          for (int g = 0; g < G; ++g)
 #pragma unroll
-              for (int j = 0; j < 4; ++j)
-                part[g][j] = static_cast<int>(0u - static_cast<uint32_t>(part[g][j]));
-            run<G>(kss, tw, o, dc, cut / 4, split / 4, part);
-          }
+            for (int j = 0; j < 4; ++j)
+              part[g][j] = static_cast<int>(0u - static_cast<uint32_t>(part[g][j]));
+          run<G>(kss, tw, o, dc, cut / 4, split / 4, part);
           // limb-major recombine into this thread's accumulator word
 #pragma unroll
           for (int g = 0; g < G; ++g) {
@@ -315,20 +288,20 @@ megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   for (int e = tid; e < nb * KP1 * N; e += BD) out[base + e] = acc[e];
 }
 
-size_t smem_bytes(int L, int G, int N, int kp1, bool ext) {
+size_t smem_bytes(int L, int G, int N, int kp1) {
   return static_cast<size_t>(G) * (static_cast<size_t>(kp1) * N * 4 +
                                    static_cast<size_t>(kp1) * L * N + 4) +
-         static_cast<size_t>(4) * c_out_slices(kp1, N) * row_bytes(L, N, ext);
+         static_cast<size_t>(4) * c_out_slices(kp1, N) * row_bytes(L, N);
 }
 
 // ciphertexts per block: least (waves of one block per SM) x (per-word
 // issue cost), the largest G on a tie, within the shared-memory limit
-int pick_g(int B, int N, int kp1, int L, bool ext, int sms) {
+int pick_g(int B, int N, int kp1, int L, int sms) {
   const int choices[4] = {8, 4, 2, 1};
   int best = 0;
   long long best_cost = 0;
   for (int g : choices) {
-    if (smem_bytes(L, g, N, kp1, ext) > static_cast<size_t>(SMEM_PER_BLOCK))
+    if (smem_bytes(L, g, N, kp1) > static_cast<size_t>(SMEM_PER_BLOCK))
       continue;
     const long long blocks = (B + g - 1) / g;
     const long long waves = (blocks + sms - 1) / sms;
@@ -341,11 +314,11 @@ int pick_g(int B, int N, int kp1, int L, bool ext, int sms) {
   return best;
 }
 
-template <int L, int G, int KP1, bool EXT>
+template <int L, int G, int KP1>
 cudaError_t launch(const void* acc0, const void* a_t, const void* key,
                    void* out, int B, int n, int N, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, G, N, KP1, EXT);
-  auto kern = megaT_kernel<L, G, KP1, EXT>;
+  const size_t smem = smem_bytes(L, G, N, KP1);
+  auto kern = megaT_kernel<L, G, KP1>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -355,30 +328,29 @@ cudaError_t launch(const void* acc0, const void* a_t, const void* key,
   return cudaGetLastError();
 }
 
-template <int L, int KP1, bool EXT>
+template <int L, int KP1>
 cudaError_t launch_g(int G, const void* acc0, const void* a_t, const void* key,
                      void* out, int B, int n, int N, cudaStream_t s) {
   switch (G) {
-    case 8: return launch<L, 8, KP1, EXT>(acc0, a_t, key, out, B, n, N, s);
-    case 4: return launch<L, 4, KP1, EXT>(acc0, a_t, key, out, B, n, N, s);
-    case 2: return launch<L, 2, KP1, EXT>(acc0, a_t, key, out, B, n, N, s);
-    case 1: return launch<L, 1, KP1, EXT>(acc0, a_t, key, out, B, n, N, s);
+    case 8: return launch<L, 8, KP1>(acc0, a_t, key, out, B, n, N, s);
+    case 4: return launch<L, 4, KP1>(acc0, a_t, key, out, B, n, N, s);
+    case 2: return launch<L, 2, KP1>(acc0, a_t, key, out, B, n, N, s);
+    case 1: return launch<L, 1, KP1>(acc0, a_t, key, out, B, n, N, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int L, bool EXT>
+template <int L>
 int rotate(const void* acc0, const void* a_t, const void* key, void* out,
            int B, int n, int N, int kp1, int sms, void* stream) {
-  if (B <= 0 || n <= 0 || N < (EXT ? 2 * P : P) || N > 2048 || (N & (N - 1)) ||
-      sms <= 0)
+  if (B <= 0 || n <= 0 || N < P || N > 2048 || (N & (N - 1)) || sms <= 0)
     return cudaErrorInvalidValue;
-  const int G = pick_g(B, N, kp1, L, EXT, sms);
+  const int G = pick_g(B, N, kp1, L, sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kp1) {
-    case 2: return launch_g<L, 2, EXT>(G, acc0, a_t, key, out, B, n, N, s);
-    case 3: return launch_g<L, 3, EXT>(G, acc0, a_t, key, out, B, n, N, s);
-    case 5: return launch_g<L, 5, EXT>(G, acc0, a_t, key, out, B, n, N, s);
+    case 2: return launch_g<L, 2>(G, acc0, a_t, key, out, B, n, N, s);
+    case 3: return launch_g<L, 3>(G, acc0, a_t, key, out, B, n, N, s);
+    case 5: return launch_g<L, 5>(G, acc0, a_t, key, out, B, n, N, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -387,41 +359,32 @@ int rotate(const void* acc0, const void* a_t, const void* key, void* out,
 
 extern "C" {
 
-// The G a launch of B ciphertexts takes at levels L on a card of `sms` SMs,
-// on the extended key if `extended` (0: none).
-int megaT_ciphertexts_per_block(int B, int N, int kp1, int levels,
-                                int extended, int sms) {
+// The G a launch of B ciphertexts takes at levels L on a card of `sms` SMs.
+int megaT_ciphertexts_per_block(int B, int N, int kp1, int levels, int sms) {
   if (B <= 0 || sms <= 0 || levels < 2 || levels > 4) return 0;
-  return pick_g(B, N, kp1, levels, extended != 0, sms);
+  return pick_g(B, N, kp1, levels, sms);
 }
 
-// acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), key [n, kp1, kp1, 4,
-// row_bytes] int8 (bsk_btTc; bsk_btTe for mega14), out [B, kp1, N] u32, all
-// device pointers; N a power of two in [128, 2048] ([256, 2048] for
-// mega14), kp1 in {2, 3, 5}, `sms` the card's SM count.  Launches on
-// `stream` and returns cudaGetLastError().
+// acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), key bsk_btTc [n, kp1,
+// kp1, 4, row_bytes] int8, out [B, kp1, N] u32, all device pointers; N a
+// power of two in [128, 2048], kp1 in {2, 3, 5}, `sms` the card's SM
+// count.  Launches on `stream` and returns cudaGetLastError().
 int mega16_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, int B, int n, int N, int kp1, int sms,
                         void* stream) {
-  return rotate<2, false>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
+  return rotate<2>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
 }
 
 int mega17_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, int B, int n, int N, int kp1, int sms,
                         void* stream) {
-  return rotate<3, false>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
+  return rotate<3>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
 }
 
 int mega15_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, int B, int n, int N, int kp1, int sms,
                         void* stream) {
-  return rotate<4, false>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
-}
-
-int mega14_blind_rotate(const void* acc0, const void* a_t, const void* key,
-                        void* out, int B, int n, int N, int kp1, int sms,
-                        void* stream) {
-  return rotate<2, true>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
+  return rotate<4>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
 }
 
 const char* megaT_error_string(int err) {

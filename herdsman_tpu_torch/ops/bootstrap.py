@@ -10,16 +10,18 @@ the whole ciphertext batch at once,
 through one of three kinds of engine:
 
 - ``ROTATION_ENGINES``: one call owns the whole n-step loop.  ``mega13`` (the
-  default) is the hand-written CUDA kernel ``csrc/mega13.cu`` on a CUDA
-  tensor and its plain PyTorch version on a CPU tensor; ``mega12`` (the
+  default) is the hand-written CUDA kernel ``csrc/megaS.cu`` (int8 tensor
+  cores, the key a register operand built from the compact stream key
+  ``bsk_btS``) on a CUDA tensor and its plain PyTorch version on a CPU
+  tensor; ``mega12`` (the
   integer tier's engine, the JAX package's ``pallas_mega12``) is
   ``csrc/mega12.cu`` on int8 tensor cores against ``bsk_btk`` (the JAX
   package's ``bsk_btjj`` in ``wgmma``'s byte order); ``mega16``, ``mega17``
   and ``mega15`` (the JAX package's engines of the same names, at the
   byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
   ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key, and ``mega14``
-  (levels 2, N >= 256) the same source against the extended ``bsk_btTe``
-  (one run per column tile); ``mega11``, ``mega8`` and ``mega7`` (the JAX
+  (levels 2, N >= 256) ``csrc/megaS.cu``'s second instantiation against
+  the extended ``bsk_btTe`` (one run per column tile); ``mega11``, ``mega8`` and ``mega7`` (the JAX
   package's engines of the same names, any gadget) are ``csrc/megaJ.cu``
   against the j-major block-Toeplitz keys ``bsk_btj2j`` and ``bsk_btj2``
   (doubled window, one contraction per column tile) and ``bsk_btj``
@@ -111,7 +113,7 @@ STEP_ENGINES: dict[str, tuple[Callable, str]] = {
 # engine name -> (fn(params, acc0, a_t, bsk), key layout it reads): one call
 # runs the whole n-step rotation
 ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
-    "mega13": (mega13.mega13_blind_rotate, "bsk"),
+    "mega13": (mega13.mega13_blind_rotate, "bsk_btS"),
     "mega12": (mega12.mega12_blind_rotate, "bsk_btk"),
     "mega16": (megaT.mega16_blind_rotate, "bsk_btTc"),
     "mega17": (megaT.mega17_blind_rotate, "bsk_btTc"),

@@ -47,7 +47,10 @@ key's values (``ext_tile_rows``): the JAX package's pt-major window
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btTc`` (``blind_rotate_plain_btTe`` for ``mega14``).
-The source note in ``csrc/megaT.cu`` gives the kernels' design and bound.
+The source note in ``csrc/megaT.cu`` gives the three compact-key kernels'
+design and bound; ``mega14``'s kernel is ``csrc/megaS.cu``'s extended
+instantiation (int8 tensor cores, the key a register operand;
+``ops/kernels/megaS.py``).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import _build
+from herdsman_tpu_torch.ops.kernels import _build, megaS
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 from herdsman_tpu_torch.ops.u32 import srl, u32_const
 
@@ -99,13 +102,13 @@ def c_out_slices(p: TFHEParams) -> int:
     return 1 if half >= NGROUP else min(NGROUP // half, p.k + 1)
 
 
-def smem_bytes(p: TFHEParams, G: int, extended: bool = False) -> int:
+def smem_bytes(p: TFHEParams, G: int) -> int:
     """Shared memory of one block of G ciphertexts: their accumulators
     (u32), one step's digit streams and rotation amounts, and the staged
     (c_in, c_out) slices of the step key."""
     kp1 = p.k + 1
     return (G * (kp1 * p.N * 4 + kp1 * p.levels * p.N + 4)
-            + 4 * c_out_slices(p) * row_bytes(p, extended))
+            + 4 * c_out_slices(p) * row_bytes(p))
 
 
 def check_params(p: TFHEParams, name: str) -> None:
@@ -125,10 +128,10 @@ def check_params(p: TFHEParams, name: str) -> None:
     if p.N & (p.N - 1) or not lo <= p.N <= 2048:
         raise ValueError(f"{name} takes N a power of two in [{lo}, 2048], "
                          f"not {p.N} ({p.name})")
-    if smem_bytes(p, 1, extended) > SMEM_LIMIT:
-        raise ValueError(f"{name} at {p.name} needs "
-                         f"{smem_bytes(p, 1, extended)} bytes of shared "
-                         f"memory per ciphertext, over {SMEM_LIMIT}")
+    if not extended and smem_bytes(p, 1) > SMEM_LIMIT:
+        raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} "
+                         f"bytes of shared memory per ciphertext, over "
+                         f"{SMEM_LIMIT}")
 
 
 def _check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
@@ -275,12 +278,12 @@ def plain(name: str):
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/megaT.cu`` with its C signatures declared."""
     lib = _build.load("megaT")
-    for name in KERNELS:
+    for name in set(KERNELS) - set(EXTENDED):
         fn = getattr(lib, f"{name}_blind_rotate")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 6
+    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
     lib.megaT_ciphertexts_per_block.restype = ctypes.c_int
     lib.megaT_error_string.argtypes = [ctypes.c_int]
     lib.megaT_error_string.restype = ctypes.c_char_p
@@ -291,13 +294,11 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
-                          extended: bool = False) -> int:
-    """The G the kernels (on the extended key if ``extended``) pick for a
-    rotation of B ciphertexts at ``p`` on the card ``device`` (0 where they
-    take none)."""
+def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device) -> int:
+    """The G the compact-key kernels pick for a rotation of B ciphertexts
+    at ``p`` on the card ``device`` (0 where they take none)."""
     return _lib().megaT_ciphertexts_per_block(B, p.N, p.k + 1, p.levels,
-                                              int(extended), _sms(device))
+                                              _sms(device))
 
 
 def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
@@ -308,6 +309,10 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
+    if name in EXTENDED:
+        out = megaS.launch(name, p, acc0, a_t, key)
+        wrapper.launches += 1
+        return out
     lib = _lib()
     out = torch.empty_like(acc0)
     with torch.cuda.device(acc0.device):
@@ -354,8 +359,8 @@ def mega14_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     """Whole blind rotation at bg = 2^8, levels 2, against the extended key
     (one run per column tile, no wrap split): acc0 [B, k+1, N] and a_t [n,
     B] (int32 carriers), bsk_btTe int8 [n, k+1, k+1, 4, row_bytes(p,
-    extended=True)] -> acc [B, k+1, N].  CUDA tensors go through the kernel,
-    CPU tensors through ``blind_rotate_plain_btTe``."""
+    extended=True)] -> acc [B, k+1, N].  CUDA tensors go through the kernel
+    (``csrc/megaS.cu``), CPU tensors through ``blind_rotate_plain_btTe``."""
     return _rotate("mega14", mega14_blind_rotate, params, acc0, a_t, bsk_btTe)
 
 

@@ -6,14 +6,26 @@ and ``.ksk`` [kN, ks_levels, n+1] as numpy uint32 — the port's
 once, into:
 
 - ``bsk``       int32 [n, R, k+1, N]   the raw bootstrapping key (R =
-                                       (k+1)*levels GGSW rows), the layout
-                                       the ``mega13`` CUDA kernel reads.  At
-                                       STD128_K2 it is 27 MiB, so the whole
-                                       key stays resident in the H100's
-                                       50 MB L2 and needs no expansion.
+                                       (k+1)*levels GGSW rows), from which
+                                       every other layout is built; kept on
+                                       the device only when asked for.
+- ``bsk_btS``   int8  [n, k+1, k+1, 4, RB]
+                                       the compact stream key of ``mega13``
+                                       (``csrc/megaS.cu``), any gadget with
+                                       bg_bits <= 8: per (step, c_in, c_out,
+                                       limb j) one L-fold interleaved limb
+                                       sequence whose run from byte
+                                       (P-1-q)*L is row (j, c_out, q) of a
+                                       column tile of P = min(128, N)
+                                       (``mega13.expand_rows``); RB =
+                                       ``megaS.geometry(...).RB``.  At the
+                                       byte-aligned gadget and N >= 128 it
+                                       is ``bsk_btTc``.  34 MiB at
+                                       STD128_K2, so the whole key stays
+                                       resident in the H100's 50 MB L2.
 - ``bsk_ext``   int32 [n, R, k+1, 2N]  ext(p) = concat(p, -p) of every key
                                        polynomial: the Toeplitz gather table
-                                       of the plain version.
+                                       of the ``gather_u32`` engine.
 - ``bsk_bt``    int8  [n, R, HALF, P, (k+1)*4*P]
                                        the block-Toeplitz key of the JAX
                                        package's ``pallas_bt`` engines
@@ -127,15 +139,16 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaT
+from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaS, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
-LAYOUTS = ("bsk", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj", "bsk_btk",
-           "bsk_btjm", "bsk_btj2", "bsk_btj2j", "bsk_btTc", "bsk_btTe")
-DEFAULT_LAYOUTS = ("bsk", "bsk_ext")  # the mega13 kernel and its plain version
+LAYOUTS = ("bsk", "bsk_btS", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj",
+           "bsk_btk", "bsk_btjm", "bsk_btj2", "bsk_btj2j", "bsk_btTc",
+           "bsk_btTe")
+DEFAULT_LAYOUTS = ("bsk_btS",)  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
-ENGINE_LAYOUTS = {"mega13": "bsk", "mega12": "bsk_btk", "bt": "bsk_bt",
+ENGINE_LAYOUTS = {"mega13": "bsk_btS", "mega12": "bsk_btk", "bt": "bsk_bt",
                   "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
                   **megaT.KEY_LAYOUTS, **megaJ.KEY_LAYOUTS}
 
@@ -153,6 +166,7 @@ class DeviceServerKey:
     device: torch.device
     ksk_limbs: torch.Tensor             # int8 [kN*ks_levels, ceil8((n+1)*4)]
     bsk: torch.Tensor | None = None     # int32 [n, R, k+1, N]
+    bsk_btS: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, RB]
     bsk_ext: torch.Tensor | None = None  # int32 [n, R, k+1, 2N]
     bsk_bt: torch.Tensor | None = None  # int8 [n, R, HALF, P, (k+1)*4*P]
     bsk_btj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
@@ -248,28 +262,37 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
 
 
 def stream_key_layout(p: TFHEParams, bsk: torch.Tensor,
-                      extended: bool = False) -> torch.Tensor:
+                      extended: bool = False,
+                      any_gadget: bool = False) -> torch.Tensor:
     """``bsk_btTc`` int8 [n, k+1 (c_in), k+1 (c_out), 4 (j), row_bytes]
     from the int32 ``bsk`` [n, R, k+1, N] at the byte-aligned gadget, on
     ``bsk``'s device, a chunk of steps at a time: T[L*u + lb] =
     limb_j(ext(bsk[i, c_in*levels + levels-1-lb, c_out])[(P-1-u) mod 2N])
-    for u < N+P-1, zeros after.  Its expansion equals the JAX package's
-    ``_btTs/_btT3/_btT4_layout_device`` (tests/test_torch_megaT.py).  With
-    ``extended``, ``bsk_btTe``: Te[L*v + lb] = limb_j(ext(...)[(N-1-v) mod
-    2N]) for v < 2N-1, zeros after, whose tiles equal the JAX package's
-    ``bsk_btT2`` windows (tests/test_torch_mega14.py)."""
-    name = "bsk_btTe" if extended else "bsk_btTc"
-    if p.bg_bits != 8 or not 2 <= p.levels <= 4 or p.N % megaT.P:
-        raise ValueError(f"{name} needs bg_bits 8, levels 2-4 and N a "
-                         f"multiple of {megaT.P}, not {p.bg_bits}, "
-                         f"{p.levels} and {p.N} ({p.name})")
-    n, R, kp1, N = bsk.shape
-    P = megaT.P
+    for u < N+P-1 (P = 128), zeros after.  Its expansion equals the JAX
+    package's ``_btTs/_btT3/_btT4_layout_device`` (tests/test_torch_megaT.py).
+    With ``extended``, ``bsk_btTe``: the same with P = N, Te[L*v + lb] =
+    limb_j(ext(...)[(N-1-v) mod 2N]) for v < 2N-1, whose tiles equal the
+    JAX package's ``bsk_btT2`` windows (tests/test_torch_mega14.py).  With
+    ``any_gadget``, ``bsk_btS``: the same with P = min(128, N) at any gadget
+    with bg_bits <= 8 and levels 1-4, RB bytes a sequence
+    (``megaS.geometry``), whose rows are the block-Toeplitz key's
+    (tests/test_torch_megaS.py)."""
+    name = ("bsk_btS" if any_gadget else "bsk_btTe" if extended
+            else "bsk_btTc")
     L = p.levels
-    U, top = (2 * N - 1, N - 1) if extended else (N + P - 1, P - 1)
-    idx = (top - torch.arange(U, device=bsk.device)) % (2 * N)
-    out = torch.zeros(n, kp1, kp1, 4, megaT.row_bytes(p, extended),
-                      dtype=torch.int8, device=bsk.device)
+    if any_gadget:
+        mega13.check_params(p)
+        P, _, _, RB = megaS.geometry(p.N, L, False)
+    else:
+        if p.bg_bits != 8 or not 2 <= L <= 4 or p.N % megaT.P:
+            raise ValueError(f"{name} needs bg_bits 8, levels 2-4 and N a "
+                             f"multiple of {megaT.P}, not {p.bg_bits}, "
+                             f"{L} and {p.N} ({p.name})")
+        P, RB = (p.N if extended else megaT.P), megaT.row_bytes(p, extended)
+    n, R, kp1, N = bsk.shape
+    U = N + P - 1
+    idx = (P - 1 - torch.arange(U, device=bsk.device)) % (2 * N)
+    out = torch.zeros(n, kp1, kp1, 4, RB, dtype=torch.int8, device=bsk.device)
     step = max(1, _BT_CHUNK_BYTES // (R * kp1 * U * 4 * 2))
     for i0 in range(0, n, step):
         i1 = min(i0 + step, n)
@@ -323,7 +346,8 @@ def fit_engine(engine: str, params: TFHEParams,
     Two routes differ from the JAX package's, with equal outputs:
 
     - ``mega13`` stays ``mega13`` wherever its kernel takes the set; the
-      port's ``mega13`` reads the raw key (50 MB at STD128_SHORTINT_FAST).
+      port's ``mega13`` reads the compact ``bsk_btS`` (51 MiB at
+      STD128_SHORTINT_FAST).
       The JAX package's ``pallas_mega13`` reads the extended pt-major key
       and is kept only at the sets with the bg = 2^8, l = 2 gadget and N >=
       256 (STD128_FAST, STD128_K2, STD128_K4, STD128_SHORTINT_FAST) where
@@ -413,6 +437,8 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
         device=dev,
         ksk_limbs=ksk_limbs.contiguous(),
         bsk=bsk if "bsk" in layouts else None,
+        bsk_btS=(stream_key_layout(p, bsk, any_gadget=True)
+                 if "bsk_btS" in layouts else None),
         bsk_ext=(poly.negacyclic_extend(bsk).contiguous()
                  if "bsk_ext" in layouts else None),
         bsk_bt=(block_toeplitz_layout(p, bsk)

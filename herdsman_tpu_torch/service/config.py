@@ -47,7 +47,7 @@ ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
                 "pallas_mega6": "mega6", "pallas_mega10": "mega10",
                 "pallas_mega3": "mega3", "pallas_mega4": "mega4",
                 "pallas_mega5": "mega5", "pallas_mega": "mega",
-                "pallas_mega2": "mega2"}
+                "pallas_mega2": "mega2", "gather_u32": "gather_u32"}
 
 
 def port_engine(name: str) -> str:
@@ -59,9 +59,8 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; conv_i8/gather_u32 (XLA engines with no "
-        f"kernel) are not served by the port's coordinator (ROADMAP queue 1 "
-        f"item 19)")
+        f"{sorted(ENGINE_NAMES)}; conv_i8 (an XLA engine with no kernel) is "
+        f"not served by the port's coordinator (ROADMAP queue 1 item 19)")
 
 
 @dataclasses.dataclass

@@ -44,7 +44,7 @@ def same(jx, tx):
 
 def test_context_routes_mega13(pair):
     _, t = pair
-    assert t.engine == "mega13" and t.dsk.bsk is not None
+    assert t.engine == "mega13" and t.dsk.bsk_btS is not None
 
 
 def test_add_equals_jax(pair):

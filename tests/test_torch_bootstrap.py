@@ -1,6 +1,6 @@
 """The port's blind rotation and bootstrap against the JAX package, on the
 CPU: ``blind_rotate_batch(engine="mega13")`` (on a CPU tensor, the plain
-PyTorch version of the CUDA kernel ``csrc/mega13.cu``) against JAX
+PyTorch version of the CUDA kernel ``csrc/megaS.cu``) against JAX
 ``pallas_mega13`` in interpret mode, and ``gather_u32`` against JAX
 ``gather_u32``.  Array equality throughout.
 """

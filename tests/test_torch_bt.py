@@ -41,7 +41,7 @@ def rand_u32(rng, *shape):
 def _keys(params, seed):
     rng = np.random.default_rng(seed)
     ck, sk = jref.keygen(params, rng)
-    return rng, sk, tsk.device_server_key(sk, layouts=("bsk", "bsk_bt"),
+    return rng, sk, tsk.device_server_key(sk, layouts=("bsk_btS", "bsk_bt"),
                                           device="cpu")
 
 
@@ -161,7 +161,7 @@ def test_layouts_for_engine_matches_the_engine_registries():
             assert tsk.layouts_for_engine(engine) == (layout,)
     assert tsk.layouts_for_engine("bt") == ("bsk_bt",)
     assert tsk.layouts_for_engine("bt_fused") == ("bsk_bt",)
-    assert tsk.layouts_for_engine("mega13") == ("bsk",)
+    assert tsk.layouts_for_engine("mega13") == ("bsk_btS",)
     with pytest.raises(ValueError):
         tsk.layouts_for_engine("pallas_mega12")
 

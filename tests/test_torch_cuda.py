@@ -20,7 +20,7 @@ from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates
 from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
-                                            megaJ, megaT)
+                                            megaJ, megaS, megaT)
 from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
 from herdsman_tpu_torch.ops.server_key import bt_tile, device_server_key
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
@@ -66,7 +66,9 @@ def test_mega13_matches_plain_and_reference(card, params):
     rng = np.random.default_rng(5)
     ck, sk = ref.keygen(params, rng)
     dsk = device_server_key(sk, device=card)
-    B = 20  # not a multiple of the kernel's 8 ciphertexts per block
+    cpu_key = device_server_key(sk, device="cpu").bsk_btS
+    assert torch.equal(dsk.bsk_btS.cpu(), cpu_key)  # built on the card
+    B = 20  # a ragged tile of the kernel's 128 ciphertexts
     ct = rand_u32(rng, B, params.n + 1)
     tp = bs.make_test_poly(params, device=card)
     before = mega13.mega13_blind_rotate.launches
@@ -74,7 +76,7 @@ def test_mega13_matches_plain_and_reference(card, params):
     torch.cuda.synchronize()
     assert mega13.mega13_blind_rotate.launches == before + 1
     acc0, a_t = bs.rotation_inputs(params, from_numpy_u32(ct, card), tp)
-    plain = mega13.blind_rotate_plain(params, acc0, a_t, dsk.bsk_ext)
+    plain = mega13.blind_rotate_plain_btS(params, acc0, a_t, dsk.bsk_btS)
     np.testing.assert_array_equal(to_numpy_u32(got), to_numpy_u32(plain))
     for i in (0, B - 1):
         np.testing.assert_array_equal(
@@ -169,7 +171,7 @@ def test_bt_kernel_plan_matches_python(card, params):
 def test_bt_engines_match_mega13_and_reference(card, params):
     rng = np.random.default_rng(9)
     ck, sk = ref.keygen(params, rng)
-    dsk = device_server_key(sk, layouts=("bsk", "bsk_bt"), device=card)
+    dsk = device_server_key(sk, layouts=("bsk_btS", "bsk_bt"), device=card)
     cpu_bt = device_server_key(sk, layouts=("bsk_bt",), device="cpu").bsk_bt
     assert torch.equal(dsk.bsk_bt.cpu(), cpu_bt)  # built on the card
     B = 13
@@ -247,7 +249,7 @@ def test_mega12_kernel_plan_matches_python(card):
 def test_mega12_engine_matches_mega13_and_reference(card, params):
     rng = np.random.default_rng(10)
     ck, sk = ref.keygen(params, rng)
-    dsk = device_server_key(sk, layouts=("bsk", "bsk_btk"), device=card)
+    dsk = device_server_key(sk, layouts=("bsk_btS", "bsk_btk"), device=card)
     cpu_k = device_server_key(sk, layouts=("bsk_btk",), device="cpu").bsk_btk
     assert torch.equal(dsk.bsk_btk.cpu(), cpu_k)  # built on the card
     B = 13
@@ -294,7 +296,8 @@ def test_megaT_matches_plain(card, params, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert megaT.ciphertexts_per_block(p, B, card, extended) in (1, 2, 4, 8)
+    if not extended:  # mega14 is csrc/megaS.cu's (test_megaS_*)
+        assert megaT.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
     assert torch.equal(got, megaT.plain(name)(p, acc0, a_t, key))
 
 
@@ -355,7 +358,7 @@ def test_megaJ_engines_match_mega13_and_reference(card, params, name):
     layout = megaJ.KEY_LAYOUTS[name]
     rng = np.random.default_rng(13)
     ck, sk = ref.keygen(params, rng)
-    dsk = device_server_key(sk, layouts=("bsk", layout), device=card)
+    dsk = device_server_key(sk, layouts=("bsk_btS", layout), device=card)
     cpu_key = getattr(device_server_key(sk, layouts=(layout,), device="cpu"),
                       layout)
     assert torch.equal(getattr(dsk, layout).cpu(), cpu_key)  # built on card
@@ -519,3 +522,56 @@ def test_mega_refuses_a_set_without_room_for_its_ring(card):
         megaJ.mega_blind_rotate(wide, acc0, a_t, key)
     assert megaJ.mega_blind_rotate.launches == before
     megaJ.check_params(wide, "mega2")
+
+
+# csrc/megaS.cu: mega13 on bsk_btS at every geometry class it takes (the
+# tile N below 128, a padded stream at TOY and N = 32, the W = 32 gadget,
+# k+1 = 3 and 5, N up to 2048) and mega14 on bsk_btTe, random keys, n cut
+# to 4 steps, at widths of one ragged tile up to the smoke run's 2048
+MEGAS_SETS = [dc.replace(TOY, name=f"mega13_{q}", n=4, N=N, k=k, bg_bits=bg,
+                         levels=L)
+              for q, N, k, bg, L in (("n32_b8l1", 32, 1, 8, 1),
+                                     ("toy", 64, 1, 6, 3),
+                                     ("n128_b8l4", 128, 1, 8, 4),
+                                     ("k2_n512", 512, 2, 8, 2),
+                                     ("k4_n256", 256, 4, 8, 2),
+                                     ("n1024_b7l3", 1024, 1, 7, 3),
+                                     ("n2048_b7l3", 2048, 1, 7, 3))]
+MEGAS_SETS += [dc.replace(TOY, name=f"mega14_k{k}_n{N}", n=4, N=N, k=k,
+                          bg_bits=8, levels=2)
+               for k, N in ((2, 512), (4, 256), (1, 2048))]
+
+
+def test_megaS_geometry_matches_python(card):
+    for N in (32, 64, 128, 256, 512, 1024, 2048):
+        for L in (1, 2, 3, 4):
+            assert megaS.kernel_geometry(N, L, False) == \
+                megaS.geometry(N, L, False)
+            if N >= 256:
+                assert megaS.kernel_geometry(N, L, True) == \
+                    megaS.geometry(N, L, True)
+
+
+@pytest.mark.parametrize("B", [1, 9, 128, 129, 256, 2048])
+@pytest.mark.parametrize("params", MEGAS_SETS,
+                         ids=[q.name for q in MEGAS_SETS])
+def test_megaS_matches_plain(card, params, B):
+    p = params
+    name = p.name.split("_")[0]
+    extended = megaS.KERNELS[name]
+    kernel = (mega13.mega13_blind_rotate if name == "mega13"
+              else megaT.mega14_blind_rotate)
+    plain = (mega13.blind_rotate_plain_btS if name == "mega13"
+             else megaT.blind_rotate_plain_btTe)
+    rng = np.random.default_rng(B + p.N + p.k + p.levels)
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    key = torch.as_tensor(rng.integers(-128, 128,
+                                       megaS.key_shape(p, extended)),
+                          dtype=torch.int8, device=card)
+    before = kernel.launches
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, plain(p, acc0, a_t, key))

@@ -27,7 +27,7 @@ from herdsman_tpu_torch.core import PARAM_SETS
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import server_key as tsk
-from herdsman_tpu_torch.ops.kernels import megaT
+from herdsman_tpu_torch.ops.kernels import megaS, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 
 # the JAX package's B8L2 sets (tests/test_ops_bitexact.py:447-455: N = 256
@@ -200,10 +200,11 @@ def test_mega14_wrapper_checks():
     for name in ("std128_k2", "std128_k4", "std128_fast",
                  "std128_shortint_fast"):
         megaT.check_params(PARAM_SETS[name], "mega14")
-    # G = 8 ciphertexts fit a block at N = 2048 with the longer key slice
+    # the extended key is the stream key of megaS.cu with a tile of N: its
+    # sequences, 8208 bytes at N = 2048, are megaT's extended rows
     fast = PARAM_SETS["std128_shortint_fast"]
-    assert megaT.smem_bytes(fast, 8, extended=True) == 229_472
-    assert megaT.smem_bytes(fast, 8, extended=True) <= megaT.SMEM_LIMIT
+    assert megaS.geometry(fast.N, 2, True).RB == megaT.row_bytes(fast, True)
+    assert megaS.key_shape(fast, True) == (768, 2, 2, 4, 8208)
     # at N = 256 a block stages 2 c_out slices, one per pair of groups
     assert megaT.c_out_slices(PARAM_SETS["std128_k4"]) == 2
     assert megaT.c_out_slices(PARAM_SETS["std128_k2"]) == 1

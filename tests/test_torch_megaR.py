@@ -68,7 +68,7 @@ def keys(params):
     ``bsk_bt``, ``bsk_btj`` and the ``mega13`` layouts)."""
     ck, sk = jref.keygen(params, np.random.default_rng(31))
     return (ck, sk, jsk.device_server_key(sk, layouts=("bsk_bt",)),
-            tsk.device_server_key(sk, layouts=("bsk", "bsk_ext", "bsk_bt",
+            tsk.device_server_key(sk, layouts=("bsk_btS", "bsk_bt",
                                                "bsk_btj"), device="cpu"))
 
 

@@ -51,7 +51,8 @@ def toy():
     rng = np.random.default_rng(42)
     ck, sk = jref.keygen(jparams.TOY, rng)
     return ck, sk, jax_dsk(sk, layouts=("bsk_ext",)), \
-        device_server_key(sk, device=CPU)
+        device_server_key(sk, layouts=("bsk", "bsk_ext", "bsk_btS"),
+                          device=CPU)
 
 
 @pytest.mark.parametrize("name", sorted(jparams.PARAM_SETS))

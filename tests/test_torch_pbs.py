@@ -117,7 +117,7 @@ def test_mega12_plain_equals_jax_pallas(geometry, B):
 def test_mega12_plain_equals_mega13_with_many_lut_switch(geometry):
     """The coarse (many-LUT) mod switch feeds both rotation engines alike."""
     params, rng, sk, _, tdsk = geometry
-    both = tsk.device_server_key(sk, layouts=("bsk", "bsk_btk"),
+    both = tsk.device_server_key(sk, layouts=("bsk_btS", "bsk_btk"),
                                  device="cpu")
     ct = from_numpy_u32(rand_u32(rng, 5, params.n + 1))
     tp = tbs.make_test_poly(both.params)

@@ -320,9 +320,9 @@ def test_config_engine_names(tmp_path, monkeypatch):
         == {"pallas_bt": "bt", "pallas_fused": "bt_fused",
             "pallas_mega13": "mega13", "pallas_mega12": "mega12",
             "bt_fused": "bt_fused", "mega12": "mega12"}
-    for name in ("conv_i8", "gather_u32"):
-        with pytest.raises(ConfigError, match="ROADMAP"):
-            port_engine(name)
+    with pytest.raises(ConfigError, match="ROADMAP"):
+        port_engine("conv_i8")
+    assert port_engine("gather_u32") == "gather_u32"  # the JAX config's name
     cfg = load_config(str(ROOT / "template.yaml"))  # loads as it is
     assert cfg.mesh_workers.engine == "bt_fused"
     monkeypatch.setenv("HERDSMAN_ENGINE", "conv_i8")
