@@ -11,7 +11,9 @@ host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
 (all twenty TPU kernel bodies) from eight CUDA sources; ``mega13`` and
 ``mega14`` are the two instantiations of ``csrc/megaS.cu`` (int8 tensor
-cores, the key a register operand built from its compact stream).
+cores, the key a register operand built from its compact stream), and
+``mega12``, ``mega7`` (its single window on ``bsk_btk``) and ``mega11``
+(its doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``.
 
     python3 chip_smoke.py [--seed S]
 
@@ -60,16 +62,19 @@ Phases, in order; any failure raises and exits non-zero:
    without the launches' host cost), a
    B=2048 gate batch on ``bt`` and ``bt_fused``, and path C's jobs with
    the runner's load / exec / store split;
-9b. main path H, the j-major kernels of ``megaJ.cu`` and
-    ``megaJ_legacy.cu`` at STD128_K2: path A's gate batch on ``mega11``
-    (key ``bsk_btj2j``), ``mega8``, ``mega9`` and ``mega10``
-    (``bsk_btj2``), ``mega7``, ``mega6``, ``mega4``, ``mega5`` (``bsk_btj``)
-    and ``mega3`` (``bsk_btjm``), the keys of one function built, used and
-    freed in turn, each kernel against its plain version (tolerance 0) on
-    the batch's rotation inputs at B = 2048, 256 and 9, each output
-    array-equal to path A's ``mega13`` output and decrypted against the
-    truth table, with times (the kernels of one function in turns) and
-    peak memory;
+9b. main path H, the j-major family at STD128_K2: path A's gate batch on
+    ``mega11`` (``mega12.cu``'s doubled window, key ``bsk_btk2``),
+    ``mega8``, ``mega9`` and ``mega10`` (``bsk_btj2``), ``mega7``
+    (``mega12.cu``'s single window, ``bsk_btk``), ``mega6``, ``mega4``,
+    ``mega5`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
+    function built, used and freed in turn, each kernel against its plain
+    version (tolerance 0) on the batch's rotation inputs at B = 2048, 256
+    and 9 (and 1 for ``mega11`` and ``mega7``), each output array-equal to
+    path A's ``mega13`` output and decrypted against the truth table, with
+    times (the kernels of one function in turns) and peak memory;
+    ``mega11`` also in turns with ``mega12`` (on a ``bsk_btk`` of the same
+    key) and with ``bt_fused``'s rotation on the same inputs at B = 2048
+    and 256, all array-equal;
 9b'. main path A': path A's gate batch on ``mega14`` (the extended key
     ``bsk_btTe``), the kernel against its plain version at B = 2048, 256,
     128, 9 and 1, the output array-equal to path A's and decrypted, and
@@ -78,8 +83,10 @@ Phases, in order; any failure raises and exits non-zero:
     keys at B=9 at the geometries of STD128, STD128_FAST, STD128_SHORTINT
     and STD128_K4, ``mega14`` at STD128_FAST's, STD128_K4's,
     STD128_SHORTINT_FAST's and N = 256's, and ``mega13`` at
-    STD128_SHORTINT_FAST's and TOY's, those two at B = 2048 and 9 (n cut
-    to 32 steps);
+    STD128_SHORTINT_FAST's and TOY's, those two at B = 2048 and 9, and
+    ``mega11`` and ``mega7`` at STD128_K2's, STD128's and
+    STD128_SHORTINT's at B = 2048, 300 (ragged) and 9 (K split) (n cut to
+    32 steps);
 9b''. main path L, the classic bool set STD128 (n=768, N=1024, k=1,
     bg=2^7, l=3; host keygen in a worker): path A's 2048-gate batch (the
     same gates and plaintexts) on ``mega13``, decrypted against the truth
@@ -103,8 +110,9 @@ Phases, in order; any failure raises and exits non-zero:
     B=9 in phase 9b' with the others), each ``blind_rotate_batch`` equal
     to ``mega13``'s, each gate batch equal to path A's and decrypted; both
     timed in turns with ``bt_fused`` (the same function and key, 2n
-    launches) and ``mega7`` (the same blocks j-major: ``bsk_bt`` with its
-    block axes swapped, built, used, freed); M2, path I's job on
+    launches) and ``mega7`` (the same blocks in ``wgmma``'s order: a
+    ``bsk_btk`` built from ``bsk_bt`` step by step, used, freed); M2, path
+    I's job on
     ``pallas_mega2`` then ``pallas_mega``, each COMPLETED with no retry,
     launching only its engine, its intermediate frame byte-equal to path
     C's first partition on ``pallas_fused``, with wall, load / exec /
@@ -132,9 +140,11 @@ Phases, in order; any failure raises and exits non-zero:
     same inputs, whose outputs must be equal; D1 and D2 end to end with
     rotations/s, and the peak device memory of path D;
 12b. main path J: D1 on a ``ShortContext(engine="mega7")`` (the JAX
-    bench's ``mega12 -> mega7`` step) with path D's keys and seed, ``mega7``
-    against its plain version on its first rotation inputs, ciphertexts
-    equal to D1's on ``mega12``, with times and peak memory;
+    bench's ``mega12 -> mega7`` step) with path D's keys and seed (key
+    ``bsk_btk``), ``mega7`` against its plain version on its first rotation
+    inputs at B = 2048, 256, 9 and 1, ciphertexts equal to D1's on
+    ``mega12``, ``mega7`` in turns with ``mega12`` on the same key and
+    inputs at B = 2048 and 256, with times and peak memory;
 13. main path E, the integer tier at STD128_SHORTINT_B8 on ``mega17``: a
     ``ShortContext`` that routes to ``mega17`` and carries the compact
     ``bsk_btTc`` key to the card; the kernel against its plain version
@@ -994,12 +1004,18 @@ def main() -> int:
                       for B in (B_MAIN, RADIX_VALUES, 9)}}
         return out
 
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def megaJ_blocks(name):
+        """Kernel ``name``'s split of a batch: ciphertexts per block, or for
+        csrc/mega12.cu's its (bm, splits, cluster) plan."""
+        if name in megaJ.TENSOR_CORE:
+            return lambda p, B, dev_: mega12.kernel_plan(p, B, n_sms)
         return functools.partial(megaJ.ciphertexts_per_block, name=name)
 
     def print_times(name, p, t, plain_ms) -> None:
         lanes = ("on tensor cores" if name in megaJ.MMA or name in
-                 megaS.KERNELS else
+                 megaS.KERNELS or name in megaJ.TENSOR_CORE else
                  f"{t['dp4a_share']:.4f} of the integer lanes' dp4a rate")
         print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
@@ -1008,17 +1024,21 @@ def main() -> int:
               f"{t['narrow_ms']:.3f} ms; plain {plain_ms:.3f} ms at "
               f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
 
-    # 9b. main path H: path A's gate batch on the j-major kernels of
-    # megaJ.cu and megaJ_legacy.cu, one function's keys at a time (built,
-    # used, freed): mega11 on bsk_btj2j; mega8, mega9 and mega10 on
-    # bsk_btj2; mega7, mega6, mega4 and mega5 on bsk_btj and mega3 on
+    # 9b. main path H: path A's gate batch on the j-major family, one
+    # function's keys at a time (built, used, freed): mega11 on bsk_btk2
+    # (mega12.cu's doubled window, beside a bsk_btk for mega12 in turns);
+    # mega8, mega9 and mega10 on bsk_btj2; mega7 on bsk_btk (mega12.cu's
+    # single window), mega6, mega4 and mega5 on bsk_btj and mega3 on
     # bsk_btjm (bsk_btj in fragment order); the kernels of one function are
     # timed in turns ---------------------------------------------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
+    turns11 = {}
     for group in (("mega11",), ("mega8", "mega9", "mega10"),
                   ("mega7", "mega6", "mega3", "mega4", "mega5")):
         layouts_h = tuple(dict.fromkeys(megaJ.KEY_LAYOUTS[n] for n in group))
+        if group == ("mega11",):  # mega12's key, to time mega11 beside it
+            layouts_h += ("bsk_btk",)
         for name in group:
             check(fit_engine(name, P) == name,
                   f"fit_engine({name!r}, {P.name}) -> {fit_engine(name, P)}")
@@ -1036,8 +1056,11 @@ def main() -> int:
         for name in group:
             # one cache per key: mega3's plain version reads its own
             cache = plain_cache.setdefault(megaJ.KEY_LAYOUTS[name], {})
-            err_h, plain_h_ms = vs_plain(name, megaJ.plain(name), P, acc0,
-                                         a_t, keys_h[name], cache)
+            err_h, plain_h_ms = vs_plain(
+                name, megaJ.plain(name), P, acc0, a_t, keys_h[name], cache,
+                widths=((B_MAIN, RADIX_VALUES, 9, 1)
+                        if name in megaJ.TENSOR_CORE
+                        else (B_MAIN, RADIX_VALUES, 9)))
             errs_j[name] = max(errs_j[name], err_h)
             reset_counts()
             out_h, h_s = host_s(lambda: gates.gate_batch(
@@ -1052,14 +1075,24 @@ def main() -> int:
             res_h[name] = {"counts": counts_h, "plain_ms": plain_h_ms,
                            "path_s": h_s}
             print(f"main path H ({name}): {name} == its plain version on the "
-                  f"gate batch's rotation inputs at B in "
-                  f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+                  f"gate batch's rotation inputs at B in {sorted(cache)} "
+                  f"(array equality, max_abs_err "
                   f"{err_h}); gate_batch of {B_MAIN} gates == path A's "
                   f"mega13 output and decrypts to the truth table; launches "
                   f"{counts_h}")
             del out_h
         times = rotation_times(group, P, acc0, a_t, keys_h,
                                {name: megaJ_blocks(name) for name in group})
+        if group == ("mega11",):
+            # in turns on the same inputs: mega12 (the single window, on
+            # this key in bsk_btk's order) and bt_fused's rotation (2n
+            # launches on path A's bsk_bt), all array-equal
+            turns11 = in_turns(P, acc0, a_t, {
+                "mega11": (megaJ.mega11_blind_rotate, dsk_h.bsk_btk2),
+                "mega12": (mega12.mega12_blind_rotate, dsk_h.bsk_btk),
+                "bt_fused": (bt_fused_rotation, dsk.bsk_bt)},
+                same=("mega11", "mega12", "bt_fused"))
+            report_turns("mega11", P, turns11, dsk_h.bsk_btk2.numel())
         peak_h = torch.cuda.max_memory_allocated()
         for name in group:
             res_h[name].update(times[name])
@@ -1159,6 +1192,31 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B=9, random inputs")
             del key_g
+    # csrc/mega12.cu's mega11 and mega7 also at STD128_K2's geometry and at
+    # a full (2048, 128-row tiles in clusters) and a ragged batch (300: a
+    # cluster with a lone M tile at N = 2048); B=9 splits K
+    geoms_w = [dataclasses.replace(PARAM_SETS[g], n=32)
+               for g in ("std128_k2", "std128", "std128_shortint")]
+    plans_w = {}
+    for Gp in geoms_w:
+        for name in megaJ.TENSOR_CORE:
+            key_g = torch.randint(-128, 128, megaJ.key_shape(Gp, name),
+                                  dtype=torch.int8, device=dev,
+                                  generator=gen_j)
+            for Bg in (B_MAIN, 300, 9):
+                acc_g = torch.randint(-2**31, 2**31, (Bg, Gp.k + 1, Gp.N),
+                                      dtype=torch.int32, device=dev,
+                                      generator=gen_j)
+                a_g = torch.randint(0, 2 * Gp.N, (Gp.n, Bg),
+                                    dtype=torch.int32, device=dev,
+                                    generator=gen_j)
+                got = counters[name](Gp, acc_g, a_g, key_g)
+                want = megaJ.plain(name)(Gp, acc_g, a_g, key_g)
+                errs_j[name] = max(errs_j[name], abs_err(got, want))
+                check(torch.equal(got, want), f"{name} != plain version at "
+                      f"{Gp.name}'s geometry, B={Bg}, random inputs")
+                plans_w[(Gp.name, Bg)] = mega12.kernel_plan(Gp, Bg, n_sms)
+            del key_g
     # csrc/megaS.cu's kernels on random keys: mega14 at STD128_FAST's,
     # STD128_K4's and STD128_SHORTINT_FAST's geometries and its least N
     # (256); mega13 at STD128_SHORTINT_FAST's and TOY's (N = 64: the tile is
@@ -1196,7 +1254,10 @@ def main() -> int:
           f"{errs_j}); mega13 and mega14 == their plain versions on random "
           f"inputs and keys at B in {[B_MAIN, 9]} at "
           f"{[(k, g.name) for k, g in geomsS]} (n = 32; max_abs_err "
-          f"{errS_random})")
+          f"{errS_random}); mega11 and mega7 (csrc/mega12.cu) == their "
+          f"plain versions on random inputs and keys at B in "
+          f"{[B_MAIN, 300, 9]} at {[g.name for g in geoms_w]} (n = 32; "
+          f"plans (rows a tile, K splits, blocks a cluster) {plans_w})")
 
     # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
     # each kernel of megaJ_legacy.cu, one key at a time (built, used,
@@ -1379,13 +1440,22 @@ def main() -> int:
               f"truth table; launches {counts_m}")
         del out_m
     del plain_m
-    # mega7 on the same blocks j-major: bsk_btj is bsk_bt, block axes swapped
-    key_j = dsk.bsk_bt.transpose(1, 2).contiguous()
+    # mega7 on the same blocks in wgmma's order: per step, bsk_bt's block
+    # axes swapped (bsk_btj), its columns (c, j, q) made (j, c, q)
+    # (bsk_btjj), then mega12.kmajor_order (bsk_btk)
+    kp1_m = P.k + 1
+    key_j = torch.empty(mega12.key_shape(P), dtype=torch.int8, device=dev)
+    for i in range(P.n):
+        blocks = dsk.bsk_bt[i].transpose(0, 1)  # [HALF, R, P, (c, j, q)]
+        jcq = blocks.reshape(*blocks.shape[:3], kp1_m, 4, mega12.P)
+        key_j[i] = mega12.kmajor_order(
+            jcq.transpose(3, 4).reshape(blocks.shape), kp1_m)
+    del blocks, jcq
     for B in (B_MAIN, RADIX_VALUES):  # mega7's warm-up at these shapes
         check(torch.equal(megaJ.mega7_blind_rotate(
             P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), key_j),
-            outs[B]), f"M1: mega7 on bsk_bt's blocks j-major != mega13 at "
-            f"B={B}")
+            outs[B]), f"M1: mega7 on bsk_bt's blocks in bsk_btk's order != "
+            f"mega13 at B={B}")
 
     bt_fused_rotation(P, acc0[:RADIX_VALUES].contiguous(),
                       a_t[:, :RADIX_VALUES].contiguous(), dsk.bsk_bt)
@@ -1513,7 +1583,6 @@ def main() -> int:
               f"{Gp.name}'s geometry, B=9, random inputs")
         del key_g
     torch.cuda.empty_cache()
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plans12 = {B: mega12.kernel_plan(PS, B, n_sms)
                for B in (2560, B_MAIN, 1536, RADIX_VALUES, 65, 9, 1)}
     check(all(pl == tuple(mega12.plan(PS, B, n_sms))[:3]
@@ -1666,17 +1735,18 @@ def main() -> int:
     ctx7, ingest7_s = host_s(lambda: ShortContext(
         PS, msg_bits=2, carry_bits=2, engine="mega7", keys=keys_d,
         seed=args.seed, device=dev))
-    check(ctx7.engine == "mega7" and ctx7.dsk.bsk_btj is not None
-          and ctx7.dsk.bsk_btk is None,
+    check(ctx7.engine == "mega7" and ctx7.dsk.bsk_btk is not None
+          and ctx7.dsk.bsk_btj is None,
           f"ShortContext(engine='mega7') at {PS.name} took engine "
           f"{ctx7.engine}")
-    key7 = ctx7.dsk.bsk_btj
+    key7 = ctx7.dsk.bsk_btk
     a7, b7 = ctx7.encrypt(av), ctx7.encrypt(bv)
     acc0_j, a_t_j = bs.rotation_inputs(
         PS, a7.data * m + b7.data,
         pbs.lut_test_poly(PS, mul_t, ctx7.space_bits, device=dev))
-    err7, plain7_ms = vs_plain("mega7", megaJ.blind_rotate_plain_btj, PS,
-                               acc0_j, a_t_j, key7)
+    err7, plain7_ms = vs_plain("mega7", mega12.blind_rotate_plain_btk, PS,
+                               acc0_j, a_t_j, key7,
+                               widths=(B_MAIN, RADIX_VALUES, 9, 1))
     errs_j["mega7"] = max(errs_j["mega7"], err7)
     reset_counts()
     rot0 = ctx7.rotations
@@ -1692,11 +1762,17 @@ def main() -> int:
     res_j = {"counts": counts_j, "plain_ms": plain7_ms,
              **rotation_times(("mega7",), PS, acc0_j, a_t_j, {"mega7": key7},
                               {"mega7": megaJ_blocks("mega7")})["mega7"]}
+    # mega7 in turns with mega12 on the same key and inputs: one kernel
+    turns7 = in_turns(PS, acc0_j, a_t_j, {
+        "mega7": (megaJ.mega7_blind_rotate, key7),
+        "mega12": (mega12.mega12_blind_rotate, key7)},
+        same=("mega7", "mega12"))
+    report_turns("mega7", PS, turns7, key7.numel())
     print(f"main path J: ShortContext key ingest (fit_engine -> "
-          f"{ctx7.engine}, bsk_btj {key7.numel() / 2**30:.3f} GiB built on "
-          f"the card) {ingest7_s:.1f} s; mega7 == blind_rotate_plain_btj on "
+          f"{ctx7.engine}, bsk_btk {key7.numel() / 2**30:.3f} GiB built on "
+          f"the card) {ingest7_s:.1f} s; mega7 == blind_rotate_plain_btk on "
           f"the first rotation's inputs at B in "
-          f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
+          f"{[B_MAIN, RADIX_VALUES, 9, 1]} (array equality, max_abs_err "
           f"{err7}); (a*b)+a over {B_MAIN} values: "
           f"every value decrypts right and the ciphertexts equal D1's on "
           f"mega12; {j_rot} rotations; launches {counts_j}")
@@ -2137,15 +2213,18 @@ def main() -> int:
             "library_ms": None,
             "ms_b256": res["narrow_ms"],
         })
-    # mega11 and mega8 timed at STD128_K2 (path H), mega7 at STD128_SHORTINT
-    # (path J), beside its STD128_K2 time
+    # mega11 (csrc/mega12.cu's doubled window) and mega8 timed at STD128_K2
+    # (path H), mega7 (its single window) at STD128_SHORTINT (path J),
+    # beside its STD128_K2 time; mega11 and mega7 also in turns with mega12
     for name, line, res in (("mega11", 449, res_h["mega11"]),
                             ("mega8", 236, res_h["mega8"]),
                             ("mega7", 84, res_j)):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "herdsman_tpu_torch/csrc/megaJ.cu",
+            "source": ("herdsman_tpu_torch/csrc/mega12.cu"
+                       if name in megaJ.TENSOR_CORE
+                       else "herdsman_tpu_torch/csrc/megaJ.cu"),
             "replaces": f"herdsman_tpu/ops/pallas/mega.py:{line}",
             **launches(name),
             "matches_plain": errs_j[name] == 0,
@@ -2157,7 +2236,11 @@ def main() -> int:
             "library_ms": None,
             "ms_b256": res["narrow_ms"],
         })
+    kernels[-3].update({f"ms_{k}_in_turns_b{B}": v
+                        for B, t in turns11.items() for k, v in t.items()})
     kernels[-1]["ms_std128_k2"] = res_h["mega7"]["ms"]
+    kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
+                        for B, t in turns7.items() for k, v in t.items()})
     # mega9 and mega6 timed at STD128_K2 in path H, in turns with mega8 and
     # mega7; mega14 at STD128_K4 (path K), beside its STD128_K2 time (A')
     for name, line, res, err_k in (

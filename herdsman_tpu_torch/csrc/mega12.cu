@@ -1,35 +1,68 @@
 // mega12: the whole GINX blind rotation of a ciphertext batch in one launch,
-// on the H100's int8 tensor cores, against the K-major pre-swizzled
-// block-Toeplitz key bsk_btk.
+// on the H100's int8 tensor cores, against a K-major pre-swizzled
+// block-Toeplitz key: one template, two windows.
 //
-// Replaces herdsman_tpu/ops/pallas/mega.py::_mega12_kernel (wrapper
-// mega12_blind_rotate), the integer tier's engine at STD128_SHORTINT.  Same
-// function: for i in 0..n-1 and every ciphertext b of the batch,
+// Replaces three bodies of herdsman_tpu/ops/pallas/mega.py, one function at
+// any gadget with int8 digits:
+//
+//   body                        wrapper              window   key
+//   mega.py:625 _mega12_kernel  mega12_blind_rotate  single   bsk_btk
+//   mega.py:84  _mega7_kernel   mega7_blind_rotate   single   bsk_btk
+//   mega.py:449 _mega11_kernel  mega11_blind_rotate  doubled  bsk_btk2
+//
+// mega12 and mega7 are one instantiation: the TPU's mega7 read bsk_btj,
+// bsk_btjj with its columns in (c, j, q) order, a choice of VMEM; int8 wgmma
+// reads both operands K-major only, so on this card both are this kernel on
+// bsk_btk.  For i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
 //
 // exact mod 2^32.  With d_r the balanced digits of GGSW row r (row r =
 // c_in*levels + level, level 0 most significant; core.reference's
-// signed_decompose, the arithmetic of rotate_decompose.cu) and the stored
-// diagonal block m of the step key holding, at K row p and column (j, c, q),
-// limb j of ext(bsk[i, r, c])[(P*m + q - p) mod 2N] (P = 128, HALF = N/P),
-// column tile ct of output polynomial c takes
+// signed_decompose, the arithmetic of rotate_decompose.cu) and diagonal
+// block m of the step key holding, at K row p and column (j, c, q), limb j
+// of ext(bsk[i, r, c])[(P*m + q - p) mod 2N] (P = 128, HALF = N/P; blocks
+// m >= HALF are the negated blocks m - HALF, since ext(p)[t + N] =
+// -ext(p)[t]), column tile ct of output polynomial c takes, on the single
+// window (stored group m = block m, m < HALF),
 //
 //   part_j[q] =   sum_{m <= ct} sum_r d_r[(ct - m)*P : +P]        . key[m, r][:, (j, c, q)]
 //               - sum_{m > ct}  sum_r d_r[(HALF + ct - m)*P : +P] . key[m, r][:, (j, c, q)]
+//
+// (_ep_column_total_jmajor_packed, blind_rotate.py:129-150) and, on the
+// doubled window (2*HALF stored groups, group g holding block (HALF-1-g) mod
+// 2*HALF, the negated ones stored negated; mega.py:542-547),
+//
+//   part_j[q] = sum_{sub < HALF} sum_r d_r[sub*P : +P] . key[HALF-1-ct+sub, r][:, (j, c, q)]
+//
+// one run with no subtraction; then
+//
 //   acc[c][ct*P + q] += sum_j part_j[q] << 8j                       (mod 2^32)
 //
-// (_ep_column_total_jmajor_packed, blind_rotate.py:129-150, and the
-// limb-major recombine of mega.py:703-715).  Per step that is an int8 GEMM
-// of M = B ciphertexts, K = R*N (R*HALF K blocks of P bytes) and (k+1)*4*N
-// limb columns whose B operand is the stored blocks in block-Toeplitz order:
-// each stored byte serves HALF column tiles.
+// (the limb-major recombine of mega.py:703-715, :528-540).  Per step that is
+// an int8 GEMM of M = B ciphertexts, K = R*N (R*HALF K blocks of P bytes)
+// and (k+1)*4*N limb columns whose B operand is the stored blocks in
+// block-Toeplitz order: on the single window each stored byte serves HALF
+// column tiles.
 //
-// Bound.  One rotation is 2 * n * B * (R*N) * ((k+1)*4*N) int8 operations:
-// 6.33e14 at STD128_SHORTINT and B = 2048, 320.02 ms at the H100's 1,979
-// int8 TOP/s.  The 9.66 GB key read once from device memory takes 2.9 ms at
-// 3.35 TB/s, so the rotation is bound by operations, and they run on the
-// tensor cores: wgmma.mma_async.m64n256k32.s32.s8.s8.
+// Bound.  One rotation is 2 * n * B * (R*N) * ((k+1)*4*N) int8 operations
+// under either window: 6.33e14 at STD128_SHORTINT and B = 2048, 320.02 ms at
+// the H100's 1,979 int8 TOP/s (mega12, mega7), and 5.94e13 at STD128_K2,
+// 30.00 ms (mega11).  The key read once from device memory (9.66 GB single
+// at STD128_SHORTINT, 7.25 GB doubled at STD128_K2) takes 2.9 ms and 2.2
+// ms at 3.35 TB/s, so the rotation is bound by operations, and they run on
+// the tensor cores: wgmma.mma_async.m64n256k32.s32.s8.s8.
+//
+// What the doubled window changes: K block e of column tile ct is (sub = e
+// / R, r = e % R), stored group HALF-1-ct+sub, digit row tile r*HALF + sub
+// (ops/kernels/megaJ.py::blind_rotate_plain_btj2's window), so a tile or
+// split is one run: no negated run, no 32 words kept in registers across
+// it, no subtraction in the epilogue.  Its step key is twice the single
+// one's (9.4 MB at STD128_K2, 25 MB at STD128_SHORTINT; the last stored
+// group, negated block 0, is never read), and the producer does not
+// prefetch the next one into L2: without that prefetch the doubled window
+// ran 3-7% faster at B = 256 and the same at B = 2048, at STD128_K2 and
+// STD128_SHORTINT (utils/mega12_ablation.py, PERF.md).
 //
 // Shape: persistent and step-major.  One block per SM, launched cooperative
 // (every block resident), walks all n steps; the accumulators live in `out`
@@ -60,8 +93,9 @@
 // 64 rows) x BN = 256 columns: the 4 limbs of 64 q (a q half) of output
 // polynomial c in column tile ct, so the limbs of a column meet in one
 // thread's registers (acc[32j + i] holds limb j of what acc[i] holds of limb
-// 0) and are recombined there.  Column units: HALF*(k+1)*2.  plan()
-// (mirrored by ops/kernels/mega12.py::plan) takes BM = 128 where those tiles
+// 0) and are recombined there.  Column units: HALF*(k+1)*2.  A tile has
+// R*HALF K blocks under either window, so one plan() serves both (mirrored
+// by ops/kernels/mega12.py::plan): it takes BM = 128 where those tiles
 // fill three quarters of a wave, else 64, then splits the R*HALF K blocks
 // while the tiles fit one wave, and pairs 128-row M tiles in two-block
 // clusters where there are two or more: at STD128_SHORTINT B = 2048 is 8
@@ -72,13 +106,15 @@
 // count leaves a cluster's second block on pad rows only (B_pad counts
 // whole clusters): it computes and stores nothing of its own.
 //
-// Key: bsk_btk int8 [n, HALF, R, k+1, 2, 256, 128], one B tile (step i,
-// stored block m, row r, polynomial c, q half) per 32 KB: row n = 64j + q'
-// holds limb j of column q = 64*qhalf + q' for K bytes p = 0..127, K-major,
-// its 16-byte chunk ch at chunk ch ^ (n % 8).  The same bytes as bsk_btjj
-// (the same 9 GiB), in the order wgmma reads them: one 1-D bulk copy
-// (cp.async.bulk, no tensor map) lands a tile at a 1024-byte-aligned stage
-// that sw128_desc (LBO 16 B, SBO 1024 B, 128-byte swizzle) reads as it is.
+// Key: bsk_btk int8 [n, HALF, R, k+1, 2, 256, 128] (single) or bsk_btk2
+// [n, 2*HALF, R, k+1, 2, 256, 128] (doubled), one B tile (step i, stored
+// group m, row r, polynomial c, q half) per 32 KB: row n = 64j + q' holds
+// limb j of column q = 64*qhalf + q' for K bytes p = 0..127, K-major, its
+// 16-byte chunk ch at chunk ch ^ (n % 8).  The same bytes as bsk_btjj (9
+// GiB at STD128_SHORTINT) and bsk_btj2j (6.75 GiB at STD128_K2), in the
+// order wgmma reads them: one 1-D bulk copy (cp.async.bulk, no tensor map)
+// lands a tile at a 1024-byte-aligned stage that sw128_desc (LBO 16 B, SBO
+// 1024 B, 128-byte swizzle) reads as it is.
 //
 // Ring.  One producer warp (lane 0) issues, per K block of a tile, the bulk
 // copy of the A tile (BM*128 digit bytes) and of the 32 KB B tile onto the
@@ -90,23 +126,26 @@
 // consumers count the same stages).  A consumer warpgroup waits on full,
 // runs four k32 wgmma on the stage, waits for them (wait_group 0) and each
 // of its warps arrives on the stage's empty barrier in every block of the
-// cluster (a block's producer writes the stage in both).  On the producer's
-// last tile of a step it prefetches its share of the next step's key into
-// L2.  L2 bytes per operation: a stage of 16 KB + 32 KB feeds 128 x 256 x
+// cluster (a block's producer writes the stage in both).  On the single
+// window the producer's last tile of a step prefetches its share of the
+// next step's key into L2.  L2 bytes per operation: a stage of 16 KB + 32 KB feeds 128 x 256 x
 // 128 MACs, 171 int8 operations per byte (256 with the key tile shared by a
 // cluster; the dp4a design read 16).
 //
-// Negated run.  A tile (or split) walks its negated K blocks (m > ct) first,
-// then the positive ones, each run in accumulators that its first wgmma
-// starts (scale-d 0); after the negated run its recombined words are kept
-// in 32 registers, and the epilogue stores or adds positive minus negated.
-// So no instruction but wgmma writes the accumulators inside a run, and the
-// run is subtracted as an int32 partial, never as negated digits (the
-// digits of -x are not -digits(x)).
+// Negated run (single window).  A tile (or split) walks its negated K
+// blocks (m > ct) first, then the positive ones, each run in accumulators
+// that its first wgmma starts (scale-d 0); after the negated run its
+// recombined words are kept in 32 registers, and the epilogue stores or
+// adds positive minus negated.  So no instruction but wgmma writes the
+// accumulators inside a run, and the run is subtracted as an int32
+// partial, never as negated digits (the digits of -x are not -digits(x)).
+// The doubled window has one run a tile or split, its first wgmma starting
+// the accumulators, and the epilogue stores or adds its words.
 //
 // Exactness.  |digit| <= Bg/2 <= 128 and limbs are balanced int8, so one
 // column's partial over a run is at most R*N*2^14 in size: under 2^31 for
-// R*N < 2^17 (12,288 at STD128_SHORTINT, 16,384 at _L4).  Beyond, the wrap
+// R*N < 2^17 (12,288 at STD128_SHORTINT, 16,384 at _L4, 3,072 at
+// STD128_K2), under either window.  Beyond, the wrap
 // is harmless: wgmma's s32 sums without .satfinite wrap mod 2^32, and the
 // recombine sum_j part_j << 8j, the subtraction and the split sum are
 // linear mod 2^32.
@@ -239,10 +278,18 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int t, int rank) {
   return tl;
 }
 
-// K block e of column tile ct, negated run first: stored block m, GGSW row
-// r, digit row tile sub (of row r)
+// K block e of column tile ct: stored group m, GGSW row r, digit row tile
+// sub (of row r); on the single window the negated run first, on the
+// doubled one run of groups HALF-1-ct .. 2*HALF-2-ct
+template <bool DBL>
 __device__ __forceinline__ void k_block(int e, int ct, int R, int HALF,
                                        int& m, int& r, int& sub) {
+  if (DBL) {
+    sub = e / R;
+    r = e % R;
+    m = HALF - 1 - ct + sub;
+    return;
+  }
   const int nneg = (HALF - 1 - ct) * R;
   if (e < nneg) {
     m = ct + 1 + e / R;
@@ -300,7 +347,13 @@ __device__ __forceinline__ uint32_t word_of(const int (&acc)[128], int i) {
          (static_cast<uint32_t>(acc[96 + i]) << 24);
 }
 
-template <int NWG, int CL>
+// this block's share of a step key's first `tiles` tiles, into L2
+__device__ __forceinline__ void prefetch_step(const int8_t* key, size_t tiles) {
+  for (size_t x = blockIdx.x; x < tiles; x += gridDim.x)
+    prefetch_l2(key + x * B_BYTES, B_BYTES);
+}
+
+template <int NWG, int CL, bool DBL>
 __global__ void __launch_bounds__(Geom<NWG>::THREADS, 1)
 mega12_kernel(const Args a) {
   using G = Geom<NWG>;
@@ -321,7 +374,8 @@ mega12_kernel(const Args a) {
   if (CL > 1) cluster_sync();  // the peers' barriers are set up
 
   const int wg = tid / 128;  // NWG: the producer warp
-  const size_t step_tiles = static_cast<size_t>(a.HALF) * a.R * a.kp1 * 2;
+  const size_t step_tiles =  // key tiles a step stores
+      static_cast<size_t>(DBL ? 2 * a.HALF : a.HALF) * a.R * a.kp1 * 2;
   uint32_t it = 0;  // stages of the ring used so far
   for (int i = 0; i < a.n; ++i) {
     digit_phase(a, i);
@@ -333,17 +387,16 @@ mega12_kernel(const Args a) {
         asm volatile("fence.proxy.async.global;" ::: "memory");
         const int8_t* kstep = a.key + static_cast<size_t>(i) * step_tiles * B_BYTES;
         const int8_t* knext = kstep + step_tiles * B_BYTES;
-        bool prefetched = i + 1 >= a.n;
+        bool prefetched = DBL || i + 1 >= a.n;  // the single window's
         for (int t = blockIdx.x / CL; t < a.tiles; t += gridDim.x / CL) {
           const Tile tl = tile_of<CL>(a, t, rank);
           if (!prefetched && t + static_cast<int>(gridDim.x / CL) >= a.tiles) {
-            for (size_t x = blockIdx.x; x < step_tiles; x += gridDim.x)
-              prefetch_l2(knext + x * B_BYTES, B_BYTES);
+            prefetch_step(knext, step_tiles);
             prefetched = true;
           }
           for (int e = tl.e0; e < tl.e1; ++e, ++it) {
             int m, r, sub;
-            k_block(e, tl.ct, a.R, a.HALF, m, r, sub);
+            k_block<DBL>(e, tl.ct, a.R, a.HALF, m, r, sub);
             const int s = it % G::STAGES;
             mbar_wait(&empty[s], ((it / G::STAGES) & 1) ^ 1);
             uint8_t* at = ring + s * G::STAGE;
@@ -365,9 +418,7 @@ mega12_kernel(const Args a) {
             }
           }
         }
-        if (!prefetched)  // a block with no tile this step
-          for (size_t x = blockIdx.x; x < step_tiles; x += gridDim.x)
-            prefetch_l2(knext + x * B_BYTES, B_BYTES);
+        if (!prefetched) prefetch_step(knext, step_tiles);  // no tile here
       }
       __syncwarp();
     } else {
@@ -378,13 +429,19 @@ mega12_kernel(const Args a) {
       for (int t = blockIdx.x / CL; t < a.tiles; t += gridDim.x / CL) {
         const Tile tl = tile_of<CL>(a, t, rank);
         const int nkb = tl.e1 - tl.e0;
-        int neg_end = (a.HALF - 1 - tl.ct) * a.R - tl.e0;  // negated blocks
-        neg_end = neg_end < 0 ? 0 : (neg_end > nkb ? nkb : neg_end);
+        int neg_end = 0;  // negated blocks of the single window
+        if (!DBL) {
+          neg_end = (a.HALF - 1 - tl.ct) * a.R - tl.e0;
+          neg_end = neg_end < 0 ? 0 : (neg_end > nkb ? nkb : neg_end);
+        }
         int acc[128];
         uint32_t negw[32];
-        mma_run<NWG, CL>(acc, neg_end, it, a_s, b_s, full, empty);
+        if (!DBL) {
+          mma_run<NWG, CL>(acc, neg_end, it, a_s, b_s, full, empty);
 #pragma unroll
-        for (int x = 0; x < 32; ++x) negw[x] = neg_end > 0 ? word_of(acc, x) : 0u;
+          for (int x = 0; x < 32; ++x)
+            negw[x] = neg_end > 0 ? word_of(acc, x) : 0u;
+        }
         mma_run<NWG, CL>(acc, nkb - neg_end, it, a_s, b_s, full, empty);
         const bool pos = nkb > neg_end;
 
@@ -400,8 +457,12 @@ mega12_kernel(const Args a) {
           for (int t8 = 0; t8 < 8; ++t8) {
             const int q = 8 * t8 + 2 * (lane & 3);
             const int x = 4 * t8 + 2 * h;
-            const uint32_t v0 = (pos ? word_of(acc, x) : 0u) - negw[x];
-            const uint32_t v1 = (pos ? word_of(acc, x + 1) : 0u) - negw[x + 1];
+            uint32_t v0 = pos ? word_of(acc, x) : 0u;
+            uint32_t v1 = pos ? word_of(acc, x + 1) : 0u;
+            if (!DBL) {
+              v0 -= negw[x];
+              v1 -= negw[x + 1];
+            }
             uint32_t* o = a.out + row + q;
             if (a.splits > 1) {
               atomicAdd(o, v0);
@@ -448,10 +509,10 @@ bool bad_shape(int B, int N, int kp1, int bg_bits, int levels) {
          levels < 1 || bg_bits * levels > 32;
 }
 
-template <int NWG, int CL>
+template <int NWG, int CL, bool DBL>
 cudaError_t launch(const Args& a, int n_sms, cudaStream_t stream) {
   using G = Geom<NWG>;
-  auto kern = mega12_kernel<NWG, CL>;
+  auto kern = mega12_kernel<NWG, CL, DBL>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return e;
@@ -488,6 +549,15 @@ cudaError_t launch(const Args& a, int n_sms, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the instantiation of window DBL that plan p takes
+template <bool DBL>
+cudaError_t launch_plan(const Args& a, const Plan& p, int n_sms,
+                        cudaStream_t s) {
+  if (p.bm == 64) return launch<1, 1, DBL>(a, n_sms, s);
+  return p.cluster == 2 ? launch<2, 2, DBL>(a, n_sms, s)
+                        : launch<2, 1, DBL>(a, n_sms, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -506,16 +576,18 @@ int mega12_plan(int B, int N, int kp1, int R, int n_sms, int* bm, int* splits,
   return cudaSuccess;
 }
 
-// a_t [n, B] i32 in [0, 2N), key bsk_btk [n, N/128, kp1*levels, kp1, 2, 256,
-// 128] int8, out [B, kp1, N] u32 holding acc0 (the result replaces it), dig
-// a scratch of kp1*levels*N*ceil(B/256)*256 bytes, bar a 4-byte scratch, all
-// device pointers (key and dig 16-byte aligned); N a power of two in [128,
-// 2048], kp1 in {2, 3, 5}, 1 <= bg_bits <= 8, bg_bits*levels <= 32.  Sets
-// bar to 0 and launches on `stream`; returns the first error.
+// a_t [n, B] i32 in [0, 2N), key int8 bsk_btk [n, N/128, kp1*levels, kp1,
+// 2, 256, 128] (doubled 0) or bsk_btk2 [n, 2*N/128, ...] (doubled 1), out
+// [B, kp1, N] u32 holding acc0 (the result replaces it), dig a scratch of
+// kp1*levels*N*ceil(B/256)*256 bytes, bar a 4-byte scratch, all device
+// pointers (key and dig 16-byte aligned); N a power of two in [128, 2048],
+// kp1 in {2, 3, 5}, 1 <= bg_bits <= 8, bg_bits*levels <= 32.  Sets bar to 0
+// and launches on `stream`; returns the first error.
 int mega12_blind_rotate(const void* a_t, const void* key, void* out, void* dig,
                         void* bar, int B, int n, int N, int kp1, int bg_bits,
-                        int levels, void* stream) {
-  if (n <= 0 || bad_shape(B, N, kp1, bg_bits, levels))
+                        int levels, int doubled, void* stream) {
+  if (n <= 0 || bad_shape(B, N, kp1, bg_bits, levels) ||
+      (doubled != 0 && doubled != 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int dev = 0, n_sms = 0;
@@ -534,8 +606,8 @@ int mega12_blind_rotate(const void* a_t, const void* key, void* out, void* dig,
          static_cast<uint32_t*>(out), static_cast<int8_t*>(dig),
          static_cast<unsigned*>(bar), B, (B + rows - 1) / rows * rows, n, N,
          log2_n4, N / P, kp1, levels, R, bg_bits, p.splits, p.units, p.tiles};
-  if (p.bm == 64) return launch<1, 1>(a, n_sms, s);
-  return p.cluster == 2 ? launch<2, 2>(a, n_sms, s) : launch<2, 1>(a, n_sms, s);
+  return doubled ? launch_plan<true>(a, p, n_sms, s)
+                 : launch_plan<false>(a, p, n_sms, s);
 }
 
 const char* mega12_error_string(int err) {

@@ -1,15 +1,16 @@
 // megaJ: the whole GINX blind rotation of a ciphertext batch in one launch,
-// against the j-major block-Toeplitz int8 keys, in five variants:
+// against the j-major block-Toeplitz int8 keys, in three variants:
 //
 //   variant  replaces (herdsman_tpu/ops/pallas/)                  key        window   columns   schedule
-//   11       mega.py::_mega11_kernel (wrapper mega11_blind_rotate)  bsk_btj2j  doubled  (j, c, q)  serial
 //    8       mega.py::_mega8_kernel  (wrapper mega8_blind_rotate)   bsk_btj2   doubled  (c, j, q)  serial
-//    7       mega.py::_mega7_kernel  (wrapper mega7_blind_rotate)   bsk_btj    single   (c, j, q)  serial
 //    9       legacy.py::_mega9_kernel (wrapper mega9_blind_rotate)  bsk_btj2   doubled  (c, j, q)  overlap
 //    6       legacy.py::_mega6_kernel (wrapper mega6_blind_rotate)  bsk_btj    single   (c, j, q)  staged
 //
-// All five compute what csrc/mega12.cu computes: for i in 0..n-1 and every
-// ciphertext b of the batch,
+// (mega.py's _mega11_kernel and _mega7_kernel, the serial schedule on the
+// limb-major doubled window and on the single width, are csrc/mega12.cu's
+// two instantiations on int8 tensor cores.)  All three compute what
+// csrc/mega12.cu computes: for i in 0..n-1 and every ciphertext b of the
+// batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
 //
@@ -21,8 +22,8 @@
 // blocks m >= HALF are the negated blocks m - HALF, since ext(p)[t + N] =
 // -ext(p)[t].
 //
-// The doubled window (bsk_btj2j, bsk_btj2: [n, 2*HALF, R, P, C4P]) stores
-// block (HALF-1-g) mod 2*HALF at group g, so column tile ct's whole
+// The doubled window (bsk_btj2: [n, 2*HALF, R, P, C4P]) stores block
+// (HALF-1-g) mod 2*HALF at group g, so column tile ct's whole
 // contraction, both runs, is one run of HALF*R*P terms (mega.py:542-547,
 // :341-345):
 //
@@ -41,10 +42,8 @@
 //
 //   acc[c][ct*P + q] += sum_j part_j[q] << 8j                  (mod 2^32)
 //
-// the recombine of mega.py:528-540 (limb-major columns) and :150-161,
-// :308-319 (per output polynomial); the two column orders only move where a
-// thread's key columns sit, so they share one recombine here.  Digits are
-// those of core.reference.signed_decompose (round to the top W =
+// the recombine of mega.py:150-161, :308-319 (per output polynomial).
+// Digits are those of core.reference.signed_decompose (round to the top W =
 // bg_bits*levels bits, add the balanced offset, read the levels, subtract
 // Bg/2), which the JAX kernels' base and "sx" extractions both compute.
 //
@@ -54,9 +53,9 @@
 // linear mod 2^32 in any case: the result is exact mod 2^32.
 //
 // Bound.  One rotation is n * B * (R*N) * ((k+1)*4*N) int8 MACs: 2.97e13 at
-// STD128_K2 and B = 2048, 30.00 ms at the H100's 1,979 int8 TOP/s (mega11,
-// mega8), and 3.17e14 at STD128_SHORTINT, 320.02 ms (mega7).  The doubled
-// key is 6.75 GiB at STD128_K2 and the single one 9.0 GiB at
+// STD128_K2 and B = 2048, 30.00 ms at the H100's 1,979 int8 TOP/s, and
+// 3.17e14 at STD128_SHORTINT, 320.02 ms.  The doubled key is 6.75 GiB at
+// STD128_K2 and the single one 9.0 GiB at
 // STD128_SHORTINT (2.2 ms and 2.9 ms at 3.35 TB/s if read once per rotation
 // from device memory), and one step's block (9.4 MB and 12.6 MB) stays in
 // the 50 MB L2 while every block reads it, so the work is bound by
@@ -67,11 +66,11 @@
 // half of the dp4a rate these loops reach on an H100 (PERF.md), and
 // staging those words in shared memory (the staged schedule) made the loop
 // slower, so the L2 traffic of key words, not their latency, is the likely
-// limit.  Right and simple first; reuse of a staged key block across
-// column tiles, and mma/wgmma, are later work.
+// limit.  csrc/mega12.cu runs the same function on wgmma (PERF.md).
 //
-// Design of the serial schedule (11, 8, 7): csrc/mega12.cu's, which the TPU
-// kernels' VMEM group scratch and digit pack order do not carry over to.
+// Design of the serial schedule (8): csrc/mega12.cu's first design, which
+// the TPU kernels' VMEM group scratch and digit pack order do not carry
+// over to.
 // Hopper blocks run in no order, so each block owns G ciphertexts for all
 // n steps and loops over i itself; no step needs a grid-wide sync.  Per
 // step the block
@@ -85,8 +84,8 @@
 //      order), reads one 32-bit key word from each of 4 consecutive K rows,
 //      turns them into 4 column words with byte permutes, and runs 4*G
 //      __dp4a per 4 K rows, each digit word a shared-memory broadcast; the
-//      doubled variants walk one run of HALF*R blocks of P K rows, the
-//      single width two;
+//      doubled window walks one run of HALF*R blocks of P K rows, the
+//      single width (variant 6) two;
 //   3. shifts its partials by 8j and adds them into the accumulators with
 //      shared-memory atomics (the 4 limbs of a column sit in 4 warps).
 // Accumulators plus digits fit G = 8 in one block's 232,448 bytes for N =
@@ -128,8 +127,9 @@
 // prefetch.  Two buffers of KC rows per group: KC = 32 (128 KB) where it
 // fits beside G's accumulators and digits (G = 8 at STD128_K2), else KC =
 // 16 (64 KB; G = 4 at STD128_SHORTINT, G = 8 at STD128).  It answers
-// whether L2 latency on key words holds the serial loop back: no, it runs
-// 36% slower than mega7's at STD128_K2 on an H100 (PERF.md).
+// whether L2 latency on key words holds the serial loop back: no, it ran
+// 36% slower than the serial schedule on the same key (the dp4a mega7) at
+// STD128_K2 on an H100 (PERF.md).
 
 //
 // The device code and launch helpers sit in csrc/megaJ_common.cuh, which
@@ -144,8 +144,7 @@ int schedule(int variant) {
 }
 
 bool known(int variant) {
-  return variant == 11 || variant == 8 || variant == 7 || variant == 9 ||
-         variant == 6;
+  return variant == 8 || variant == 9 || variant == 6;
 }
 
 }  // namespace
@@ -162,9 +161,9 @@ int megaJ_ciphertexts_per_block(int variant, int B, int N, int kp1, int R,
   return sched == OVERLAP ? 2 * G : G;
 }
 
-// variant 11 (key bsk_btj2j [n, 2*N/128, R, 128, kp1*4*128]), 8 and 9
-// (bsk_btj2, the same shape) or 7 and 6 (bsk_btj [n, N/128, R, 128,
-// kp1*4*128]), all int8, R = kp1*levels; acc0 [B, kp1, N] u32, a_t [n, B]
+// variant 8 and 9 (key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128]) or 6
+// (bsk_btj [n, N/128, R, 128, kp1*4*128]), all int8, R = kp1*levels;
+// acc0 [B, kp1, N] u32, a_t [n, B]
 // i32 in [0, 2N), out [B, kp1, N] u32, all device pointers; N a power of
 // two in [128, 2048], kp1 in {2, 3, 5}, 1 <= bg_bits <= 8, `sms` the card's
 // SM count.  Launches on `stream` and returns cudaGetLastError().
@@ -182,11 +181,9 @@ int megaJ_blind_rotate(int variant, const void* acc0, const void* a_t,
                sched == STAGED ? pick_kc(sched, G, N, kp1, R) : 0,
                static_cast<cudaStream_t>(stream)};
   switch (variant) {
-    case 11: return launch_kp1<true, true, SERIAL>(kp1, G, a);
-    case 8: return launch_kp1<true, false, SERIAL>(kp1, G, a);
-    case 7: return launch_kp1<false, false, SERIAL>(kp1, G, a);
-    case 9: return launch_kp1<true, false, OVERLAP>(kp1, G, a);
-    case 6: return launch_kp1<false, false, STAGED>(kp1, G, a);
+    case 8: return launch_kp1<true, SERIAL>(kp1, G, a);
+    case 9: return launch_kp1<true, OVERLAP>(kp1, G, a);
+    case 6: return launch_kp1<false, STAGED>(kp1, G, a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,5 @@
 // megaJ_common.cuh: the device code and launch helpers that csrc/megaJ.cu
-// (variants 11, 8, 7, 9, 6), csrc/megaJ_legacy.cu (variants 10, 4, 5, and
+// (variants 8, 9, 6), csrc/megaJ_legacy.cu (variants 10, 4, 5, and
 // the tensor-core variant 3) and csrc/megaR.cu (variants 1 and 2, on the
 // R-major key) share: the block layout, the digit phase, the dp4a
 // contraction of one (column tile, output polynomial) unit, the staged
@@ -27,7 +27,7 @@ constexpr int BD = 4 * GROUP;     // contraction threads per block
 constexpr int SMEM_PER_BLOCK = 232448;  // bytes one H100 block may use
 
 // schedules
-constexpr int SERIAL = 0;   // 11, 8, 7: digits, __syncthreads, contraction
+constexpr int SERIAL = 0;   // 8: digits, __syncthreads, contraction
 constexpr int OVERLAP = 1;  // 9: a producer warp's digits beside the contraction
 constexpr int STAGED = 2;   // 6: cp.async double-buffered key rows
 constexpr int FUSED = 3;    // 10: SERIAL with the poly-fused digit pass
@@ -280,7 +280,7 @@ __device__ __forceinline__ void digit_phase(const uint32_t* acc, uint32_t* dig,
 // and 4 columns from qq on, key words from L2 (__ldg).  A single-width step
 // key holds block (m, r) at (m * R + r) * BLOCK (step-major by stored block,
 // bsk_btj), or with R_MAJOR at (r * HALF + m) * BLOCK (bsk_bt)
-template <int G, int KP1, bool DOUBLED, bool LIMB_MAJOR, bool R_MAJOR = false>
+template <int G, int KP1, bool DOUBLED, bool R_MAJOR = false>
 __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
                                               const uint32_t* __restrict__ dig,
                                               int ct, int c, int j, int qq,
@@ -294,7 +294,7 @@ __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
 #pragma unroll
     for (int k = 0; k < 4; ++k) part[g][k] = 0;
   // this thread's 4 columns: limb j of output polynomial c
-  const int8_t* kcol = kstep + (LIMB_MAJOR ? j * KP1 + c : c * 4 + j) * P + qq;
+  const int8_t* kcol = kstep + (c * 4 + j) * P + qq;
   if constexpr (DOUBLED) {
     // one run: digit chunk sub against group HALF-1-ct+sub
     const int8_t* kw = kcol + static_cast<size_t>(HALF - 1 - ct) * R * BLOCK;
@@ -470,7 +470,7 @@ __device__ __forceinline__ void contract_staged(
 
 // Every dp4a schedule: a block owns GB ciphertexts for all n steps, their
 // accumulators resident in shared memory.
-template <int G, int KP1, bool DOUBLED, bool LIMB_MAJOR, int SCHED>
+template <int G, int KP1, bool DOUBLED, int SCHED>
 __global__ void __launch_bounds__(SCHED == OVERLAP ? BD + PRODUCER : BD, 1)
 megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
              const int32_t* __restrict__ a_t,    // [n, B] in [0, 2N)
@@ -553,7 +553,7 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
           const int ct = unit / KP1;
           const int c = unit - ct * KP1;
           int part[G][4];
-          contract_unit<G, KP1, DOUBLED, LIMB_MAJOR>(kstep, dig_h, ct, c, j, qq,
+          contract_unit<G, KP1, DOUBLED>(kstep, dig_h, ct, c, j, qq,
                                                      R, HALF, N4, part);
           recombine<G, KP1>(acc_h, part, ct, c, j, qq, N);
         }
@@ -583,7 +583,7 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
           const int ct = unit / KP1;
           const int c = unit - ct * KP1;
           int part[G][4];
-          contract_unit<G, KP1, DOUBLED, LIMB_MAJOR>(kstep, dig, ct, c, j, qq,
+          contract_unit<G, KP1, DOUBLED>(kstep, dig, ct, c, j, qq,
                                                      R, HALF, N4, part);
           recombine<G, KP1>(acc, part, ct, c, j, qq, N);
         }
@@ -669,10 +669,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int G, int KP1, bool DOUBLED, bool LIMB_MAJOR, int SCHED>
+template <int G, int KP1, bool DOUBLED, int SCHED>
 cudaError_t launch(const Args& a) {
   const size_t smem = smem_bytes(SCHED, G, a.N, KP1, KP1 * a.levels, a.kc);
-  auto kern = megaJ_kernel<G, KP1, DOUBLED, LIMB_MAJOR, SCHED>;
+  auto kern = megaJ_kernel<G, KP1, DOUBLED, SCHED>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -706,31 +706,31 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int KP1, bool DOUBLED, bool LIMB_MAJOR, int SCHED>
+template <int KP1, bool DOUBLED, int SCHED>
 cudaError_t launch_g(int G, const Args& a) {
   if constexpr (SCHED == WIDE) {
     switch (G) {
-      case 16: return launch<16, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
-      case 12: return launch<12, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
-      case 6: return launch<6, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
+      case 16: return launch<16, KP1, DOUBLED, SCHED>(a);
+      case 12: return launch<12, KP1, DOUBLED, SCHED>(a);
+      case 6: return launch<6, KP1, DOUBLED, SCHED>(a);
       default: break;
     }
   }
   switch (G) {
-    case 8: return launch<8, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
-    case 4: return launch<4, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
-    case 2: return launch<2, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
-    case 1: return launch<1, KP1, DOUBLED, LIMB_MAJOR, SCHED>(a);
+    case 8: return launch<8, KP1, DOUBLED, SCHED>(a);
+    case 4: return launch<4, KP1, DOUBLED, SCHED>(a);
+    case 2: return launch<2, KP1, DOUBLED, SCHED>(a);
+    case 1: return launch<1, KP1, DOUBLED, SCHED>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool DOUBLED, bool LIMB_MAJOR, int SCHED>
+template <bool DOUBLED, int SCHED>
 cudaError_t launch_kp1(int kp1, int G, const Args& a) {
   switch (kp1) {
-    case 2: return launch_g<2, DOUBLED, LIMB_MAJOR, SCHED>(G, a);
-    case 3: return launch_g<3, DOUBLED, LIMB_MAJOR, SCHED>(G, a);
-    case 5: return launch_g<5, DOUBLED, LIMB_MAJOR, SCHED>(G, a);
+    case 2: return launch_g<2, DOUBLED, SCHED>(G, a);
+    case 3: return launch_g<3, DOUBLED, SCHED>(G, a);
+    case 5: return launch_g<5, DOUBLED, SCHED>(G, a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -79,7 +79,8 @@
 // each chunk of key rows in shared memory once (variant 6's schedule) and
 // applies every key word it reads to all of them: each key byte crosses L2
 // once per 16 ciphertexts at STD128_K2, half the traffic of variant 6,
-// which staged with no more reuse and ran 36% slower than mega7 (PERF.md).
+// which staged with no more reuse and ran 36% slower than the serial
+// schedule on the same key (PERF.md).
 // G is the widest of 16, 12, 8, 6, 4, 2, 1 whose accumulators, digits and
 // two buffers of kc rows (16, else 8) fit a block while the launch still
 // fills half the SMs, and variant 6's least-cost rule below that:
@@ -312,9 +313,9 @@ int megaJ_legacy_blind_rotate(int variant, const void* acc0, const void* a_t,
                stages_key(sched) ? pick_kc(sched, G, N, kp1, R) : 0,
                static_cast<cudaStream_t>(stream)};
   switch (variant) {
-    case 10: return launch_kp1<true, false, FUSED>(kp1, G, a);
-    case 4: return launch_kp1<false, false, CLUSTER>(kp1, G, a);
-    case 5: return launch_kp1<false, false, WIDE>(kp1, G, a);
+    case 10: return launch_kp1<true, FUSED>(kp1, G, a);
+    case 4: return launch_kp1<false, CLUSTER>(kp1, G, a);
+    case 5: return launch_kp1<false, WIDE>(kp1, G, a);
     default: return cudaErrorInvalidValue;
   }
 }

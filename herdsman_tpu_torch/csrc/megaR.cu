@@ -7,13 +7,14 @@
 //   1        _mega_kernel  (wrapper mega_blind_rotate)      row-phased, key rows staged by TMA
 //   2        _mega2_kernel (wrapper mega2_blind_rotate)     inline, next step's key prefetched to L2
 //
-// Both compute what csrc/megaJ.cu's variant 7 computes (its note gives the
-// arithmetic): for i in 0..n-1 and every ciphertext b of the batch,
+// Both compute the single width's function of csrc/megaJ.cu's variant 6
+// (its note gives the arithmetic): for i in 0..n-1 and every ciphertext b
+// of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
 //
 // exact mod 2^32, at any gadget with int8 digits.  bsk_bt holds the bytes
-// of variant 7's bsk_btj with the two block axes swapped: block (r, m) of
+// of variant 6's bsk_btj with the two block axes swapped: block (r, m) of
 // step i, GGSW row r and stored diagonal block m, is [P, C4P] at
 // (r * HALF + m) * P * C4P, where bsk_btj has it at (m * R + r) * P * C4P.
 // Column tile ct contracts stored block m against digit chunk (ct - m) mod
@@ -64,8 +65,8 @@
 // all R row contractions and the CMux accumulate, its only scratch the
 // accumulator, with the next cell's key block double-buffered by the
 // BlockSpec pipeline (legacy.py:165-233, :277-281).  Here the contraction
-// is megaJ.cu variant 7's serial loop with the (m, r) strides swapped
-// (contract_unit<..., R_MAJOR> of megaJ_common.cuh): per (column tile,
+// is the serial dp4a loop of megaJ_common.cuh on the single width with
+// the (m, r) strides swapped (contract_unit<..., R_MAJOR>): per (column tile,
 // output polynomial) unit, the negated run of HALF-1-ct blocks over all R
 // rows, its partial negated once, then the positive run, then the
 // recombine.  What is new is the prefetch: at the start of step i each
@@ -372,8 +373,8 @@ inline_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
       const int ct = unit / KP1;
       const int c = unit - ct * KP1;
       int part[G][4];
-      contract_unit<G, KP1, false, false, true>(kstep, dig, ct, c, j, qq, R,
-                                                HALF, N4, part);
+      contract_unit<G, KP1, false, true>(kstep, dig, ct, c, j, qq, R, HALF,
+                                         N4, part);
       recombine<G, KP1>(acc, part, ct, c, j, qq, N);
     }
   }

@@ -13,22 +13,24 @@ through one of three kinds of engine:
   default) is the hand-written CUDA kernel ``csrc/megaS.cu`` (int8 tensor
   cores, the key a register operand built from the compact stream key
   ``bsk_btS``) on a CUDA tensor and its plain PyTorch version on a CPU
-  tensor; ``mega12`` (the
-  integer tier's engine, the JAX package's ``pallas_mega12``) is
-  ``csrc/mega12.cu`` on int8 tensor cores against ``bsk_btk`` (the JAX
-  package's ``bsk_btjj`` in ``wgmma``'s byte order); ``mega16``, ``mega17``
-  and ``mega15`` (the JAX package's engines of the same names, at the
+  tensor; ``mega12`` (the integer tier's engine, the JAX package's
+  ``pallas_mega12``) is ``csrc/mega12.cu`` on int8 tensor cores against
+  ``bsk_btk`` (the JAX package's ``bsk_btjj`` in ``wgmma``'s byte order),
+  and so is ``mega7`` (the same function; the JAX package's
+  ``pallas_mega7`` read the same blocks with other columns), and
+  ``mega11`` that source's doubled window against ``bsk_btk2``
+  (``bsk_btj2j`` in ``wgmma``'s order); ``mega16``, ``mega17`` and
+  ``mega15`` (the JAX package's engines of the same names, at the
   byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
   ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key, and ``mega14``
   (levels 2, N >= 256) ``csrc/megaS.cu``'s second instantiation against
-  the extended ``bsk_btTe`` (one run per column tile); ``mega11``, ``mega8`` and ``mega7`` (the JAX
-  package's engines of the same names, any gadget) are ``csrc/megaJ.cu``
-  against the j-major block-Toeplitz keys ``bsk_btj2j`` and ``bsk_btj2``
-  (doubled window, one contraction per column tile) and ``bsk_btj``
-  (single width, the negated run subtracted), and ``mega9`` and ``mega6``
-  (the JAX package's legacy engines) the same source on ``mega8``'s and
-  ``mega7``'s keys with another schedule; the legacy ``mega10`` (on
-  ``mega8``'s key), ``mega4`` and ``mega5`` (on ``mega7``'s) are
+  the extended ``bsk_btTe`` (one run per column tile); ``mega8`` (the JAX
+  package's engine of that name, any gadget) is ``csrc/megaJ.cu`` against
+  the j-major doubled window ``bsk_btj2`` (one contraction per column
+  tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
+  the same source on ``bsk_btj2`` and on the single width ``bsk_btj`` (the
+  negated run subtracted) with other schedules; the legacy ``mega10`` (on
+  ``bsk_btj2``), ``mega4`` and ``mega5`` (on ``bsk_btj``) are
   ``csrc/megaJ_legacy.cu``'s further schedules, and ``mega3`` its
   tensor-core kernel on ``bsk_btj`` in fragment order (``bsk_btjm``); the
   legacy ``mega`` (row-phased, TMA-staged key rows) and ``mega2`` (inline,
@@ -119,9 +121,9 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega17": (megaT.mega17_blind_rotate, "bsk_btTc"),
     "mega15": (megaT.mega15_blind_rotate, "bsk_btTc"),
     "mega14": (megaT.mega14_blind_rotate, "bsk_btTe"),
-    "mega11": (megaJ.mega11_blind_rotate, "bsk_btj2j"),
+    "mega11": (megaJ.mega11_blind_rotate, "bsk_btk2"),
     "mega8": (megaJ.mega8_blind_rotate, "bsk_btj2"),
-    "mega7": (megaJ.mega7_blind_rotate, "bsk_btj"),
+    "mega7": (megaJ.mega7_blind_rotate, "bsk_btk"),
     "mega9": (megaJ.mega9_blind_rotate, "bsk_btj2"),
     "mega6": (megaJ.mega6_blind_rotate, "bsk_btj"),
     "mega10": (megaJ.mega10_blind_rotate, "bsk_btj2"),

@@ -12,7 +12,10 @@ the kernel's ``wgmma`` reads them (``kmajor_order``).  On a CUDA tensor it
 launches the hand-written kernel (one launch per rotation, counted in
 ``mega12_blind_rotate.launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btk``.  The source note in ``csrc/mega12.cu`` gives
-the kernel's design and bound; ``plan`` mirrors its tiling.
+the kernel's design and bound; ``plan`` mirrors its tiling.  The same
+source also serves ``megaJ.mega7_blind_rotate`` (this kernel on this key)
+and ``megaJ.mega11_blind_rotate`` (its doubled window on ``bsk_btk2``),
+each through ``launch`` with its own counter.
 
 ``check_args``, ``pack_digits``, ``recombine`` and the j-major contraction
 ``blind_rotate_plain_btjj`` also serve ``megaJ``'s plain versions.
@@ -83,9 +86,11 @@ def check_params(p: TFHEParams, name: str = "mega12") -> None:
                          f"({p.name})")
 
 
-def key_shape(p: TFHEParams) -> tuple[int, ...]:
-    """Shape of ``bsk_btk`` at ``p``: [n, HALF, R, k+1, 2, 256, 128]."""
-    return (p.n, p.N // P, (p.k + 1) * p.levels, p.k + 1, P // QH, BN, P)
+def key_shape(p: TFHEParams, doubled: bool = False) -> tuple[int, ...]:
+    """Shape of ``bsk_btk`` at ``p``: [n, HALF, R, k+1, 2, 256, 128]; with
+    ``doubled``, of ``bsk_btk2``: [n, 2*HALF, R, k+1, 2, 256, 128]."""
+    groups = (2 if doubled else 1) * (p.N // P)
+    return (p.n, groups, (p.k + 1) * p.levels, p.k + 1, P // QH, BN, P)
 
 
 def check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
@@ -126,11 +131,12 @@ def _swizzle128(t: torch.Tensor) -> torch.Tensor:
 
 
 def kmajor_order(bsk_btjj: torch.Tensor, kp1: int) -> torch.Tensor:
-    """``bsk_btk`` from ``bsk_btjj`` (leading dimensions, then [HALF, R, P,
-    (k+1)*4*P] with columns (j, c, q)): [..., HALF, R, k+1, 2, 256, 128],
-    key tile (m, r, c, q half) holding at row n = 64j + q' the K bytes p of
-    column (j, c, 64*qhalf + q'), each row 128-byte swizzled.  The same
-    bytes, in the order the kernel's bulk copies stage them."""
+    """``bsk_btk`` from ``bsk_btjj`` (leading dimensions, then [groups, R,
+    P, (k+1)*4*P] with columns (j, c, q)): [..., groups, R, k+1, 2, 256,
+    128], key tile (m, r, c, q half) holding at row n = 64j + q' the K bytes
+    p of column (j, c, 64*qhalf + q'), each row 128-byte swizzled.  The
+    same bytes, in the order the kernel's bulk copies stage them; from the
+    doubled ``bsk_btj2j`` (2*HALF groups), ``bsk_btk2``."""
     *lead, HALF, R, _, _ = bsk_btjj.shape
     nl = len(lead)
     t = bsk_btjj.reshape(*lead, HALF, R, P, 4, kp1, P // QH, QH)
@@ -140,7 +146,8 @@ def kmajor_order(bsk_btjj: torch.Tensor, kp1: int) -> torch.Tensor:
 
 
 def from_kmajor_order(bsk_btk: torch.Tensor) -> torch.Tensor:
-    """``bsk_btjj`` from ``bsk_btk``: the inverse of ``kmajor_order``."""
+    """``bsk_btjj`` from ``bsk_btk`` (``bsk_btj2j`` from ``bsk_btk2``): the
+    inverse of ``kmajor_order``."""
     *lead, HALF, R, kp1, nqh, _, _ = bsk_btk.shape
     nl = len(lead)
     t = _swizzle128(bsk_btk).reshape(*lead, HALF, R, kp1, nqh, 4, QH, P)
@@ -239,7 +246,7 @@ def _lib() -> ctypes.CDLL:
     """The built ``csrc/mega12.cu`` with its C signatures declared."""
     lib = _build.load("mega12")
     lib.mega12_blind_rotate.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.mega12_blind_rotate.restype = ctypes.c_int
     lib.mega12_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)] * 3
@@ -266,8 +273,12 @@ def scratch_bytes(p: TFHEParams, B: int) -> int:
     return (p.k + 1) * p.levels * p.N * (-(-B // 256) * 256)
 
 
-def _launch(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
-            key: torch.Tensor) -> torch.Tensor:
+def launch(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
+           key: torch.Tensor, doubled: bool, counter) -> torch.Tensor:
+    """One launch of the kernel's single (``bsk_btk``) or doubled
+    (``bsk_btk2``) window on CUDA tensors the caller has checked (the key
+    16-byte aligned for the bulk copies), counted in ``counter.launches``:
+    the wrapper whose kernel it is."""
     lib = _lib()
     B = acc0.shape[0]
     # the kernel adds into out in place; its digit scratch holds B rounded
@@ -281,11 +292,11 @@ def _launch(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
         err = lib.mega12_blind_rotate(
             a_t.data_ptr(), key.data_ptr(), out.data_ptr(), dig.data_ptr(),
             bar.data_ptr(), B, p.n, p.N, p.k + 1, p.bg_bits, p.levels,
-            stream)
+            int(doubled), stream)
     if err:
-        raise RuntimeError("mega12 launch failed: "
+        raise RuntimeError(f"{counter.__name__} launch failed: "
                            + lib.mega12_error_string(err).decode())
-    mega12_blind_rotate.launches += 1
+    counter.launches += 1
     return out
 
 
@@ -301,7 +312,7 @@ def mega12_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     if bsk_btk.data_ptr() % 16:  # the bulk copies' alignment
         raise ValueError("bsk_btk must be 16-byte aligned")
     if acc0.device.type == "cuda":
-        return _launch(params, acc0, a_t, bsk_btk)
+        return launch(params, acc0, a_t, bsk_btk, False, mega12_blind_rotate)
     if acc0.device.type == "cpu":
         return blind_rotate_plain_btk(params, acc0, a_t, bsk_btk)
     raise ValueError(f"mega12 runs on cuda or cpu, not {acc0.device}")

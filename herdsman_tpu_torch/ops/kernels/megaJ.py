@@ -1,6 +1,8 @@
-"""Whole-rotation blind-rotation kernels against the j-major block-Toeplitz
-keys (``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``) and against the
-R-major ``bsk_bt`` (``csrc/megaR.cu``), and their plain PyTorch versions.
+"""Whole-rotation blind-rotation kernels of the JAX package's j-major
+family: against the j-major block-Toeplitz keys (``csrc/megaJ.cu`` and
+``csrc/megaJ_legacy.cu``), against their K-major tensor-core keys
+(``csrc/mega12.cu``) and against the R-major ``bsk_bt``
+(``csrc/megaR.cu``), and their plain PyTorch versions.
 
 The eleven kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
@@ -8,19 +10,23 @@ wrappers they replace; they differ from ``mega12`` and from each other in
 the key they read and in how a block schedules a step:
 
 - ``mega11_blind_rotate``: ``herdsman_tpu/ops/pallas/mega.py::
-  _mega11_kernel``, the doubled window ``bsk_btj2j`` with limb-major
-  columns (j, c, q);
+  _mega11_kernel``, the doubled window: ``csrc/mega12.cu``'s doubled
+  instantiation (int8 ``wgmma``) on ``bsk_btk2``, the JAX package's
+  ``bsk_btj2j`` (limb-major columns (j, c, q)) in ``wgmma``'s byte order
+  (``mega12.kmajor_order``);
 - ``mega8_blind_rotate``: ``mega.py::_mega8_kernel``, the doubled window
   ``bsk_btj2`` with columns (c, j, q);
-- ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single-width
-  ``bsk_btj`` with columns (c, j, q);
+- ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single width:
+  ``mega12``'s function, so ``csrc/mega12.cu``'s single instantiation on
+  ``mega12``'s key ``bsk_btk`` (the JAX package's ``bsk_btj`` is the same
+  blocks with columns (c, j, q), an order int8 ``wgmma`` cannot read);
 - ``mega9_blind_rotate``: ``herdsman_tpu/ops/pallas/legacy.py::
   _mega9_kernel``, ``mega8``'s function and key, with a producer warp
   building one half's digits while four consumer groups contract the
   other's (named-barrier hand-off);
 - ``mega6_blind_rotate``: ``legacy.py::_mega6_kernel``, ``mega7``'s
-  function and key, with each group's key rows double-buffered in shared
-  memory by ``cp.async``;
+  function on ``bsk_btj``, with each group's key rows double-buffered in
+  shared memory by ``cp.async``;
 - ``mega10_blind_rotate`` (``csrc/megaJ_legacy.cu``): ``legacy.py::
   _mega10_kernel``, ``mega8``'s function and key, its digits built by a
   pass fused across the k+1 polynomials;
@@ -28,10 +34,10 @@ the key they read and in how a block schedules a step:
   function on int8 tensor cores (``mma.sync`` m16n8k32), reading
   ``bsk_btj``'s blocks in fragment order (``bsk_btjm``, ``fragment_order``);
 - ``mega4_blind_rotate``: ``legacy.py::_mega4_kernel``, ``mega7``'s
-  function and key, ``mega6``'s staged rows shared by the two blocks of a
-  thread block cluster, each copying half of them;
+  function on ``bsk_btj``, ``mega6``'s staged rows shared by the two
+  blocks of a thread block cluster, each copying half of them;
 - ``mega5_blind_rotate``: ``legacy.py::_mega5_kernel``, ``mega7``'s
-  function and key, ``mega6``'s staged rows applied to up to 16
+  function on ``bsk_btj``, ``mega6``'s staged rows applied to up to 16
   ciphertexts of one wide block;
 - ``mega_blind_rotate`` (``csrc/megaR.cu``): ``legacy.py::_mega_kernel``,
   ``mega7``'s function on the R-major ``bsk_bt`` [n, R, HALF, P,
@@ -39,8 +45,8 @@ the key they read and in how a block schedules a step:
   row phases per step, each key chunk staged in shared memory by TMA and
   applied to every column tile that reads it;
 - ``mega2_blind_rotate``: ``legacy.py::_mega2_kernel``, the same function
-  and key, ``mega7``'s serial loop on the R-major offsets with the next
-  step's key prefetched to L2.
+  and key, the serial loop of ``megaJ.cu``'s dp4a schedule on the R-major
+  offsets with the next step's key prefetched to L2.
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -51,13 +57,16 @@ with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
 (``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
 version of ``mega`` and ``mega2`` is ``blind_rotate_plain_bt``: n steps of
-``bt_fused``'s plain step on ``bsk_bt``, independent of the j-major ones.
+``bt_fused``'s plain step on ``bsk_bt``, independent of the j-major ones;
+``mega7``'s is ``mega12.blind_rotate_plain_btk`` and ``mega11``'s
+``blind_rotate_plain_btk2`` (the doubled window's contraction on the key
+taken back to j-major order).
 
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
 its plain version (``plain``).  The source notes in ``csrc/megaJ.cu``,
-``csrc/megaJ_legacy.cu`` and ``csrc/megaR.cu`` give the kernels' design and
-bound.
+``csrc/megaJ_legacy.cu``, ``csrc/mega12.cu`` and ``csrc/megaR.cu`` give
+the kernels' design and bound.
 """
 
 from __future__ import annotations
@@ -69,22 +78,22 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import _build
+from herdsman_tpu_torch.ops.kernels import _build, mega12
 from herdsman_tpu_torch.ops.kernels.mega12 import (P,
                                                    blind_rotate_plain_btjj,
-                                                   check_args, pack_digits,
-                                                   recombine)
-from herdsman_tpu_torch.ops.kernels.mega12 import \
-    check_params as mega12_check_params
+                                                   check_args,
+                                                   from_kmajor_order,
+                                                   pack_digits, recombine)
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 
 SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 # kernel -> (its variant number in its source, the key layout it reads,
-# doubled window, limb-major columns)
-KERNELS = {"mega11": (11, "bsk_btj2j", True, True),
+# doubled window, limb-major columns); csrc/mega12.cu's two instantiations
+# (TENSOR_CORE) have no variant number: the window picks one
+KERNELS = {"mega11": (None, "bsk_btk2", True, True),
            "mega8": (8, "bsk_btj2", True, False),
-           "mega7": (7, "bsk_btj", False, False),
+           "mega7": (None, "bsk_btk", False, True),
            "mega9": (9, "bsk_btj2", True, False),
            "mega6": (6, "bsk_btj", False, False),
            "mega10": (10, "bsk_btj2", True, False),
@@ -94,8 +103,10 @@ KERNELS = {"mega11": (11, "bsk_btj2j", True, True),
            "mega": (1, "bsk_bt", False, False),
            "mega2": (2, "bsk_bt", False, False)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
-# the kernels of csrc/megaJ_legacy.cu and of csrc/megaR.cu (the R-major
+# the kernels of csrc/mega12.cu (the doubled and the single window on int8
+# wgmma), of csrc/megaJ_legacy.cu and of csrc/megaR.cu (the R-major
 # bsk_bt); the others are csrc/megaJ.cu's
+TENSOR_CORE = ("mega11", "mega7")
 LEGACY_SOURCE = ("mega10", "mega3", "mega4", "mega5")
 ROW_SOURCE = ("mega", "mega2")
 # the kernels whose block holds two halves of G ciphertexts (overlap), or
@@ -125,10 +136,14 @@ def smem_bytes(p: TFHEParams, G: int) -> int:
 
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
-    geometry, one ciphertext's accumulator and digits within a block's
-    shared memory (the block layout every kernel here shares), and one
-    block of its schedule within the card's shared memory."""
-    mega12_check_params(p, name)
+    geometry (all that ``csrc/mega12.cu``'s ``mega11`` and ``mega7`` need:
+    their digits and accumulators live in device memory), then one
+    ciphertext's accumulator and digits within a block's shared memory (the
+    dp4a block layout every other kernel here shares), and one block of its
+    schedule within the card's shared memory."""
+    mega12.check_params(p, name)
+    if name in TENSOR_CORE:
+        return
     one = smem_bytes(p, 1)
     if one > SMEM_LIMIT:
         raise ValueError(f"{name} at {p.name} needs {one} bytes of shared "
@@ -150,10 +165,13 @@ def check_params(p: TFHEParams, name: str) -> None:
 
 def key_shape(p: TFHEParams, name: str) -> tuple[int, ...]:
     """The shape of kernel ``name``'s key at ``p``: [n, groups, R, P,
-    (k+1)*4*P] (groups 2*HALF for the doubled window, else HALF), or
-    ``bsk_bt``'s R-major [n, R, HALF, P, (k+1)*4*P]."""
+    (k+1)*4*P] (groups 2*HALF for the doubled window, else HALF),
+    ``bsk_bt``'s R-major [n, R, HALF, P, (k+1)*4*P], or the K-major [n,
+    groups, R, k+1, 2, 256, 128] of ``csrc/mega12.cu``."""
     _, layout, doubled, _ = KERNELS[name]
     HALF, R, C4P = p.N // P, (p.k + 1) * p.levels, (p.k + 1) * 4 * P
+    if name in TENSOR_CORE:
+        return mega12.key_shape(p, doubled)
     if layout == "bsk_bt":
         return (p.n, R, HALF, P, C4P)
     return (p.n, 2 * HALF if doubled else HALF, R, P, C4P)
@@ -165,43 +183,68 @@ def _check_args(p: TFHEParams, name: str, acc0: torch.Tensor,
                key_shape=key_shape(p, name))
 
 
+def _window_step(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
+                 window: torch.Tensor, jcq: bool) -> torch.Tensor:
+    """One CMux step against one step's doubled window [2*HALF, R, P,
+    (k+1)*4*P]: rotate, decompose and pack the digits sub ascending
+    (``pack_digits``); per column tile ct one ``torch._int_mm`` of all the
+    digits with the groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``,
+    ``:341-345``); then the recombine of the key's column order ((j, c, q)
+    with ``jcq``) into the accumulator."""
+    B, kp1, N = acc.shape
+    HALF = N // P
+    R = kp1 * p.levels
+    rot = poly.negacyclic_monomial_mul(acc, a_i[:, None])
+    D = pack_digits(p, rot - acc, descending=False)
+    window = window.reshape(2 * HALF * R * P, kp1 * 4 * P)
+    tiles = []
+    for ct in range(HALF):
+        o = (HALF - 1 - ct) * R * P
+        total = int8_matmul(D, window[o:o + HALF * R * P])
+        tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
+    return acc + torch.cat(tiles, dim=-1)
+
+
 def blind_rotate_plain_btj2(params: TFHEParams, acc0: torch.Tensor,
                             a_t: torch.Tensor, key: torch.Tensor,
                             jcq: bool) -> torch.Tensor:
-    """The rotation of ``mega11`` (``jcq``: key ``bsk_btj2j``) or ``mega8``
-    (key ``bsk_btj2``) in plain PyTorch, either device.  Per step: rotate,
-    decompose and pack the digits sub ascending (``pack_digits``); per
-    column tile ct one ``torch._int_mm`` of all the digits with the window
-    of groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``, ``:341-345``);
-    then the recombine of the key's column order into the accumulator."""
+    """The doubled window's rotation in plain PyTorch, either device, on
+    the JAX package's ``bsk_btj2j`` (``jcq``: the TPU's ``mega11``) or
+    ``bsk_btj2`` (``mega8``): ``_window_step`` n times."""
     p = params
-    _check_args(p, "mega11" if jcq else "mega8", acc0, a_t, key)
-    B, kp1, N = acc0.shape
-    HALF = N // P
-    R = kp1 * p.levels
+    check_args(p, acc0, a_t, key, "bsk_btj2j" if jcq else "bsk_btj2",
+               key_shape=key_shape(p, "mega8"))
     acc = acc0
     for i in range(p.n):
-        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
-        D = pack_digits(p, rot - acc, descending=False)
-        window = key[i].reshape(2 * HALF * R * P, kp1 * 4 * P)
-        tiles = []
-        for ct in range(HALF):
-            o = (HALF - 1 - ct) * R * P
-            total = int8_matmul(D, window[o:o + HALF * R * P])
-            tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
-        acc = acc + torch.cat(tiles, dim=-1)
+        acc = _window_step(p, acc, a_t[i], key[i], jcq)
+    return acc
+
+
+def blind_rotate_plain_btk2(params: TFHEParams, acc0: torch.Tensor,
+                            a_t: torch.Tensor,
+                            bsk_btk2: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``mega11`` in plain PyTorch, either device, reading
+    the same ``bsk_btk2``: ``blind_rotate_plain_btj2``'s steps, each on its
+    step key taken back to ``bsk_btj2j``'s order (``from_kmajor_order``)."""
+    p = params
+    _check_args(p, "mega11", acc0, a_t, bsk_btk2)
+    acc = acc0
+    for i in range(p.n):
+        acc = _window_step(p, acc, a_t[i], from_kmajor_order(bsk_btk2[i]),
+                           True)
     return acc
 
 
 def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
                            a_t: torch.Tensor,
                            bsk_btj: torch.Tensor) -> torch.Tensor:
-    """The rotation of ``mega7`` in plain PyTorch, either device: the
-    two-dot of ``_ep_column_total_jmajor_packed`` over the single-width
-    ``bsk_btj`` key, then the per-polynomial recombine of its (c, j, q)
-    columns (``mega.py:150-161``).  ``blind_rotate_plain_btjj`` (the
-    contraction ``mega12``'s plain version runs) with the other column
-    order."""
+    """The single width's rotation in plain PyTorch, either device, on the
+    JAX package's ``bsk_btj`` (the TPU's ``mega7``; here the plain version
+    of ``mega6``, ``mega4`` and ``mega5``): the two-dot of
+    ``_ep_column_total_jmajor_packed``, then the per-polynomial recombine
+    of its (c, j, q) columns (``mega.py:150-161``).
+    ``blind_rotate_plain_btjj`` (the contraction ``mega12``'s plain version
+    runs) with the other column order."""
     return blind_rotate_plain_btjj(params, acc0, a_t, bsk_btj, jcq=False)
 
 
@@ -272,10 +315,15 @@ def blind_rotate_plain_bt(params: TFHEParams, acc0: torch.Tensor,
 
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` and ``mega10`` share ``mega8``'s, ``mega6``, ``mega4`` and
-    ``mega5`` ``mega7``'s; ``mega3``'s is ``mega7``'s on its key out of
-    fragment order; ``mega`` and ``mega2`` share ``blind_rotate_plain_bt``)."""
+    (``mega9`` and ``mega10`` share ``mega8``'s; ``mega6``, ``mega4`` and
+    ``mega5`` share ``blind_rotate_plain_btj``, the single width on
+    ``bsk_btj``, and ``mega3``'s is that on its key out of fragment order;
+    ``mega`` and ``mega2`` share ``blind_rotate_plain_bt``; ``mega7``'s is
+    ``mega12``'s and ``mega11``'s ``blind_rotate_plain_btk2``)."""
     _, layout, doubled, jcq = KERNELS[name]
+    if name in TENSOR_CORE:
+        return (blind_rotate_plain_btk2 if doubled
+                else mega12.blind_rotate_plain_btk)
     if name in MMA:
         return blind_rotate_plain_btjm
     if layout == "bsk_bt":
@@ -316,11 +364,14 @@ def _sms(device: torch.device) -> int:
 
 
 def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
-                          name: str = "mega11") -> int:
+                          name: str = "mega8") -> int:
     """The ciphertexts one block of kernel ``name`` owns in a rotation of B
     ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
     G, two halves of G for ``mega9``, up to 16 for ``mega5`` and up to
     16*128/N for ``mega``."""
+    if name in TENSOR_CORE:
+        raise ValueError(f"{name} tiles its batch by mega12.plan, not by "
+                         f"ciphertexts per block")
     _, per_block, _ = _kernel_entry_points(name)
     return per_block(
         KERNELS[name][0], B, p.N, p.k + 1, (p.k + 1) * p.levels,
@@ -335,8 +386,10 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
-    if name in ROW_SOURCE and key.data_ptr() % 16:  # TMA's alignment
-        raise ValueError(f"{name} takes a key on a 16-byte boundary")
+    if (name in ROW_SOURCE or name in TENSOR_CORE) and key.data_ptr() % 16:
+        raise ValueError(f"{name} takes a key on a 16-byte boundary")  # TMA
+    if name in TENSOR_CORE:
+        return mega12.launch(p, acc0, a_t, key, KERNELS[name][2], wrapper)
     rotate, _, error = _kernel_entry_points(name)
     out = torch.empty_like(acc0)
     with torch.cuda.device(acc0.device):
@@ -353,30 +406,33 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
 
 def mega11_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                         a_t: torch.Tensor,
-                        bsk_btj2j: torch.Tensor) -> torch.Tensor:
+                        bsk_btk2: torch.Tensor) -> torch.Tensor:
     """Whole blind rotation against the doubled limb-major window: acc0
-    [B, k+1, N] and a_t [n, B] (int32 carriers), bsk_btj2j int8 [n,
-    2*HALF, R, P, (k+1)*4*P] -> acc [B, k+1, N].  CUDA tensors go through
-    the kernel, CPU tensors through ``blind_rotate_plain_btj2``."""
+    [B, k+1, N] and a_t [n, B] (int32 carriers), bsk_btk2 int8 [n, 2*HALF,
+    R, k+1, 2, 256, 128] -> acc [B, k+1, N].  CUDA tensors go through
+    ``csrc/mega12.cu``'s doubled instantiation, CPU tensors through
+    ``blind_rotate_plain_btk2``."""
     return _rotate("mega11", mega11_blind_rotate, params, acc0, a_t,
-                   bsk_btj2j)
+                   bsk_btk2)
 
 
 def mega8_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
                        bsk_btj2: torch.Tensor) -> torch.Tensor:
     """Whole blind rotation against the doubled window with (c, j, q)
-    columns; the contract of ``mega11_blind_rotate``."""
+    columns, bsk_btj2 int8 [n, 2*HALF, R, P, (k+1)*4*P]; CPU tensors go
+    through ``blind_rotate_plain_btj2``."""
     return _rotate("mega8", mega8_blind_rotate, params, acc0, a_t, bsk_btj2)
 
 
 def mega7_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btj: torch.Tensor) -> torch.Tensor:
-    """Whole blind rotation against the single-width ``bsk_btj`` int8 [n,
-    HALF, R, P, (k+1)*4*P] (two runs, the negated one subtracted); CPU
-    tensors go through ``blind_rotate_plain_btj``."""
-    return _rotate("mega7", mega7_blind_rotate, params, acc0, a_t, bsk_btj)
+                       bsk_btk: torch.Tensor) -> torch.Tensor:
+    """Whole blind rotation against the single window ``bsk_btk`` int8 [n,
+    HALF, R, k+1, 2, 256, 128] (two runs, the negated one subtracted):
+    ``csrc/mega12.cu``'s single instantiation, counted here; CPU tensors
+    go through ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega7", mega7_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 def mega9_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
@@ -384,7 +440,7 @@ def mega9_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        bsk_btj2: torch.Tensor) -> torch.Tensor:
     """``mega8``'s rotation on the doubled ``bsk_btj2``, the digit phase on
     a producer warp beside the contraction; the contract of
-    ``mega11_blind_rotate``, CPU tensors through ``blind_rotate_plain_btj2``."""
+    ``mega8_blind_rotate``, CPU tensors through ``blind_rotate_plain_btj2``."""
     return _rotate("mega9", mega9_blind_rotate, params, acc0, a_t, bsk_btj2)
 
 
@@ -402,7 +458,7 @@ def mega10_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                         bsk_btj2: torch.Tensor) -> torch.Tensor:
     """``mega8``'s rotation on the doubled ``bsk_btj2``, the digits built by
     one pass over (ciphertext, coefficient quad) for all k+1 polynomials;
-    the contract of ``mega11_blind_rotate``, CPU tensors through
+    the contract of ``mega8_blind_rotate``, CPU tensors through
     ``blind_rotate_plain_btj2``."""
     return _rotate("mega10", mega10_blind_rotate, params, acc0, a_t,
                    bsk_btj2)

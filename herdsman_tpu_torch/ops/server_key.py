@@ -47,8 +47,11 @@ once, into:
                                        package's ``pallas_mega7``
                                        (``_block_toeplitz_layout_device(...,
                                        j_major=True)``), read by
-                                       ``csrc/megaJ.cu``.  As big as
-                                       ``bsk_bt``, built the same way.
+                                       ``csrc/megaJ.cu``'s ``mega6`` and
+                                       ``megaJ_legacy.cu``'s ``mega4`` and
+                                       ``mega5`` (the port's ``mega7`` reads
+                                       ``bsk_btk``).  As big as ``bsk_bt``,
+                                       built the same way.
 - ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
                                        as ``bsk_btj`` with limb-major
                                        columns (j, c, q): the key of the JAX
@@ -67,8 +70,9 @@ once, into:
                                        64j + q' the 128 K bytes of column
                                        (j, c, q), K-major and 128-byte
                                        swizzled, so one bulk copy stages
-                                       it.  The ``mega12`` engine's key,
-                                       as big as ``bsk_btjj``.
+                                       it.  The key of the ``mega12`` and
+                                       ``mega7`` engines (one kernel), as
+                                       big as ``bsk_btjj``.
 - ``bsk_btjm``  int8  [n, HALF, R, P, (k+1)*4*P]
                                        ``bsk_btj`` with each [P, (k+1)*4*P]
                                        block's bytes in the order of the
@@ -85,15 +89,26 @@ once, into:
                                        package's ``pallas_mega8`` and
                                        ``pallas_mega11`` (``...,
                                        windowed=True``, col_order "cjq" and
-                                       "jcq"), read by ``csrc/megaJ.cu``:
-                                       group g holds diagonal block (HALF-1-
-                                       g) mod 2*HALF, the negated blocks
-                                       taken from ext(p)[t+N] = -ext(p)[t],
-                                       so column tile ct's whole contraction
-                                       is groups [HALF-1-ct, 2*HALF-1-ct).
-                                       Twice ``bsk_bt``: 6.75 GiB at
-                                       STD128_K2, 18.0 GiB at
-                                       STD128_SHORTINT.
+                                       "jcq"): group g holds diagonal block
+                                       (HALF-1-g) mod 2*HALF, the negated
+                                       blocks taken from ext(p)[t+N] =
+                                       -ext(p)[t], so column tile ct's whole
+                                       contraction is groups [HALF-1-ct,
+                                       2*HALF-1-ct).  ``bsk_btj2`` is read
+                                       by ``csrc/megaJ.cu`` (``mega8``,
+                                       ``mega9``) and ``megaJ_legacy.cu``
+                                       (``mega10``); ``bsk_btj2j`` by the
+                                       plain doubled contraction, held
+                                       equal to ``bsk_btk2``.  Twice
+                                       ``bsk_bt``: 6.75 GiB at STD128_K2,
+                                       18.0 GiB at STD128_SHORTINT.
+- ``bsk_btk2``  int8  [n, 2*HALF, R, k+1, 2, 256, 128]
+                                       ``bsk_btj2j``'s bytes in ``wgmma``'s
+                                       order (``mega12.kmajor_order``, as
+                                       ``bsk_btk`` holds ``bsk_btjj``'s):
+                                       the key of ``mega11``,
+                                       ``csrc/mega12.cu``'s doubled window.
+                                       As big as ``bsk_btj2j``.
 - ``bsk_btTc``  int8  [n, k+1, k+1, 4, row_bytes]
                                        the compact step key of the
                                        byte-aligned gadget (bg = 2^8, levels
@@ -143,8 +158,8 @@ from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaS, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
 LAYOUTS = ("bsk", "bsk_btS", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj",
-           "bsk_btk", "bsk_btjm", "bsk_btj2", "bsk_btj2j", "bsk_btTc",
-           "bsk_btTe")
+           "bsk_btk", "bsk_btjm", "bsk_btj2", "bsk_btj2j", "bsk_btk2",
+           "bsk_btTc", "bsk_btTe")
 DEFAULT_LAYOUTS = ("bsk_btS",)  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
@@ -175,6 +190,8 @@ class DeviceServerKey:
     bsk_btjm: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btj2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btj2j: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
+    bsk_btk2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, k+1, 2, 256,
+    #                                       128]
     bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
     bsk_btTe: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
 
@@ -199,8 +216,8 @@ def bt_tile(params: TFHEParams) -> tuple[int, int]:
 
 def bt_key_bytes(p: TFHEParams) -> int:
     """Bytes of the ``bsk_bt`` layout at ``p`` (and of ``bsk_btj``,
-    ``bsk_btjj`` and ``bsk_btk``; the doubled ``bsk_btj2`` and
-    ``bsk_btj2j`` take twice as many)."""
+    ``bsk_btjj`` and ``bsk_btk``; the doubled ``bsk_btj2``, ``bsk_btj2j``
+    and ``bsk_btk2`` take twice as many)."""
     P, _ = bt_tile(p)
     return p.n * (p.k + 1) * p.levels * (p.k + 1) * 4 * p.N * P
 
@@ -222,7 +239,8 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     [P, (k+1)*4*P] block of ``j_major`` in ``mma.sync``'s fragment order
     (``bsk_btjm``, ``megaJ.fragment_order``); ``kmajor`` stores ``jcq``'s
     blocks as ``mega12``'s K-major swizzled key tiles (``bsk_btk`` [n,
-    HALF, R, k+1, 2, 256, 128], ``mega12.kmajor_order``).  Blocks
+    HALF, R, k+1, 2, 256, 128], ``mega12.kmajor_order``; with ``windowed``
+    ``bsk_btk2``, the 2*HALF groups).  Blocks
     HALF..2*HALF-1 are the negated ones: ext(p)[t+N] = -ext(p)[t]
     (tests/test_torch_pbs.py, tests/test_torch_megaJ.py)."""
     n, R, kp1, N = bsk.shape
@@ -326,7 +344,7 @@ def fit_engine(engine: str, params: TFHEParams,
       ``pallas_mega3``, ``_4``, ``_5``, ``pallas_mega`` and ``_mega2`` at
       every set; their keys fit the budget at every named set);
     - ``mega11`` / ``mega8`` / ``mega9`` / ``mega10`` while their doubled
-      key (``bsk_btj2j`` / ``bsk_btj2``) fits and their kernel takes the
+      key (``bsk_btk2`` / ``bsk_btj2``) fits and their kernel takes the
       set (the JAX package's doubled-key check, ``server_key.py:694-699``);
       else whatever a ``mega12`` request gets;
     - ``mega14`` where the set has bg_bits 8, levels 2 and N >= 256 and its
@@ -455,6 +473,8 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                   if "bsk_btj2" in layouts else None),
         bsk_btj2j=(block_toeplitz_layout(p, bsk, jcq=True, windowed=True)
                    if "bsk_btj2j" in layouts else None),
+        bsk_btk2=(block_toeplitz_layout(p, bsk, windowed=True, kmajor=True)
+                  if "bsk_btk2" in layouts else None),
         bsk_btTc=(stream_key_layout(p, bsk)
                   if "bsk_btTc" in layouts else None),
         bsk_btTe=(stream_key_layout(p, bsk, extended=True)

@@ -42,7 +42,8 @@ def _tile(p: TFHEParams) -> tuple[int, int]:
 def key_layout_bytes(p: TFHEParams, layout: str) -> int:
     """Bytes of a JAX package key layout (int8), from the sizes its
     ``ops/server_key.py`` builds and ``fit_engine`` budgets, or of the
-    port's ``bsk_btk`` (``bsk_btjj`` reordered for ``mega12``)."""
+    port's ``bsk_btk`` and ``bsk_btk2`` (``bsk_btjj`` and ``bsk_btj2j``
+    reordered for ``csrc/mega12.cu``)."""
     P, HALF = _tile(p)
     kp1, R = p.k + 1, (p.k + 1) * p.levels
     single = p.n * R * kp1 * 4 * p.N * P
@@ -50,6 +51,7 @@ def key_layout_bytes(p: TFHEParams, layout: str) -> int:
         "bsk_bt": single, "bsk_btj": single, "bsk_btjj": single,
         "bsk_btk": single, "bsk_btjm": single,
         "bsk_btj2": 2 * single, "bsk_btj2j": 2 * single,
+        "bsk_btk2": 2 * single,
         "bsk_btT": p.n * kp1 * 4 * kp1 * P * (p.N // (2 * P) + HALF - 1)
         * P * 4,
         "bsk_btTs": p.n * kp1 * kp1 * 4 * P * 2 * p.N,
@@ -103,9 +105,9 @@ TPU_KERNELS = [
     ("mega.py:625 _mega12_kernel", "std128_shortint", "bsk_btk"),
     ("mega.py:1495 _mega17_kernel", "std128_shortint_b8", "bsk_btT3"),
     ("mega.py:1323 _mega16_kernel", "std128_shortint_fast", "bsk_btTs"),
-    ("mega.py:449 _mega11_kernel", "std128_k2", "bsk_btj2j"),
+    ("mega.py:449 _mega11_kernel", "std128_k2", "bsk_btk2"),
     ("mega.py:236 _mega8_kernel", "std128_k2", "bsk_btj2"),
-    ("mega.py:84 _mega7_kernel", "std128_shortint", "bsk_btj"),
+    ("mega.py:84 _mega7_kernel", "std128_shortint", "bsk_btk"),
     ("mega.py:997 _mega14_kernel", "std128_k2", "bsk_btT2"),
     ("mega.py:1154 _mega15_kernel", "std128_shortint_l4", "bsk_btT4"),
     ("legacy.py:37 _mega_kernel", "std128_k2", "bsk_bt"),

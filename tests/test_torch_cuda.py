@@ -235,6 +235,33 @@ def test_mega12_matches_plain(card, params, B):
     assert torch.equal(mega12.mega12_blind_rotate(p, acc0, a_t, key), got)
 
 
+# csrc/mega12.cu's other two instantiations, at every plan and geometry
+# class of mega12's: mega11 (the doubled window on bsk_btk2) and mega7 (the
+# single window, counted apart)
+@pytest.mark.parametrize("B", [1, 9, 129, 65, 256, 2048, 384])
+@pytest.mark.parametrize("params", MEGA12_TC_SETS,
+                         ids=[q.name for q in MEGA12_TC_SETS])
+@pytest.mark.parametrize("name", list(megaJ.TENSOR_CORE))
+def test_mega12_windows_match_plain(card, name, params, B):
+    p = params
+    kernel = getattr(megaJ, f"{name}_blind_rotate")
+    rng = np.random.default_rng(B + p.N + p.k + len(name))
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    key = torch.as_tensor(rng.integers(-128, 128, megaJ.key_shape(p, name)),
+                          dtype=torch.int8, device=card)
+    before = (kernel.launches, mega12.mega12_blind_rotate.launches)
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert (kernel.launches, mega12.mega12_blind_rotate.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
+    assert torch.equal(kernel(p, acc0, a_t, key), got)
+    if name == "mega7":  # one instantiation: mega12's launch, the same key
+        assert torch.equal(mega12.mega12_blind_rotate(p, acc0, a_t, key), got)
+
+
 def test_mega12_kernel_plan_matches_python(card):
     n_sms = torch.cuda.get_device_properties(card).multi_processor_count
     for p in [*MEGA12_TC_SETS, PARAM_SETS["std128_shortint"]]:
@@ -325,9 +352,9 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
                              ref.make_test_poly(params)))
 
 
-# the j-major kernels (mega11, mega8, mega7, mega9, mega6 of megaJ.cu) at
-# mega12's geometry classes; B = 129 takes a ragged last block at every
-# ciphertexts-per-block choice
+# the j-major family (mega8, mega9, mega6 of megaJ.cu, mega11 and mega7 of
+# mega12.cu, the legacy and R-major kernels) at mega12's geometry classes;
+# B = 129 takes a ragged last block at every ciphertexts-per-block choice
 @pytest.mark.parametrize("B", [1, 9, 129])
 @pytest.mark.parametrize("name", sorted(megaJ.KERNELS))
 @pytest.mark.parametrize("params", MEGA12_SETS,
@@ -346,8 +373,13 @@ def test_megaJ_matches_plain(card, params, name, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert megaJ.ciphertexts_per_block(p, B, card, name) in (1, 2, 4, 6, 8,
-                                                            12, 16)
+    if name in megaJ.TENSOR_CORE:  # tiled as mega12 tiles
+        n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+        assert mega12.kernel_plan(p, B, n_sms) == tuple(
+            mega12.plan(p, B, n_sms))[:3]
+    else:
+        assert megaJ.ciphertexts_per_block(p, B, card, name) in (
+            1, 2, 4, 6, 8, 12, 16)
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
 
 

@@ -34,8 +34,11 @@ from herdsman_tpu_torch.service.config import port_engine
 # k = 2; n is cut to 8 steps so that interpret-mode rotations stay fast
 MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
-# the legacy kernel -> the serial kernel whose function and key it shares
+# the legacy kernel -> the serial kernel whose function it shares
 LEGACY = {"mega9": "mega8", "mega6": "mega7"}
+# the legacy kernel -> the j-major key of the JAX package's serial kernel,
+# which it reads (the port's mega7 reads bsk_btk, bsk_btj in wgmma's order)
+SERIAL_KEYS = {"mega9": "bsk_btj2", "mega6": "bsk_btj"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,11 +59,12 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(client key, server key, JAX key, port key), in ``bsk_btj2`` and
-    ``bsk_btj``."""
+    ``bsk_btj``, the port's also in ``mega7``'s ``bsk_btk``."""
     ck, sk = jref.keygen(params, np.random.default_rng(23))
     layouts = ("bsk_btj2", "bsk_btj")
     return (ck, sk, jsk.device_server_key(sk, layouts=layouts),
-            tsk.device_server_key(sk, layouts=layouts, device="cpu"))
+            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btk"),
+                                  device="cpu"))
 
 
 @pytest.mark.parametrize("B", [3, 37])
@@ -118,9 +122,13 @@ def test_legacy_wrapper_checks(name):
     with pytest.raises(ValueError, match="shared memory"):
         megaJ.check_params(wide, name)
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
-    assert megaJ.KEY_LAYOUTS[name] == megaJ.KEY_LAYOUTS[LEGACY[name]]
+    assert megaJ.KEY_LAYOUTS[name] == SERIAL_KEYS[name]
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
-    mine, serial = megaJ.plain(name), megaJ.plain(LEGACY[name])
+    # the serial kernel's plain version on that key: mega8's, and the
+    # single width's that the JAX package's mega7 ran on bsk_btj
+    mine = megaJ.plain(name)
+    serial = (megaJ.plain(LEGACY[name]) if name == "mega9"
+              else megaJ.blind_rotate_plain_btj)
     assert getattr(mine, "func", mine) is getattr(serial, "func", serial)
     assert getattr(mine, "keywords", {}) == getattr(serial, "keywords", {})
     assert port_engine(f"pallas_{name}") == name

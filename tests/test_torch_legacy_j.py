@@ -72,12 +72,12 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(client key, server key, JAX key in ``bsk_btj2`` and ``bsk_btj``,
-    port key in those and ``bsk_btjm``)."""
+    port key in those, ``bsk_btjm`` and ``mega7``'s ``bsk_btk``)."""
     ck, sk = jref.keygen(params, np.random.default_rng(29))
     layouts = ("bsk_btj2", "bsk_btj")
     return (ck, sk, jsk.device_server_key(sk, layouts=layouts),
-            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btjm"),
-                                  device="cpu"))
+            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btjm",
+                                               "bsk_btk"), device="cpu"))
 
 
 @functools.cache

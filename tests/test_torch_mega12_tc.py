@@ -103,8 +103,11 @@ def words(acc: np.ndarray) -> np.ndarray:
                for j in range(4)) % U32
 
 
-def k_block(e, ct, R, HALF):
-    """(m, r, sub) of K block e of column tile ct, the negated run first."""
+def k_block(e, ct, R, HALF, doubled=False):
+    """(m, r, sub) of K block e of column tile ct: the negated run first, or
+    on the doubled window one run, stored group HALF-1-ct+sub."""
+    if doubled:
+        return HALF - 1 - ct + e // R, e % R, e // R
     nneg = (HALF - 1 - ct) * R
     if e < nneg:
         m = ct + 1 + e // R
@@ -147,12 +150,14 @@ def digit_phase(p, out, rot, dig, B_pad):
     dig[addr.ravel()] = digit.ravel().astype(np.int8)
 
 
-def emulate(p, acc0, a_t, btk, n_sms):
+def emulate(p, acc0, a_t, btk, n_sms, doubled=False):
     """The kernel's output (u32 [B, k+1, N]) on a card of ``n_sms`` SMs,
     step by step: phase (a), then each work tile of phase (b), the M tiles
-    of one (column unit, split) side by side."""
+    of one (column unit, split) side by side; the single window on
+    ``bsk_btk`` or, with ``doubled``, the doubled one on ``bsk_btk2``."""
     B, kp1, N = acc0.shape
     HALF, R = N // P, kp1 * p.levels
+    groups = 2 * HALF if doubled else HALF
     KB = R * HALF
     pl = mega12.plan(p, B, n_sms)
     nwg = pl.bm // 64
@@ -188,7 +193,8 @@ def emulate(p, acc0, a_t, btk, n_sms):
             e0, e1 = s_ * KB // pl.splits, (s_ + 1) * KB // pl.splits
             nkb = e1 - e0
             assert nkb >= 1
-            neg_end = min(max((HALF - 1 - ct) * R - e0, 0), nkb)
+            neg_end = 0 if doubled else min(max((HALF - 1 - ct) * R - e0,
+                                                0), nkb)
             smem = np.tile(rng.integers(-128, 128, RING_BASE + stages
                                         * stage_bytes).astype(np.int8),
                            (mts, 1))
@@ -196,14 +202,14 @@ def emulate(p, acc0, a_t, btk, n_sms):
             runw = []
             for lo, hi in ((0, neg_end), (neg_end, nkb)):
                 for k in range(lo, hi):
-                    m, r, sub = k_block(e0 + k, ct, R, HALF)
+                    m, r, sub = k_block(e0 + k, ct, R, HALF, doubled)
                     st = RING_BASE + (k % stages) * stage_bytes
                     # the two bulk copies: the A tile of every M tile, the
                     # B tile (the same in each)
                     for mt in range(mts):
                         src = ((r * HALF + sub) * B_pad + mt * pl.bm) * P
                         smem[mt, st:st + a_bytes] = dig[src:src + a_bytes]
-                    tile = (((i * HALF + m) * R + r) * kp1 + c) * 2 + qh
+                    tile = (((i * groups + m) * R + r) * kp1 + c) * 2 + qh
                     share = BN * P // cl  # block `rank`'s copy, to all
                     for rank in range(cl):
                         src = tile * BN * P + rank * share

@@ -81,11 +81,13 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(params, client key, server key, JAX key, port key), the keys in the
-    three layouts."""
+    three layouts, the port's also in the K-major ``bsk_btk`` and
+    ``bsk_btk2`` that ``mega7`` and ``mega11`` read."""
     ck, sk = jref.keygen(params, np.random.default_rng(17))
     layouts = tuple(JAX_LAYOUTS)
     return (params, ck, sk, jsk.device_server_key(sk, layouts=layouts),
-            tsk.device_server_key(sk, layouts=layouts, device="cpu"))
+            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btk",
+                                               "bsk_btk2"), device="cpu"))
 
 
 @pytest.fixture(scope="module", params=[MULTITILE, MULTITILE_K2],
@@ -169,14 +171,22 @@ def test_megaJ_wrapper_checks(geometry, name):
     with pytest.raises(ValueError):
         kernel(p, acc, a_t[:, :1].contiguous(), key)
     with pytest.raises(ValueError):  # the other window width
-        other = tdsk.bsk_btj2 if name == "mega7" else tdsk.bsk_btj
+        other = {"mega11": tdsk.bsk_btk, "mega8": tdsk.bsk_btj,
+                 "mega7": tdsk.bsk_btk2}[name]
         kernel(p, acc, a_t, other)
     with pytest.raises(ValueError):
         kernel(p, acc[:, :, ::2], a_t, key)
     with pytest.raises(ValueError, match="contiguous"):
         kernel(p, acc.transpose(1, 2).contiguous().transpose(1, 2), a_t, key)
-    for bad in (dc.replace(p, N=64), dc.replace(p, k=3),
-                dc.replace(p, N=2048, k=4, bg_bits=1, levels=32)):
+    bads = [dc.replace(p, N=64), dc.replace(p, k=3), dc.replace(p, N=4096)]
+    # one ciphertext over a dp4a block's shared memory: csrc/mega12.cu's
+    # mega11 and mega7 keep digits and accumulators in device memory
+    big = dc.replace(p, N=2048, k=4, bg_bits=1, levels=32)
+    if name in megaJ.TENSOR_CORE:
+        megaJ.check_params(big, name)
+    else:
+        bads.append(big)
+    for bad in bads:
         with pytest.raises(ValueError):
             megaJ.check_params(bad, name)
     megaJ.check_params(PARAM_SETS["std128_shortint"], name)
@@ -188,14 +198,19 @@ def test_block_layout_limits():
     """The dp4a block layout the kernels share (moved here from ``mega12``,
     which left it): one block of 8 ciphertexts fits the card's shared
     memory at N = 2048, and a set whose one ciphertext does not fit is
-    refused by every kernel of the family."""
+    refused by every kernel of the family on that layout; ``mega11`` and
+    ``mega7`` (``csrc/mega12.cu``, digits and accumulators in device
+    memory) take it."""
     si = PARAM_SETS["std128_shortint"]
     assert megaJ.smem_bytes(si, 8) == 229_408 <= megaJ.SMEM_LIMIT
     big = dc.replace(si, N=2048, k=4, bg_bits=1, levels=32)
     assert megaJ.smem_bytes(big, 1) > megaJ.SMEM_LIMIT
     for name in megaJ.KERNELS:
-        with pytest.raises(ValueError, match="shared memory"):
+        if name in megaJ.TENSOR_CORE:
             megaJ.check_params(big, name)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                megaJ.check_params(big, name)
         megaJ.check_params(si, name)
 
 
@@ -419,6 +434,9 @@ def test_fit_engine_doubled_key_routes():
         assert tsk.fit_engine(name, PARAM_SETS["toy"]) == "mega13"
     assert tsk.fit_engine("mega7", shortint) == "mega7"
     assert tsk.fit_engine("mega7", shortint, budget_bytes=8 << 30) == "mega13"
+    # the keys of csrc/mega12.cu's two windows
+    assert tsk.layouts_for_engine("mega7") == ("bsk_btk",)
+    assert tsk.layouts_for_engine("mega11") == ("bsk_btk2",)
     assert tsk.fit_engine("mega16", shortint) == "mega11"
     assert tsk.fit_engine("mega16", shortint,
                           budget_bytes=10 << 30) == "mega12"
