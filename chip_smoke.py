@@ -9,9 +9,11 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
-(all twenty TPU kernel bodies) from eight CUDA sources; ``mega13`` and
-``mega14`` are the two instantiations of ``csrc/megaS.cu`` (int8 tensor
-cores, the key a register operand built from its compact stream), and
+(all twenty TPU kernel bodies) from eight CUDA sources; ``mega13``,
+``mega14``, ``mega17`` and ``mega15`` run ``csrc/megaS.cu`` (int8 tensor
+cores, the key a register operand built from its compact stream;
+``mega17`` and ``mega15`` are ``mega13``'s kernel through their own
+entries), and
 ``mega12``, ``mega7`` (its single window on ``bsk_btk``) and ``mega11``
 (its doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``.
 
@@ -145,10 +147,11 @@ Phases, in order; any failure raises and exits non-zero:
     inputs at B = 2048, 256, 9 and 1, ciphertexts equal to D1's on
     ``mega12``, ``mega7`` in turns with ``mega12`` on the same key and
     inputs at B = 2048 and 256, with times and peak memory;
-13. main path E, the integer tier at STD128_SHORTINT_B8 on ``mega17``: a
-    ``ShortContext`` that routes to ``mega17`` and carries the compact
-    ``bsk_btTc`` key to the card; the kernel against its plain version
-    (tolerance 0) on E's first rotation inputs at B = 2048, 256 and 9; D1's
+13. main path E, the integer tier at STD128_SHORTINT_B8 on ``mega17``
+    (``csrc/megaS.cu``): a ``ShortContext`` that routes to ``mega17`` and
+    carries the compact ``bsk_btTc`` key to the card; the kernel against
+    its plain version (tolerance 0) on E's first rotation inputs at B =
+    2048, 256 and 9; D1's
     (a*b)+a over 2048 values, decrypted, then the same on a ``mega12``
     context (same keys and seed) over the first 256 of those ciphertexts,
     whose results must equal the first 256 of E's;
@@ -164,7 +167,10 @@ Phases, in order; any failure raises and exits non-zero:
     E, with its rerun on ``mega12``;
 16. for E, F and G: the kernel's time per rotation at B=2048 (beside its
     bound and the plain version's time) and B=256, the path end to end,
-    and the path's peak device memory;
+    and the path's peak device memory; for E and G the kernel in turns
+    with ``mega13``'s entry on the same key bytes and inputs at B = 2048
+    and 256 (the same kernel: outputs array-equal, and the spread of two
+    timings of one kernel in turns);
 17. main path K, the eager API at STD128_K4: ``HerdContext(engine=
     "mega14")`` (``fit_engine`` keeps ``mega14``, only ``bsk_btTe`` is
     built), a + b and min over 2048 encrypted u8 pairs, decrypted against
@@ -1220,38 +1226,45 @@ def main() -> int:
     # csrc/megaS.cu's kernels on random keys: mega14 at STD128_FAST's,
     # STD128_K4's and STD128_SHORTINT_FAST's geometries and its least N
     # (256); mega13 at STD128_SHORTINT_FAST's and TOY's (N = 64: the tile is
-    # N, the stream padded), at B = 2048 and 9
+    # N, the stream padded), at B = 2048 and 9; mega17 and mega15 at their
+    # own sets' geometries, also at B = 300 (a ragged tile)
     geomsS = [("mega14", dataclasses.replace(PARAM_SETS[g], n=32))
               for g in ("std128_fast", "std128_k4", "std128_shortint_fast")]
     geomsS += [("mega14", dataclasses.replace(
         PARAM_SETS["std128_shortint_fast"], name="n256_b8l2", n=32, N=256))]
     geomsS += [("mega13", dataclasses.replace(PARAM_SETS[g], n=32))
                for g in ("std128_shortint_fast", "toy")]
-    errS_random = {"mega13": 0, "mega14": 0}
+    geomsS += [(name, dataclasses.replace(PARAM_SETS[g], n=32))
+               for name, g in (("mega17", "std128_shortint_b8"),
+                               ("mega15", "std128_shortint_l4"))]
+    errS_random = {name: 0 for name in megaS.KERNELS}
     for name, Gp in geomsS:
         extended = megaS.KERNELS[name]
         key_g = torch.randint(-128, 128, megaS.key_shape(Gp, extended),
                               dtype=torch.int8, device=dev, generator=gen_j)
-        for Bg in (B_MAIN, 9):
+        for Bg in ((B_MAIN, 300, 9) if name in megaS.GADGET
+                   else (B_MAIN, 9)):
             acc_g = torch.randint(-2**31, 2**31, (Bg, Gp.k + 1, Gp.N),
                                   dtype=torch.int32, device=dev,
                                   generator=gen_j)
             a_g = torch.randint(0, 2 * Gp.N, (Gp.n, Bg), dtype=torch.int32,
                                 device=dev, generator=gen_j)
             got = counters[name](Gp, acc_g, a_g, key_g)
-            want = (megaT.blind_rotate_plain_btTe if extended
-                    else mega13.blind_rotate_plain_btS)(Gp, acc_g, a_g, key_g)
+            want = (mega13.blind_rotate_plain_btS if name == "mega13"
+                    else megaT.plain(name))(Gp, acc_g, a_g, key_g)
             errS_random[name] = max(errS_random[name], abs_err(got, want))
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B={Bg}, random inputs")
         del key_g
     err14 = max(err14, errS_random["mega14"])
     err = max(err, errS_random["mega13"])
+    errS_b8 = {name: errS_random[name] for name in ("mega17", "mega15")}
     torch.cuda.empty_cache()
     print(f"kernel vs plain: {', '.join(megaJ.KERNELS)} == their plain "
           f"versions on random inputs and keys at B=9 at the geometries of "
           f"{[g.name for g in geoms]} (n = 32; array equality, max_abs_err "
-          f"{errs_j}); mega13 and mega14 == their plain versions on random "
+          f"{errs_j}); mega13, mega14 (and mega17, mega15, also at B=300) "
+          f"== their plain versions on random "
           f"inputs and keys at B in {[B_MAIN, 9]} at "
           f"{[(k, g.name) for k, g in geomsS]} (n = 32; max_abs_err "
           f"{errS_random}); mega11 and mega7 (csrc/mega12.cu) == their "
@@ -1784,11 +1797,14 @@ def main() -> int:
           f"{peak_j / 2**30:.3f} GiB {card}")
     del ctx7, key7, a7, b7, r7, d1_out, acc0_j, a_t_j
 
-    # 13-16. paths E, F, G: the byte-aligned kernels megaT.cu --------------
+    # 13-16. paths E, F, G: the byte-aligned kernels (mega17 and mega15 of
+    # megaS.cu, mega16 of megaT.cu) ------------------------------------------
     def integer_path(label: str, pset: str, engine: str) -> dict:
         """Main path E or G: D1's (a*b)+a over the same 2048 values at
         ``pset`` on ``engine``, then on mega12 with the same keys and
-        seed, which must give the same ciphertexts."""
+        seed, which must give the same ciphertexts; ``engine`` in turns
+        with mega13's entry of the same kernel on the same key bytes and
+        inputs."""
         PX = PARAM_SETS[pset]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1837,8 +1853,16 @@ def main() -> int:
               f"{RADIX_VALUES} values)")
         del ctx12, ya, yb, r12x
         torch.cuda.empty_cache()
-        t = rotation_times((engine,), PX, acc0_x, a_t_x, {engine: key},
-                           {engine: megaT.ciphertexts_per_block})[engine]
+        t = rotation_times(
+            (engine,), PX, acc0_x, a_t_x, {engine: key},
+            {engine: lambda p, B, dev_: megaS.kernel_plan(p, B, engine,
+                                                          n_sms)})[engine]
+        turns = in_turns(PX, acc0_x, a_t_x, {
+            engine: (counters[engine], key),
+            "mega13": (lambda p, a, b, k: megaS.launch("mega13", p, a, b, k),
+                       key)},
+            same=(engine, "mega13"))
+        report_turns(engine, PX, turns, key.numel())
         print(f"main path {label}: {PX.name} host keygen {keygen_x_s:.1f} s "
               f"(worker process); ShortContext key ingest (fit_engine -> "
               f"{ctx.engine}, bsk_btTc {key.numel() / 2**20:.1f} MiB built on "
@@ -1852,10 +1876,9 @@ def main() -> int:
         print(f"time: {engine} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
               f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.2f} ms "
-              f"bound ({t['bound_by']}), {t['dp4a_share']:.4f} of the "
-              f"integer lanes' dp4a rate; B={RADIX_VALUES} "
+              f"bound ({t['bound_by']}), on tensor cores; B={RADIX_VALUES} "
               f"{t['narrow_ms']:.3f} ms; plain {plain_ms:.3f} ms at "
-              f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
+              f"B={B_MAIN}; (work units, K splits) by B {t['G']} {card}")
         print(f"time: main path {label} (a*b)+a over {B_MAIN} values end to "
               f"end {path_s:.3f} s on {engine} = {rotations / path_s:.1f} "
               f"rotations/s; over {RADIX_VALUES} values {path12_s:.3f} s on "
@@ -1863,9 +1886,10 @@ def main() -> int:
         print(f"memory: path {label} on {engine} torch.cuda."
               f"max_memory_allocated {peak / 2**30:.3f} GiB {card}")
         return {"counts": counts, "counts12": counts12, "err": err,
-                "plain_ms": plain_ms, **t}
+                "plain_ms": plain_ms, "turns": turns, **t}
 
     res_e = integer_path("E", "std128_shortint_b8", "mega17")
+    res_e["err"] = max(res_e["err"], errS_b8["mega17"])
 
     # F: bool gates at STD128_SHORTINT_FAST on mega16, then on mega13
     PF = PARAM_SETS["std128_shortint_fast"]
@@ -1966,6 +1990,7 @@ def main() -> int:
     del dsk_f, lin_f, acc0_f, a_t_f, out_f, out_f13, out_f14
 
     res_g = integer_path("G", "std128_shortint_l4", "mega15")
+    res_g["err"] = max(res_g["err"], errS_b8["mega15"])
 
     # 17. main path K: the eager HerdContext at STD128_K4 on mega14 --------
     PK = PARAM_SETS["std128_k4"]
@@ -2201,7 +2226,9 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "herdsman_tpu_torch/csrc/megaT.cu",
+            "source": ("herdsman_tpu_torch/csrc/megaT.cu"
+                       if name in megaT.DP4A
+                       else "herdsman_tpu_torch/csrc/megaS.cu"),
             "replaces": f"herdsman_tpu/ops/pallas/mega.py:{line}",
             **launches(name),
             "matches_plain": res["err"] == 0,
@@ -2212,6 +2239,9 @@ def main() -> int:
             "bound_by": res["bound_by"],
             "library_ms": None,
             "ms_b256": res["narrow_ms"],
+            **{f"ms_{k}_in_turns_b{B}": v
+               for B, t in res.get("turns", {}).items()
+               for k, v in t.items()},
         })
     # mega11 (csrc/mega12.cu's doubled window) and mega8 timed at STD128_K2
     # (path H), mega7 (its single window) at STD128_SHORTINT (path J),

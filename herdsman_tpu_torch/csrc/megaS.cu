@@ -6,7 +6,12 @@
 //   - megaS_kernel<false> replaces herdsman_tpu/ops/pallas/mega.py::
 //     _mega13_kernel (wrapper mega13_blind_rotate), the boolean path's
 //     engine, on the single-width key bsk_btS at any gadget with bg_bits <= 8
-//     and levels 1-4, N a power of two in [32, 2048];
+//     and levels 1-4, N a power of two in [32, 2048]; and with its own C
+//     entries mega.py::_mega17_kernel (wrapper mega17_blind_rotate: bg = 2^8,
+//     levels 3, STD128_SHORTINT_B8) and _mega15_kernel (mega15_blind_rotate:
+//     bg = 2^8, levels 4, the exact gadget, STD128_SHORTINT_L4), on their
+//     key bsk_btTc, which at N >= 128 is bsk_btS byte for byte (L*N is a
+//     multiple of 128);
 //   - megaS_kernel<true> replaces mega.py::_mega14_kernel (wrapper
 //     mega14_blind_rotate) on the extended key bsk_btTe (bg = 2^8, levels 2,
 //     N >= 256).
@@ -35,10 +40,12 @@
 // Bound.  One rotation is n * B * ((k+1)*L*N) * ((k+1)*4*N) int8 MACs, two
 // operations each: 30.00 ms at STD128_K2 and B = 2048 (5.94e13 operations)
 // at the H100's 1,979 int8 TOP/s, 20.83 ms at STD128_K4, 80.00 ms at STD128
-// (mega13), 213.35 ms at STD128_SHORTINT_FAST.  The key is 34 MiB at
-// STD128_K2 and 76 MiB at STD128_K4, read once a rotation (0.01-0.03 ms at
-// 3.35 TB/s), so the rotation is bound by operations, and they run on the
-// tensor cores: wgmma.mma_async m64n128k32 s8 x s8 -> s32, A from registers.
+// (mega13), 213.35 ms at STD128_SHORTINT_FAST, 320.02 ms at
+// STD128_SHORTINT_B8 (mega17) and 426.69 ms at STD128_SHORTINT_L4 (mega15).
+// The key is 34 MiB at STD128_K2, 76 MiB at STD128_K4 and 77-103 MiB at the
+// N = 2048 sets, read once a rotation (0.01-0.03 ms at 3.35 TB/s), so the
+// rotation is bound by operations, and they run on the tensor cores:
+// wgmma.mma_async m64n128k32 s8 x s8 -> s32, A from registers.
 //
 // Why the key is the A operand.  The key's rows are Toeplitz runs of its
 // compact sequences: row (j, c_out, q) is the sequence read from byte
@@ -104,7 +111,15 @@
 // leave, ptxas serialized the wgmma for want of registers (C7512).  The
 // producer prefetches the next step's key into L2 at the start of each
 // step's products.  L2 bytes per operation: a stage of 18 KB feeds 256 x
-// 128 x 128 MACs, 466 int8 operations per byte.
+// 128 x 128 MACs, 466 int8 operations per byte.  Those bytes do not set the
+// pace at N = 2048 either (kt = 96 or 128 K blocks an item, 1.6-2.1 GB of
+// digit tiles a step): two-block clusters in which the two items of a
+// 128-column tile, which walk the same digit tiles, shared each tile
+// through a multicast copy (10 KB of L2 a block and stage, not 18) ran
+// 0.2% faster to 0.8% slower than this kernel at STD128_SHORTINT_B8 and _L4
+// B = 2048 and 0.8-1.7% slower at B = 256, in turns, so they were taken out
+// again; the stage hand-off, the fragments and the products, one after the
+// other in each consumer warpgroup, set the pace (PERF.md).
 //
 // Fragments and the K permutation.  In warpgroup w's two m64 tiles T = 0, 1,
 // row 16*warp + g + 8h (g = lane/4) is limb j = 2T + h of coefficient q =
@@ -669,6 +684,21 @@ int megaS_geometry(int extended, int N, int levels, int* P, int* NBc,
   return cudaSuccess;
 }
 
+// (work units, K splits) of a rotation of B ciphertexts on a card of n_sms
+// SMs (ops/kernels/megaS.py::plan mirrors it)
+int megaS_plan(int extended, int B, int N, int kp1, int levels, int n_sms,
+               int* units, int* splits) {
+  int P, NBc, RB;
+  if (B <= 0 || n_sms < 1 ||
+      megaS_geometry(extended, N, levels, &P, &NBc, &RB) != cudaSuccess)
+    return cudaErrorInvalidValue;
+  const int qblocks = N / QI > 1 ? N / QI : 1;
+  const int items = (B + NT - 1) / NT * kp1 * qblocks;
+  *splits = plan_splits(items, kp1 * NBc, n_sms);
+  *units = items * *splits;
+  return cudaSuccess;
+}
+
 // acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), key bsk_btS [n, kp1,
 // kp1, 4, RB] int8, out [B, kp1, N] u32, dig a scratch of kp1*NBc*ceil(B/
 // 128)*128*128 bytes, bar a 4-byte scratch, all device pointers (key and dig
@@ -688,6 +718,23 @@ int mega14_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, void* dig, void* bar, int B, int n, int N,
                         int kp1, void* stream) {
   return rotate(true, acc0, a_t, key, out, dig, bar, B, n, N, kp1, 8, 2,
+                stream);
+}
+
+// mega13's kernel at the byte-aligned gadget, levels 3 (mega17) and 4
+// (mega15), on bsk_btTc [n, kp1, kp1, 4, RB] (bsk_btS at bg 2^8), N a power
+// of two in [32, 2048]; the other arguments of mega13_blind_rotate
+int mega17_blind_rotate(const void* acc0, const void* a_t, const void* key,
+                        void* out, void* dig, void* bar, int B, int n, int N,
+                        int kp1, void* stream) {
+  return rotate(false, acc0, a_t, key, out, dig, bar, B, n, N, kp1, 8, 3,
+                stream);
+}
+
+int mega15_blind_rotate(const void* acc0, const void* a_t, const void* key,
+                        void* out, void* dig, void* bar, int B, int n, int N,
+                        int kp1, void* stream) {
+  return rotate(false, acc0, a_t, key, out, dig, bar, B, n, N, kp1, 8, 4,
                 stream);
 }
 

@@ -1,11 +1,11 @@
 // megaT: the whole GINX blind rotation of a ciphertext batch in one launch,
-// for the bitcast-stream class at the byte-aligned gadget bg = 2^8: levels
-// L = 2 (mega16), 3 (mega17) and 4 (mega15) on the single-width key.
+// for the bitcast-stream class at the byte-aligned gadget bg = 2^8, levels
+// L = 2 (mega16), on the single-width key.
 //
-// Replaces herdsman_tpu/ops/pallas/mega.py::_mega16_kernel,
-// _mega17_kernel and _mega15_kernel (wrappers mega16/17/15_blind_rotate).
-// _mega14_kernel, once an extended-key variant of this source, is
-// csrc/megaS.cu's (int8 tensor cores on the same key bsk_btTe).
+// Replaces herdsman_tpu/ops/pallas/mega.py::_mega16_kernel (wrapper
+// mega16_blind_rotate).  _mega14_kernel, _mega17_kernel and _mega15_kernel,
+// once variants of this source, are csrc/megaS.cu's (int8 tensor cores, the
+// key a register operand; mega17 and mega15 on the same key bsk_btTc).
 // Same function: for i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
@@ -13,13 +13,12 @@
 // exact mod 2^32.  Per step the digits of diff = X^a acc - acc form a byte
 // stream D_c of L*N bytes per polynomial c (byte L*z + lb is digit lb of
 // coefficient z, least significant first): round diff to its top W = 8L
-// bits, add the balanced offset 0x80.., keep the low L bytes and read each
-// byte b as b - 128 (for W = 32 no rounding: the exact diff + 0x80808080).
-// The JAX kernels reach the same stream by packing u32 words and
-// bitcasting them to int8 (mega.py:1380-1385, :1560-1576, :1211-1214), so
-// four coefficients give exactly L stream words and no per-level shift and
-// mask is needed.  Output tile ct (P = 128 columns) is the wrap-split
-// two-dot of mega.py:1578-1590 over the single-width key,
+// bits, add the balanced offset 0x8080, keep the low L bytes and read each
+// byte b as b - 128.  The JAX kernel reaches the same stream by packing u32
+// words and bitcasting them to int8 (mega.py:1380-1385), so four
+// coefficients give exactly L stream words and no per-level shift and mask
+// is needed.  Output tile ct (P = 128 columns) is the wrap-split two-dot of
+// mega.py:1578-1590 over the single-width key,
 //
 //   part_j[q] =   sum_c sum_{s < split} K_c[(j, c_out, q), s]         D_c[L*ct*P + s]
 //               - sum_c sum_{s >= split} K_c[(j, c_out, q), s]        D_c[s - split]
@@ -35,23 +34,23 @@
 // 2N] at column L*z + lb, so it is one L-fold interleaved limb sequence T
 // (T[L*u + lb] = limb_j(ext(...)[(P-1-u) mod 2N]), u < N+P-1) read from
 // offset (P-1-q)*L.  The kernel reads that compact key, bsk_btTc int8 [n,
-// k+1 (c_in), k+1 (c_out), 4 (j), RB] (RB = row_bytes(L, N) below): 104 KB
-// per step at L = 3, N = 2048, k = 1, against 12.6 MB for the expanded
-// rows.  Both split offsets are multiples of 4 (P = 128), so every stream
-// word is a ready __dp4a operand; the key word at byte (P-1-q)*L + s is
-// unaligned for L = 2, 3 and is one funnel shift of two aligned words.
+// k+1 (c_in), k+1 (c_out), 4 (j), RB] (RB = row_bytes(N) below): 70 KB per
+// step at N = 2048, k = 1, against 8.4 MB for the expanded rows.  Both
+// split offsets are multiples of 4 (P = 128), so every stream word is a
+// ready __dp4a operand; the key word at byte (P-1-q)*L + s is unaligned and
+// is one funnel shift of two aligned words.
 //
 // Exactness.  |digit| <= 128 and limbs are balanced int8, so one partial
-// is at most L*N*2^14 in size per (c_in, c_out) (1.3e8 at L = 4, N =
-// 2048): under 2^31, and the recombine is linear mod 2^32 in any case.
+// is at most L*N*2^14 in size per (c_in, c_out) (6.7e7 at N = 2048): under
+// 2^31, and the recombine is linear mod 2^32 in any case.
 //
 // Bound.  One rotation is n * B * ((k+1)*L*N) * ((k+1)*4*N) int8 MACs:
-// 3.17e14 at STD128_SHORTINT_B8 and B = 2048, 320.02 ms at the H100's
-// 1,979 int8 TOP/s (213.35 ms at L = 2, 426.69 ms at L = 4).  This kernel
-// runs them on the SMs' integer lanes as __dp4a (4 MACs each), so it is
-// bound by dp4a issue, about 16 times the tensor-core bound.  Right and
-// simple first; csrc/megaS.cu shows the tensor-core form (the key as
-// wgmma's register A operand) for mega13 and mega14.
+// 2.11e14 at STD128_SHORTINT_FAST and B = 2048, 213.35 ms at the H100's
+// 1,979 int8 TOP/s.  This kernel runs them on the SMs' integer lanes as
+// __dp4a (4 MACs each), so it is bound by dp4a issue, about 16 times the
+// tensor-core bound.  Right and simple first; csrc/megaS.cu is the
+// tensor-core form (the key as wgmma's register A operand) that mega13,
+// mega14, mega17 and mega15 run, and mega16 needs only a route to it.
 //
 // Design.  Hopper blocks run in no order, so each block owns G
 // ciphertexts for all n steps and loops over i itself.  Per step the block
@@ -73,15 +72,15 @@
 // idles.  G is picked per launch from {8, 4, 2, 1}: the G whose number of
 // waves (one block per SM) times its per-word issue cost (4*G dp4a and
 // about 10 other instructions) is least, the largest G on a tie, within
-// the shared-memory limit: G = 8 at L = 2 and G = 4 at L = 3, 4 for N =
-// 2048, k = 1.  Missing ciphertexts of a ragged batch rotate zeros and
-// store nothing.
+// the shared-memory limit: G = 8 for N = 2048, k = 1.  Missing ciphertexts
+// of a ragged batch rotate zeros and store nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int L = 2;              // levels: two stream bytes a coefficient
 constexpr int P = 128;            // column tile
 constexpr int NGROUP = 4;         // column tiles contracted at once
 constexpr int BD = NGROUP * P;    // threads per block
@@ -89,7 +88,7 @@ constexpr int SMEM_PER_BLOCK = 232448;  // bytes one H100 block may use
 
 // bytes of one limb sequence of the compact key, L*(N+P-1), and one word
 // of slack for the shifted reads, rounded up to 16 (ops/kernels/megaT.py)
-__host__ __device__ constexpr int row_bytes(int L, int N) {
+__host__ __device__ constexpr int row_bytes(int N) {
   return (L * (N + P - 1) + 4 + 15) / 16 * 16;
 }
 
@@ -99,31 +98,17 @@ __host__ __device__ constexpr int c_out_slices(int kp1, int N) {
   return N / P >= NGROUP ? 1 : (NGROUP / (N / P) < kp1 ? NGROUP / (N / P) : kp1);
 }
 
-// the L stream words of 4 consecutive coefficients' differences
-template <int L>
+// the L stream words of 4 consecutive coefficients' differences: their top
+// 16 bits rounded, offset and packed in adjacent pairs (mega.py:1381-1385)
 __device__ __forceinline__ void pack_quad(const uint32_t (&d)[4],
                                           uint32_t (&w)[L]) {
-  if constexpr (L == 4) {  // W = 32: exact, one coefficient per word
+  constexpr int W = 8 * L;
+  uint32_t v[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = (d[u] + 0x80808080u) ^ 0x80808080u;
-  } else {
-    constexpr int W = 8 * L;
-    constexpr uint32_t offset = L == 2 ? 0x8080u : 0x808080u;
-    uint32_t v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u] = ((d[u] + (1u << (31 - W))) >> (32 - W)) + offset;
-    if constexpr (L == 2) {  // adjacent pairs (mega.py:1381-1385)
-      w[0] = ((v[0] & 0xFFFFu) | (v[1] << 16)) ^ 0x80808080u;
-      w[1] = ((v[2] & 0xFFFFu) | (v[3] << 16)) ^ 0x80808080u;
-    } else {  // 3-of-4 packing; drop the offset's carry (mega.py:1563-1576)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] &= 0xFFFFFFu;
-      w[0] = (v[0] | (v[1] << 24)) ^ 0x80808080u;
-      w[1] = ((v[1] >> 8) | (v[2] << 16)) ^ 0x80808080u;
-      w[2] = ((v[2] >> 16) | (v[3] << 8)) ^ 0x80808080u;
-    }
-  }
+  for (int u = 0; u < 4; ++u)
+    v[u] = ((d[u] + (1u << (31 - W))) >> (32 - W)) + 0x8080u;
+  w[0] = ((v[0] & 0xFFFFu) | (v[1] << 16)) ^ 0x80808080u;
+  w[1] = ((v[2] & 0xFFFFu) | (v[3] << 16)) ^ 0x80808080u;
 }
 
 // part[g][j] += stream word g . key word j, for one stream word position
@@ -177,7 +162,7 @@ __device__ __forceinline__ void run(const uint32_t* __restrict__ ks, int tw,
   }
 }
 
-template <int L, int G, int KP1>
+template <int G, int KP1>
 __global__ void __launch_bounds__(BD, 1)
 megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
              const int32_t* __restrict__ a_t,    // [n, B] in [0, 2N)
@@ -188,7 +173,7 @@ megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   const int LN4 = L * N / 4;          // stream words per polynomial
   const int HALF = N / P;
   const int CS = c_out_slices(KP1, N);
-  const int tw = row_bytes(L, N) / 4;  // words per staged limb sequence
+  const int tw = row_bytes(N) / 4;   // words per staged limb sequence
   uint32_t* acc = smem;                                     // [G][KP1][N]
   uint32_t* dig = acc + G * KP1 * N;                        // [KP1][LN4][G]
   uint32_t* ks = dig + static_cast<size_t>(KP1) * LN4 * G;  // [CS][4][tw]
@@ -231,7 +216,7 @@ megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
         d[u] = rv - a[y];
       }
       uint32_t w[L];
-      pack_quad<L>(d, w);
+      pack_quad(d, w);
 #pragma unroll
       for (int x = 0; x < L; ++x)
         dig[(static_cast<size_t>(c) * LN4 + L * y4 + x) * G + g] = w[x];
@@ -288,20 +273,20 @@ megaT_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   for (int e = tid; e < nb * KP1 * N; e += BD) out[base + e] = acc[e];
 }
 
-size_t smem_bytes(int L, int G, int N, int kp1) {
+size_t smem_bytes(int G, int N, int kp1) {
   return static_cast<size_t>(G) * (static_cast<size_t>(kp1) * N * 4 +
                                    static_cast<size_t>(kp1) * L * N + 4) +
-         static_cast<size_t>(4) * c_out_slices(kp1, N) * row_bytes(L, N);
+         static_cast<size_t>(4) * c_out_slices(kp1, N) * row_bytes(N);
 }
 
 // ciphertexts per block: least (waves of one block per SM) x (per-word
 // issue cost), the largest G on a tie, within the shared-memory limit
-int pick_g(int B, int N, int kp1, int L, int sms) {
+int pick_g(int B, int N, int kp1, int sms) {
   const int choices[4] = {8, 4, 2, 1};
   int best = 0;
   long long best_cost = 0;
   for (int g : choices) {
-    if (smem_bytes(L, g, N, kp1) > static_cast<size_t>(SMEM_PER_BLOCK))
+    if (smem_bytes(g, N, kp1) > static_cast<size_t>(SMEM_PER_BLOCK))
       continue;
     const long long blocks = (B + g - 1) / g;
     const long long waves = (blocks + sms - 1) / sms;
@@ -314,11 +299,11 @@ int pick_g(int B, int N, int kp1, int L, int sms) {
   return best;
 }
 
-template <int L, int G, int KP1>
+template <int G, int KP1>
 cudaError_t launch(const void* acc0, const void* a_t, const void* key,
                    void* out, int B, int n, int N, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, G, N, KP1);
-  auto kern = megaT_kernel<L, G, KP1>;
+  const size_t smem = smem_bytes(G, N, KP1);
+  auto kern = megaT_kernel<G, KP1>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -328,29 +313,14 @@ cudaError_t launch(const void* acc0, const void* a_t, const void* key,
   return cudaGetLastError();
 }
 
-template <int L, int KP1>
+template <int KP1>
 cudaError_t launch_g(int G, const void* acc0, const void* a_t, const void* key,
                      void* out, int B, int n, int N, cudaStream_t s) {
   switch (G) {
-    case 8: return launch<L, 8, KP1>(acc0, a_t, key, out, B, n, N, s);
-    case 4: return launch<L, 4, KP1>(acc0, a_t, key, out, B, n, N, s);
-    case 2: return launch<L, 2, KP1>(acc0, a_t, key, out, B, n, N, s);
-    case 1: return launch<L, 1, KP1>(acc0, a_t, key, out, B, n, N, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int L>
-int rotate(const void* acc0, const void* a_t, const void* key, void* out,
-           int B, int n, int N, int kp1, int sms, void* stream) {
-  if (B <= 0 || n <= 0 || N < P || N > 2048 || (N & (N - 1)) || sms <= 0)
-    return cudaErrorInvalidValue;
-  const int G = pick_g(B, N, kp1, L, sms);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kp1) {
-    case 2: return launch_g<L, 2>(G, acc0, a_t, key, out, B, n, N, s);
-    case 3: return launch_g<L, 3>(G, acc0, a_t, key, out, B, n, N, s);
-    case 5: return launch_g<L, 5>(G, acc0, a_t, key, out, B, n, N, s);
+    case 8: return launch<8, KP1>(acc0, a_t, key, out, B, n, N, s);
+    case 4: return launch<4, KP1>(acc0, a_t, key, out, B, n, N, s);
+    case 2: return launch<2, KP1>(acc0, a_t, key, out, B, n, N, s);
+    case 1: return launch<1, KP1>(acc0, a_t, key, out, B, n, N, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -359,10 +329,10 @@ int rotate(const void* acc0, const void* a_t, const void* key, void* out,
 
 extern "C" {
 
-// The G a launch of B ciphertexts takes at levels L on a card of `sms` SMs.
-int megaT_ciphertexts_per_block(int B, int N, int kp1, int levels, int sms) {
-  if (B <= 0 || sms <= 0 || levels < 2 || levels > 4) return 0;
-  return pick_g(B, N, kp1, levels, sms);
+// The G a launch of B ciphertexts takes on a card of `sms` SMs.
+int megaT_ciphertexts_per_block(int B, int N, int kp1, int sms) {
+  if (B <= 0 || sms <= 0) return 0;
+  return pick_g(B, N, kp1, sms);
 }
 
 // acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), key bsk_btTc [n, kp1,
@@ -372,19 +342,16 @@ int megaT_ciphertexts_per_block(int B, int N, int kp1, int levels, int sms) {
 int mega16_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, int B, int n, int N, int kp1, int sms,
                         void* stream) {
-  return rotate<2>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
-}
-
-int mega17_blind_rotate(const void* acc0, const void* a_t, const void* key,
-                        void* out, int B, int n, int N, int kp1, int sms,
-                        void* stream) {
-  return rotate<3>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
-}
-
-int mega15_blind_rotate(const void* acc0, const void* a_t, const void* key,
-                        void* out, int B, int n, int N, int kp1, int sms,
-                        void* stream) {
-  return rotate<4>(acc0, a_t, key, out, B, n, N, kp1, sms, stream);
+  if (B <= 0 || n <= 0 || N < P || N > 2048 || (N & (N - 1)) || sms <= 0)
+    return cudaErrorInvalidValue;
+  const int G = pick_g(B, N, kp1, sms);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kp1) {
+    case 2: return launch_g<2>(G, acc0, a_t, key, out, B, n, N, s);
+    case 3: return launch_g<3>(G, acc0, a_t, key, out, B, n, N, s);
+    case 5: return launch_g<5>(G, acc0, a_t, key, out, B, n, N, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* megaT_error_string(int err) {

@@ -21,13 +21,14 @@ through one of three kinds of engine:
   ``mega11`` that source's doubled window against ``bsk_btk2``
   (``bsk_btj2j`` in ``wgmma``'s order); ``mega16``, ``mega17`` and
   ``mega15`` (the JAX package's engines of the same names, at the
-  byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) are
-  ``csrc/megaT.cu`` against the compact ``bsk_btTc`` key, and ``mega14``
-  (levels 2, N >= 256) ``csrc/megaS.cu``'s second instantiation against
-  the extended ``bsk_btTe`` (one run per column tile); ``mega8`` (the JAX
-  package's engine of that name, any gadget) is ``csrc/megaJ.cu`` against
-  the j-major doubled window ``bsk_btj2`` (one contraction per column
-  tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
+  byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) read the compact
+  ``bsk_btTc`` key, ``mega16`` in ``csrc/megaT.cu`` and ``mega17`` and
+  ``mega15`` in ``csrc/megaS.cu`` (``mega13``'s kernel), and
+  ``mega14`` (levels 2, N >= 256) is ``csrc/megaS.cu``'s extended
+  instantiation against ``bsk_btTe`` (one run per column tile);
+  ``mega8`` (the JAX package's engine of that name, any gadget) is
+  ``csrc/megaJ.cu`` against the j-major doubled window ``bsk_btj2`` (one
+  contraction per column tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
   the same source on ``bsk_btj2`` and on the single width ``bsk_btj`` (the
   negated run subtracted) with other schedules; the legacy ``mega10`` (on
   ``bsk_btj2``), ``mega4`` and ``mega5`` (on ``bsk_btj``) are

@@ -1,7 +1,10 @@
 """The stream-key rotation kernel on int8 tensor cores (``csrc/megaS.cu``):
 its geometry, its work plan and the launch that ``mega13_blind_rotate``
-(``ops/kernels/mega13.py``, on ``bsk_btS``) and ``mega14_blind_rotate``
-(``ops/kernels/megaT.py``, on ``bsk_btTe``) share.
+(``ops/kernels/mega13.py``, on ``bsk_btS``), ``mega14_blind_rotate`` (on
+``bsk_btTe``) and ``mega17_blind_rotate`` and ``mega15_blind_rotate`` (on
+``bsk_btTc``, which at N >= 128 is ``bsk_btS`` byte for byte: ``mega13``'s
+kernel with their own C entries; all three in ``ops/kernels/megaT.py``)
+share.
 
 Both keys hold, per (step, c_in, c_out, limb j), one L-fold interleaved limb
 sequence T[L*u + lb] = limb_j(ext(bsk[i, c_in*L + L-1-lb, c_out])[(P-1-u)
@@ -30,7 +33,9 @@ QI = 64       # output coefficients of an item (32 a consumer warpgroup)
 KSLOT = 512   # bytes of one limb's key slice in a stage
 
 # wrapper name -> whether its key is the extended one (P = N)
-KERNELS = {"mega13": False, "mega14": True}
+KERNELS = {"mega13": False, "mega14": True, "mega17": False, "mega15": False}
+# wrapper name -> the (bg_bits, levels) its C entry fixes
+GADGET = {"mega14": (8, 2), "mega17": (8, 3), "mega15": (8, 4)}
 
 
 class Geometry(NamedTuple):
@@ -111,22 +116,29 @@ def permuted_word_offset(w: int, b: int) -> int:
     return (((2 * kk + hf) ^ (b & 7)) << 4) | (t << 2)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/megaS.cu`` with its C signatures declared."""
-    lib = _build.load("megaS")
-    lib.mega13_blind_rotate.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.mega13_blind_rotate.restype = ctypes.c_int
-    lib.mega14_blind_rotate.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.mega14_blind_rotate.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/megaS.cu``) with its C signatures
+    declared."""
+    for name in KERNELS:
+        fn = getattr(lib, f"{name}_blind_rotate")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (
+            4 if name in GADGET else 6) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.megaS_geometry.argtypes = [ctypes.c_int] * 3 + [
         ctypes.POINTER(ctypes.c_int)] * 3
     lib.megaS_geometry.restype = ctypes.c_int
+    lib.megaS_plan.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.megaS_plan.restype = ctypes.c_int
     lib.megaS_error_string.argtypes = [ctypes.c_int]
     lib.megaS_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/megaS.cu`` with its C signatures declared."""
+    return declare(_build.load("megaS"))
 
 
 def kernel_geometry(N: int, levels: int, extended: bool) -> Geometry:
@@ -140,15 +152,29 @@ def kernel_geometry(N: int, levels: int, extended: bool) -> Geometry:
     return Geometry(P.value, NBc.value, NBc.value * KB, RB.value)
 
 
-def launch(name: str, p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
-           key: torch.Tensor) -> torch.Tensor:
-    """One launch of kernel ``name`` (``mega13`` or ``mega14``) on CUDA
-    tensors the wrapper has checked: the accumulators after the n steps.
-    Allocates the output, the digit scratch and the barrier counter, which
-    the entry point sets up; raises if the launch fails."""
+def kernel_plan(p: TFHEParams, B: int, name: str,
+                n_sms: int = H100_SMS) -> tuple[int, int]:
+    """(work units, K splits) of kernel ``name``'s rotation of B
+    ciphertexts as the built kernel plans it (the card tests hold it equal
+    to ``plan``)."""
+    units, splits = ctypes.c_int(), ctypes.c_int()
+    err = _lib().megaS_plan(int(KERNELS[name]), B, p.N, p.k + 1, p.levels,
+                            n_sms, ctypes.byref(units), ctypes.byref(splits))
+    if err:
+        raise ValueError(f"megaS_plan refused {name} at {p.name}, B={B}")
+    return units.value, splits.value
+
+
+def rotate_with(lib: ctypes.CDLL, name: str, p: TFHEParams,
+                acc0: torch.Tensor, a_t: torch.Tensor,
+                key: torch.Tensor) -> torch.Tensor:
+    """One launch of kernel ``name`` of ``lib`` (a build of
+    ``csrc/megaS.cu``) on CUDA tensors the wrapper has checked: the
+    accumulators after the n steps.  Allocates the output, the digit scratch
+    and the barrier counter, which the entry point sets up; raises if the
+    launch fails."""
     if key.data_ptr() % 16:  # the bulk copies' alignment
         raise ValueError(f"{name}'s key must be 16-byte aligned")
-    lib = _lib()
     extended = KERNELS[name]
     B = acc0.shape[0]
     out = torch.empty_like(acc0)
@@ -157,14 +183,19 @@ def launch(name: str, p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
     bar = torch.empty(1, dtype=torch.int32, device=acc0.device)
     ptrs = (acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(), out.data_ptr(),
             dig.data_ptr(), bar.data_ptr())
+    gadget = () if name in GADGET else (p.bg_bits, p.levels)
     with torch.cuda.device(acc0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if extended:
-            err = lib.mega14_blind_rotate(*ptrs, B, p.n, p.N, p.k + 1, stream)
-        else:
-            err = lib.mega13_blind_rotate(*ptrs, B, p.n, p.N, p.k + 1,
-                                          p.bg_bits, p.levels, stream)
+        err = getattr(lib, f"{name}_blind_rotate")(
+            *ptrs, B, p.n, p.N, p.k + 1, *gadget, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.megaS_error_string(err).decode())
     return out
+
+
+def launch(name: str, p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
+           key: torch.Tensor) -> torch.Tensor:
+    """One launch of kernel ``name`` (``mega13``, ``mega14``, ``mega17`` or
+    ``mega15``) of the built ``csrc/megaS.cu`` (``rotate_with``)."""
+    return rotate_with(_lib(), name, p, acc0, a_t, key)

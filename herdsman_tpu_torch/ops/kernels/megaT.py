@@ -1,7 +1,7 @@
-"""Whole-rotation blind-rotation kernels of the bitcast-stream class
-(``csrc/megaT.cu``) and their plain PyTorch versions.
+"""Whole-rotation blind-rotation kernels of the bitcast-stream class at the
+byte-aligned gadget, and their plain PyTorch versions.
 
-The four kernels serve the byte-aligned gadget bg = 2^8 and keep the
+The four wrappers serve the byte-aligned gadget bg = 2^8 and keep the
 contract of the JAX package's wrappers they replace:
 
 - ``mega16_blind_rotate``: levels 2, ``herdsman_tpu/ops/pallas/mega.py::
@@ -47,10 +47,13 @@ key's values (``ext_tile_rows``): the JAX package's pt-major window
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btTc`` (``blind_rotate_plain_btTe`` for ``mega14``).
-The source note in ``csrc/megaT.cu`` gives the three compact-key kernels'
-design and bound; ``mega14``'s kernel is ``csrc/megaS.cu``'s extended
-instantiation (int8 tensor cores, the key a register operand;
-``ops/kernels/megaS.py``).
+``mega17``, ``mega15`` and ``mega14`` are instantiations of
+``csrc/megaS.cu`` (int8 tensor cores, the key a register operand;
+``ops/kernels/megaS.py``): ``mega17`` and ``mega15`` read ``bsk_btTc``,
+which at N >= 128 is ``mega13``'s ``bsk_btS`` byte for byte, so they run
+``mega13``'s kernel through their own C entries; ``mega14`` reads
+``bsk_btTe``.  ``mega16`` is ``csrc/megaT.cu``'s dp4a kernel, whose source
+note gives its design and bound.
 """
 
 from __future__ import annotations
@@ -70,13 +73,15 @@ I32 = torch.int32
 I8 = torch.int8
 
 P = 128                    # column tile: the kernels take N >= 128 only
-NGROUP = 4                 # column tiles one block contracts at once
+NGROUP = 4                 # column tiles mega16's block contracts at once
 SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 # kernel -> the gadget depth it serves at bg = 2^8
 KERNELS = {"mega16": 2, "mega17": 3, "mega15": 4, "mega14": 2}
 # the kernels that read the extended key
 EXTENDED = ("mega14",)
+# the kernels of csrc/megaT.cu (dp4a); the others are csrc/megaS.cu's
+DP4A = ("mega16",)
 # kernel -> the key layout it reads
 KEY_LAYOUTS = {name: "bsk_btTe" if name in EXTENDED else "bsk_btTc"
                for name in KERNELS}
@@ -96,16 +101,17 @@ def key_bytes(p: TFHEParams, extended: bool = False) -> int:
 
 
 def c_out_slices(p: TFHEParams) -> int:
-    """c_out slices of the step key a block stages at once: enough (tile,
-    c_out) units for its 4 groups where N has fewer than 4 column tiles."""
+    """c_out slices of the step key a ``mega16`` block stages at once:
+    enough (tile, c_out) units for its 4 groups where N has fewer than 4
+    column tiles."""
     half = p.N // P
     return 1 if half >= NGROUP else min(NGROUP // half, p.k + 1)
 
 
 def smem_bytes(p: TFHEParams, G: int) -> int:
-    """Shared memory of one block of G ciphertexts: their accumulators
-    (u32), one step's digit streams and rotation amounts, and the staged
-    (c_in, c_out) slices of the step key."""
+    """Shared memory of one ``mega16`` block of G ciphertexts at ``p``'s
+    shape: their accumulators (u32), one step's digit streams and rotation
+    amounts, and the staged (c_in, c_out) slices of the step key."""
     kp1 = p.k + 1
     return (G * (kp1 * p.N * 4 + kp1 * p.levels * p.N + 4)
             + 4 * c_out_slices(p) * row_bytes(p))
@@ -115,7 +121,8 @@ def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: its own
     gadget (bg_bits 8, levels KERNELS[name]), k+1 in (2, 3, 5), N a power
     of two in [128, 2048] ([256, 2048] for ``mega14``, the JAX kernel's N
-    >= 2P), and one ciphertext within a block's shared memory."""
+    >= 2P), and for ``mega16`` one ciphertext within a block's shared
+    memory."""
     L = KERNELS[name]
     extended = name in EXTENDED
     if p.bg_bits != 8 or p.levels != L:
@@ -128,7 +135,7 @@ def check_params(p: TFHEParams, name: str) -> None:
     if p.N & (p.N - 1) or not lo <= p.N <= 2048:
         raise ValueError(f"{name} takes N a power of two in [{lo}, 2048], "
                          f"not {p.N} ({p.name})")
-    if not extended and smem_bytes(p, 1) > SMEM_LIMIT:
+    if name in DP4A and smem_bytes(p, 1) > SMEM_LIMIT:
         raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} "
                          f"bytes of shared memory per ciphertext, over "
                          f"{SMEM_LIMIT}")
@@ -278,12 +285,10 @@ def plain(name: str):
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/megaT.cu`` with its C signatures declared."""
     lib = _build.load("megaT")
-    for name in set(KERNELS) - set(EXTENDED):
-        fn = getattr(lib, f"{name}_blind_rotate")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 5
+    lib.mega16_blind_rotate.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.mega16_blind_rotate.restype = ctypes.c_int
+    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 4
     lib.megaT_ciphertexts_per_block.restype = ctypes.c_int
     lib.megaT_error_string.argtypes = [ctypes.c_int]
     lib.megaT_error_string.restype = ctypes.c_char_p
@@ -295,10 +300,9 @@ def _sms(device: torch.device) -> int:
 
 
 def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device) -> int:
-    """The G the compact-key kernels pick for a rotation of B ciphertexts
-    at ``p`` on the card ``device`` (0 where they take none)."""
-    return _lib().megaT_ciphertexts_per_block(B, p.N, p.k + 1, p.levels,
-                                              _sms(device))
+    """The G ``mega16`` picks for a rotation of B ciphertexts at ``p``'s
+    shape on the card ``device`` (0 where it takes none)."""
+    return _lib().megaT_ciphertexts_per_block(B, p.N, p.k + 1, _sms(device))
 
 
 def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
@@ -309,7 +313,7 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
-    if name in EXTENDED:
+    if name not in DP4A:
         out = megaS.launch(name, p, acc0, a_t, key)
         wrapper.launches += 1
         return out
@@ -317,7 +321,7 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
     out = torch.empty_like(acc0)
     with torch.cuda.device(acc0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_blind_rotate")(
+        err = lib.mega16_blind_rotate(
             acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(), out.data_ptr(),
             acc0.shape[0], p.n, p.N, p.k + 1, _sms(acc0.device), stream)
     if err:
@@ -333,7 +337,8 @@ def mega16_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     """Whole blind rotation at bg = 2^8, levels 2 (adjacent-pair packing):
     acc0 [B, k+1, N] and a_t [n, B] (int32 carriers), bsk_btTc int8 [n,
     k+1, k+1, 4, row_bytes] -> acc [B, k+1, N].  CUDA tensors go through
-    the kernel, CPU tensors through ``blind_rotate_plain_btTc``."""
+    the kernel (``csrc/megaT.cu``), CPU tensors through
+    ``blind_rotate_plain_btTc``."""
     return _rotate("mega16", mega16_blind_rotate, params, acc0, a_t, bsk_btTc)
 
 
@@ -341,7 +346,8 @@ def mega17_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                         a_t: torch.Tensor,
                         bsk_btTc: torch.Tensor) -> torch.Tensor:
     """Whole blind rotation at bg = 2^8, levels 3 (3-of-4 packing); the
-    contract of ``mega16_blind_rotate``."""
+    contract of ``mega16_blind_rotate``, its kernel ``csrc/megaS.cu``
+    (``mega13``'s)."""
     return _rotate("mega17", mega17_blind_rotate, params, acc0, a_t, bsk_btTc)
 
 
@@ -349,7 +355,8 @@ def mega15_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                         a_t: torch.Tensor,
                         bsk_btTc: torch.Tensor) -> torch.Tensor:
     """Whole blind rotation at bg = 2^8, levels 4 (the exact gadget, one
-    coefficient per word); the contract of ``mega16_blind_rotate``."""
+    coefficient per word); the contract of ``mega16_blind_rotate``, its
+    kernel ``csrc/megaS.cu`` (``mega13``'s)."""
     return _rotate("mega15", mega15_blind_rotate, params, acc0, a_t, bsk_btTc)
 
 

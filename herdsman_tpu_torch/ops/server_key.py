@@ -112,8 +112,9 @@ once, into:
 - ``bsk_btTc``  int8  [n, k+1, k+1, 4, row_bytes]
                                        the compact step key of the
                                        byte-aligned gadget (bg = 2^8, levels
-                                       2, 3 or 4), read by ``csrc/megaT.cu``
-                                       (``mega16``, ``mega17``, ``mega15``):
+                                       2, 3 or 4), read by ``mega16``
+                                       (``csrc/megaT.cu``) and by ``mega17``
+                                       and ``mega15`` (``csrc/megaS.cu``):
                                        per (step, c_in, c_out, limb j) one
                                        L-fold interleaved limb sequence
                                        whose slice at (P-1-q)*L is row (j,
@@ -126,7 +127,7 @@ once, into:
 - ``bsk_btTe``  int8  [n, k+1, k+1, 4, row_bytes(p, extended=True)]
                                        the extended step key of ``mega14``
                                        (bg = 2^8, levels 2, N >= 256), read
-                                       by ``csrc/megaT.cu``: the same limb
+                                       by ``csrc/megaS.cu``: the same limb
                                        sequences over the whole negacyclic
                                        period, L*(2N-1) bytes, so that every
                                        output column reads one unwrapped run

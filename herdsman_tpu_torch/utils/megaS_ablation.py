@@ -1,7 +1,8 @@
 """Where the time of ``csrc/megaS.cu`` goes, on the card: ``mega13`` (on
-``bsk_btS``) or ``mega14`` (on ``bsk_btTe``) timed in turns with variants
-built from the kernel's own source with one part taken out, on the same
-inputs and random keys of one parameter set:
+``bsk_btS``), ``mega14`` (on ``bsk_btTe``), or ``mega17`` or ``mega15`` (on
+``bsk_btTc``: ``mega13``'s kernel at the byte-aligned gadget) timed in
+turns with variants built from the kernel's own source with one part taken
+out, on the same inputs and random keys of one parameter set:
 
 - ``no_products``: the consumers skip their ``wgmma``s (the ring, the
   copies, the fragments, the digits and the barriers stay);
@@ -19,6 +20,10 @@ card and ``nvcc``:
 
     python -m herdsman_tpu_torch.utils.megaS_ablation \\
         [--kernel mega13] [--set std128_k2 ...] [--batch 2048 256 ...]
+
+(the default set is the kernel's own: ``std128_k2`` for ``mega13`` and
+``mega14``, ``std128_shortint_b8`` for ``mega17``, ``std128_shortint_l4``
+for ``mega15``).
 """
 
 from __future__ import annotations
@@ -55,16 +60,10 @@ VARIANTS = {
     "no_digits": [("for (int x = threadIdx.x; x < nq; x += THREADS) {",
                    "for (int x = threadIdx.x; x < 0; x += THREADS) {")],
 }
-
-
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.mega13_blind_rotate.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.mega13_blind_rotate.restype = ctypes.c_int
-    lib.mega14_blind_rotate.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.mega14_blind_rotate.restype = ctypes.c_int
-    return lib
+# the kernel's default parameter set
+DEFAULT_SET = {"mega13": "std128_k2", "mega14": "std128_k2",
+               "mega17": "std128_shortint_b8",
+               "mega15": "std128_shortint_l4"}
 
 
 def build_variants(out_dir: pathlib.Path) -> dict[str, ctypes.CDLL]:
@@ -90,35 +89,21 @@ def build_variants(out_dir: pathlib.Path) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = _declare(ctypes.CDLL(str(out_dir / name / "libmegaS.so")))
+        libs[name] = megaS.declare(
+            ctypes.CDLL(str(out_dir / name / "libmegaS.so")))
     return libs
 
 
 def rotate_ms(lib: ctypes.CDLL, kernel: str, p, acc0: torch.Tensor,
               a_t: torch.Tensor, key: torch.Tensor) -> float:
-    """Device ms of one rotation through ``lib``'s entry point (the launch of
-    ``megaS.launch``, with another library)."""
-    extended = megaS.KERNELS[kernel]
-    B = acc0.shape[0]
-    out = torch.empty_like(acc0)
-    dig = torch.empty(megaS.scratch_bytes(p, B, extended), dtype=torch.int8,
-                      device=acc0.device)
-    bar = torch.empty(1, dtype=torch.int32, device=acc0.device)
-    ptrs = (acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(), out.data_ptr(),
-            dig.data_ptr(), bar.data_ptr())
-    stream = torch.cuda.current_stream().cuda_stream
+    """Device ms of one rotation through ``lib``'s entry point of ``kernel``
+    (``megaS.rotate_with``, with another library)."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     start.record()
-    if extended:
-        err = lib.mega14_blind_rotate(*ptrs, B, p.n, p.N, p.k + 1, stream)
-    else:
-        err = lib.mega13_blind_rotate(*ptrs, B, p.n, p.N, p.k + 1, p.bg_bits,
-                                      p.levels, stream)
+    megaS.rotate_with(lib, kernel, p, acc0, a_t, key)
     end.record()
     torch.cuda.synchronize()
-    if err:
-        raise RuntimeError(f"launch failed: {err}")
     return start.elapsed_time(end)
 
 
@@ -158,7 +143,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(megaS.KERNELS),
                     default="mega13")
-    ap.add_argument("--set", nargs="+", default=["std128_k2"])
+    ap.add_argument("--set", nargs="+")
     ap.add_argument("--batch", type=int, nargs="+", default=[2048, 256])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -170,7 +155,7 @@ def main() -> None:
     extended = megaS.KERNELS[args.kernel]
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"kernel": megaS._lib(), **build_variants(pathlib.Path(tmp))}
-        for name in args.set:
+        for name in args.set or [DEFAULT_SET[args.kernel]]:
             p = PARAM_SETS[name]
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)

@@ -294,7 +294,7 @@ def test_mega12_engine_matches_mega13_and_reference(card, params):
 # the byte-aligned kernels' geometry classes (mega16 / mega17 / mega15 at
 # levels 2 / 3 / 4, mega14 at levels 2 on the extended key): k+1 in (2, 3,
 # 5), N from 256 to 2048 (HALF 2 to 16); B = 129 and 2001 take ragged last
-# blocks (B = 2001 at G = 8 or 4)
+# blocks of mega16 (B = 2001 at G = 8) and ragged tiles of the others
 MEGAT_GEOMETRIES = [(1, 256), (2, 512), (4, 256), (1, 1024), (1, 2048),
                     (2, 2048)]
 MEGAT_SETS = [dc.replace(TOY, name=f"{name}_k{k}_n{N}", n=4, N=N, k=k,
@@ -323,8 +323,12 @@ def test_megaT_matches_plain(card, params, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    if not extended:  # mega14 is csrc/megaS.cu's (test_megaS_*)
+    if name in megaT.DP4A:
         assert megaT.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
+    elif not extended:  # mega17, mega15: csrc/megaS.cu (mega13's kernel)
+        n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+        pl = megaS.plan(p, B, n_sms=n_sms)
+        assert megaS.kernel_plan(p, B, name, n_sms) == (pl.units, pl.splits)
     assert torch.equal(got, megaT.plain(name)(p, acc0, a_t, key))
 
 
@@ -607,3 +611,43 @@ def test_megaS_matches_plain(card, params, B):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert torch.equal(got, plain(p, acc0, a_t, key))
+
+
+# mega17 and mega15 (csrc/megaS.cu's kernel through their own C entries,
+# on bsk_btTc) at the N = 2048 sets' geometries, n cut to 8 steps: a full
+# batch, a ragged one, the widths of paths E's and G's reruns, a K split,
+# one ciphertext; and each against mega13's entry on the same key bytes
+B8_SETS = [dc.replace(PARAM_SETS[s], n=8)
+           for s in ("std128_shortint_b8", "std128_shortint_l4")]
+
+
+@pytest.mark.parametrize("B", [2048, 300, 256, 9, 1])
+@pytest.mark.parametrize("params", B8_SETS, ids=[q.name for q in B8_SETS])
+def test_megaS_b8_matches_plain_and_mega13(card, params, B):
+    p = params
+    name = {3: "mega17", 4: "mega15"}[p.levels]
+    kernel = getattr(megaT, f"{name}_blind_rotate")
+    rng = np.random.default_rng(B + p.levels)
+    acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
+    a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
+                          dtype=torch.int32, device=card)
+    key = torch.as_tensor(rng.integers(-128, 128, megaS.key_shape(p)),
+                          dtype=torch.int8, device=card)
+    before = kernel.launches
+    got = kernel(p, acc0, a_t, key)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, megaT.blind_rotate_plain_btTc(p, acc0, a_t, key))
+    assert torch.equal(got, megaS.launch("mega13", p, acc0, a_t, key))
+
+
+def test_megaS_plan_matches_python(card):
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for p in [*B8_SETS, *MEGAS_SETS]:
+        for name, extended in megaS.KERNELS.items():
+            if extended != (p.name.startswith("mega14")):
+                continue
+            for B in (1, 9, 130, 256, 300, 2048):
+                pl = megaS.plan(p, B, extended, n_sms)
+                assert megaS.kernel_plan(p, B, name, n_sms) == (
+                    pl.units, pl.splits), (name, p.name, B)
