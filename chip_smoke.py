@@ -13,9 +13,9 @@ processes while the card runs the earlier paths.  Nineteen kernel wrappers
 ``mega14``, ``mega17`` and ``mega15`` run ``csrc/megaS.cu`` (int8 tensor
 cores, the key a register operand built from its compact stream;
 ``mega17`` and ``mega15`` are ``mega13``'s kernel through their own
-entries), and
-``mega12``, ``mega7`` (its single window on ``bsk_btk``) and ``mega11``
-(its doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``.
+entries), and ``mega12``, ``mega7``, ``mega5`` and ``mega2`` (its single
+window on ``bsk_btk``, each wrapper counted apart) and ``mega11`` (its
+doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``.
 
     python3 chip_smoke.py [--seed S]
 
@@ -66,12 +66,12 @@ Phases, in order; any failure raises and exits non-zero:
    the runner's load / exec / store split;
 9b. main path H, the j-major family at STD128_K2: path A's gate batch on
     ``mega11`` (``mega12.cu``'s doubled window, key ``bsk_btk2``),
-    ``mega8``, ``mega9`` and ``mega10`` (``bsk_btj2``), ``mega7``
-    (``mega12.cu``'s single window, ``bsk_btk``), ``mega6``, ``mega4``,
-    ``mega5`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
+    ``mega8``, ``mega9`` and ``mega10`` (``bsk_btj2``), ``mega7`` and
+    ``mega5`` (``mega12.cu``'s single window, ``bsk_btk``), ``mega6``,
+    ``mega4`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
     function built, used and freed in turn, each kernel against its plain
     version (tolerance 0) on the batch's rotation inputs at B = 2048, 256
-    and 9 (and 1 for ``mega11`` and ``mega7``), each output array-equal to
+    and 9 (and 1 for ``mega12.cu``'s wrappers), each output array-equal to
     path A's ``mega13`` output and decrypted against the truth table, with
     times (the kernels of one function in turns) and peak memory;
     ``mega11`` also in turns with ``mega12`` (on a ``bsk_btk`` of the same
@@ -86,39 +86,43 @@ Phases, in order; any failure raises and exits non-zero:
     and STD128_K4, ``mega14`` at STD128_FAST's, STD128_K4's,
     STD128_SHORTINT_FAST's and N = 256's, and ``mega13`` at
     STD128_SHORTINT_FAST's and TOY's, those two at B = 2048 and 9, and
-    ``mega11`` and ``mega7`` at STD128_K2's, STD128's and
-    STD128_SHORTINT's at B = 2048, 300 (ragged) and 9 (K split) (n cut to
-    32 steps);
+    ``mega11``, ``mega7``, ``mega5`` and ``mega2`` at STD128_K2's,
+    STD128's and STD128_SHORTINT's at B = 2048, 300 (ragged) and 9 (K
+    split) (n cut to 32 steps);
 9b''. main path L, the classic bool set STD128 (n=768, N=1024, k=1,
     bg=2^7, l=3; host keygen in a worker): path A's 2048-gate batch (the
     same gates and plaintexts) on ``mega13``, decrypted against the truth
     table and one gate against the NumPy ``bootstrap_bool``, the kernel
     against its plain version at B = 2048, 256, 128, 9 and 1; then on
-    ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), ``mega4`` and
-    ``mega5`` (``bsk_btj``), one key at a time (built, used, freed), each
-    output array-equal to ``mega13``'s and decrypted, each kernel equal to
+    ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), ``mega4``
+    (``bsk_btj``) and ``mega5`` (``mega12.cu``'s single window,
+    ``bsk_btk``), one key at a time (built, used, freed), each output
+    array-equal to ``mega13``'s and decrypted, each kernel equal to
     ``mega13`` and to its plain version (tolerance 0) on the batch's
-    rotation inputs at B = 2048; end-to-end seconds, gate bootstraps/s,
-    the kernels' times and the path's peak memory;
+    rotation inputs at B = 2048 (``mega5`` also at 256 and 9, and timed in
+    turns with ``mega13`` at B = 2048 and 256); end-to-end seconds, gate
+    bootstraps/s, the kernels' times and the path's peak memory;
 9c. main path I: path C's job over the rows of its first partition (512
     rows, one partition) on a coordinator whose in-code config names
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
     intermediate frame byte-equal to the first partition of path C's on
     ``pallas_fused``;
-9d. main path M, the R-major kernels of ``megaR.cu`` on path A's
-    ``bsk_bt`` at STD128_K2: M1, path A's gate batch on ``mega`` and
-    ``mega2``, each kernel against its plain version (tolerance 0) on the
-    batch's rotation inputs at B = 2048, 256 and 9 (and on random keys at
-    B=9 in phase 9b' with the others), each ``blind_rotate_batch`` equal
-    to ``mega13``'s, each gate batch equal to path A's and decrypted; both
-    timed in turns with ``bt_fused`` (the same function and key, 2n
-    launches) and ``mega7`` (the same blocks in ``wgmma``'s order: a
-    ``bsk_btk`` built from ``bsk_bt`` step by step, used, freed); M2, path
-    I's job on
-    ``pallas_mega2`` then ``pallas_mega``, each COMPLETED with no retry,
+9d. main path M, the JAX package's R-major legacy engines at STD128_K2:
+    M1, path A's gate batch on ``mega`` (``megaR.cu`` on path A's
+    ``bsk_bt``) and ``mega2`` (``mega12.cu``'s single window on the
+    ``bsk_btk`` that ``mega12.kmajor_from_bt`` re-lays from that
+    ``bsk_bt`` on the card), each kernel against its plain version
+    (tolerance 0) on the batch's rotation inputs at B = 2048, 256 and 9
+    (and on random keys at B=9 in phase 9b' with the others), each
+    ``blind_rotate_batch`` equal to ``mega13``'s, each gate batch equal to
+    path A's and decrypted; both timed in turns with ``bt_fused`` (the
+    same function on ``bsk_bt``, 2n launches) and ``mega7`` (on the same
+    ``bsk_btk``); M2, path I's job on ``pallas_mega2`` (which ingests
+    ``bsk_btk``) then ``pallas_mega``, each COMPLETED with no retry,
     launching only its engine, its intermediate frame byte-equal to path
     C's first partition on ``pallas_fused``, with wall, load / exec /
-    store seconds and peak memory;
+    store seconds, the job's rotations summed (CUDA events around each)
+    and peak memory;
 10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
     (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
     the card as ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s byte order); then
@@ -746,14 +750,20 @@ def main() -> int:
                   f"{job.message}")
             return job
 
-        # the rotations the job runs: (width, host seconds of the call)
+        # the rotations the job runs: (width, host seconds of the call), and
+        # CUDA events on the stream around each (their device time)
         rotations: list[tuple[int, float]] = []
+        events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
         rotate_batch = bs.blind_rotate_batch
 
         def recording(dsk_, ct, *a, **kw):
+            ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0 = time.perf_counter()
+            ev[0].record()
             out = rotate_batch(dsk_, ct, *a, **kw)
+            ev[1].record()
             rotations.append((int(ct.shape[0]), time.perf_counter() - t0))
+            events.append(ev)
             return out
 
         bs.blind_rotate_batch = recording
@@ -763,9 +773,11 @@ def main() -> int:
         finally:
             bs.blind_rotate_batch = rotate_batch
         counts = read_counts()
+        torch.cuda.synchronize()
         res = {"job": job, "host_s": host, "counts": counts,
                "phases": phase_log.phases[job.job_uuid],
-               "rotations": rotations}
+               "rotations": rotations,
+               "rotation_s": sum(a.elapsed_time(b) for a, b in events) / 1e3}
 
         def frame_bytes(uuid):
             return list(coord.download_data_frame(tok, sess, uuid))
@@ -819,7 +831,9 @@ def main() -> int:
               f" ({len(r['rotations'])} rotations, "
               f"{len(r['rotations']) * P.n} steps); host ms per step (the "
               f"rotation's Python loop issuing its {P.n} steps, host clock "
-              f"without a synchronize) by width {host_ms} {card}")
+              f"without a synchronize) by width {host_ms}; CUDA events "
+              f"around each rotation span {r['rotation_s']:.3f} s of the "
+              f"stream in all {card}")
 
     # 9. times of the block-Toeplitz engines --------------------------------
     R = (P.k + 1) * P.levels
@@ -1033,15 +1047,15 @@ def main() -> int:
     # 9b. main path H: path A's gate batch on the j-major family, one
     # function's keys at a time (built, used, freed): mega11 on bsk_btk2
     # (mega12.cu's doubled window, beside a bsk_btk for mega12 in turns);
-    # mega8, mega9 and mega10 on bsk_btj2; mega7 on bsk_btk (mega12.cu's
-    # single window), mega6, mega4 and mega5 on bsk_btj and mega3 on
-    # bsk_btjm (bsk_btj in fragment order); the kernels of one function are
-    # timed in turns ---------------------------------------------------------
+    # mega8, mega9 and mega10 on bsk_btj2; mega7 and mega5 on bsk_btk
+    # (mega12.cu's single window under two wrappers), mega6 and mega4 on
+    # bsk_btj and mega3 on bsk_btjm (bsk_btj in fragment order); the kernels
+    # of one function are timed in turns -------------------------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
     turns11 = {}
     for group in (("mega11",), ("mega8", "mega9", "mega10"),
-                  ("mega7", "mega6", "mega3", "mega4", "mega5")):
+                  ("mega7", "mega5", "mega6", "mega3", "mega4")):
         layouts_h = tuple(dict.fromkeys(megaJ.KEY_LAYOUTS[n] for n in group))
         if group == ("mega11",):  # mega12's key, to time mega11 beside it
             layouts_h += ("bsk_btk",)
@@ -1198,9 +1212,10 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B=9, random inputs")
             del key_g
-    # csrc/mega12.cu's mega11 and mega7 also at STD128_K2's geometry and at
-    # a full (2048, 128-row tiles in clusters) and a ragged batch (300: a
-    # cluster with a lone M tile at N = 2048); B=9 splits K
+    # csrc/mega12.cu's wrappers (mega11; mega7, mega5 and mega2 on its
+    # single window) also at STD128_K2's geometry and at a full (2048,
+    # 128-row tiles in clusters) and a ragged batch (300: a cluster with a
+    # lone M tile at N = 2048); B=9 splits K
     geoms_w = [dataclasses.replace(PARAM_SETS[g], n=32)
                for g in ("std128_k2", "std128", "std128_shortint")]
     plans_w = {}
@@ -1267,14 +1282,15 @@ def main() -> int:
           f"== their plain versions on random "
           f"inputs and keys at B in {[B_MAIN, 9]} at "
           f"{[(k, g.name) for k, g in geomsS]} (n = 32; max_abs_err "
-          f"{errS_random}); mega11 and mega7 (csrc/mega12.cu) == their "
+          f"{errS_random}); {', '.join(megaJ.TENSOR_CORE)} "
+          f"(csrc/mega12.cu) == their "
           f"plain versions on random inputs and keys at B in "
           f"{[B_MAIN, 300, 9]} at {[g.name for g in geoms_w]} (n = 32; "
           f"plans (rows a tile, K splits, blocks a cluster) {plans_w})")
 
     # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
-    # each kernel of megaJ_legacy.cu, one key at a time (built, used,
-    # freed) ------------------------------------------------------------------
+    # each kernel of megaJ_legacy.cu and on mega5 (csrc/mega12.cu's single
+    # window, on its own bsk_btk), one key at a time (built, used, freed) ----
     PL = STD128
     legacy_j = ("mega10", "mega3", "mega4", "mega5")
     for name in ("mega13", *legacy_j):
@@ -1326,61 +1342,70 @@ def main() -> int:
           f"{l13_s:.3f} s = {B_MAIN / l13_s:.1f} bootstraps/s; mega13 "
           f"{m13_l_ms:.3f} ms per rotation; plain {plain13_l_ms:.3f} ms "
           f"{card}")
-    del dsk_l
-    res_l, plain_l = {}, {}
-    for group_l in (("mega10",), ("mega3",), ("mega4", "mega5")):
-        layout_l = megaJ.KEY_LAYOUTS[group_l[0]]
+    res_l, turns5_l = {}, {}
+    for name in legacy_j:
+        layout_l = megaJ.KEY_LAYOUTS[name]
         torch.cuda.empty_cache()
         dsk_lk, ingest_l_s = host_s(lambda: device_server_key(
             sk_l, layouts=(layout_l,), device=dev))
         key_l = getattr(dsk_lk, layout_l)
         print(f"main path L: keys to the card ({layout_l} "
               f"{key_l.numel() / 2**30:.3f} GiB) {ingest_l_s:.1f} s")
-        for name in group_l:
-            reset_counts()
-            out_lk, lk_s = host_s(lambda: gates.gate_batch(
-                dsk_lk, batch_l, engine=name, device=dev))
-            counts_lk = read_counts()
-            only(counts_lk, (name,), f"main path L on {name}")
-            out_lk_np = to_numpy_u32(out_lk)
-            check(np.array_equal(out_lk_np, out_l_np),
-                  f"L: gate_batch on {name} != on mega13")
-            check(np.array_equal(ref.lwe_decrypt_bool(ck_l, out_lk_np),
-                                 expect),
-                  f"L: gate_batch on {name} decrypts wrong")
-            got_l, kernel_l_ms = timed_call(lambda: counters[name](
+        reset_counts()
+        out_lk, lk_s = host_s(lambda: gates.gate_batch(
+            dsk_lk, batch_l, engine=name, device=dev))
+        counts_lk = read_counts()
+        only(counts_lk, (name,), f"main path L on {name}")
+        out_lk_np = to_numpy_u32(out_lk)
+        check(np.array_equal(out_lk_np, out_l_np),
+              f"L: gate_batch on {name} != on mega13")
+        check(np.array_equal(ref.lwe_decrypt_bool(ck_l, out_lk_np), expect),
+              f"L: gate_batch on {name} decrypts wrong")
+        got_l, kernel_l_ms = timed_call(lambda: counters[name](
+            PL, acc0_l, a_t_l, key_l))
+        check(torch.equal(got_l, rot_l),
+              f"L: {name} != mega13 on the batch's rotation inputs")
+        if name in megaJ.TENSOR_CORE:
+            widths_l = (B_MAIN, RADIX_VALUES, 9)
+            err_l, plain_l_ms = vs_plain(name, megaJ.plain(name), PL, acc0_l,
+                                         a_t_l, key_l, widths=widths_l)
+        else:  # the dp4a kernels: the output above, one plain rotation
+            widths_l = (B_MAIN,)
+            want_l, plain_l_ms = timed_call(lambda: megaJ.plain(name)(
                 PL, acc0_l, a_t_l, key_l))
-            check(torch.equal(got_l, rot_l),
-                  f"L: {name} != mega13 on the batch's rotation inputs")
-            if layout_l not in plain_l:
-                plain_l[layout_l] = timed_call(lambda: megaJ.plain(name)(
-                    PL, acc0_l, a_t_l, key_l))
-            want_l, plain_l_ms = plain_l[layout_l]
             err_l = abs_err(got_l, want_l)
-            errs_j[name] = max(errs_j[name], err_l)
             check(torch.equal(got_l, want_l), f"L: {name} != plain version "
                   f"at {PL.name} B={B_MAIN}")
-            bound_l, by_l = bounds.bound_ms(*bounds.rotation(
-                PL, B_MAIN, key_l.numel() * key_l.element_size()))
-            res_l[name] = {"counts": counts_lk, "path_s": lk_s,
-                           "ms": kernel_l_ms, "plain_ms": plain_l_ms,
-                           "bound_ms": bound_l,
-                           "bound_by": by_l}
-            print(f"main path L ({name}): gate_batch of {B_MAIN} gates == "
-                  f"mega13's and decrypts to the truth table; {name} == "
-                  f"mega13 and its plain version on the batch's rotation "
-                  f"inputs at B={B_MAIN} (array equality, max_abs_err "
-                  f"{err_l}); launches {counts_lk}")
-            print(f"time: main path L gate_batch B={B_MAIN} on {name} end to "
-                  f"end {lk_s:.3f} s = {B_MAIN / lk_s:.1f} bootstraps/s; "
-                  f"{name} {kernel_l_ms:.3f} ms per rotation, "
-                  f"{bound_l / kernel_l_ms:.4f} of the {bound_l:.4f} ms bound "
-                  f"({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts per block "
-                  f"{megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
-            del out_lk, got_l, want_l
+            del want_l
+        errs_j[name] = max(errs_j[name], err_l)
+        bound_l, by_l = bounds.bound_ms(*bounds.rotation(
+            PL, B_MAIN, key_l.numel() * key_l.element_size()))
+        res_l[name] = {"counts": counts_lk, "path_s": lk_s,
+                       "ms": kernel_l_ms, "plain_ms": plain_l_ms,
+                       "bound_ms": bound_l, "bound_by": by_l}
+        print(f"main path L ({name}): gate_batch of {B_MAIN} gates == "
+              f"mega13's and decrypts to the truth table; {name} == mega13 "
+              f"at B={B_MAIN} and its plain version at B in "
+              f"{list(widths_l)} on the batch's rotation inputs (array "
+              f"equality, max_abs_err {err_l}); launches {counts_lk}")
+        print(f"time: main path L gate_batch B={B_MAIN} on {name} end to end "
+              f"{lk_s:.3f} s = {B_MAIN / lk_s:.1f} bootstraps/s; {name} "
+              f"{kernel_l_ms:.3f} ms per rotation, "
+              f"{bound_l / kernel_l_ms:.4f} of the {bound_l:.4f} ms bound "
+              f"({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts per block "
+              f"{megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
+        if name in megaJ.TENSOR_CORE:
+            # the single window's first times at N = 1024, in turns with
+            # mega13 on the same batch (outputs array-equal)
+            turns5_l = in_turns(PL, acc0_l, a_t_l, {
+                name: (counters[name], key_l),
+                "mega13": (mega13.mega13_blind_rotate, dsk_l.bsk_btS)},
+                same=(name, "mega13"))
+            report_turns(name, PL, turns5_l, key_l.numel())
+        del out_lk, got_l
         peak_l = max(peak_l, torch.cuda.max_memory_allocated())
         del dsk_lk, key_l
-    del plain_l, rot_l
+    del rot_l, dsk_l
     torch.cuda.empty_cache()
     print(f"memory: path L torch.cuda.max_memory_allocated "
           f"{peak_l / 2**30:.3f} GiB {card}")
@@ -1412,29 +1437,39 @@ def main() -> int:
           f"{job_i.bootstraps_per_sec:.1f} bootstraps/s; runner load "
           f"{load:.3f} s, exec {exe:.3f} s, store {store:.3f} s, key "
           f"ingest and the rest {job_i.wall_time_s - load - exe - store:.3f} "
-          f"s {card}")
+          f"s; CUDA events around its {len(res_i['rotations'])} rotations "
+          f"on mega11 span {res_i['rotation_s']:.3f} s in all {card}")
     print(f"memory: path I torch.cuda.max_memory_allocated "
           f"{peak_i / 2**30:.3f} GiB {card}")
 
-    # 9d. main path M: the R-major kernels of megaR.cu on path A's bsk_bt.
-    # M1: path A's gate batch on mega and mega2, timed in turns with
-    # bt_fused (the same function and key in 2n launches) and mega7 (the
-    # same blocks j-major) -------------------------------------------------
+    # 9d. main path M: the JAX package's R-major legacy engines on path A's
+    # key. M1: path A's gate batch on mega (csrc/megaR.cu, on bsk_bt) and
+    # mega2 (csrc/mega12.cu's single window, on the bsk_btk that
+    # mega12.kmajor_from_bt re-lays from that bsk_bt), timed in turns with
+    # bt_fused (the same function on bsk_bt in 2n launches) and mega7 (the
+    # same kernel on the same bsk_btk) ---------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    row_j = megaJ.ROW_SOURCE
-    res_m, plain_m = {}, {}
+    row_j = ("mega", "mega2")
+    key_k, relay_s = host_s(lambda: mega12.kmajor_from_bt(dsk.bsk_bt,
+                                                          P.k + 1))
+    dsk_m = dataclasses.replace(dsk, bsk_btk=key_k)
+    print(f"main path M1: bsk_btk re-laid from path A's bsk_bt on the card "
+          f"(mega12.kmajor_from_bt, {key_k.numel() / 2**30:.3f} GiB) "
+          f"{relay_s:.1f} s")
+    res_m = {}
     for name in row_j:
         check(fit_engine(name, P) == name and layouts_for_engine(name)
-              == ("bsk_bt",), f"fit_engine({name!r}, {P.name}) -> "
-              f"{fit_engine(name, P)}")
+              == (megaJ.KEY_LAYOUTS[name],), f"fit_engine({name!r}, "
+              f"{P.name}) -> {fit_engine(name, P)}")
+        key_m = getattr(dsk_m, megaJ.KEY_LAYOUTS[name])
         err_m, plain_m_ms = vs_plain(name, megaJ.plain(name), P, acc0, a_t,
-                                     dsk.bsk_bt, plain_m)
+                                     key_m)
         errs_j[name] = max(errs_j[name], err_m)
-        check(torch.equal(bs.blind_rotate_batch(dsk, lin, tp, engine=name),
+        check(torch.equal(bs.blind_rotate_batch(dsk_m, lin, tp, engine=name),
                           outs[B_MAIN]),
               f"M: blind_rotate_batch on {name} != mega13 at B={B_MAIN}")
         reset_counts()
-        out_m, m_s = host_s(lambda: gates.gate_batch(dsk, batch, engine=name,
+        out_m, m_s = host_s(lambda: gates.gate_batch(dsk_m, batch, engine=name,
                                                      device=dev))
         counts_m = read_counts()
         only(counts_m, (name,), f"main path M1 on {name}")
@@ -1445,40 +1480,27 @@ def main() -> int:
               f"M1: gate_batch on {name} decrypts wrong")
         res_m[name] = {"counts": counts_m, "plain_ms": plain_m_ms,
                        "path_s": m_s}
-        print(f"main path M1 ({name}): {name} == blind_rotate_plain_bt on "
-              f"the gate batch's rotation inputs at B in "
+        print(f"main path M1 ({name}): {name} == {megaJ.plain(name).__name__} "
+              f"on the gate batch's rotation inputs at B in "
               f"{[B_MAIN, RADIX_VALUES, 9]} (array equality, max_abs_err "
               f"{err_m}); blind_rotate_batch == mega13's; gate_batch of "
               f"{B_MAIN} gates == path A's mega13 output and decrypts to the "
               f"truth table; launches {counts_m}")
         del out_m
-    del plain_m
-    # mega7 on the same blocks in wgmma's order: per step, bsk_bt's block
-    # axes swapped (bsk_btj), its columns (c, j, q) made (j, c, q)
-    # (bsk_btjj), then mega12.kmajor_order (bsk_btk)
-    kp1_m = P.k + 1
-    key_j = torch.empty(mega12.key_shape(P), dtype=torch.int8, device=dev)
-    for i in range(P.n):
-        blocks = dsk.bsk_bt[i].transpose(0, 1)  # [HALF, R, P, (c, j, q)]
-        jcq = blocks.reshape(*blocks.shape[:3], kp1_m, 4, mega12.P)
-        key_j[i] = mega12.kmajor_order(
-            jcq.transpose(3, 4).reshape(blocks.shape), kp1_m)
-    del blocks, jcq
     for B in (B_MAIN, RADIX_VALUES):  # mega7's warm-up at these shapes
         check(torch.equal(megaJ.mega7_blind_rotate(
-            P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), key_j),
-            outs[B]), f"M1: mega7 on bsk_bt's blocks in bsk_btk's order != "
-            f"mega13 at B={B}")
+            P, acc0[:B].contiguous(), a_t[:, :B].contiguous(), key_k),
+            outs[B]), f"M1: mega7 on the re-laid bsk_btk != mega13 at B={B}")
 
     bt_fused_rotation(P, acc0[:RADIX_VALUES].contiguous(),
                       a_t[:, :RADIX_VALUES].contiguous(), dsk.bsk_bt)
     names_m = (*row_j, "bt_fused", "mega7")
     times_m = rotation_times(
-        names_m, P, acc0, a_t, {**{n_: dsk.bsk_bt for n_ in row_j},
-                                "bt_fused": dsk.bsk_bt, "mega7": key_j},
+        names_m, P, acc0, a_t, {"mega": dsk.bsk_bt, "mega2": key_k,
+                                "bt_fused": dsk.bsk_bt, "mega7": key_k},
         {name: megaJ_blocks(name) for name in (*row_j, "mega7")},
         fns={"bt_fused": bt_fused_rotation})
-    del key_j
+    del dsk_m, key_k
     torch.cuda.empty_cache()
     peak_m = torch.cuda.max_memory_allocated()
     for name in row_j:
@@ -1493,7 +1515,7 @@ def main() -> int:
               f"B={RADIX_VALUES} {t['narrow_ms']:.3f} ms (timed in turns "
               f"{[*names_m, *names_m[::-1]]}) {card}")
     for name in row_j:
-        for other in ("bt_fused", "mega7"):
+        for other in ("bt_fused", "mega7", *(o for o in row_j if o != name)):
             a_, b_ = times_m[other], times_m[name]
             print(f"time: {name} / {other} at {P.name}: B={B_MAIN} "
                   f"{b_['ms'] / a_['ms']:.4f}, B={RADIX_VALUES} "
@@ -1503,7 +1525,7 @@ def main() -> int:
 
     # M2: path I's job (path C's first partition) on pallas_mega2, then on
     # pallas_mega ------------------------------------------------------------
-    res_m2 = {}
+    res_m2, res_m2_s = {}, {}
     for engine in ("pallas_mega2", "pallas_mega"):
         name = engine.removeprefix("pallas_")
         torch.cuda.reset_peak_memory_stats()
@@ -1525,6 +1547,8 @@ def main() -> int:
               f"row decrypt right; the intermediate frame byte-equal to the "
               f"first partition of path C's on pallas_fused; launches "
               f"{r_m['counts']}")
+        widths_m2 = [B for B, _ in r_m["rotations"]]
+        res_m2_s[name] = r_m["rotation_s"]
         print(f"time: main path M2 job on {engine} wall "
               f"{job_m.wall_time_s:.3f} s (host {r_m['host_s']:.3f} s), "
               f"{job_m.bootstraps_executed} bootstraps = "
@@ -1532,8 +1556,12 @@ def main() -> int:
               f"{load:.3f} s, exec {exe:.3f} s, store {store:.3f} s, key "
               f"ingest and the rest "
               f"{job_m.wall_time_s - load - exe - store:.3f} s; "
-              f"torch.cuda.max_memory_allocated {peak_m2 / 2**30:.3f} GiB "
-              f"{card}")
+              f"{len(widths_m2)} rotations on {name} (widths "
+              f"{sorted(widths_m2, reverse=True)}, "
+              f"{sum(widths_m2) / len(widths_m2):.1f} on average) span "
+              f"{r_m['rotation_s']:.3f} s of the stream in all (CUDA "
+              f"events around each); torch.cuda.max_memory_allocated "
+              f"{peak_m2 / 2**30:.3f} GiB {card}")
         del r_m, job_m
 
     # 10. path D setup: the integer tier at STD128_SHORTINT -----------------
@@ -2300,8 +2328,7 @@ def main() -> int:
                         for B, t in turns14.items() for k, v in t.items()})
     # the kernels of megaJ_legacy.cu timed at STD128_K2 in path H, in turns
     # with the serial kernel of their function, and at STD128 in path L
-    for name, line in (("mega10", 1019), ("mega3", 295), ("mega4", 423),
-                       ("mega5", 575)):
+    for name, line in (("mega10", 1019), ("mega3", 295), ("mega4", 423)):
         res, res_std = res_h[name], res_l[name]
         kernels.append({
             "name": name,
@@ -2321,14 +2348,19 @@ def main() -> int:
             "plain_ms_std128": res_std["plain_ms"],
             "bound_ms_std128": res_std["bound_ms"],
         })
-    # the kernels of megaR.cu timed at STD128_K2 in path M1, in turns with
-    # bt_fused and mega7
-    for name, line in (("mega", 37), ("mega2", 165)):
-        res = res_m[name]
+    # the kernel of megaR.cu (mega) and csrc/mega12.cu's single window under
+    # the wrapper of mega2, timed at STD128_K2 in path M1, in turns with
+    # bt_fused and mega7; under the wrapper of mega5 at STD128_K2 in path H,
+    # in turns with mega7, and at STD128 in path L, in turns with mega13
+    for name, line, res, turns in (
+            ("mega", 37, res_m["mega"], times_m),
+            ("mega2", 165, res_m["mega2"], times_m),
+            ("mega5", 575, res_h["mega5"], {"mega7": res_h["mega7"]})):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "herdsman_tpu_torch/csrc/megaR.cu",
+            "source": ("herdsman_tpu_torch/csrc/megaR.cu" if name == "mega"
+                       else "herdsman_tpu_torch/csrc/mega12.cu"),
             "replaces": f"herdsman_tpu/ops/pallas/legacy.py:{line}",
             **launches(name),
             "matches_plain": errs_j[name] == 0,
@@ -2339,9 +2371,25 @@ def main() -> int:
             "bound_by": res["bound_by"],
             "library_ms": None,
             "ms_b256": res["narrow_ms"],
-            "ms_bt_fused": times_m["bt_fused"]["ms"],
-            "ms_mega7": times_m["mega7"]["ms"],
+            **{f"ms_{k}": t["ms"] for k, t in turns.items() if k != name},
+            **{f"ms_{k}_b256": t["narrow_ms"] for k, t in turns.items()
+               if k != name},
+            **{f"ratio_to_{k}": res["ms"] / t["ms"]
+               for k, t in turns.items() if k != name},
+            **{f"ratio_to_{k}_b256": res["narrow_ms"] / t["narrow_ms"]
+               for k, t in turns.items() if k != name},
         })
+    for name in row_j:  # path M2: the job's rotations on the engine
+        next(k for k in kernels if k["name"] == name)["m2_rotation_s"] = \
+            res_m2_s[name]
+    kernels[-1].update({
+        "ms_std128": res_l["mega5"]["ms"],
+        "plain_ms_std128": res_l["mega5"]["plain_ms"],
+        "bound_ms_std128": res_l["mega5"]["bound_ms"],
+        **{f"ms_{k}_in_turns_std128_b{B}": v for B, t in turns5_l.items()
+           for k, v in t.items()},
+        **{f"ratio_to_mega13_std128_b{B}": t["mega5"] / t["mega13"]
+           for B, t in turns5_l.items()}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

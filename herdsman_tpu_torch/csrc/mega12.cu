@@ -2,18 +2,22 @@
 // on the H100's int8 tensor cores, against a K-major pre-swizzled
 // block-Toeplitz key: one template, two windows.
 //
-// Replaces three bodies of herdsman_tpu/ops/pallas/mega.py, one function at
-// any gadget with int8 digits:
+// Replaces five bodies of herdsman_tpu/ops/pallas/ (mega.py, legacy.py), one
+// function at any gadget with int8 digits:
 //
-//   body                        wrapper              window   key
-//   mega.py:625 _mega12_kernel  mega12_blind_rotate  single   bsk_btk
-//   mega.py:84  _mega7_kernel   mega7_blind_rotate   single   bsk_btk
-//   mega.py:449 _mega11_kernel  mega11_blind_rotate  doubled  bsk_btk2
+//   body                          wrapper              window   key
+//   mega.py:625   _mega12_kernel  mega12_blind_rotate  single   bsk_btk
+//   mega.py:84    _mega7_kernel   mega7_blind_rotate   single   bsk_btk
+//   legacy.py:575 _mega5_kernel   mega5_blind_rotate   single   bsk_btk
+//   legacy.py:165 _mega2_kernel   mega2_blind_rotate   single   bsk_btk
+//   mega.py:449   _mega11_kernel  mega11_blind_rotate  doubled  bsk_btk2
 //
-// mega12 and mega7 are one instantiation: the TPU's mega7 read bsk_btj,
-// bsk_btjj with its columns in (c, j, q) order, a choice of VMEM; int8 wgmma
-// reads both operands K-major only, so on this card both are this kernel on
-// bsk_btk.  For i in 0..n-1 and every ciphertext b of the batch,
+// mega12, mega7, mega5 and mega2 are one instantiation: the TPU's mega7 and
+// mega5 read bsk_btj, bsk_btjj with its columns in (c, j, q) order, and its
+// mega2 the R-major bsk_bt (bsk_btj with the block axes swapped), choices of
+// VMEM; int8 wgmma reads both operands K-major only, so on this card all
+// four are this kernel on bsk_btk, each wrapper counting its own launches.
+// For i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
 //
@@ -47,11 +51,12 @@
 //
 // Bound.  One rotation is 2 * n * B * (R*N) * ((k+1)*4*N) int8 operations
 // under either window: 6.33e14 at STD128_SHORTINT and B = 2048, 320.02 ms at
-// the H100's 1,979 int8 TOP/s (mega12, mega7), and 5.94e13 at STD128_K2,
-// 30.00 ms (mega11).  The key read once from device memory (9.66 GB single
-// at STD128_SHORTINT, 7.25 GB doubled at STD128_K2) takes 2.9 ms and 2.2
-// ms at 3.35 TB/s, so the rotation is bound by operations, and they run on
-// the tensor cores: wgmma.mma_async.m64n256k32.s32.s8.s8.
+// the H100's 1,979 int8 TOP/s (mega12, mega7), 1.58e14 at STD128, 80.00 ms
+// (mega5), and 5.94e13 at STD128_K2, 30.00 ms (mega11, mega2, mega5).  The
+// key read once from device memory (9.66 GB single at STD128_SHORTINT, 4.83
+// GB at STD128, 7.25 GB doubled at STD128_K2) takes 2.9, 1.4 and 2.2 ms at
+// 3.35 TB/s, so the rotation is bound by operations, and they run on the
+// tensor cores: wgmma.mma_async.m64n256k32.s32.s8.s8.
 //
 // What the doubled window changes: K block e of column tile ct is (sub = e
 // / R, r = e % R), stored group HALF-1-ct+sub, digit row tile r*HALF + sub

@@ -1,14 +1,13 @@
 // megaJ_common.cuh: the device code and launch helpers that csrc/megaJ.cu
-// (variants 8, 9, 6), csrc/megaJ_legacy.cu (variants 10, 4, 5, and
-// the tensor-core variant 3) and csrc/megaR.cu (variants 1 and 2, on the
-// R-major key) share: the block layout, the digit phase, the dp4a
-// contraction of one (column tile, output polynomial) unit, the staged
-// contraction of key rows in shared memory, and megaJ_kernel, the template
-// of every dp4a schedule.  csrc/megaJ.cu's note gives the arithmetic, the
-// bound and the serial, overlap and staged designs; csrc/megaJ_legacy.cu's
-// the poly-fused (10), cluster (4) and wide (5) ones; csrc/megaR.cu's the
-// row-phased (1) and inline (2) ones.  Each source that includes this file
-// builds into a library of its own.
+// (variants 8, 9, 6), csrc/megaJ_legacy.cu (variants 10 and 4, and the
+// tensor-core variant 3) and csrc/megaR.cu (variant 1, on the R-major key)
+// share: the block layout, the digit phase, the dp4a contraction of one
+// (column tile, output polynomial) unit, the staged contraction of key rows
+// in shared memory, and megaJ_kernel, the template of every dp4a schedule.
+// csrc/megaJ.cu's note gives the arithmetic, the bound and the serial,
+// overlap and staged designs; csrc/megaJ_legacy.cu's the poly-fused (10)
+// and cluster (4) ones; csrc/megaR.cu's the row-phased (1) one.  Each
+// source that includes this file builds into a library of its own.
 
 #pragma once
 
@@ -32,14 +31,13 @@ constexpr int OVERLAP = 1;  // 9: a producer warp's digits beside the contractio
 constexpr int STAGED = 2;   // 6: cp.async double-buffered key rows
 constexpr int FUSED = 3;    // 10: SERIAL with the poly-fused digit pass
 constexpr int CLUSTER = 4;  // 4: STAGED, each chunk's rows split across a cluster
-constexpr int WIDE = 5;     // 5: STAGED with up to 16 ciphertexts a block
 constexpr int CLUSTER_SIZE = 2;        // blocks of a cluster (variant 4)
 constexpr int PRODUCER = 32;           // producer threads of the overlap schedule
 constexpr int FULL0 = 1, EMPTY0 = 3;   // its named barriers: FULL0 + h, EMPTY0 + h
 constexpr int ROWB = 4 * P;            // bytes of one K row a unit reads
 
 __host__ __device__ constexpr bool stages_key(int sched) {
-  return sched == STAGED || sched == CLUSTER || sched == WIDE;
+  return sched == STAGED || sched == CLUSTER;
 }
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -80,8 +78,7 @@ __device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1,
 }
 
 // one K pack (4 K rows) of this thread's 4 columns against the G digit words
-// at dp: 16-byte digit loads where G is a multiple of 4, 8-byte ones for the
-// wide block's G = 6
+// at dp: 16-byte digit loads where G is a multiple of 4
 template <int G>
 __device__ __forceinline__ void dot_pack(const uint32_t* __restrict__ dp,
                                          const int (&col)[4],
@@ -96,17 +93,6 @@ __device__ __forceinline__ void dot_pack(const uint32_t* __restrict__ dp,
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           part[g4 + u][k] = __dp4a(dd[u], col[k], part[g4 + u][k]);
-    }
-  } else if constexpr (G > 4 && G % 2 == 0) {
-#pragma unroll
-    for (int g2 = 0; g2 < G; g2 += 2) {
-      const int2 dv = *reinterpret_cast<const int2*>(dp + g2);
-      const int dd[2] = {dv.x, dv.y};
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          part[g2 + u][k] = __dp4a(dd[u], col[k], part[g2 + u][k]);
     }
   } else {
 #pragma unroll
@@ -279,14 +265,13 @@ __device__ __forceinline__ void digit_phase(const uint32_t* acc, uint32_t* dig,
 // unit (ct, c) of the serial and overlap schedules: this thread's limb j
 // and 4 columns from qq on, key words from L2 (__ldg).  A single-width step
 // key holds block (m, r) at (m * R + r) * BLOCK (step-major by stored block,
-// bsk_btj), or with R_MAJOR at (r * HALF + m) * BLOCK (bsk_bt)
-template <int G, int KP1, bool DOUBLED, bool R_MAJOR = false>
+// bsk_btj)
+template <int G, int KP1, bool DOUBLED>
 __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
                                               const uint32_t* __restrict__ dig,
                                               int ct, int c, int j, int qq,
                                               int R, int HALF, int N4,
                                               int (&part)[G][4]) {
-  static_assert(!(DOUBLED && R_MAJOR), "the doubled window is step-major");
   constexpr int C4P = KP1 * 4 * P;
   constexpr size_t BLOCK = static_cast<size_t>(P) * C4P;  // one (group, r)
 #pragma unroll
@@ -312,8 +297,7 @@ __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
         const int sub = pass == 0 ? HALF + ct - m : ct - m;
         for (int r = 0; r < R; ++r)
           contract_block<G, C4P>(
-              kcol + static_cast<size_t>(R_MAJOR ? r * HALF + m : m * R + r) *
-                         BLOCK,
+              kcol + static_cast<size_t>(m * R + r) * BLOCK,
               dig + (static_cast<size_t>(r) * N4 + sub * PW) * G, part);
       }
       if (pass == 0) {  // subtract the negated run's partial
@@ -344,8 +328,8 @@ __device__ __forceinline__ void recombine(uint32_t* acc, const int (&part)[G][4]
 // the staged schedules' contraction of one step: this group's units, a
 // chunk of kc key rows at a time, chunk f+1 copied (cp.async) into the
 // other of the group's two buffers while chunk f is contracted.  With NB =
-// 1 (staged, wide) a group copies its chunks' rows alone and syncs with a
-// group barrier.  With NB = CLUSTER_SIZE (cluster) the blocks of a cluster
+// 1 (staged) a group copies its chunks' rows alone and syncs with a group
+// barrier.  With NB = CLUSTER_SIZE (cluster) the blocks of a cluster
 // walk the same chunks in step: block rank b copies rows [b*kc/NB,
 // (b+1)*kc/NB) of each chunk into its own buffer, every block reads each
 // row from the buffer of the block that copied it (distributed shared
@@ -605,14 +589,13 @@ size_t smem_bytes(int sched, int G, int N, int kp1, int R, int kc) {
          (stages_key(sched) ? static_cast<size_t>(4) * 2 * kc * ROWB : 0);
 }
 
-// the staged schedules' chunk of key rows: the largest of its choices (32
-// then 16; the wide block's 16 then 8) whose two buffers fit beside G
-// ciphertexts (0: G does not fit)
+// the staged schedules' chunk of key rows: the larger of 32 and 16 whose two
+// buffers fit beside G ciphertexts (0: G does not fit)
 int pick_kc(int sched, int G, int N, int kp1, int R) {
   if (!stages_key(sched))
     return smem_bytes(sched, G, N, kp1, R, 0) <=
            static_cast<size_t>(SMEM_PER_BLOCK) ? 1 : 0;
-  const int kcs[2] = {sched == WIDE ? 16 : 32, sched == WIDE ? 8 : 16};
+  const int kcs[2] = {32, 16};
   for (int kc : kcs)
     if (smem_bytes(sched, G, N, kp1, R, kc) <= static_cast<size_t>(SMEM_PER_BLOCK))
       return kc;
@@ -629,25 +612,12 @@ long long blocks_of(int sched, int B, int per_block) {
 
 // G (per half in the overlap schedule): least (waves of one block per SM) x
 // (issue cost of one pack of every ciphertext of the block), the largest G
-// on a tie, within the shared-memory limit.  The wide block takes the
-// widest of 16, 12, 8, 6, 4, 2, 1 that fits while its blocks still fill
-// half the SMs, and the least cost below that width of batch.
+// on a tie, within the shared-memory limit.
 int pick_g(int sched, int B, int N, int kp1, int R, int sms) {
-  const int narrow[4] = {8, 4, 2, 1};
-  const int wide[7] = {16, 12, 8, 6, 4, 2, 1};
-  const int* choices = sched == WIDE ? wide : narrow;
-  const int nchoices = sched == WIDE ? 7 : 4;
-  if (sched == WIDE) {
-    for (int x = 0; x < nchoices; ++x) {
-      if (!pick_kc(sched, choices[x], N, kp1, R)) continue;
-      if (2 * blocks_of(sched, B, choices[x]) >= sms) return choices[x];
-      break;
-    }
-  }
+  const int choices[4] = {8, 4, 2, 1};
   int best = 0;
   long long best_cost = 0;
-  for (int x = 0; x < nchoices; ++x) {
-    const int g = choices[x];
+  for (int g : choices) {
     if (!pick_kc(sched, g, N, kp1, R)) continue;
     const int per_block = sched == OVERLAP ? 2 * g : g;
     const long long waves = (blocks_of(sched, B, per_block) + sms - 1) / sms;
@@ -708,14 +678,6 @@ cudaError_t launch(const Args& a) {
 
 template <int KP1, bool DOUBLED, int SCHED>
 cudaError_t launch_g(int G, const Args& a) {
-  if constexpr (SCHED == WIDE) {
-    switch (G) {
-      case 16: return launch<16, KP1, DOUBLED, SCHED>(a);
-      case 12: return launch<12, KP1, DOUBLED, SCHED>(a);
-      case 6: return launch<6, KP1, DOUBLED, SCHED>(a);
-      default: break;
-    }
-  }
   switch (G) {
     case 8: return launch<8, KP1, DOUBLED, SCHED>(a);
     case 4: return launch<4, KP1, DOUBLED, SCHED>(a);

@@ -1,4 +1,4 @@
-// megaJ_legacy: four more whole-rotation kernels against the j-major
+// megaJ_legacy: three more whole-rotation kernels against the j-major
 // block-Toeplitz int8 keys, each computing the function of a csrc/megaJ.cu
 // variant with the scheduling idea of its TPU body carried over to Hopper:
 //
@@ -6,7 +6,10 @@
 //   10       _mega10_kernel (wrapper mega10_blind_rotate)   bsk_btj2   mega8's   poly-fused digit pass
 //    3       _mega3_kernel  (wrapper mega3_blind_rotate)    bsk_btjm   mega7's   int8 mma.sync m16n8k32
 //    4       _mega4_kernel  (wrapper mega4_blind_rotate)    bsk_btj    mega7's   thread block cluster
-//    5       _mega5_kernel  (wrapper mega5_blind_rotate)    bsk_btj    mega7's   wide block
+//
+// (legacy.py's _mega5_kernel, mega7's function on a wide block, is
+// csrc/mega12.cu's single window on bsk_btk: staging on the integer lanes
+// did not pay, and int8 wgmma reads its key operand K-major only.)
 //
 // csrc/megaJ.cu's note gives the arithmetic (the doubled window, the two
 // runs of the single width with the negated one subtracted as an int32
@@ -18,7 +21,7 @@
 // 1,979 int8 TOP/s; bound by operations.  Every megaJ.cu kernel runs the
 // products as __dp4a on the integer lanes and reads each key byte once per
 // block of G = 8 ciphertexts (0.125 bytes of L2 traffic per MAC); these
-// four separate the two things that could set that pace.
+// three separate the two things that could set that pace.
 //
 // Poly-fused digit pass (10).  _mega10_kernel views the k+1 accumulator
 // polynomials as one [(k+1)*Bt, N] array so that one barrel rotate, one
@@ -72,25 +75,6 @@
 // row leaves L2 once per cluster, half of variant 6's traffic at the same
 // G and lanes; a launch takes a whole number of clusters, and a padding
 // block rotates zeros and stores nothing.
-//
-// Wide block (5).  _mega5_kernel loops statically over all G chunks of a
-// step in one cell, so the key block is fetched once for all of them
-// (legacy.py:575-584).  Here one block holds up to 16 ciphertexts, stages
-// each chunk of key rows in shared memory once (variant 6's schedule) and
-// applies every key word it reads to all of them: each key byte crosses L2
-// once per 16 ciphertexts at STD128_K2, half the traffic of variant 6,
-// which staged with no more reuse and ran 36% slower than the serial
-// schedule on the same key (PERF.md).
-// G is the widest of 16, 12, 8, 6, 4, 2, 1 whose accumulators, digits and
-// two buffers of kc rows (16, else 8) fit a block while the launch still
-// fills half the SMs, and variant 6's least-cost rule below that:
-//
-//   set (B = 2048)      block bytes per ciphertext   G   kc   bytes of a block
-//   STD128_K2           9,220                         16  16   213,056
-//   STD128              14,340                        12   8   204,848
-//   STD128_SHORTINT     28,676                         6   8   204,824
-//
-// (variant 6 there: 8, 8 and 4 ciphertexts; variant 4 the same as 6.)
 //
 // A block owns its G ciphertexts for all n steps, their accumulators
 // resident in shared memory, as in csrc/megaJ.cu.  Missing ciphertexts of a
@@ -259,12 +243,10 @@ cudaError_t launch_mma_g(int G, const Args& a) {
   }
 }
 
-int schedule(int variant) {
-  return variant == 10 ? FUSED : variant == 4 ? CLUSTER : WIDE;
-}
+int schedule(int variant) { return variant == 10 ? FUSED : CLUSTER; }
 
 bool known(int variant) {
-  return variant == 10 || variant == 3 || variant == 4 || variant == 5;
+  return variant == 10 || variant == 3 || variant == 4;
 }
 
 }  // namespace
@@ -282,7 +264,7 @@ int megaJ_legacy_ciphertexts_per_block(int variant, int B, int N, int kp1,
 
 // variant 10 (key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128]), 3 (bsk_btjm
 // [n, N/128, R, 128, kp1*4*128], each [128, kp1*4*128] block in fragment
-// order) or 4 and 5 (bsk_btj, the same shape), all int8, R = kp1*levels;
+// order) or 4 (bsk_btj, the same shape), all int8, R = kp1*levels;
 // acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), out [B, kp1, N] u32, all
 // device pointers; N a power of two in [128, 2048], kp1 in {2, 3, 5}, 1 <=
 // bg_bits <= 8, `sms` the card's SM count.  Launches on `stream` and returns
@@ -315,7 +297,6 @@ int megaJ_legacy_blind_rotate(int variant, const void* acc0, const void* a_t,
   switch (variant) {
     case 10: return launch_kp1<true, FUSED>(kp1, G, a);
     case 4: return launch_kp1<false, CLUSTER>(kp1, G, a);
-    case 5: return launch_kp1<false, WIDE>(kp1, G, a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,15 +1,15 @@
 // megaR: the whole GINX blind rotation of a ciphertext batch in one launch,
 // against the R-major block-Toeplitz int8 key bsk_bt [n, R, HALF, P, C4P]
-// (the key of the per-step kernels, csrc/bt_external_product.cu), in two
-// variants:
+// (the key of the per-step kernels, csrc/bt_external_product.cu):
 //
 //   variant  replaces (herdsman_tpu/ops/pallas/legacy.py)  schedule
 //   1        _mega_kernel  (wrapper mega_blind_rotate)      row-phased, key rows staged by TMA
-//   2        _mega2_kernel (wrapper mega2_blind_rotate)     inline, next step's key prefetched to L2
 //
-// Both compute the single width's function of csrc/megaJ.cu's variant 6
-// (its note gives the arithmetic): for i in 0..n-1 and every ciphertext b
-// of the batch,
+// (legacy.py's _mega2_kernel, the same function inline on bsk_bt, is
+// csrc/mega12.cu's single window on bsk_btk: int8 wgmma reads its key
+// operand K-major only.)  It computes the single width's function of
+// csrc/megaJ.cu's variant 6 (its note gives the arithmetic): for i in
+// 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
 //
@@ -24,9 +24,9 @@
 //
 // Bound.  One rotation is n * B * (R*N) * ((k+1)*4*N) int8 MACs: 30.0018 ms
 // at STD128_K2 and B = 2048 on the H100's 1,979 int8 TOP/s; bound by
-// operations (the 3.375 GiB key, read once, is 1.1 ms at 3.35 TB/s).  Both
-// variants run the products on the integer lanes as __dp4a (4 MACs each), as
-// every megaJ.cu kernel does, so their own ceiling is about 16 times the
+// operations (the 3.375 GiB key, read once, is 1.1 ms at 3.35 TB/s).  The
+// kernel runs the products on the integer lanes as __dp4a (4 MACs each), as
+// every megaJ.cu kernel does, so its own ceiling is about 16 times the
 // bound.  A block owns G ciphertexts for all n steps, their accumulators
 // resident in shared memory; missing ciphertexts of a ragged batch rotate
 // zeros and store nothing.
@@ -60,31 +60,14 @@
 // consumers meet on a named barrier only (bar.sync 1), around the digit
 // phase.  kc is the largest of 32, 16, 8 K rows whose ring fits beside G
 // ciphertexts in 232,448 bytes (three stages where they fit, else two).
-//
-// Inline (2).  _mega2_kernel runs a whole step in one grid cell: rotation,
-// all R row contractions and the CMux accumulate, its only scratch the
-// accumulator, with the next cell's key block double-buffered by the
-// BlockSpec pipeline (legacy.py:165-233, :277-281).  Here the contraction
-// is the serial dp4a loop of megaJ_common.cuh on the single width with
-// the (m, r) strides swapped (contract_unit<..., R_MAJOR>): per (column tile,
-// output polynomial) unit, the negated run of HALF-1-ct blocks over all R
-// rows, its partial negated once, then the positive run, then the
-// recombine.  What is new is the prefetch: at the start of step i each
-// block issues cp.async.bulk.prefetch.L2.global for its share of step
-// i+1's key (the step's bytes over the blocks resident at once, one block
-// per SM: 4.7 MB / 132, about 36 KB at STD128_K2), so that the step's key
-// is in the 50 MB L2 when the blocks reach it.
 
 #include "hopper.cuh"
 #include "megaJ_common.cuh"
 
 namespace {
 
-constexpr int ROW = 1;     // variant 1 (mega): row-phased, TMA-staged
-constexpr int INLINE = 2;  // variant 2 (mega2): inline, L2 prefetch
-constexpr int MAX_TILES = 16;  // HALF * G of variant 1: its partials / 4
-
-// ---- variant 1: row-phased ------------------------------------------------
+constexpr int ROW = 1;         // variant 1 (mega): row-phased, TMA-staged
+constexpr int MAX_TILES = 16;  // HALF * G: the partials of a thread / 4
 
 // shared memory of variant 1's block: the ring of `stages` chunks of kc K
 // rows, its 2*stages barriers, then G ciphertexts' accumulators, digits and
@@ -323,96 +306,6 @@ cudaError_t launch_row_half(int N, int G, const RowArgs& a) {
   }
 }
 
-// ---- variant 2: inline ------------------------------------------------------
-
-template <int G, int KP1>
-__global__ void __launch_bounds__(BD, 1)
-inline_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
-              const int32_t* __restrict__ a_t,    // [n, B] in [0, 2N)
-              const int8_t* __restrict__ key,     // bsk_bt [n, R, HALF, P, C4P]
-              uint32_t* __restrict__ out,         // [B, KP1, N]
-              int B, int n, int N, int bg_bits, int levels, int resident) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int R = KP1 * levels;
-  const int N4 = N / 4;
-  const int HALF = N / P;
-  uint32_t* acc = smem;                                      // [G][KP1][N]
-  uint32_t* dig = acc + G * KP1 * N;                         // [R][N/4][G]
-  int* rot = reinterpret_cast<int*>(dig + static_cast<size_t>(G) * R * N4);
-
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * G;
-  const int nb = min(G, B - b0);
-  const Gadget gd(bg_bits, levels);
-  const size_t base = static_cast<size_t>(b0) * KP1 * N;
-  for (int e = tid; e < G * KP1 * N; e += BD)
-    acc[e] = e < nb * KP1 * N ? acc0[base + e] : 0u;
-
-  const int grp = tid / GROUP;
-  const int lt = tid - grp * GROUP;
-  const int j = lt / PW;
-  const int qq = (lt - j * PW) * 4;
-  const size_t step_bytes = static_cast<size_t>(R) * HALF * P * KP1 * 4 * P;
-  // this block's share of a step's key for the L2 prefetch: bytes [lo, lo +
-  // len) of the step, 16-byte aligned, the step over the resident blocks
-  const size_t share = ((step_bytes + resident - 1) / resident + 15) / 16 * 16;
-  const size_t lo = (blockIdx.x % resident) * share;
-  const uint32_t len = static_cast<uint32_t>(
-      lo >= step_bytes ? 0 : step_bytes - lo < share ? step_bytes - lo : share);
-
-  for (int i = 0; i < n; ++i) {
-    if (tid < G)
-      rot[tid] = tid < nb ? a_t[static_cast<size_t>(i) * B + b0 + tid] : 0;
-    if (tid == BD - 1 && i + 1 < n && len)
-      prefetch_l2(key + (i + 1) * step_bytes + lo, len);
-    __syncthreads();  // rot set; the previous step's adds into acc are done
-    digit_phase<G, KP1, false>(acc, dig, rot, N, gd, tid, BD);
-    __syncthreads();  // digits ready; nothing reads acc until the next step
-    const int8_t* kstep = key + static_cast<size_t>(i) * step_bytes;
-    for (int unit = grp; unit < HALF * KP1; unit += BD / GROUP) {
-      const int ct = unit / KP1;
-      const int c = unit - ct * KP1;
-      int part[G][4];
-      contract_unit<G, KP1, false, true>(kstep, dig, ct, c, j, qq, R, HALF,
-                                         N4, part);
-      recombine<G, KP1>(acc, part, ct, c, j, qq, N);
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < nb * KP1 * N; e += BD) out[base + e] = acc[e];
-}
-
-template <int G, int KP1>
-cudaError_t launch_inline(const Args& a, int sms) {
-  const size_t smem = smem_bytes(SERIAL, G, a.N, KP1, KP1 * a.levels, 0);
-  auto kern = inline_kernel<G, KP1>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const int blocks = (a.B + G - 1) / G;
-  kern<<<blocks, BD, smem, a.stream>>>(
-      static_cast<const uint32_t*>(a.acc0), static_cast<const int32_t*>(a.a_t),
-      static_cast<const int8_t*>(a.key), static_cast<uint32_t*>(a.out), a.B,
-      a.n, a.N, a.bg_bits, a.levels, blocks < sms ? blocks : sms);
-  return cudaGetLastError();
-}
-
-template <int KP1>
-cudaError_t launch_inline_g(int G, const Args& a, int sms) {
-  switch (G) {
-    case 8: return launch_inline<8, KP1>(a, sms);
-    case 4: return launch_inline<4, KP1>(a, sms);
-    case 2: return launch_inline<2, KP1>(a, sms);
-    case 1: return launch_inline<1, KP1>(a, sms);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-int pick(int variant, int B, int N, int kp1, int R, int sms) {
-  return variant == ROW ? row_pick_g(B, N, kp1, R, sms)
-                        : pick_g(SERIAL, B, N, kp1, R, sms);
-}
-
 }  // namespace
 
 extern "C" {
@@ -421,11 +314,11 @@ extern "C" {
 // ciphertexts on a card of `sms` SMs (0: none).
 int megaR_ciphertexts_per_block(int variant, int B, int N, int kp1, int R,
                                 int sms) {
-  if (B <= 0 || sms <= 0 || (variant != ROW && variant != INLINE)) return 0;
-  return pick(variant, B, N, kp1, R, sms);
+  if (B <= 0 || sms <= 0 || variant != ROW) return 0;
+  return row_pick_g(B, N, kp1, R, sms);
 }
 
-// variant 1 or 2 on key bsk_bt [n, kp1*levels, N/128, 128, kp1*4*128] int8
+// variant 1 on key bsk_bt [n, kp1*levels, N/128, 128, kp1*4*128] int8
 // (16-byte aligned); acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), out
 // [B, kp1, N] u32, all device pointers; N a power of two in [128, 2048],
 // kp1 in {2, 3, 5}, 1 <= bg_bits <= 8, `sms` the card's SM count.  Launches
@@ -434,29 +327,18 @@ int megaR_blind_rotate(int variant, const void* acc0, const void* a_t,
                        const void* key, void* out, int B, int n, int N,
                        int kp1, int bg_bits, int levels, int sms,
                        void* stream) {
-  if (!valid_args(B, n, N, bg_bits, levels, sms) ||
-      (variant != ROW && variant != INLINE) ||
+  if (!valid_args(B, n, N, bg_bits, levels, sms) || variant != ROW ||
       reinterpret_cast<uintptr_t>(key) % 16)
     return cudaErrorInvalidValue;
   const int R = kp1 * levels;
-  const int G = pick(variant, B, N, kp1, R, sms);
+  const int G = row_pick_g(B, N, kp1, R, sms);
   if (G == 0) return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (variant == ROW) {
-    const RowArgs a{acc0, a_t, key, out, B, n, bg_bits, levels,
-                    pick_ring(G, N, kp1, R), st};
-    switch (kp1) {
-      case 2: return launch_row_half<2>(N, G, a);
-      case 3: return launch_row_half<3>(N, G, a);
-      case 5: return launch_row_half<5>(N, G, a);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  const Args a{acc0, a_t, key, out, B, n, N, bg_bits, levels, 0, st};
+  const RowArgs a{acc0, a_t, key, out, B, n, bg_bits, levels,
+                  pick_ring(G, N, kp1, R), static_cast<cudaStream_t>(stream)};
   switch (kp1) {
-    case 2: return launch_inline_g<2>(G, a, sms);
-    case 3: return launch_inline_g<3>(G, a, sms);
-    case 5: return launch_inline_g<5>(G, a, sms);
+    case 2: return launch_row_half<2>(N, G, a);
+    case 3: return launch_row_half<3>(N, G, a);
+    case 5: return launch_row_half<5>(N, G, a);
     default: return cudaErrorInvalidValue;
   }
 }

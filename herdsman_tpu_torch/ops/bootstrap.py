@@ -16,8 +16,9 @@ through one of three kinds of engine:
   tensor; ``mega12`` (the integer tier's engine, the JAX package's
   ``pallas_mega12``) is ``csrc/mega12.cu`` on int8 tensor cores against
   ``bsk_btk`` (the JAX package's ``bsk_btjj`` in ``wgmma``'s byte order),
-  and so is ``mega7`` (the same function; the JAX package's
-  ``pallas_mega7`` read the same blocks with other columns), and
+  and so are ``mega7``, ``mega5`` and ``mega2`` (the same function; the
+  JAX package's ``pallas_mega7`` and ``pallas_mega5`` read the same
+  blocks with other columns, ``pallas_mega2`` them R-major), and
   ``mega11`` that source's doubled window against ``bsk_btk2``
   (``bsk_btj2j`` in ``wgmma``'s order); ``mega16``, ``mega17`` and
   ``mega15`` (the JAX package's engines of the same names, at the
@@ -31,12 +32,11 @@ through one of three kinds of engine:
   contraction per column tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
   the same source on ``bsk_btj2`` and on the single width ``bsk_btj`` (the
   negated run subtracted) with other schedules; the legacy ``mega10`` (on
-  ``bsk_btj2``), ``mega4`` and ``mega5`` (on ``bsk_btj``) are
+  ``bsk_btj2``) and ``mega4`` (on ``bsk_btj``) are
   ``csrc/megaJ_legacy.cu``'s further schedules, and ``mega3`` its
   tensor-core kernel on ``bsk_btj`` in fragment order (``bsk_btjm``); the
-  legacy ``mega`` (row-phased, TMA-staged key rows) and ``mega2`` (inline,
-  the next step's key prefetched to L2) are ``csrc/megaR.cu`` against the
-  per-step engines' R-major ``bsk_bt``.
+  legacy ``mega`` (row-phased, TMA-staged key rows) is ``csrc/megaR.cu``
+  against the per-step engines' R-major ``bsk_bt``.
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -130,9 +130,9 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega10": (megaJ.mega10_blind_rotate, "bsk_btj2"),
     "mega3": (megaJ.mega3_blind_rotate, "bsk_btjm"),
     "mega4": (megaJ.mega4_blind_rotate, "bsk_btj"),
-    "mega5": (megaJ.mega5_blind_rotate, "bsk_btj"),
+    "mega5": (megaJ.mega5_blind_rotate, "bsk_btk"),
     "mega": (megaJ.mega_blind_rotate, "bsk_bt"),
-    "mega2": (megaJ.mega2_blind_rotate, "bsk_bt"),
+    "mega2": (megaJ.mega2_blind_rotate, "bsk_btk"),
 }
 
 

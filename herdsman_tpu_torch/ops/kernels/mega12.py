@@ -13,12 +13,15 @@ launches the hand-written kernel (one launch per rotation, counted in
 ``mega12_blind_rotate.launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btk``.  The source note in ``csrc/mega12.cu`` gives
 the kernel's design and bound; ``plan`` mirrors its tiling.  The same
-source also serves ``megaJ.mega7_blind_rotate`` (this kernel on this key)
-and ``megaJ.mega11_blind_rotate`` (its doubled window on ``bsk_btk2``),
-each through ``launch`` with its own counter.
+source also serves ``megaJ.mega7_blind_rotate``,
+``megaJ.mega5_blind_rotate`` and ``megaJ.mega2_blind_rotate`` (this kernel
+on this key) and ``megaJ.mega11_blind_rotate`` (its doubled window on
+``bsk_btk2``), each through ``launch`` with its own counter.
 
 ``check_args``, ``pack_digits``, ``recombine`` and the j-major contraction
-``blind_rotate_plain_btjj`` also serve ``megaJ``'s plain versions.
+``blind_rotate_plain_btjj`` also serve ``megaJ``'s plain versions;
+``kmajor_from_bt`` and ``kmajor_from_btj`` re-lay the JAX package's
+``bsk_bt`` and ``bsk_btj`` as ``bsk_btk``.
 """
 
 from __future__ import annotations
@@ -154,6 +157,40 @@ def from_kmajor_order(bsk_btk: torch.Tensor) -> torch.Tensor:
     t = t.permute(*range(nl), nl, nl + 1, nl + 6, nl + 4, nl + 2, nl + 3,
                   nl + 5)
     return t.reshape(*lead, HALF, R, P, kp1 * 4 * P)
+
+
+def _kmajor_steps(key: torch.Tensor, kp1: int, r_major: bool) -> torch.Tensor:
+    """``bsk_btk`` from a single-width key with (c, j, q) columns, R-major
+    [n, R, HALF, P, (k+1)*4*P] or step-major by stored block [n, HALF, R,
+    P, (k+1)*4*P], one step at a time (the working set is one step's)."""
+    n, a, b, rows, cols = key.shape
+    if rows != P or cols != kp1 * 4 * P:
+        raise ValueError(f"a [n, ., ., {P}, {kp1 * 4 * P}] key, not "
+                         f"{tuple(key.shape)}")
+    HALF, R = (b, a) if r_major else (a, b)
+    out = torch.empty((n, HALF, R, kp1, P // QH, BN, P), dtype=I8,
+                      device=key.device)
+    for i in range(n):
+        blocks = key[i].transpose(0, 1) if r_major else key[i]
+        jcq = blocks.reshape(HALF, R, P, kp1, 4, P).transpose(3, 4)
+        out[i] = kmajor_order(jcq.reshape(HALF, R, P, cols), kp1)
+    return out
+
+
+def kmajor_from_bt(bsk_bt: torch.Tensor, kp1: int) -> torch.Tensor:
+    """``bsk_btk`` from the per-step engines' R-major ``bsk_bt`` [n, R,
+    HALF, P, (k+1)*4*P] (the JAX package's ``pallas_mega2`` key): per step
+    the block axes swapped (``bsk_btj``), the columns (c, j, q) made (j, c,
+    q) (``bsk_btjj``), then ``kmajor_order``.  Equal to
+    ``server_key.block_toeplitz_layout(..., kmajor=True)``."""
+    return _kmajor_steps(bsk_bt, kp1, r_major=True)
+
+
+def kmajor_from_btj(bsk_btj: torch.Tensor, kp1: int) -> torch.Tensor:
+    """``bsk_btk`` from the j-major ``bsk_btj`` [n, HALF, R, P, (k+1)*4*P]
+    (the JAX package's ``pallas_mega7`` and ``pallas_mega5`` key): per step
+    the columns (c, j, q) made (j, c, q), then ``kmajor_order``."""
+    return _kmajor_steps(bsk_btj, kp1, r_major=False)
 
 
 def pack_digits(p: TFHEParams, rot_minus_acc: torch.Tensor,

@@ -1,7 +1,7 @@
 """Whole-rotation blind-rotation kernels of the JAX package's j-major
-family: against the j-major block-Toeplitz keys (``csrc/megaJ.cu`` and
-``csrc/megaJ_legacy.cu``), against their K-major tensor-core keys
-(``csrc/mega12.cu``) and against the R-major ``bsk_bt``
+family and legacy schedules: against the j-major block-Toeplitz keys
+(``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``), against the K-major
+tensor-core keys (``csrc/mega12.cu``) and against the R-major ``bsk_bt``
 (``csrc/megaR.cu``), and their plain PyTorch versions.
 
 The eleven kernels compute the GINX rotation of ``mega12`` at any gadget
@@ -20,10 +20,15 @@ the key they read and in how a block schedules a step:
   ``mega12``'s function, so ``csrc/mega12.cu``'s single instantiation on
   ``mega12``'s key ``bsk_btk`` (the JAX package's ``bsk_btj`` is the same
   blocks with columns (c, j, q), an order int8 ``wgmma`` cannot read);
-- ``mega9_blind_rotate``: ``herdsman_tpu/ops/pallas/legacy.py::
-  _mega9_kernel``, ``mega8``'s function and key, with a producer warp
-  building one half's digits while four consumer groups contract the
-  other's (named-barrier hand-off);
+- ``mega5_blind_rotate`` and ``mega2_blind_rotate``: ``herdsman_tpu/ops/
+  pallas/legacy.py::_mega5_kernel`` (a wide block on ``bsk_btj``) and
+  ``_mega2_kernel`` (an inline step on the R-major ``bsk_bt``), ``mega7``'s
+  function, so ``csrc/mega12.cu``'s single instantiation on ``bsk_btk``
+  too (``mega12.kmajor_from_btj`` and ``kmajor_from_bt`` re-lay the JAX
+  package's keys);
+- ``mega9_blind_rotate``: ``legacy.py::_mega9_kernel``, ``mega8``'s
+  function and key, with a producer warp building one half's digits while
+  four consumer groups contract the other's (named-barrier hand-off);
 - ``mega6_blind_rotate``: ``legacy.py::_mega6_kernel``, ``mega7``'s
   function on ``bsk_btj``, with each group's key rows double-buffered in
   shared memory by ``cp.async``;
@@ -36,17 +41,11 @@ the key they read and in how a block schedules a step:
 - ``mega4_blind_rotate``: ``legacy.py::_mega4_kernel``, ``mega7``'s
   function on ``bsk_btj``, ``mega6``'s staged rows shared by the two
   blocks of a thread block cluster, each copying half of them;
-- ``mega5_blind_rotate``: ``legacy.py::_mega5_kernel``, ``mega7``'s
-  function on ``bsk_btj``, ``mega6``'s staged rows applied to up to 16
-  ciphertexts of one wide block;
 - ``mega_blind_rotate`` (``csrc/megaR.cu``): ``legacy.py::_mega_kernel``,
   ``mega7``'s function on the R-major ``bsk_bt`` [n, R, HALF, P,
   (k+1)*4*P] (``bsk_btj`` with the two block axes swapped), row-phased: R
   row phases per step, each key chunk staged in shared memory by TMA and
-  applied to every column tile that reads it;
-- ``mega2_blind_rotate``: ``legacy.py::_mega2_kernel``, the same function
-  and key, the serial loop of ``megaJ.cu``'s dp4a schedule on the R-major
-  offsets with the next step's key prefetched to L2.
+  applied to every column tile that reads it.
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -56,9 +55,10 @@ contraction is one product of the step's digits (sub ascending, r minor)
 with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
 (``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
-version of ``mega`` and ``mega2`` is ``blind_rotate_plain_bt``: n steps of
+version of ``mega`` is ``blind_rotate_plain_bt``: n steps of
 ``bt_fused``'s plain step on ``bsk_bt``, independent of the j-major ones;
-``mega7``'s is ``mega12.blind_rotate_plain_btk`` and ``mega11``'s
+that of ``mega7``, ``mega5`` and ``mega2`` is
+``mega12.blind_rotate_plain_btk`` and ``mega11``'s
 ``blind_rotate_plain_btk2`` (the doubled window's contraction on the key
 taken back to j-major order).
 
@@ -89,7 +89,7 @@ from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 # kernel -> (its variant number in its source, the key layout it reads,
-# doubled window, limb-major columns); csrc/mega12.cu's two instantiations
+# doubled window, limb-major columns); csrc/mega12.cu's instantiations
 # (TENSOR_CORE) have no variant number: the window picks one
 KERNELS = {"mega11": (None, "bsk_btk2", True, True),
            "mega8": (8, "bsk_btj2", True, False),
@@ -99,27 +99,22 @@ KERNELS = {"mega11": (None, "bsk_btk2", True, True),
            "mega10": (10, "bsk_btj2", True, False),
            "mega3": (3, "bsk_btjm", False, False),
            "mega4": (4, "bsk_btj", False, False),
-           "mega5": (5, "bsk_btj", False, False),
+           "mega5": (None, "bsk_btk", False, True),
            "mega": (1, "bsk_bt", False, False),
-           "mega2": (2, "bsk_bt", False, False)}
+           "mega2": (None, "bsk_btk", False, True)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
-# the kernels of csrc/mega12.cu (the doubled and the single window on int8
-# wgmma), of csrc/megaJ_legacy.cu and of csrc/megaR.cu (the R-major
-# bsk_bt); the others are csrc/megaJ.cu's
-TENSOR_CORE = ("mega11", "mega7")
-LEGACY_SOURCE = ("mega10", "mega3", "mega4", "mega5")
-ROW_SOURCE = ("mega", "mega2")
+# the kernels of csrc/mega12.cu (the doubled window, then the single
+# window's three wrappers on int8 wgmma), of csrc/megaJ_legacy.cu and of
+# csrc/megaR.cu (the R-major bsk_bt); the others are csrc/megaJ.cu's
+TENSOR_CORE = ("mega11", "mega7", "mega5", "mega2")
+LEGACY_SOURCE = ("mega10", "mega3", "mega4")
+ROW_SOURCE = ("mega",)
 # the kernels whose block holds two halves of G ciphertexts (overlap), or
 # stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
-# per group at least; the wide block's 8 rows); mega3 (tensor cores) holds
-# G in {8, 4, 2, 1}, zeros on the rest of its n8 side
-OVERLAP, STAGED, WIDE, MMA = ("mega9",), ("mega6", "mega4"), ("mega5",), \
-    ("mega3",)
+# per group at least); mega3 (tensor cores) holds G in {8, 4, 2, 1}, zeros
+# on the rest of its n8 side
+OVERLAP, STAGED, MMA = ("mega9",), ("mega6", "mega4"), ("mega3",)
 STAGED_BYTES = 4 * 2 * 16 * 512
-WIDE_BYTES = 4 * 2 * 8 * 512
-# mega's ring at its least: two stages of 8 K rows of (k+1)*4*P bytes, and
-# their barriers (mega2 holds what mega7 holds)
-ROW = ("mega",)
 
 
 def ring_bytes(p: TFHEParams) -> int:
@@ -136,11 +131,12 @@ def smem_bytes(p: TFHEParams, G: int) -> int:
 
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
-    geometry (all that ``csrc/mega12.cu``'s ``mega11`` and ``mega7`` need:
-    their digits and accumulators live in device memory), then one
-    ciphertext's accumulator and digits within a block's shared memory (the
-    dp4a block layout every other kernel here shares), and one block of its
-    schedule within the card's shared memory."""
+    geometry (all that ``csrc/mega12.cu``'s ``mega11``, ``mega7``,
+    ``mega5`` and ``mega2`` need: their digits and accumulators live in
+    device memory), then one ciphertext's accumulator and digits within a
+    block's shared memory (the dp4a block layout every other kernel here
+    shares), and one block of its schedule within the card's shared
+    memory."""
     mega12.check_params(p, name)
     if name in TENSOR_CORE:
         return
@@ -152,9 +148,7 @@ def check_params(p: TFHEParams, name: str) -> None:
         need = 2 * one - 4
     elif name in STAGED:
         need = one + STAGED_BYTES
-    elif name in WIDE:
-        need = one + WIDE_BYTES
-    elif name in ROW:
+    elif name in ROW_SOURCE:
         need = one + ring_bytes(p)
     else:
         return
@@ -240,7 +234,7 @@ def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
                            bsk_btj: torch.Tensor) -> torch.Tensor:
     """The single width's rotation in plain PyTorch, either device, on the
     JAX package's ``bsk_btj`` (the TPU's ``mega7``; here the plain version
-    of ``mega6``, ``mega4`` and ``mega5``): the two-dot of
+    of ``mega6`` and ``mega4``): the two-dot of
     ``_ep_column_total_jmajor_packed``, then the per-polynomial recombine
     of its (c, j, q) columns (``mega.py:150-161``).
     ``blind_rotate_plain_btjj`` (the contraction ``mega12``'s plain version
@@ -297,7 +291,7 @@ def blind_rotate_plain_btjm(params: TFHEParams, acc0: torch.Tensor,
 def blind_rotate_plain_bt(params: TFHEParams, acc0: torch.Tensor,
                           a_t: torch.Tensor,
                           bsk_bt: torch.Tensor) -> torch.Tensor:
-    """The rotation of ``mega`` and ``mega2`` in plain PyTorch, either
+    """The rotation of ``mega`` in plain PyTorch, either
     device: n steps of ``bt_fused``'s plain step on the R-major ``bsk_bt``,
     ``rotate_decompose_plain`` then ``external_product_bt_plain`` with the
     accumulate (``glwe=acc``)."""
@@ -315,11 +309,11 @@ def blind_rotate_plain_bt(params: TFHEParams, acc0: torch.Tensor,
 
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` and ``mega10`` share ``mega8``'s; ``mega6``, ``mega4`` and
-    ``mega5`` share ``blind_rotate_plain_btj``, the single width on
-    ``bsk_btj``, and ``mega3``'s is that on its key out of fragment order;
-    ``mega`` and ``mega2`` share ``blind_rotate_plain_bt``; ``mega7``'s is
-    ``mega12``'s and ``mega11``'s ``blind_rotate_plain_btk2``)."""
+    (``mega9`` and ``mega10`` share ``mega8``'s; ``mega6`` and ``mega4``
+    share ``blind_rotate_plain_btj``, the single width on ``bsk_btj``, and
+    ``mega3``'s is that on its key out of fragment order; ``mega``'s is
+    ``blind_rotate_plain_bt``; ``mega7``, ``mega5`` and ``mega2`` share
+    ``mega12``'s and ``mega11``'s is ``blind_rotate_plain_btk2``)."""
     _, layout, doubled, jcq = KERNELS[name]
     if name in TENSOR_CORE:
         return (blind_rotate_plain_btk2 if doubled
@@ -367,8 +361,7 @@ def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
                           name: str = "mega8") -> int:
     """The ciphertexts one block of kernel ``name`` owns in a rotation of B
     ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
-    G, two halves of G for ``mega9``, up to 16 for ``mega5`` and up to
-    16*128/N for ``mega``."""
+    G, two halves of G for ``mega9`` and up to 16*128/N for ``mega``."""
     if name in TENSOR_CORE:
         raise ValueError(f"{name} tiles its batch by mega12.plan, not by "
                          f"ciphertexts per block")
@@ -485,11 +478,13 @@ def mega4_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega5_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btj: torch.Tensor) -> torch.Tensor:
-    """``mega7``'s rotation on the single-width ``bsk_btj``, each chunk of
-    staged key rows applied to all of a wide block's ciphertexts (up to
-    16); CPU tensors go through ``blind_rotate_plain_btj``."""
-    return _rotate("mega5", mega5_blind_rotate, params, acc0, a_t, bsk_btj)
+                       bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation (the TPU's wide block on ``bsk_btj``) against
+    the single window ``bsk_btk`` int8 [n, HALF, R, k+1, 2, 256, 128] (two
+    runs, the negated one subtracted): ``csrc/mega12.cu``'s single
+    instantiation, counted here; CPU tensors go through
+    ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega5", mega5_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 def mega_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
@@ -503,11 +498,13 @@ def mega_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega2_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_bt: torch.Tensor) -> torch.Tensor:
-    """``mega``'s rotation on ``bsk_bt``, inline (``mega7``'s serial loop on
-    the R-major offsets, the next step's key prefetched to L2); CPU tensors
-    go through ``blind_rotate_plain_bt``."""
-    return _rotate("mega2", mega2_blind_rotate, params, acc0, a_t, bsk_bt)
+                       bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``mega``'s rotation (the TPU's inline step on the R-major
+    ``bsk_bt``) against the single window ``bsk_btk`` int8 [n, HALF, R, k+1,
+    2, 256, 128] (two runs, the negated one subtracted):
+    ``csrc/mega12.cu``'s single instantiation, counted here; CPU tensors go
+    through ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega2", mega2_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 mega11_blind_rotate.launches = 0

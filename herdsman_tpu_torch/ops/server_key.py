@@ -31,8 +31,9 @@ once, into:
                                        package's ``pallas_bt`` engines
                                        (``_block_toeplitz_layout``), read by
                                        ``csrc/bt_external_product.cu`` and
-                                       ``csrc/megaR.cu`` (``mega``,
-                                       ``mega2``):
+                                       ``csrc/megaR.cu`` (``mega``; the
+                                       port's ``mega2`` reads ``bsk_btk``,
+                                       ``mega12.kmajor_from_bt``):
                                        stored diagonal block m at (p, (c, j,
                                        q)) is limb j of ext(bsk[i, r, c])
                                        [(P*m + q - p) mod 2N].  It is
@@ -48,10 +49,11 @@ once, into:
                                        (``_block_toeplitz_layout_device(...,
                                        j_major=True)``), read by
                                        ``csrc/megaJ.cu``'s ``mega6`` and
-                                       ``megaJ_legacy.cu``'s ``mega4`` and
-                                       ``mega5`` (the port's ``mega7`` reads
-                                       ``bsk_btk``).  As big as ``bsk_bt``,
-                                       built the same way.
+                                       ``megaJ_legacy.cu``'s ``mega4`` (the
+                                       port's ``mega7`` and ``mega5`` read
+                                       ``bsk_btk``,
+                                       ``mega12.kmajor_from_btj``).  As big
+                                       as ``bsk_bt``, built the same way.
 - ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
                                        as ``bsk_btj`` with limb-major
                                        columns (j, c, q): the key of the JAX
@@ -70,9 +72,10 @@ once, into:
                                        64j + q' the 128 K bytes of column
                                        (j, c, q), K-major and 128-byte
                                        swizzled, so one bulk copy stages
-                                       it.  The key of the ``mega12`` and
-                                       ``mega7`` engines (one kernel), as
-                                       big as ``bsk_btjj``.
+                                       it.  The key of the ``mega12``,
+                                       ``mega7``, ``mega5`` and ``mega2``
+                                       engines (one kernel), as big as
+                                       ``bsk_btjj``.
 - ``bsk_btjm``  int8  [n, HALF, R, P, (k+1)*4*P]
                                        ``bsk_btj`` with each [P, (k+1)*4*P]
                                        block's bytes in the order of the
@@ -343,7 +346,9 @@ def fit_engine(engine: str, params: TFHEParams,
       (``bsk_bt``, ``bsk_btk``, ``bsk_btj``, ``bsk_btjm``: the same size)
       fits ``budget_bytes``; else ``mega13`` (the JAX package keeps
       ``pallas_mega3``, ``_4``, ``_5``, ``pallas_mega`` and ``_mega2`` at
-      every set; their keys fit the budget at every named set);
+      every set; their keys fit the budget at every named set, and
+      ``mega5`` and ``mega2``, ``mega12``'s kernel since they read
+      ``bsk_btk``, take every named set with N >= 128);
     - ``mega11`` / ``mega8`` / ``mega9`` / ``mega10`` while their doubled
       key (``bsk_btk2`` / ``bsk_btj2``) fits and their kernel takes the
       set (the JAX package's doubled-key check, ``server_key.py:694-699``);

@@ -1,8 +1,8 @@
 """Where the time of ``csrc/mega12.cu`` goes, on the card: the kernel (its
-single window, ``mega12`` and ``mega7``, or with ``--kernel mega11`` its
-doubled window on a ``bsk_btk2``-shaped key) timed in turns with variants
-built from its own source with one part taken out or changed, on the same
-inputs and random keys of one parameter set:
+single window, ``mega12``, ``mega7``, ``mega5`` and ``mega2``, or with
+``--kernel mega11`` its doubled window on a ``bsk_btk2``-shaped key) timed
+in turns with variants built from its own source with one part taken out
+or changed, on the same inputs and random keys of one parameter set:
 
 - ``no_products``: the consumers skip their ``wgmma``s (the ring, the
   copies, the digits and the barriers stay);

@@ -186,7 +186,7 @@ def test_fit_engine_card_memory_guard():
     assert tsk.fit_engine("mega13", k3) == "bt_fused"
     with pytest.raises(ValueError):
         tsk.fit_engine("mega13", k3, budget_bytes=1)
-    # the doubled key of mega8 (6.75 GiB) fits, and so does mega2's bsk_bt;
+    # the doubled key of mega8 (6.75 GiB) fits, and so does mega2's bsk_btk;
     # a name no engine has raises
     assert tsk.fit_engine("mega8", k2) == "mega8"
     assert tsk.fit_engine("mega2", k2) == "mega2"

@@ -258,7 +258,7 @@ def test_mega12_windows_match_plain(card, name, params, B):
         before[0] + 1, before[1])
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
     assert torch.equal(kernel(p, acc0, a_t, key), got)
-    if name == "mega7":  # one instantiation: mega12's launch, the same key
+    if not megaJ.KERNELS[name][2]:  # the single window: mega12's launch
         assert torch.equal(mega12.mega12_blind_rotate(p, acc0, a_t, key), got)
 
 
@@ -383,7 +383,7 @@ def test_megaJ_matches_plain(card, params, name, B):
             mega12.plan(p, B, n_sms))[:3]
     else:
         assert megaJ.ciphertexts_per_block(p, B, card, name) in (
-            1, 2, 4, 6, 8, 12, 16)
+            1, 2, 4, 8, 16)
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
 
 
@@ -453,11 +453,10 @@ def test_new_kernels_match_plain_at_width(card, params):
     assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))
 
 
-# the four kernels of csrc/megaJ_legacy.cu (mega10, mega3, mega4, mega5) on
+# the three kernels of csrc/megaJ_legacy.cu (mega10, mega3, mega4) on
 # random keys at the geometries of STD128_K2, STD128 and STD128_SHORTINT
 # (n cut to 2 steps), at the smoke run's widths and a ragged 37: B = 2048
-# fills the card (mega5 takes 16, 12 and 6 ciphertexts a block there, mega4
-# pads its launch to whole clusters, mega3 holds 8)
+# fills the card (mega4 pads its launch to whole clusters, mega3 holds 8)
 LEGACY_J_SETS = [dc.replace(PARAM_SETS[name], n=2)
                  for name in ("std128_k2", "std128", "std128_shortint")]
 
@@ -506,10 +505,10 @@ def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
     assert kernel.launches == before
 
 
-# the two kernels of csrc/megaR.cu (mega, mega2) on the R-major bsk_bt, on
-# random keys at the geometries of STD128_K2, STD128 and STD128_SHORTINT
-# (n cut to 2 steps) and at N = 128 (one column tile, mega's widest block
-# of 16) and k+1 = 5, at the smoke run's widths and a ragged 37
+# the kernel of csrc/megaR.cu (mega) on the R-major bsk_bt, on random keys
+# at the geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2
+# steps) and at N = 128 (one column tile, its widest block of 16) and k+1 =
+# 5, at the smoke run's widths and a ragged 37
 MEGAR_SETS = [dc.replace(PARAM_SETS[name], n=2)
               for name in ("std128_k2", "std128", "std128_shortint")] + [
     dc.replace(TOY, name="megaR_k1_n128_b8l2", n=3, N=128, k=1, bg_bits=8,
@@ -539,15 +538,15 @@ def test_megaR_matches_plain(card, params, name, B):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     G = megaJ.ciphertexts_per_block(p, B, card, name)
-    assert G in (1, 2, 4, 8, 16) and (name == "mega2"
-                                      or G * p.N // megaJ.P <= 16)
+    assert G in (1, 2, 4, 8, 16) and G * p.N // megaJ.P <= 16
     assert torch.equal(got, megaJ.blind_rotate_plain_bt(p, acc0, a_t, key))
 
 
 def test_mega_refuses_a_set_without_room_for_its_ring(card):
     """A set whose one ciphertext leaves no room for two stages of 8 key
     rows raises on a card tensor before any launch, naming the shared
-    memory; mega2 (mega7's block) takes it."""
+    memory; mega2 (csrc/mega12.cu's single window, digits and accumulators
+    in device memory) takes it: mega12's own check passes."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
                       bg_bits=2, levels=16)
     acc0 = torch.zeros(1, wide.k + 1, wide.N, dtype=torch.int32, device=card)
@@ -557,7 +556,39 @@ def test_mega_refuses_a_set_without_room_for_its_ring(card):
     with pytest.raises(ValueError, match="shared memory"):
         megaJ.mega_blind_rotate(wide, acc0, a_t, key)
     assert megaJ.mega_blind_rotate.launches == before
+    mega12.check_params(wide, "mega2")
     megaJ.check_params(wide, "mega2")
+
+
+# csrc/mega12.cu's single window under the wrappers of the JAX package's
+# legacy mega5 and mega2, on one random bsk_btk at the geometries of
+# STD128_K2, STD128 and STD128_SHORTINT (n cut to 2 steps), at the smoke
+# run's widths and a ragged 37: each equals the plain version and mega7 on
+# the same key, each launch counted on its own wrapper only
+@pytest.mark.parametrize("B", [2048, 256, 37, 9])
+@pytest.mark.parametrize("params", LEGACY_J_SETS,
+                         ids=[q.name for q in LEGACY_J_SETS])
+def test_single_window_wrappers_match_plain_and_mega7(card, params, B):
+    p = params
+    gen = torch.Generator(device=card)
+    gen.manual_seed(B + p.N + p.k)
+    acc0 = torch.randint(-2**31, 2**31, (B, p.k + 1, p.N), dtype=torch.int32,
+                         device=card, generator=gen)
+    a_t = torch.randint(0, 2 * p.N, (p.n, B), dtype=torch.int32, device=card,
+                        generator=gen)
+    key = torch.randint(-128, 128, mega12.key_shape(p), dtype=torch.int8,
+                        device=card, generator=gen)
+    want = mega12.blind_rotate_plain_btk(p, acc0, a_t, key)
+    wrappers = {name: getattr(megaJ, f"{name}_blind_rotate")
+                for name in ("mega7", "mega5", "mega2")}
+    wrappers["mega12"] = mega12.mega12_blind_rotate
+    for name in ("mega7", "mega5", "mega2"):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        got = wrappers[name](p, acc0, a_t, key)
+        torch.cuda.synchronize()
+        assert {k: fn.launches - before[k] for k, fn in wrappers.items()} \
+            == {k: int(k == name) for k in wrappers}
+        assert torch.equal(got, want), name
 
 
 # csrc/megaS.cu: mega13 on bsk_btS at every geometry class it takes (the

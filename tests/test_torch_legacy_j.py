@@ -1,5 +1,6 @@
-"""The port's ``mega10``, ``mega3``, ``mega4`` and ``mega5`` engines
-(``ops/kernels/megaJ.py``, ``csrc/megaJ_legacy.cu``) against the JAX
+"""The port's ``mega10``, ``mega3`` and ``mega4`` engines
+(``ops/kernels/megaJ.py``, ``csrc/megaJ_legacy.cu``) and its ``mega5``
+(``csrc/mega12.cu``'s single window on ``bsk_btk``) against the JAX
 package's legacy Pallas kernels, on the CPU:
 
 - each plain rotation against ``legacy.py::_mega10_kernel``,
@@ -47,7 +48,7 @@ from herdsman_tpu_torch.service.config import ConfigError, port_engine
 MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
 SETS = {"k1": MULTITILE, "k2": MULTITILE_K2}
-# the new kernel -> the serial kernel whose function it computes
+# the legacy kernel -> the serial kernel whose function it computes
 LEGACY = {"mega10": "mega8", "mega3": "mega7", "mega4": "mega7",
           "mega5": "mega7"}
 B = 37
@@ -404,23 +405,31 @@ def test_legacy_j_wrapper_checks(name):
         megaJ.check_params(PARAM_SETS[pset], name)
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
-    assert name in megaJ.LEGACY_SOURCE
+    # mega5 is csrc/mega12.cu's single window (mega7's instantiation)
+    assert name in (megaJ.TENSOR_CORE if name == "mega5"
+                    else megaJ.LEGACY_SOURCE)
     assert port_engine(f"pallas_{name}") == name
 
 
 @pytest.mark.parametrize("name", ["mega4", "mega5", "mega3"])
 def test_check_params_names_shared_memory(name):
     """A set whose ciphertext nearly fills a block fits ``mega7``'s block of
-    one, but not the staged blocks' key buffers beside one; ``mega3``
-    (whose block may hold one ciphertext, zeros on the rest of its n8
-    side) takes what ``mega7`` takes.  A refusal names the shared
-    memory."""
+    one, but not the staged blocks' key buffers beside one (``mega4``);
+    ``mega3`` (whose block may hold one ciphertext, zeros on the rest of
+    its n8 side) takes what ``mega7`` takes.  A refusal names the shared
+    memory.  ``mega5``, whose wide block was refused there, is now
+    ``csrc/mega12.cu``'s single window (digits and accumulators in device
+    memory) and behaves as ``mega7``: it takes both sets."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=16)
+    wider = dc.replace(wide, bg_bits=1, levels=32)
     megaJ.check_params(wide, "mega7")
-    if name in megaJ.MMA:
+    megaJ.check_params(wider, "mega7")
+    if name in megaJ.TENSOR_CORE:
         megaJ.check_params(wide, name)
-        wider = dc.replace(wide, bg_bits=1, levels=32)
+        megaJ.check_params(wider, name)
+    elif name in megaJ.MMA:
+        megaJ.check_params(wide, name)
         with pytest.raises(ValueError, match="shared memory"):
             megaJ.check_params(wider, name)
     else:
@@ -430,9 +439,11 @@ def test_check_params_names_shared_memory(name):
 
 @pytest.mark.parametrize("name", list(LEGACY))
 def test_plain_versions_share_the_serial_function(name):
-    """``mega10`` shares ``mega8``'s plain version; ``mega4`` and ``mega5``
-    ``mega7``'s; ``mega3``'s is ``mega7``'s on its key out of fragment
-    order: each gives the serial kernel's rotation on the same inputs."""
+    """``mega10`` shares ``mega8``'s plain version; ``mega5`` ``mega7``'s
+    (``mega12.blind_rotate_plain_btk``, the same key); ``mega4``'s is
+    ``mega7``'s function on ``bsk_btj``, ``mega3``'s on its key out of
+    fragment order: each gives the serial kernel's rotation on the same
+    inputs."""
     _, _, _, tdsk = keys(MULTITILE)
     p = tdsk.params
     rng = np.random.default_rng(len(name))
@@ -471,15 +482,17 @@ def test_gate_batch_equals_serial_engine(name):
 
 
 @pytest.mark.parametrize("budget_gib", [40, 12])
-@pytest.mark.parametrize("name", [*LEGACY, *megaJ.ROW_SOURCE])
+@pytest.mark.parametrize("name", [*LEGACY, "mega", "mega2"])
 def test_routes_equal_jax(name, budget_gib):
     """``fit_engine`` routes each name as the JAX package routes
     ``pallas_<name>`` on every named set at 40 and 12 GiB: ``mega10``
     through the doubled key's check (``server_key.py:694-699``: at 12 GiB
     STD128_SHORTINT's 18 GiB ``bsk_btj2`` goes to ``mega12``), the others
-    (``mega`` and ``mega2`` on ``bsk_bt`` too) kept; ``layouts_for_engine``
-    is the JAX package's but for ``mega3``, whose ``bsk_btjm`` is
-    ``bsk_btj`` in fragment order (one size)."""
+    (``mega`` on ``bsk_bt`` too) kept; ``layouts_for_engine`` is the JAX
+    package's but for ``mega3``, whose ``bsk_btjm`` is ``bsk_btj`` in
+    fragment order, and ``mega5`` and ``mega2``, which read ``bsk_btk``
+    (``bsk_btjj`` in ``wgmma``'s order) for the JAX package's ``bsk_btj``
+    and ``bsk_bt``: all one size."""
     budget = budget_gib * GIB
     for pset, p in PARAM_SETS.items():
         if p.N < 128:  # below the port's tile: mega13 (documented)
@@ -490,9 +503,10 @@ def test_routes_equal_jax(name, budget_gib):
         assert tsk.fit_engine(name, p, budget_bytes=budget) \
             == want.removeprefix("pallas_"), pset
     jax_layouts = jsk.layouts_for_engine(f"pallas_{name}")
-    if name == "mega3":
-        assert jax_layouts == ("bsk_btj",)
-        assert tsk.layouts_for_engine(name) == ("bsk_btjm",)
+    if name in ("mega3", "mega5", "mega2"):
+        assert jax_layouts == ({"mega2": "bsk_bt"}.get(name, "bsk_btj"),)
+        assert tsk.layouts_for_engine(name) == (
+            "bsk_btjm" if name == "mega3" else "bsk_btk",)
     else:
         assert tsk.layouts_for_engine(name) == jax_layouts
     assert port_engine(f"pallas_{name}") == name

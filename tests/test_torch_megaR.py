@@ -1,16 +1,16 @@
-"""The port's ``mega`` and ``mega2`` engines (``ops/kernels/megaJ.py``,
-``csrc/megaR.cu``) on the R-major ``bsk_bt`` against the JAX package's
-legacy Pallas kernels, on the CPU:
+"""The port's ``mega`` engine (``ops/kernels/megaJ.py``, ``csrc/megaR.cu``)
+on the R-major ``bsk_bt``, and its ``mega2`` (``csrc/mega12.cu``'s single
+window on ``bsk_btk``), against the JAX package's legacy Pallas kernels on
+``bsk_bt``, on the CPU:
 
 - each plain rotation against ``legacy.py::_mega_kernel`` and
   ``_mega2_kernel`` in interpret mode (run as the JAX package's own tests
   run them, once per kernel and set) and against the NumPy reference;
 - the key map: ``bsk_btj`` is ``bsk_bt`` with its two block axes swapped;
-- NumPy emulations of the kernels' address arithmetic, each held against
-  the plain version: ``mega``'s schedule of TMA-staged chunks (chunk f ->
-  step, row, block, rows; its ring stage and phase parity; each chunk
-  applied to every column tile with the sign flips of a row), and
-  ``mega2``'s R-major offsets and the shares of its L2 prefetch;
+- a NumPy emulation of ``mega``'s schedule of TMA-staged chunks (chunk f
+  -> step, row, block, rows; its ring stage and phase parity; each chunk
+  applied to every column tile with the sign flips of a row), held against
+  the plain version;
 - the wrappers' checks and the gate path on both engines.
 
 Array equality throughout: the arithmetic is exact mod 2^32.
@@ -34,7 +34,7 @@ from herdsman_tpu_torch.ops import gates as tgates
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops import server_key as tsk
 from herdsman_tpu_torch.ops.decomp import signed_decompose
-from herdsman_tpu_torch.ops.kernels import megaJ
+from herdsman_tpu_torch.ops.kernels import mega12, megaJ
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 from herdsman_tpu_torch.service.config import port_engine
 
@@ -43,7 +43,7 @@ from herdsman_tpu_torch.service.config import port_engine
 MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
 SETS = {"k1": MULTITILE, "k2": MULTITILE_K2}
-NAMES = list(megaJ.ROW_SOURCE)
+NAMES = ["mega", "mega2"]
 B = 37
 
 
@@ -65,11 +65,13 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(client key, server key, JAX key in ``bsk_bt``, port key in
-    ``bsk_bt``, ``bsk_btj`` and the ``mega13`` layouts)."""
+    ``bsk_bt``, ``bsk_btj``, ``mega2``'s ``bsk_btk`` and the ``mega13``
+    layout)."""
     ck, sk = jref.keygen(params, np.random.default_rng(31))
     return (ck, sk, jsk.device_server_key(sk, layouts=("bsk_bt",)),
             tsk.device_server_key(sk, layouts=("bsk_btS", "bsk_bt",
-                                               "bsk_btj"), device="cpu"))
+                                               "bsk_btj", "bsk_btk"),
+                                  device="cpu"))
 
 
 @functools.cache
@@ -252,85 +254,32 @@ def test_emulated_row_phases_equal_plain(k, N, kc, stages):
     np.testing.assert_array_equal(out, plain_rotation(p, acc, rots, key))
 
 
-@pytest.mark.parametrize("k,N", [(1, 512), (2, 256)])
-def test_emulated_inline_offsets_equal_plain(k, N):
-    """``mega2``'s contraction: ``mega7``'s serial unit (column tile ct,
-    output polynomial c) with the R-major offsets: the negated run m in
-    (ct, HALF) then, its partial negated once, the positive run m <= ct,
-    each over all R rows, block (r, m) at (r*HALF + m)*P*C4P, this unit's
-    columns c*4*P .. (c+1)*4*P; then the recombine."""
-    p = dc.replace(TOY, n=2, N=N, k=k, bg_bits=8, levels=2)
-    G, P = 4, megaJ.P
-    acc, rots, key = rotation_inputs(p, G, 2 * N + k)
-    R, HALF, C4P, PW = (k + 1) * p.levels, N // P, (k + 1) * 4 * P, P // 4
-    BLOCK = P * C4P
-    out = acc.copy()
-    for i in range(p.n):
-        dig = digit_buffer(p, out, rots[i])
-        kstep = key[i].reshape(-1)
-        for ct in range(HALF):
-            for c in range(k + 1):
-                part = np.zeros((G, 4 * P), np.int64)
-                for passno in range(2):
-                    ms = range(ct + 1, HALF) if passno == 0 else range(ct + 1)
-                    for m in ms:
-                        sub = HALF + ct - m if passno == 0 else ct - m
-                        for r in range(R):
-                            at = (r * HALF + m) * BLOCK + c * 4 * P
-                            rows = np.stack([kstep[at + x * C4P:
-                                                   at + x * C4P + 4 * P]
-                                             for x in range(P)])
-                            d = digit_rows(dig[r, sub * PW:(sub + 1) * PW])
-                            part += d @ rows.astype(np.int64)
-                    if passno == 0:
-                        part = -part
-                full = np.zeros((G, C4P), np.int64)
-                full[:, c * 4 * P:(c + 1) * 4 * P] = part
-                recombine_into(out, full, ct, P)
-    np.testing.assert_array_equal(out, plain_rotation(p, acc, rots, key))
-
-
-@pytest.mark.parametrize("pset", ["std128_k2", "std128", "std128_shortint",
-                                  "std128_k4"])
-@pytest.mark.parametrize("blocks", [1, 9, 132, 256, 1024])
-def test_emulated_prefetch_shares_cover_a_step(pset, blocks):
-    """``mega2``'s L2 prefetch: block b's share of a step's key is bytes
-    [lo, lo + len) with share = ceil16(ceil(step / resident)), lo = (b % resident)
-    * share, resident = min(blocks, 132 SMs); the resident blocks' shares
-    are 16-byte aligned, disjoint, and cover the step."""
-    p = PARAM_SETS[pset]
-    step = int(np.prod(megaJ.key_shape(p, "mega2")[1:]))
-    resident = min(blocks, 132)
-    share = (-(-step // resident) + 15) // 16 * 16
-    covered = np.zeros(step // 16, int)
-    for b in range(resident):
-        lo = (b % resident) * share
-        n = 0 if lo >= step else min(share, step - lo)
-        assert lo % 16 == 0 and n % 16 == 0
-        covered[lo // 16:(lo + n) // 16] += 1
-    assert (covered == 1).all()
-
-
 # --- the wrappers, the gate path and the engine names ----------------------
 
 @pytest.mark.parametrize("name", NAMES)
 def test_megaR_wrapper_checks(name):
+    """Each wrapper's argument checks; ``mega`` reads ``bsk_bt`` and its
+    plain version ``blind_rotate_plain_bt``, ``mega2`` (``csrc/mega12.cu``)
+    ``bsk_btk`` and ``mega12.blind_rotate_plain_btk``."""
     _, _, _, tdsk = keys(MULTITILE_K2)
     p = tdsk.params
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
-    key = tdsk.bsk_bt
+    key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
     with pytest.raises(TypeError):
         kernel(p, acc, a_t.long(), key)
     with pytest.raises(TypeError):
         kernel(p, acc, a_t, key.to(torch.int32))
     with pytest.raises(ValueError):
         kernel(p, acc, a_t[:, :1].contiguous(), key)
-    with pytest.raises(ValueError):  # bsk_btj: the block axes swapped
-        kernel(p, acc, a_t, tdsk.bsk_btj)
+    # the other kernel's key: bsk_btj (bsk_bt's block axes swapped) for
+    # mega, the JAX package's bsk_bt for mega2
+    with pytest.raises(ValueError):
+        kernel(p, acc, a_t, tdsk.bsk_btj if name == "mega" else tdsk.bsk_bt)
     with pytest.raises(ValueError, match="contiguous"):
-        kernel(p, acc, a_t, tdsk.bsk_btj.transpose(1, 2))
+        kernel(p, acc, a_t, key.transpose(-1, -2).contiguous().transpose(
+            -1, -2))
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernel(p, acc.to("meta"), a_t.to("meta"), key.to("meta"))
     for bad in (dc.replace(p, N=64), dc.replace(p, k=3),
@@ -340,16 +289,22 @@ def test_megaR_wrapper_checks(name):
     for pset in ("std128_k2", "std128", "std128_fast", "std128_shortint",
                  "std128_k4", "std128_shortint_l4"):
         megaJ.check_params(PARAM_SETS[pset], name)
-    assert tsk.layouts_for_engine(name) == ("bsk_bt",)
-    assert tbs.ROTATION_ENGINES[name] == (kernel, "bsk_bt")
-    assert megaJ.plain(name) is megaJ.blind_rotate_plain_bt
+    layout = {"mega": "bsk_bt", "mega2": "bsk_btk"}[name]
+    assert tsk.layouts_for_engine(name) == (layout,)
+    assert tbs.ROTATION_ENGINES[name] == (kernel, layout)
+    assert megaJ.plain(name) is {
+        "mega": megaJ.blind_rotate_plain_bt,
+        "mega2": mega12.blind_rotate_plain_btk}[name]
+    assert (name in megaJ.ROW_SOURCE) == (name == "mega")
+    assert (name in megaJ.TENSOR_CORE) == (name == "mega2")
     assert port_engine(f"pallas_{name}") == name
 
 
 def test_check_params_names_the_ring():
-    """A set whose ciphertext nearly fills a block fits ``mega7``'s block
-    of one (and so ``mega2``'s), but not ``mega``'s smallest ring beside
-    one: two stages of 8 K rows."""
+    """A set whose ciphertext nearly fills a dp4a block of one is taken by
+    ``mega7`` and ``mega2`` (``csrc/mega12.cu``: digits and accumulators in
+    device memory), but not by ``mega``'s smallest ring beside one: two
+    stages of 8 K rows."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=16)
     megaJ.check_params(wide, "mega7")
