@@ -9,13 +9,14 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
-(all twenty TPU kernel bodies) from eight CUDA sources; ``mega13``,
+(all twenty TPU kernel bodies) from seven CUDA sources; ``mega13``,
 ``mega14``, ``mega17`` and ``mega15`` run ``csrc/megaS.cu`` (int8 tensor
 cores, the key a register operand built from its compact stream;
 ``mega17`` and ``mega15`` are ``mega13``'s kernel through their own
-entries), and ``mega12``, ``mega7``, ``mega5`` and ``mega2`` (its single
-window on ``bsk_btk``, each wrapper counted apart) and ``mega11`` (its
-doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``.
+entries), and ``mega12``, ``mega7``, ``mega5``, ``mega4``, ``mega2`` and
+``mega`` (its single window on ``bsk_btk``, each wrapper counted apart)
+and ``mega11`` (its doubled window on ``bsk_btk2``) those of
+``csrc/mega12.cu``.
 
     python3 chip_smoke.py [--seed S]
 
@@ -66,9 +67,9 @@ Phases, in order; any failure raises and exits non-zero:
    the runner's load / exec / store split;
 9b. main path H, the j-major family at STD128_K2: path A's gate batch on
     ``mega11`` (``mega12.cu``'s doubled window, key ``bsk_btk2``),
-    ``mega8``, ``mega9`` and ``mega10`` (``bsk_btj2``), ``mega7`` and
-    ``mega5`` (``mega12.cu``'s single window, ``bsk_btk``), ``mega6``,
-    ``mega4`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
+    ``mega8``, ``mega9`` and ``mega10`` (``bsk_btj2``), ``mega7``,
+    ``mega5`` and ``mega4`` (``mega12.cu``'s single window, ``bsk_btk``),
+    ``mega6`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
     function built, used and freed in turn, each kernel against its plain
     version (tolerance 0) on the batch's rotation inputs at B = 2048, 256
     and 9 (and 1 for ``mega12.cu``'s wrappers), each output array-equal to
@@ -86,43 +87,43 @@ Phases, in order; any failure raises and exits non-zero:
     and STD128_K4, ``mega14`` at STD128_FAST's, STD128_K4's,
     STD128_SHORTINT_FAST's and N = 256's, and ``mega13`` at
     STD128_SHORTINT_FAST's and TOY's, those two at B = 2048 and 9, and
-    ``mega11``, ``mega7``, ``mega5`` and ``mega2`` at STD128_K2's,
-    STD128's and STD128_SHORTINT's at B = 2048, 300 (ragged) and 9 (K
-    split) (n cut to 32 steps);
+    ``mega11`` and ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega``
+    (one key and one plain rotation shared by the single window's
+    wrappers) at STD128_K2's, STD128's and STD128_SHORTINT's at B = 2048,
+    300 (ragged) and 9 (K split) (n cut to 32 steps);
 9b''. main path L, the classic bool set STD128 (n=768, N=1024, k=1,
     bg=2^7, l=3; host keygen in a worker): path A's 2048-gate batch (the
     same gates and plaintexts) on ``mega13``, decrypted against the truth
     table and one gate against the NumPy ``bootstrap_bool``, the kernel
     against its plain version at B = 2048, 256, 128, 9 and 1; then on
-    ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), ``mega4``
-    (``bsk_btj``) and ``mega5`` (``mega12.cu``'s single window,
-    ``bsk_btk``), one key at a time (built, used, freed), each output
-    array-equal to ``mega13``'s and decrypted, each kernel equal to
-    ``mega13`` and to its plain version (tolerance 0) on the batch's
-    rotation inputs at B = 2048 (``mega5`` also at 256 and 9, and timed in
-    turns with ``mega13`` at B = 2048 and 256); end-to-end seconds, gate
-    bootstraps/s, the kernels' times and the path's peak memory;
+    ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), then ``mega5``
+    and ``mega4`` (``mega12.cu``'s single window, on one ``bsk_btk``), one
+    key at a time (built, used, freed), each output array-equal to
+    ``mega13``'s and decrypted, each kernel equal to ``mega13`` and to its
+    plain version (tolerance 0) on the batch's rotation inputs at B = 2048
+    (``mega5`` and ``mega4`` also at 256 and 9, and timed in turns with
+    each other and ``mega13`` at B = 2048 and 256); end-to-end seconds,
+    gate bootstraps/s, the kernels' times and the path's peak memory;
 9c. main path I: path C's job over the rows of its first partition (512
     rows, one partition) on a coordinator whose in-code config names
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
     intermediate frame byte-equal to the first partition of path C's on
     ``pallas_fused``;
 9d. main path M, the JAX package's R-major legacy engines at STD128_K2:
-    M1, path A's gate batch on ``mega`` (``megaR.cu`` on path A's
-    ``bsk_bt``) and ``mega2`` (``mega12.cu``'s single window on the
-    ``bsk_btk`` that ``mega12.kmajor_from_bt`` re-lays from that
-    ``bsk_bt`` on the card), each kernel against its plain version
-    (tolerance 0) on the batch's rotation inputs at B = 2048, 256 and 9
-    (and on random keys at B=9 in phase 9b' with the others), each
-    ``blind_rotate_batch`` equal to ``mega13``'s, each gate batch equal to
-    path A's and decrypted; both timed in turns with ``bt_fused`` (the
-    same function on ``bsk_bt``, 2n launches) and ``mega7`` (on the same
-    ``bsk_btk``); M2, path I's job on ``pallas_mega2`` (which ingests
-    ``bsk_btk``) then ``pallas_mega``, each COMPLETED with no retry,
-    launching only its engine, its intermediate frame byte-equal to path
-    C's first partition on ``pallas_fused``, with wall, load / exec /
-    store seconds, the job's rotations summed (CUDA events around each)
-    and peak memory;
+    M1, path A's gate batch on ``mega`` and ``mega2`` (both
+    ``mega12.cu``'s single window on the ``bsk_btk`` that
+    ``mega12.kmajor_from_bt`` re-lays from path A's ``bsk_bt`` on the
+    card), each kernel against its plain version (tolerance 0) on the
+    batch's rotation inputs at B = 2048, 256 and 9 (and on random keys in
+    phase 9b' with the others), each ``blind_rotate_batch`` equal to
+    ``mega13``'s, each gate batch equal to path A's and decrypted; both
+    timed in turns with ``bt_fused`` (the same function on ``bsk_bt``, 2n
+    launches) and ``mega7`` (on the same ``bsk_btk``); M2, path I's job on
+    ``pallas_mega2`` then ``pallas_mega`` (each ingests ``bsk_btk``), each
+    COMPLETED with no retry, launching only its engine, its intermediate
+    frame byte-equal to path C's first partition on ``pallas_fused``, with
+    wall, load / exec / store seconds, the job's rotations summed (CUDA
+    events around each) and peak memory;
 10. path D setup: STD128_SHORTINT keys on the host, a ``ShortContext``
     (msg 2 + carry 2 bits) that routes to ``mega12`` and carries the key to
     the card as ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s byte order); then
@@ -1047,15 +1048,15 @@ def main() -> int:
     # 9b. main path H: path A's gate batch on the j-major family, one
     # function's keys at a time (built, used, freed): mega11 on bsk_btk2
     # (mega12.cu's doubled window, beside a bsk_btk for mega12 in turns);
-    # mega8, mega9 and mega10 on bsk_btj2; mega7 and mega5 on bsk_btk
-    # (mega12.cu's single window under two wrappers), mega6 and mega4 on
-    # bsk_btj and mega3 on bsk_btjm (bsk_btj in fragment order); the kernels
-    # of one function are timed in turns -------------------------------------
+    # mega8, mega9 and mega10 on bsk_btj2; mega7, mega5 and mega4 on bsk_btk
+    # (mega12.cu's single window under three wrappers), mega6 on bsk_btj and
+    # mega3 on bsk_btjm (bsk_btj in fragment order); the kernels of one
+    # function are timed in turns --------------------------------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
     turns11 = {}
     for group in (("mega11",), ("mega8", "mega9", "mega10"),
-                  ("mega7", "mega5", "mega6", "mega3", "mega4")):
+                  ("mega7", "mega5", "mega4", "mega6", "mega3")):
         layouts_h = tuple(dict.fromkeys(megaJ.KEY_LAYOUTS[n] for n in group))
         if group == ("mega11",):  # mega12's key, to time mega11 beside it
             layouts_h += ("bsk_btk",)
@@ -1212,16 +1213,20 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B=9, random inputs")
             del key_g
-    # csrc/mega12.cu's wrappers (mega11; mega7, mega5 and mega2 on its
-    # single window) also at STD128_K2's geometry and at a full (2048,
-    # 128-row tiles in clusters) and a ragged batch (300: a cluster with a
-    # lone M tile at N = 2048); B=9 splits K
+    # csrc/mega12.cu's wrappers (mega11; mega7, mega5, mega4, mega2 and
+    # mega on its single window, one key and one plain rotation shared by
+    # them) also at STD128_K2's geometry and at a full (2048, 128-row tiles
+    # in clusters) and a ragged batch (300: a cluster with a lone M tile at
+    # N = 2048); B=9 splits K
     geoms_w = [dataclasses.replace(PARAM_SETS[g], n=32)
                for g in ("std128_k2", "std128", "std128_shortint")]
     plans_w = {}
+    windows_w = {}
+    for name in megaJ.TENSOR_CORE:
+        windows_w.setdefault(megaJ.KERNELS[name][2], []).append(name)
     for Gp in geoms_w:
-        for name in megaJ.TENSOR_CORE:
-            key_g = torch.randint(-128, 128, megaJ.key_shape(Gp, name),
+        for doubled, names_w in windows_w.items():
+            key_g = torch.randint(-128, 128, mega12.key_shape(Gp, doubled),
                                   dtype=torch.int8, device=dev,
                                   generator=gen_j)
             for Bg in (B_MAIN, 300, 9):
@@ -1231,11 +1236,12 @@ def main() -> int:
                 a_g = torch.randint(0, 2 * Gp.N, (Gp.n, Bg),
                                     dtype=torch.int32, device=dev,
                                     generator=gen_j)
-                got = counters[name](Gp, acc_g, a_g, key_g)
-                want = megaJ.plain(name)(Gp, acc_g, a_g, key_g)
-                errs_j[name] = max(errs_j[name], abs_err(got, want))
-                check(torch.equal(got, want), f"{name} != plain version at "
-                      f"{Gp.name}'s geometry, B={Bg}, random inputs")
+                want = megaJ.plain(names_w[0])(Gp, acc_g, a_g, key_g)
+                for name in names_w:
+                    got = counters[name](Gp, acc_g, a_g, key_g)
+                    errs_j[name] = max(errs_j[name], abs_err(got, want))
+                    check(torch.equal(got, want), f"{name} != plain version "
+                          f"at {Gp.name}'s geometry, B={Bg}, random inputs")
                 plans_w[(Gp.name, Bg)] = mega12.kernel_plan(Gp, Bg, n_sms)
             del key_g
     # csrc/megaS.cu's kernels on random keys: mega14 at STD128_FAST's,
@@ -1289,10 +1295,11 @@ def main() -> int:
           f"plans (rows a tile, K splits, blocks a cluster) {plans_w})")
 
     # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
-    # each kernel of megaJ_legacy.cu and on mega5 (csrc/mega12.cu's single
-    # window, on its own bsk_btk), one key at a time (built, used, freed) ----
+    # each kernel of megaJ_legacy.cu and on mega5 and mega4 (csrc/mega12.cu's
+    # single window, on one bsk_btk), one key at a time (built, used, freed)
     PL = STD128
-    legacy_j = ("mega10", "mega3", "mega4", "mega5")
+    groups_l = (("mega10",), ("mega3",), ("mega5", "mega4"))
+    legacy_j = tuple(name for group in groups_l for name in group)
     for name in ("mega13", *legacy_j):
         check(fit_engine(name, PL) == name,
               f"fit_engine({name!r}, {PL.name}) -> {fit_engine(name, PL)}")
@@ -1342,67 +1349,73 @@ def main() -> int:
           f"{l13_s:.3f} s = {B_MAIN / l13_s:.1f} bootstraps/s; mega13 "
           f"{m13_l_ms:.3f} ms per rotation; plain {plain13_l_ms:.3f} ms "
           f"{card}")
-    res_l, turns5_l = {}, {}
-    for name in legacy_j:
-        layout_l = megaJ.KEY_LAYOUTS[name]
+    res_l, turns_l = {}, {}
+    for group in groups_l:
+        layout_l = megaJ.KEY_LAYOUTS[group[0]]
         torch.cuda.empty_cache()
         dsk_lk, ingest_l_s = host_s(lambda: device_server_key(
             sk_l, layouts=(layout_l,), device=dev))
         key_l = getattr(dsk_lk, layout_l)
         print(f"main path L: keys to the card ({layout_l} "
               f"{key_l.numel() / 2**30:.3f} GiB) {ingest_l_s:.1f} s")
-        reset_counts()
-        out_lk, lk_s = host_s(lambda: gates.gate_batch(
-            dsk_lk, batch_l, engine=name, device=dev))
-        counts_lk = read_counts()
-        only(counts_lk, (name,), f"main path L on {name}")
-        out_lk_np = to_numpy_u32(out_lk)
-        check(np.array_equal(out_lk_np, out_l_np),
-              f"L: gate_batch on {name} != on mega13")
-        check(np.array_equal(ref.lwe_decrypt_bool(ck_l, out_lk_np), expect),
-              f"L: gate_batch on {name} decrypts wrong")
-        got_l, kernel_l_ms = timed_call(lambda: counters[name](
-            PL, acc0_l, a_t_l, key_l))
-        check(torch.equal(got_l, rot_l),
-              f"L: {name} != mega13 on the batch's rotation inputs")
-        if name in megaJ.TENSOR_CORE:
-            widths_l = (B_MAIN, RADIX_VALUES, 9)
-            err_l, plain_l_ms = vs_plain(name, megaJ.plain(name), PL, acc0_l,
-                                         a_t_l, key_l, widths=widths_l)
-        else:  # the dp4a kernels: the output above, one plain rotation
-            widths_l = (B_MAIN,)
-            want_l, plain_l_ms = timed_call(lambda: megaJ.plain(name)(
+        plain_cache_l: dict = {}
+        for name in group:
+            reset_counts()
+            out_lk, lk_s = host_s(lambda: gates.gate_batch(
+                dsk_lk, batch_l, engine=name, device=dev))
+            counts_lk = read_counts()
+            only(counts_lk, (name,), f"main path L on {name}")
+            out_lk_np = to_numpy_u32(out_lk)
+            check(np.array_equal(out_lk_np, out_l_np),
+                  f"L: gate_batch on {name} != on mega13")
+            check(np.array_equal(ref.lwe_decrypt_bool(ck_l, out_lk_np),
+                                 expect),
+                  f"L: gate_batch on {name} decrypts wrong")
+            got_l, kernel_l_ms = timed_call(lambda: counters[name](
                 PL, acc0_l, a_t_l, key_l))
-            err_l = abs_err(got_l, want_l)
-            check(torch.equal(got_l, want_l), f"L: {name} != plain version "
-                  f"at {PL.name} B={B_MAIN}")
-            del want_l
-        errs_j[name] = max(errs_j[name], err_l)
-        bound_l, by_l = bounds.bound_ms(*bounds.rotation(
-            PL, B_MAIN, key_l.numel() * key_l.element_size()))
-        res_l[name] = {"counts": counts_lk, "path_s": lk_s,
-                       "ms": kernel_l_ms, "plain_ms": plain_l_ms,
-                       "bound_ms": bound_l, "bound_by": by_l}
-        print(f"main path L ({name}): gate_batch of {B_MAIN} gates == "
-              f"mega13's and decrypts to the truth table; {name} == mega13 "
-              f"at B={B_MAIN} and its plain version at B in "
-              f"{list(widths_l)} on the batch's rotation inputs (array "
-              f"equality, max_abs_err {err_l}); launches {counts_lk}")
-        print(f"time: main path L gate_batch B={B_MAIN} on {name} end to end "
-              f"{lk_s:.3f} s = {B_MAIN / lk_s:.1f} bootstraps/s; {name} "
-              f"{kernel_l_ms:.3f} ms per rotation, "
-              f"{bound_l / kernel_l_ms:.4f} of the {bound_l:.4f} ms bound "
-              f"({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts per block "
-              f"{megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
-        if name in megaJ.TENSOR_CORE:
-            # the single window's first times at N = 1024, in turns with
-            # mega13 on the same batch (outputs array-equal)
-            turns5_l = in_turns(PL, acc0_l, a_t_l, {
-                name: (counters[name], key_l),
+            check(torch.equal(got_l, rot_l),
+                  f"L: {name} != mega13 on the batch's rotation inputs")
+            if name in megaJ.TENSOR_CORE:
+                widths_l = (B_MAIN, RADIX_VALUES, 9)
+                err_l, plain_l_ms = vs_plain(name, megaJ.plain(name), PL,
+                                             acc0_l, a_t_l, key_l,
+                                             plain_cache_l, widths=widths_l)
+            else:  # the dp4a kernels: the output above, one plain rotation
+                widths_l = (B_MAIN,)
+                want_l, plain_l_ms = timed_call(lambda: megaJ.plain(name)(
+                    PL, acc0_l, a_t_l, key_l))
+                err_l = abs_err(got_l, want_l)
+                check(torch.equal(got_l, want_l), f"L: {name} != plain "
+                      f"version at {PL.name} B={B_MAIN}")
+                del want_l
+            errs_j[name] = max(errs_j[name], err_l)
+            bound_l, by_l = bounds.bound_ms(*bounds.rotation(
+                PL, B_MAIN, key_l.numel() * key_l.element_size()))
+            res_l[name] = {"counts": counts_lk, "path_s": lk_s,
+                           "ms": kernel_l_ms, "plain_ms": plain_l_ms,
+                           "bound_ms": bound_l, "bound_by": by_l}
+            print(f"main path L ({name}): gate_batch of {B_MAIN} gates == "
+                  f"mega13's and decrypts to the truth table; {name} == "
+                  f"mega13 at B={B_MAIN} and its plain version at B in "
+                  f"{list(widths_l)} on the batch's rotation inputs (array "
+                  f"equality, max_abs_err {err_l}); launches {counts_lk}")
+            print(f"time: main path L gate_batch B={B_MAIN} on {name} end to "
+                  f"end {lk_s:.3f} s = {B_MAIN / lk_s:.1f} bootstraps/s; "
+                  f"{name} {kernel_l_ms:.3f} ms per rotation, "
+                  f"{bound_l / kernel_l_ms:.4f} of the {bound_l:.4f} ms "
+                  f"bound ({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts "
+                  f"per block {megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
+            del out_lk, got_l
+        if group[0] in megaJ.TENSOR_CORE:
+            # the single window at N = 1024 under both wrappers, in turns
+            # with each other and with mega13 on the same batch (outputs
+            # array-equal)
+            turns_l = in_turns(PL, acc0_l, a_t_l, {
+                **{name: (counters[name], key_l) for name in group},
                 "mega13": (mega13.mega13_blind_rotate, dsk_l.bsk_btS)},
-                same=(name, "mega13"))
-            report_turns(name, PL, turns5_l, key_l.numel())
-        del out_lk, got_l
+                same=(*group, "mega13"))
+            for name in group:
+                report_turns(name, PL, turns_l, key_l.numel())
         peak_l = max(peak_l, torch.cuda.max_memory_allocated())
         del dsk_lk, key_l
     del rot_l, dsk_l
@@ -1443,11 +1456,11 @@ def main() -> int:
           f"{peak_i / 2**30:.3f} GiB {card}")
 
     # 9d. main path M: the JAX package's R-major legacy engines on path A's
-    # key. M1: path A's gate batch on mega (csrc/megaR.cu, on bsk_bt) and
-    # mega2 (csrc/mega12.cu's single window, on the bsk_btk that
-    # mega12.kmajor_from_bt re-lays from that bsk_bt), timed in turns with
-    # bt_fused (the same function on bsk_bt in 2n launches) and mega7 (the
-    # same kernel on the same bsk_btk) ---------------------------------------
+    # key. M1: path A's gate batch on mega and mega2 (csrc/mega12.cu's
+    # single window, on the bsk_btk that mega12.kmajor_from_bt re-lays from
+    # that bsk_bt), timed in turns with bt_fused (the same function on
+    # bsk_bt in 2n launches) and mega7 (the same kernel on the same
+    # bsk_btk) ---------------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     row_j = ("mega", "mega2")
     key_k, relay_s = host_s(lambda: mega12.kmajor_from_bt(dsk.bsk_bt,
@@ -1457,13 +1470,13 @@ def main() -> int:
           f"(mega12.kmajor_from_bt, {key_k.numel() / 2**30:.3f} GiB) "
           f"{relay_s:.1f} s")
     res_m = {}
+    plain_cache_m: dict = {}
     for name in row_j:
         check(fit_engine(name, P) == name and layouts_for_engine(name)
-              == (megaJ.KEY_LAYOUTS[name],), f"fit_engine({name!r}, "
+              == ("bsk_btk",), f"fit_engine({name!r}, "
               f"{P.name}) -> {fit_engine(name, P)}")
-        key_m = getattr(dsk_m, megaJ.KEY_LAYOUTS[name])
         err_m, plain_m_ms = vs_plain(name, megaJ.plain(name), P, acc0, a_t,
-                                     key_m)
+                                     key_k, plain_cache_m)
         errs_j[name] = max(errs_j[name], err_m)
         check(torch.equal(bs.blind_rotate_batch(dsk_m, lin, tp, engine=name),
                           outs[B_MAIN]),
@@ -1496,7 +1509,7 @@ def main() -> int:
                       a_t[:, :RADIX_VALUES].contiguous(), dsk.bsk_bt)
     names_m = (*row_j, "bt_fused", "mega7")
     times_m = rotation_times(
-        names_m, P, acc0, a_t, {"mega": dsk.bsk_bt, "mega2": key_k,
+        names_m, P, acc0, a_t, {"mega": key_k, "mega2": key_k,
                                 "bt_fused": dsk.bsk_bt, "mega7": key_k},
         {name: megaJ_blocks(name) for name in (*row_j, "mega7")},
         fns={"bt_fused": bt_fused_rotation})
@@ -2328,7 +2341,7 @@ def main() -> int:
                         for B, t in turns14.items() for k, v in t.items()})
     # the kernels of megaJ_legacy.cu timed at STD128_K2 in path H, in turns
     # with the serial kernel of their function, and at STD128 in path L
-    for name, line in (("mega10", 1019), ("mega3", 295), ("mega4", 423)):
+    for name, line in (("mega10", 1019), ("mega3", 295)):
         res, res_std = res_h[name], res_l[name]
         kernels.append({
             "name": name,
@@ -2348,19 +2361,20 @@ def main() -> int:
             "plain_ms_std128": res_std["plain_ms"],
             "bound_ms_std128": res_std["bound_ms"],
         })
-    # the kernel of megaR.cu (mega) and csrc/mega12.cu's single window under
-    # the wrapper of mega2, timed at STD128_K2 in path M1, in turns with
-    # bt_fused and mega7; under the wrapper of mega5 at STD128_K2 in path H,
-    # in turns with mega7, and at STD128 in path L, in turns with mega13
+    # csrc/mega12.cu's single window under the wrappers of mega and mega2,
+    # timed at STD128_K2 in path M1, in turns with bt_fused and mega7; under
+    # those of mega5 and mega4 at STD128_K2 in path H, in turns with mega7,
+    # and at STD128 in path L, in turns with each other and mega13
     for name, line, res, turns in (
             ("mega", 37, res_m["mega"], times_m),
             ("mega2", 165, res_m["mega2"], times_m),
-            ("mega5", 575, res_h["mega5"], {"mega7": res_h["mega7"]})):
+            ("mega5", 575, res_h["mega5"], {"mega7": res_h["mega7"]}),
+            ("mega4", 423, res_h["mega4"], {"mega7": res_h["mega7"],
+                                            "mega5": res_h["mega5"]})):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("herdsman_tpu_torch/csrc/megaR.cu" if name == "mega"
-                       else "herdsman_tpu_torch/csrc/mega12.cu"),
+            "source": "herdsman_tpu_torch/csrc/mega12.cu",
             "replaces": f"herdsman_tpu/ops/pallas/legacy.py:{line}",
             **launches(name),
             "matches_plain": errs_j[name] == 0,
@@ -2379,17 +2393,18 @@ def main() -> int:
             **{f"ratio_to_{k}_b256": res["narrow_ms"] / t["narrow_ms"]
                for k, t in turns.items() if k != name},
         })
+        if name in res_l:  # mega5 and mega4 at STD128 (path L)
+            kernels[-1].update({
+                "ms_std128": res_l[name]["ms"],
+                "plain_ms_std128": res_l[name]["plain_ms"],
+                "bound_ms_std128": res_l[name]["bound_ms"],
+                **{f"ms_{k}_in_turns_std128_b{B}": v
+                   for B, t in turns_l.items() for k, v in t.items()},
+                **{f"ratio_to_{k}_std128_b{B}": t[name] / t[k]
+                   for B, t in turns_l.items() for k in t if k != name}})
     for name in row_j:  # path M2: the job's rotations on the engine
         next(k for k in kernels if k["name"] == name)["m2_rotation_s"] = \
             res_m2_s[name]
-    kernels[-1].update({
-        "ms_std128": res_l["mega5"]["ms"],
-        "plain_ms_std128": res_l["mega5"]["plain_ms"],
-        "bound_ms_std128": res_l["mega5"]["bound_ms"],
-        **{f"ms_{k}_in_turns_std128_b{B}": v for B, t in turns5_l.items()
-           for k, v in t.items()},
-        **{f"ratio_to_mega13_std128_b{B}": t["mega5"] / t["mega13"]
-           for B, t in turns5_l.items()}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,21 +2,24 @@
 // on the H100's int8 tensor cores, against a K-major pre-swizzled
 // block-Toeplitz key: one template, two windows.
 //
-// Replaces five bodies of herdsman_tpu/ops/pallas/ (mega.py, legacy.py), one
+// Replaces seven bodies of herdsman_tpu/ops/pallas/ (mega.py, legacy.py), one
 // function at any gadget with int8 digits:
 //
 //   body                          wrapper              window   key
 //   mega.py:625   _mega12_kernel  mega12_blind_rotate  single   bsk_btk
 //   mega.py:84    _mega7_kernel   mega7_blind_rotate   single   bsk_btk
 //   legacy.py:575 _mega5_kernel   mega5_blind_rotate   single   bsk_btk
+//   legacy.py:423 _mega4_kernel   mega4_blind_rotate   single   bsk_btk
 //   legacy.py:165 _mega2_kernel   mega2_blind_rotate   single   bsk_btk
+//   legacy.py:37  _mega_kernel    mega_blind_rotate    single   bsk_btk
 //   mega.py:449   _mega11_kernel  mega11_blind_rotate  doubled  bsk_btk2
 //
-// mega12, mega7, mega5 and mega2 are one instantiation: the TPU's mega7 and
-// mega5 read bsk_btj, bsk_btjj with its columns in (c, j, q) order, and its
-// mega2 the R-major bsk_bt (bsk_btj with the block axes swapped), choices of
-// VMEM; int8 wgmma reads both operands K-major only, so on this card all
-// four are this kernel on bsk_btk, each wrapper counting its own launches.
+// mega12, mega7, mega5, mega4, mega2 and mega are one instantiation: the
+// TPU's mega7, mega5 and mega4 read bsk_btj, bsk_btjj with its columns in
+// (c, j, q) order, and its mega2 and mega the R-major bsk_bt (bsk_btj with
+// the block axes swapped), choices of VMEM; int8 wgmma reads both operands
+// K-major only, so on this card all six are this kernel on bsk_btk, each
+// wrapper counting its own launches.
 // For i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
@@ -52,7 +55,8 @@
 // Bound.  One rotation is 2 * n * B * (R*N) * ((k+1)*4*N) int8 operations
 // under either window: 6.33e14 at STD128_SHORTINT and B = 2048, 320.02 ms at
 // the H100's 1,979 int8 TOP/s (mega12, mega7), 1.58e14 at STD128, 80.00 ms
-// (mega5), and 5.94e13 at STD128_K2, 30.00 ms (mega11, mega2, mega5).  The
+// (mega5, mega4), and 5.94e13 at STD128_K2, 30.00 ms (mega11 and the single
+// window's legacy wrappers).  The
 // key read once from device memory (9.66 GB single at STD128_SHORTINT, 4.83
 // GB at STD128, 7.25 GB doubled at STD128_K2) takes 2.9, 1.4 and 2.2 ms at
 // 3.35 TB/s, so the rotation is bound by operations, and they run on the

@@ -1,23 +1,19 @@
 // megaJ_common.cuh: the device code and launch helpers that csrc/megaJ.cu
-// (variants 8, 9, 6), csrc/megaJ_legacy.cu (variants 10 and 4, and the
-// tensor-core variant 3) and csrc/megaR.cu (variant 1, on the R-major key)
-// share: the block layout, the digit phase, the dp4a contraction of one
-// (column tile, output polynomial) unit, the staged contraction of key rows
-// in shared memory, and megaJ_kernel, the template of every dp4a schedule.
-// csrc/megaJ.cu's note gives the arithmetic, the bound and the serial,
-// overlap and staged designs; csrc/megaJ_legacy.cu's the poly-fused (10)
-// and cluster (4) ones; csrc/megaR.cu's the row-phased (1) one.  Each
-// source that includes this file builds into a library of its own.
+// (variants 8, 9, 6) and csrc/megaJ_legacy.cu (variant 10, and the
+// tensor-core variant 3) share: the block layout, the digit phase, the dp4a
+// contraction of one (column tile, output polynomial) unit, the staged
+// contraction of key rows in shared memory, and megaJ_kernel, the template
+// of every dp4a schedule.  csrc/megaJ.cu's note gives the arithmetic, the
+// bound and the serial, overlap and staged designs; csrc/megaJ_legacy.cu's
+// the poly-fused (10) one.  Each source that includes this file builds into
+// a library of its own.
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int P = 128;            // column tile
 constexpr int PW = P / 4;         // words of 4 digits per tile row
@@ -30,14 +26,12 @@ constexpr int SERIAL = 0;   // 8: digits, __syncthreads, contraction
 constexpr int OVERLAP = 1;  // 9: a producer warp's digits beside the contraction
 constexpr int STAGED = 2;   // 6: cp.async double-buffered key rows
 constexpr int FUSED = 3;    // 10: SERIAL with the poly-fused digit pass
-constexpr int CLUSTER = 4;  // 4: STAGED, each chunk's rows split across a cluster
-constexpr int CLUSTER_SIZE = 2;        // blocks of a cluster (variant 4)
 constexpr int PRODUCER = 32;           // producer threads of the overlap schedule
 constexpr int FULL0 = 1, EMPTY0 = 3;   // its named barriers: FULL0 + h, EMPTY0 + h
 constexpr int ROWB = 4 * P;            // bytes of one K row a unit reads
 
 __host__ __device__ constexpr bool stages_key(int sched) {
-  return sched == STAGED || sched == CLUSTER;
+  return sched == STAGED;
 }
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -325,21 +319,14 @@ __device__ __forceinline__ void recombine(uint32_t* acc, const int (&part)[G][4]
   }
 }
 
-// the staged schedules' contraction of one step: this group's units, a
+// the staged schedule's contraction of one step: this group's units, a
 // chunk of kc key rows at a time, chunk f+1 copied (cp.async) into the
-// other of the group's two buffers while chunk f is contracted.  With NB =
-// 1 (staged) a group copies its chunks' rows alone and syncs with a group
-// barrier.  With NB = CLUSTER_SIZE (cluster) the blocks of a cluster
-// walk the same chunks in step: block rank b copies rows [b*kc/NB,
-// (b+1)*kc/NB) of each chunk into its own buffer, every block reads each
-// row from the buffer of the block that copied it (distributed shared
-// memory), and one cluster barrier per chunk both publishes the copies and
-// frees the buffer the next copy overwrites.  Every group of the cluster
-// walks as many chunks as the group with the most units, so that all of
-// them meet each barrier.  A step's chunk count is even (P/kc chunks per
-// block), so its first chunk's buffer was last read two chunks earlier,
-// before the last barrier of the previous step.
-template <int G, int KP1, int NB>
+// other of the group's two buffers while chunk f is contracted; a group
+// copies its chunks' rows alone and syncs with a group barrier.  A step's
+// chunk count is even (P/kc chunks per block), so its first chunk's buffer
+// was last read two chunks earlier, before the last barrier of the
+// previous step.
+template <int G, int KP1>
 __device__ __forceinline__ void contract_staged(
     const int8_t* __restrict__ kstep, const uint32_t* __restrict__ dig,
     uint8_t* __restrict__ sbuf, uint32_t* acc, int grp, int lt, int j, int qq,
@@ -352,22 +339,7 @@ __device__ __forceinline__ void contract_staged(
   const int cpb = P / kc;               // chunks per (m, r) block
   const int per_unit = HALF * R * cpb;  // chunks per unit
   const int nchunks = nu * per_unit;    // this group's chunks
-  const int walk = NB == 1 ? nchunks : (units + 3) / 4 * per_unit;
   const size_t buf_bytes = static_cast<size_t>(kc) * ROWB;
-  const int kcs = kc / NB;              // rows of a chunk one block copies
-
-  // the blocks' buffers of this group: their own (NB = 1), or each block's
-  // of the cluster by rank
-  const uint8_t* bases[NB];
-  int rank = 0;
-  if constexpr (NB == 1) {
-    bases[0] = sbuf;
-  } else {
-    cg::cluster_group cluster = cg::this_cluster();
-    rank = static_cast<int>(cluster.block_rank());
-#pragma unroll
-    for (int b = 0; b < NB; ++b) bases[b] = cluster.map_shared_rank(sbuf, b);
-  }
 
   // chunk f: (unit, block bi in pass order, chunk xc of the block) -> the
   // key rows' source and the digits it meets
@@ -393,8 +365,8 @@ __device__ __forceinline__ void contract_staged(
       int ct, c, bi, xc, sub, r;
       const int8_t* src = locate(f, ct, c, bi, xc, sub, r);
       uint8_t* dst = sbuf + (f & 1) * buf_bytes;
-      for (int e = lt; e < kcs * (ROWB / 16); e += GROUP) {
-        const int row = rank * kcs + e / (ROWB / 16);
+      for (int e = lt; e < kc * (ROWB / 16); e += GROUP) {
+        const int row = e / (ROWB / 16);
         const int seg = e % (ROWB / 16);
         cp_async16(dst + row * ROWB + seg * 16,
                    src + static_cast<size_t>(row) * C4P + seg * 16);
@@ -404,15 +376,11 @@ __device__ __forceinline__ void contract_staged(
   };
 
   int part[G][4];
-  if (walk > 0) issue(0);
-  for (int f = 0; f < walk; ++f) {
+  if (nchunks > 0) issue(0);
+  for (int f = 0; f < nchunks; ++f) {
     cp_async_wait_all();        // this thread's copies of chunk f are in
-    if constexpr (NB == 1)
-      bar_sync(1 + grp, GROUP);  // everyone's are; chunk f-1's reads are done
-    else
-      cg::this_cluster().sync();  // the same across the cluster
-    if (f + 1 < walk) issue(f + 1);
-    if (f >= nchunks) continue;
+    bar_sync(1 + grp, GROUP);   // everyone's are; chunk f-1's reads are done
+    if (f + 1 < nchunks) issue(f + 1);
     int ct, c, bi, xc, sub, r;
     locate(f, ct, c, bi, xc, sub, r);
     if (bi == 0 && xc == 0) {
@@ -433,12 +401,7 @@ __device__ __forceinline__ void contract_staged(
     const uint32_t* db =
         dig + (static_cast<size_t>(r) * N4 + sub * PW + xc * (kc / 4)) * G;
     for (int pw = 0; pw < kc / 4; ++pw) {
-      // the block that copied rows 4*pw .. 4*pw+3 (kcs is a multiple of 4)
-      const uint8_t* base = bases[0];
-#pragma unroll
-      for (int b = 1; b < NB; ++b)
-        if (4 * pw >= b * kcs) base = bases[b];
-      const uint8_t* rows = base + at + static_cast<size_t>(4 * pw) * ROWB;
+      const uint8_t* rows = sbuf + at + static_cast<size_t>(4 * pw) * ROWB;
       int col[4];
       transpose4x4(*reinterpret_cast<const uint32_t*>(rows),
                    *reinterpret_cast<const uint32_t*>(rows + ROWB),
@@ -470,15 +433,14 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   const int HALF = N / P;
   uint32_t* acc = smem;                                      // [GB][KP1][N]
   uint32_t* dig = acc + GB * KP1 * N;                        // [GB/G][R][N/4][G]
-  // the staged schedules' key buffers, 2 per group: [4][2][kc][ROWB]
+  // the staged schedule's key buffers, 2 per group: [4][2][kc][ROWB]
   uint8_t* sbuf = reinterpret_cast<uint8_t*>(dig + static_cast<size_t>(GB) * R * N4);
   int* rot = reinterpret_cast<int*>(
       sbuf + (stages_key(SCHED) ? static_cast<size_t>(4) * 2 * kc * ROWB : 0));
 
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * GB;
-  // ciphertexts of this block that exist (none in a cluster's padding block)
-  const int nb = max(0, min(GB, B - b0));
+  const int nb = min(GB, B - b0);  // ciphertexts of this block that exist
   const Gadget gd(bg_bits, levels);
 
   const size_t base = static_cast<size_t>(b0) * KP1 * N;
@@ -559,7 +521,7 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
       // 2-3. one (column tile, output polynomial) unit per group of 128
       const int8_t* kstep = key + static_cast<size_t>(i) * step_bytes;
       if constexpr (stages_key(SCHED)) {
-        contract_staged<G, KP1, SCHED == CLUSTER ? CLUSTER_SIZE : 1>(
+        contract_staged<G, KP1>(
             kstep, dig, sbuf + static_cast<size_t>(grp) * 2 * kc * ROWB, acc,
             grp, lt, j, qq, R, HALF, N, kc);
       } else {
@@ -574,14 +536,12 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
       }
     }
   }
-  // no block of a cluster leaves while another may still read its key rows
-  if constexpr (SCHED == CLUSTER) cg::this_cluster().sync();
   __syncthreads();
   for (int e = tid; e < nb * KP1 * N; e += NT) out[base + e] = acc[e];
 }
 
 // shared memory of one block of G ciphertexts (two halves of G in the
-// overlap schedule) and, in the staged ones, its key buffers of kc rows
+// overlap schedule) and, in the staged one, its key buffers of kc rows
 size_t smem_bytes(int sched, int G, int N, int kp1, int R, int kc) {
   const size_t gb = sched == OVERLAP ? 2 * G : G;
   return gb * (static_cast<size_t>(kp1) * N * 4 + static_cast<size_t>(R) * N) +
@@ -589,7 +549,7 @@ size_t smem_bytes(int sched, int G, int N, int kp1, int R, int kc) {
          (stages_key(sched) ? static_cast<size_t>(4) * 2 * kc * ROWB : 0);
 }
 
-// the staged schedules' chunk of key rows: the larger of 32 and 16 whose two
+// the staged schedule's chunk of key rows: the larger of 32 and 16 whose two
 // buffers fit beside G ciphertexts (0: G does not fit)
 int pick_kc(int sched, int G, int N, int kp1, int R) {
   if (!stages_key(sched))
@@ -602,14 +562,6 @@ int pick_kc(int sched, int G, int N, int kp1, int R) {
   return 0;
 }
 
-// the blocks a launch of B ciphertexts takes at per_block a block (a whole
-// number of clusters in the cluster schedule)
-long long blocks_of(int sched, int B, int per_block) {
-  const long long blocks = (B + per_block - 1) / per_block;
-  return sched == CLUSTER ? (blocks + CLUSTER_SIZE - 1) / CLUSTER_SIZE * CLUSTER_SIZE
-                          : blocks;
-}
-
 // G (per half in the overlap schedule): least (waves of one block per SM) x
 // (issue cost of one pack of every ciphertext of the block), the largest G
 // on a tie, within the shared-memory limit.
@@ -620,7 +572,7 @@ int pick_g(int sched, int B, int N, int kp1, int R, int sms) {
   for (int g : choices) {
     if (!pick_kc(sched, g, N, kp1, R)) continue;
     const int per_block = sched == OVERLAP ? 2 * g : g;
-    const long long waves = (blocks_of(sched, B, per_block) + sms - 1) / sms;
+    const long long waves = ((B + per_block - 1) / per_block + sms - 1) / sms;
     const long long cost = waves * (per_block / g) * (4 * g + 14);
     if (best == 0 || cost < best_cost) {
       best = g;
@@ -648,31 +600,11 @@ cudaError_t launch(const Args& a) {
   if (e != cudaSuccess) return e;
   const int per_block = SCHED == OVERLAP ? 2 * G : G;
   const int threads = SCHED == OVERLAP ? BD + PRODUCER : BD;
-  const unsigned blocks = static_cast<unsigned>(blocks_of(SCHED, a.B, per_block));
-  const auto* acc0 = static_cast<const uint32_t*>(a.acc0);
-  const auto* a_t = static_cast<const int32_t*>(a.a_t);
-  const auto* key = static_cast<const int8_t*>(a.key);
-  auto* out = static_cast<uint32_t*>(a.out);
-  if constexpr (SCHED == CLUSTER) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = a.stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CLUSTER_SIZE;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, kern, acc0, a_t, key, out, a.B, a.n, a.N,
-                           a.bg_bits, a.levels, a.kc);
-    if (e != cudaSuccess) return e;
-  } else {
-    kern<<<blocks, threads, smem, a.stream>>>(acc0, a_t, key, out, a.B, a.n,
-                                              a.N, a.bg_bits, a.levels, a.kc);
-  }
+  const unsigned blocks = static_cast<unsigned>((a.B + per_block - 1) / per_block);
+  kern<<<blocks, threads, smem, a.stream>>>(
+      static_cast<const uint32_t*>(a.acc0), static_cast<const int32_t*>(a.a_t),
+      static_cast<const int8_t*>(a.key), static_cast<uint32_t*>(a.out), a.B,
+      a.n, a.N, a.bg_bits, a.levels, a.kc);
   return cudaGetLastError();
 }
 

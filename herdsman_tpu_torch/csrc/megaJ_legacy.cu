@@ -1,15 +1,16 @@
-// megaJ_legacy: three more whole-rotation kernels against the j-major
+// megaJ_legacy: two more whole-rotation kernels against the j-major
 // block-Toeplitz int8 keys, each computing the function of a csrc/megaJ.cu
 // variant with the scheduling idea of its TPU body carried over to Hopper:
 //
 //   variant  replaces (herdsman_tpu/ops/pallas/legacy.py)  key        function  construct
 //   10       _mega10_kernel (wrapper mega10_blind_rotate)   bsk_btj2   mega8's   poly-fused digit pass
 //    3       _mega3_kernel  (wrapper mega3_blind_rotate)    bsk_btjm   mega7's   int8 mma.sync m16n8k32
-//    4       _mega4_kernel  (wrapper mega4_blind_rotate)    bsk_btj    mega7's   thread block cluster
 //
-// (legacy.py's _mega5_kernel, mega7's function on a wide block, is
-// csrc/mega12.cu's single window on bsk_btk: staging on the integer lanes
-// did not pay, and int8 wgmma reads its key operand K-major only.)
+// (legacy.py's _mega5_kernel, mega7's function on a wide block, and its
+// _mega4_kernel, mega7's function with each step's key block fetched once
+// per group of chunks, are csrc/mega12.cu's single window on bsk_btk:
+// staging on the integer lanes did not pay, and int8 wgmma reads its key
+// operand K-major only.)
 //
 // csrc/megaJ.cu's note gives the arithmetic (the doubled window, the two
 // runs of the single width with the negated one subtracted as an int32
@@ -21,7 +22,7 @@
 // 1,979 int8 TOP/s; bound by operations.  Every megaJ.cu kernel runs the
 // products as __dp4a on the integer lanes and reads each key byte once per
 // block of G = 8 ciphertexts (0.125 bytes of L2 traffic per MAC); these
-// three separate the two things that could set that pace.
+// two separate the two things that could set that pace.
 //
 // Poly-fused digit pass (10).  _mega10_kernel views the k+1 accumulator
 // polynomials as one [(k+1)*Bt, N] array so that one barrel rotate, one
@@ -62,19 +63,6 @@
 // D's c0..c3 are (column gq, ciphertext 2tq), (gq, 2tq+1), (gq+8, 2tq),
 // (gq+8, 2tq+1).  Each key byte still meets 8 ciphertexts, the 0.125 bytes
 // per MAC of the dp4a kernels: variant 3 moves the lanes, not the traffic.
-//
-// Cluster (4).  _mega4_kernel's grid (group, step, chunk) fetches each
-// step's key block once per group of G chunks, not once per chunk
-// (legacy.py:423-432).  Here two blocks of G ciphertexts form a thread
-// block cluster (cudaLaunchKernelEx with cluster dimension CLUSTER_SIZE =
-// 2) and walk variant 6's staged chunks of kc key rows in step: each block
-// copies its half of a chunk's rows (cp.async) into its own shared memory,
-// both read every row from the block that copied it through distributed
-// shared memory, and one cluster barrier per chunk publishes the copies and
-// frees the other buffer (contract_staged in megaJ_common.cuh).  Each key
-// row leaves L2 once per cluster, half of variant 6's traffic at the same
-// G and lanes; a launch takes a whole number of clusters, and a padding
-// block rotates zeros and stores nothing.
 //
 // A block owns its G ciphertexts for all n steps, their accumulators
 // resident in shared memory, as in csrc/megaJ.cu.  Missing ciphertexts of a
@@ -243,11 +231,7 @@ cudaError_t launch_mma_g(int G, const Args& a) {
   }
 }
 
-int schedule(int variant) { return variant == 10 ? FUSED : CLUSTER; }
-
-bool known(int variant) {
-  return variant == 10 || variant == 3 || variant == 4;
-}
+bool known(int variant) { return variant == 10 || variant == 3; }
 
 }  // namespace
 
@@ -259,12 +243,12 @@ int megaJ_legacy_ciphertexts_per_block(int variant, int B, int N, int kp1,
                                        int R, int sms) {
   if (B <= 0 || sms <= 0 || !known(variant)) return 0;
   if (variant == 3) return mma_pick_g(B, N, kp1, R, sms);
-  return pick_g(schedule(variant), B, N, kp1, R, sms);
+  return pick_g(FUSED, B, N, kp1, R, sms);
 }
 
-// variant 10 (key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128]), 3 (bsk_btjm
+// variant 10 (key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128]) or 3 (bsk_btjm
 // [n, N/128, R, 128, kp1*4*128], each [128, kp1*4*128] block in fragment
-// order) or 4 (bsk_btj, the same shape), all int8, R = kp1*levels;
+// order), both int8, R = kp1*levels;
 // acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), out [B, kp1, N] u32, all
 // device pointers; N a power of two in [128, 2048], kp1 in {2, 3, 5}, 1 <=
 // bg_bits <= 8, `sms` the card's SM count.  Launches on `stream` and returns
@@ -288,17 +272,11 @@ int megaJ_legacy_blind_rotate(int variant, const void* acc0, const void* a_t,
       default: return cudaErrorInvalidValue;
     }
   }
-  const int sched = schedule(variant);
-  const int G = pick_g(sched, B, N, kp1, R, sms);
+  const int G = pick_g(FUSED, B, N, kp1, R, sms);
   if (G == 0) return cudaErrorInvalidValue;
-  const Args a{acc0, a_t, key, out, B, n, N, bg_bits, levels,
-               stages_key(sched) ? pick_kc(sched, G, N, kp1, R) : 0,
+  const Args a{acc0, a_t, key, out, B, n, N, bg_bits, levels, 0,
                static_cast<cudaStream_t>(stream)};
-  switch (variant) {
-    case 10: return launch_kp1<true, FUSED>(kp1, G, a);
-    case 4: return launch_kp1<false, CLUSTER>(kp1, G, a);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_kp1<true, FUSED>(kp1, G, a);
 }
 
 const char* megaJ_legacy_error_string(int err) {

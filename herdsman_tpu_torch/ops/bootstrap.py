@@ -16,9 +16,10 @@ through one of three kinds of engine:
   tensor; ``mega12`` (the integer tier's engine, the JAX package's
   ``pallas_mega12``) is ``csrc/mega12.cu`` on int8 tensor cores against
   ``bsk_btk`` (the JAX package's ``bsk_btjj`` in ``wgmma``'s byte order),
-  and so are ``mega7``, ``mega5`` and ``mega2`` (the same function; the
-  JAX package's ``pallas_mega7`` and ``pallas_mega5`` read the same
-  blocks with other columns, ``pallas_mega2`` them R-major), and
+  and so are ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` (the
+  same function; the JAX package's ``pallas_mega7``, ``pallas_mega5`` and
+  ``pallas_mega4`` read the same blocks with other columns,
+  ``pallas_mega2`` and ``pallas_mega`` them R-major), and
   ``mega11`` that source's doubled window against ``bsk_btk2``
   (``bsk_btj2j`` in ``wgmma``'s order); ``mega16``, ``mega17`` and
   ``mega15`` (the JAX package's engines of the same names, at the
@@ -32,11 +33,9 @@ through one of three kinds of engine:
   contraction per column tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
   the same source on ``bsk_btj2`` and on the single width ``bsk_btj`` (the
   negated run subtracted) with other schedules; the legacy ``mega10`` (on
-  ``bsk_btj2``) and ``mega4`` (on ``bsk_btj``) are
-  ``csrc/megaJ_legacy.cu``'s further schedules, and ``mega3`` its
-  tensor-core kernel on ``bsk_btj`` in fragment order (``bsk_btjm``); the
-  legacy ``mega`` (row-phased, TMA-staged key rows) is ``csrc/megaR.cu``
-  against the per-step engines' R-major ``bsk_bt``.
+  ``bsk_btj2``) is ``csrc/megaJ_legacy.cu``'s further schedule, and
+  ``mega3`` its tensor-core kernel on ``bsk_btj`` in fragment order
+  (``bsk_btjm``).
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -129,9 +128,9 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega6": (megaJ.mega6_blind_rotate, "bsk_btj"),
     "mega10": (megaJ.mega10_blind_rotate, "bsk_btj2"),
     "mega3": (megaJ.mega3_blind_rotate, "bsk_btjm"),
-    "mega4": (megaJ.mega4_blind_rotate, "bsk_btj"),
+    "mega4": (megaJ.mega4_blind_rotate, "bsk_btk"),
     "mega5": (megaJ.mega5_blind_rotate, "bsk_btk"),
-    "mega": (megaJ.mega_blind_rotate, "bsk_bt"),
+    "mega": (megaJ.mega_blind_rotate, "bsk_btk"),
     "mega2": (megaJ.mega2_blind_rotate, "bsk_btk"),
 }
 

@@ -1,8 +1,7 @@
 """Whole-rotation blind-rotation kernels of the JAX package's j-major
 family and legacy schedules: against the j-major block-Toeplitz keys
-(``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``), against the K-major
-tensor-core keys (``csrc/mega12.cu``) and against the R-major ``bsk_bt``
-(``csrc/megaR.cu``), and their plain PyTorch versions.
+(``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``) and against the K-major
+tensor-core keys (``csrc/mega12.cu``), and their plain PyTorch versions.
 
 The eleven kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
@@ -20,11 +19,14 @@ the key they read and in how a block schedules a step:
   ``mega12``'s function, so ``csrc/mega12.cu``'s single instantiation on
   ``mega12``'s key ``bsk_btk`` (the JAX package's ``bsk_btj`` is the same
   blocks with columns (c, j, q), an order int8 ``wgmma`` cannot read);
-- ``mega5_blind_rotate`` and ``mega2_blind_rotate``: ``herdsman_tpu/ops/
-  pallas/legacy.py::_mega5_kernel`` (a wide block on ``bsk_btj``) and
-  ``_mega2_kernel`` (an inline step on the R-major ``bsk_bt``), ``mega7``'s
-  function, so ``csrc/mega12.cu``'s single instantiation on ``bsk_btk``
-  too (``mega12.kmajor_from_btj`` and ``kmajor_from_bt`` re-lay the JAX
+- ``mega5_blind_rotate``, ``mega4_blind_rotate``, ``mega2_blind_rotate``
+  and ``mega_blind_rotate``: ``herdsman_tpu/ops/pallas/legacy.py::
+  _mega5_kernel`` (a wide block on ``bsk_btj``), ``_mega4_kernel`` (each
+  step's key block fetched once per group of chunks, ``bsk_btj``),
+  ``_mega2_kernel`` (an inline step on the R-major ``bsk_bt``) and
+  ``_mega_kernel`` (row-phased, ``bsk_bt``): ``mega7``'s function, so
+  ``csrc/mega12.cu``'s single instantiation on ``bsk_btk`` too
+  (``mega12.kmajor_from_btj`` and ``kmajor_from_bt`` re-lay the JAX
   package's keys);
 - ``mega9_blind_rotate``: ``legacy.py::_mega9_kernel``, ``mega8``'s
   function and key, with a producer warp building one half's digits while
@@ -37,15 +39,7 @@ the key they read and in how a block schedules a step:
   pass fused across the k+1 polynomials;
 - ``mega3_blind_rotate``: ``legacy.py::_mega3_kernel``, ``mega7``'s
   function on int8 tensor cores (``mma.sync`` m16n8k32), reading
-  ``bsk_btj``'s blocks in fragment order (``bsk_btjm``, ``fragment_order``);
-- ``mega4_blind_rotate``: ``legacy.py::_mega4_kernel``, ``mega7``'s
-  function on ``bsk_btj``, ``mega6``'s staged rows shared by the two
-  blocks of a thread block cluster, each copying half of them;
-- ``mega_blind_rotate`` (``csrc/megaR.cu``): ``legacy.py::_mega_kernel``,
-  ``mega7``'s function on the R-major ``bsk_bt`` [n, R, HALF, P,
-  (k+1)*4*P] (``bsk_btj`` with the two block axes swapped), row-phased: R
-  row phases per step, each key chunk staged in shared memory by TMA and
-  applied to every column tile that reads it.
+  ``bsk_btj``'s blocks in fragment order (``bsk_btjm``, ``fragment_order``).
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -55,9 +49,7 @@ contraction is one product of the step's digits (sub ascending, r minor)
 with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
 (``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
-version of ``mega`` is ``blind_rotate_plain_bt``: n steps of
-``bt_fused``'s plain step on ``bsk_bt``, independent of the j-major ones;
-that of ``mega7``, ``mega5`` and ``mega2`` is
+version of ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` is
 ``mega12.blind_rotate_plain_btk`` and ``mega11``'s
 ``blind_rotate_plain_btk2`` (the doubled window's contraction on the key
 taken back to j-major order).
@@ -65,8 +57,8 @@ taken back to j-major order).
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
 its plain version (``plain``).  The source notes in ``csrc/megaJ.cu``,
-``csrc/megaJ_legacy.cu``, ``csrc/mega12.cu`` and ``csrc/megaR.cu`` give
-the kernels' design and bound.
+``csrc/megaJ_legacy.cu`` and ``csrc/mega12.cu`` give the kernels' design
+and bound.
 """
 
 from __future__ import annotations
@@ -98,28 +90,22 @@ KERNELS = {"mega11": (None, "bsk_btk2", True, True),
            "mega6": (6, "bsk_btj", False, False),
            "mega10": (10, "bsk_btj2", True, False),
            "mega3": (3, "bsk_btjm", False, False),
-           "mega4": (4, "bsk_btj", False, False),
+           "mega4": (None, "bsk_btk", False, True),
            "mega5": (None, "bsk_btk", False, True),
-           "mega": (1, "bsk_bt", False, False),
+           "mega": (None, "bsk_btk", False, True),
            "mega2": (None, "bsk_btk", False, True)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
 # the kernels of csrc/mega12.cu (the doubled window, then the single
-# window's three wrappers on int8 wgmma), of csrc/megaJ_legacy.cu and of
-# csrc/megaR.cu (the R-major bsk_bt); the others are csrc/megaJ.cu's
-TENSOR_CORE = ("mega11", "mega7", "mega5", "mega2")
-LEGACY_SOURCE = ("mega10", "mega3", "mega4")
-ROW_SOURCE = ("mega",)
+# window's five wrappers on int8 wgmma) and of csrc/megaJ_legacy.cu; the
+# others are csrc/megaJ.cu's
+TENSOR_CORE = ("mega11", "mega7", "mega5", "mega4", "mega2", "mega")
+LEGACY_SOURCE = ("mega10", "mega3")
 # the kernels whose block holds two halves of G ciphertexts (overlap), or
 # stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
 # per group at least); mega3 (tensor cores) holds G in {8, 4, 2, 1}, zeros
 # on the rest of its n8 side
-OVERLAP, STAGED, MMA = ("mega9",), ("mega6", "mega4"), ("mega3",)
+OVERLAP, STAGED, MMA = ("mega9",), ("mega6",), ("mega3",)
 STAGED_BYTES = 4 * 2 * 16 * 512
-
-
-def ring_bytes(p: TFHEParams) -> int:
-    """Shared memory of ``mega``'s smallest ring of staged key rows."""
-    return 2 * 8 * (p.k + 1) * 4 * P + 2 * 2 * 8
 
 
 def smem_bytes(p: TFHEParams, G: int) -> int:
@@ -132,11 +118,11 @@ def smem_bytes(p: TFHEParams, G: int) -> int:
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
     geometry (all that ``csrc/mega12.cu``'s ``mega11``, ``mega7``,
-    ``mega5`` and ``mega2`` need: their digits and accumulators live in
-    device memory), then one ciphertext's accumulator and digits within a
-    block's shared memory (the dp4a block layout every other kernel here
-    shares), and one block of its schedule within the card's shared
-    memory."""
+    ``mega5``, ``mega4``, ``mega2`` and ``mega`` need: their digits and
+    accumulators live in device memory), then one ciphertext's accumulator
+    and digits within a block's shared memory (the dp4a block layout every
+    other kernel here shares), and one block of its schedule within the
+    card's shared memory."""
     mega12.check_params(p, name)
     if name in TENSOR_CORE:
         return
@@ -148,8 +134,6 @@ def check_params(p: TFHEParams, name: str) -> None:
         need = 2 * one - 4
     elif name in STAGED:
         need = one + STAGED_BYTES
-    elif name in ROW_SOURCE:
-        need = one + ring_bytes(p)
     else:
         return
     if need > SMEM_LIMIT:
@@ -159,15 +143,12 @@ def check_params(p: TFHEParams, name: str) -> None:
 
 def key_shape(p: TFHEParams, name: str) -> tuple[int, ...]:
     """The shape of kernel ``name``'s key at ``p``: [n, groups, R, P,
-    (k+1)*4*P] (groups 2*HALF for the doubled window, else HALF),
-    ``bsk_bt``'s R-major [n, R, HALF, P, (k+1)*4*P], or the K-major [n,
-    groups, R, k+1, 2, 256, 128] of ``csrc/mega12.cu``."""
-    _, layout, doubled, _ = KERNELS[name]
+    (k+1)*4*P] (groups 2*HALF for the doubled window, else HALF), or the
+    K-major [n, groups, R, k+1, 2, 256, 128] of ``csrc/mega12.cu``."""
+    _, _, doubled, _ = KERNELS[name]
     HALF, R, C4P = p.N // P, (p.k + 1) * p.levels, (p.k + 1) * 4 * P
     if name in TENSOR_CORE:
         return mega12.key_shape(p, doubled)
-    if layout == "bsk_bt":
-        return (p.n, R, HALF, P, C4P)
     return (p.n, 2 * HALF if doubled else HALF, R, P, C4P)
 
 
@@ -234,7 +215,7 @@ def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
                            bsk_btj: torch.Tensor) -> torch.Tensor:
     """The single width's rotation in plain PyTorch, either device, on the
     JAX package's ``bsk_btj`` (the TPU's ``mega7``; here the plain version
-    of ``mega6`` and ``mega4``): the two-dot of
+    of ``mega6``): the two-dot of
     ``_ep_column_total_jmajor_packed``, then the per-polynomial recombine
     of its (c, j, q) columns (``mega.py:150-161``).
     ``blind_rotate_plain_btjj`` (the contraction ``mega12``'s plain version
@@ -288,40 +269,19 @@ def blind_rotate_plain_btjm(params: TFHEParams, acc0: torch.Tensor,
                                   from_fragment_order(bsk_btjm))
 
 
-def blind_rotate_plain_bt(params: TFHEParams, acc0: torch.Tensor,
-                          a_t: torch.Tensor,
-                          bsk_bt: torch.Tensor) -> torch.Tensor:
-    """The rotation of ``mega`` in plain PyTorch, either
-    device: n steps of ``bt_fused``'s plain step on the R-major ``bsk_bt``,
-    ``rotate_decompose_plain`` then ``external_product_bt_plain`` with the
-    accumulate (``glwe=acc``)."""
-    # imported here: both modules import ops.server_key, which imports this
-    from herdsman_tpu_torch.ops.kernels.bt import external_product_bt_plain
-    from herdsman_tpu_torch.ops.kernels.rotate_decompose import \
-        rotate_decompose_plain
-    _check_args(params, "mega", acc0, a_t, bsk_bt)
-    acc = acc0
-    for i in range(params.n):
-        d8 = rotate_decompose_plain(params, acc, a_t[i])
-        acc = external_product_bt_plain(params, d8, bsk_bt[i], glwe=acc)
-    return acc
-
-
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` and ``mega10`` share ``mega8``'s; ``mega6`` and ``mega4``
-    share ``blind_rotate_plain_btj``, the single width on ``bsk_btj``, and
-    ``mega3``'s is that on its key out of fragment order; ``mega``'s is
-    ``blind_rotate_plain_bt``; ``mega7``, ``mega5`` and ``mega2`` share
-    ``mega12``'s and ``mega11``'s is ``blind_rotate_plain_btk2``)."""
-    _, layout, doubled, jcq = KERNELS[name]
+    (``mega9`` and ``mega10`` share ``mega8``'s; ``mega6``'s is
+    ``blind_rotate_plain_btj``, the single width on ``bsk_btj``, and
+    ``mega3``'s is that on its key out of fragment order; ``mega7``,
+    ``mega5``, ``mega4``, ``mega2`` and ``mega`` share ``mega12``'s and
+    ``mega11``'s is ``blind_rotate_plain_btk2``)."""
+    _, _, doubled, jcq = KERNELS[name]
     if name in TENSOR_CORE:
         return (blind_rotate_plain_btk2 if doubled
                 else mega12.blind_rotate_plain_btk)
     if name in MMA:
         return blind_rotate_plain_btjm
-    if layout == "bsk_bt":
-        return blind_rotate_plain_bt
     if not doubled:
         return blind_rotate_plain_btj
     return functools.partial(blind_rotate_plain_btj2, jcq=jcq)
@@ -330,8 +290,8 @@ def plain(name: str):
 @functools.cache
 def _entry_points(source: str):
     """(blind_rotate, ciphertexts_per_block, error_string) of the built
-    ``csrc/<source>.cu`` (``megaJ``, ``megaJ_legacy`` or ``megaR``), their
-    C signatures declared."""
+    ``csrc/<source>.cu`` (``megaJ`` or ``megaJ_legacy``), their C
+    signatures declared."""
     lib = _build.load(source)
     rotate = getattr(lib, f"{source}_blind_rotate")
     rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
@@ -347,8 +307,6 @@ def _entry_points(source: str):
 
 
 def _kernel_entry_points(name: str):
-    if name in ROW_SOURCE:
-        return _entry_points("megaR")
     return _entry_points("megaJ_legacy" if name in LEGACY_SOURCE
                          else "megaJ")
 
@@ -361,7 +319,7 @@ def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
                           name: str = "mega8") -> int:
     """The ciphertexts one block of kernel ``name`` owns in a rotation of B
     ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
-    G, two halves of G for ``mega9`` and up to 16*128/N for ``mega``."""
+    G, or two halves of G for ``mega9``."""
     if name in TENSOR_CORE:
         raise ValueError(f"{name} tiles its batch by mega12.plan, not by "
                          f"ciphertexts per block")
@@ -379,9 +337,9 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
-    if (name in ROW_SOURCE or name in TENSOR_CORE) and key.data_ptr() % 16:
-        raise ValueError(f"{name} takes a key on a 16-byte boundary")  # TMA
     if name in TENSOR_CORE:
+        if key.data_ptr() % 16:  # the bulk copies' alignment
+            raise ValueError(f"{name} takes a key on a 16-byte boundary")
         return mega12.launch(p, acc0, a_t, key, KERNELS[name][2], wrapper)
     rotate, _, error = _kernel_entry_points(name)
     out = torch.empty_like(acc0)
@@ -469,11 +427,13 @@ def mega3_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega4_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btj: torch.Tensor) -> torch.Tensor:
-    """``mega7``'s rotation on the single-width ``bsk_btj``, each chunk of
-    staged key rows copied half by each block of a two-block cluster and
-    read by both; CPU tensors go through ``blind_rotate_plain_btj``."""
-    return _rotate("mega4", mega4_blind_rotate, params, acc0, a_t, bsk_btj)
+                       bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation (the TPU's grouped chunks on ``bsk_btj``)
+    against the single window ``bsk_btk`` int8 [n, HALF, R, k+1, 2, 256,
+    128] (two runs, the negated one subtracted): ``csrc/mega12.cu``'s single
+    instantiation, counted here; CPU tensors go through
+    ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega4", mega4_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 def mega5_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
@@ -488,12 +448,14 @@ def mega5_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 
 def mega_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
-                      a_t: torch.Tensor, bsk_bt: torch.Tensor) -> torch.Tensor:
-    """Whole blind rotation against the R-major ``bsk_bt`` int8 [n, R, HALF,
-    P, (k+1)*4*P], row-phased (each step's key rows in TMA-staged chunks,
-    each chunk applied to every column tile); CPU tensors go through
-    ``blind_rotate_plain_bt``."""
-    return _rotate("mega", mega_blind_rotate, params, acc0, a_t, bsk_bt)
+                      a_t: torch.Tensor,
+                      bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation (the TPU's row phases on the R-major
+    ``bsk_bt``) against the single window ``bsk_btk`` int8 [n, HALF, R, k+1,
+    2, 256, 128] (two runs, the negated one subtracted): ``csrc/mega12.cu``'s
+    single instantiation, counted here; CPU tensors go through
+    ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega", mega_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 def mega2_blind_rotate(params: TFHEParams, acc0: torch.Tensor,

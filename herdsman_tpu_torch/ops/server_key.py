@@ -30,9 +30,9 @@ once, into:
                                        the block-Toeplitz key of the JAX
                                        package's ``pallas_bt`` engines
                                        (``_block_toeplitz_layout``), read by
-                                       ``csrc/bt_external_product.cu`` and
-                                       ``csrc/megaR.cu`` (``mega``; the
-                                       port's ``mega2`` reads ``bsk_btk``,
+                                       ``csrc/bt_external_product.cu`` (the
+                                       port's ``mega2`` and ``mega`` read
+                                       ``bsk_btk``,
                                        ``mega12.kmajor_from_bt``):
                                        stored diagonal block m at (p, (c, j,
                                        q)) is limb j of ext(bsk[i, r, c])
@@ -48,10 +48,9 @@ once, into:
                                        package's ``pallas_mega7``
                                        (``_block_toeplitz_layout_device(...,
                                        j_major=True)``), read by
-                                       ``csrc/megaJ.cu``'s ``mega6`` and
-                                       ``megaJ_legacy.cu``'s ``mega4`` (the
-                                       port's ``mega7`` and ``mega5`` read
-                                       ``bsk_btk``,
+                                       ``csrc/megaJ.cu``'s ``mega6`` (the
+                                       port's ``mega7``, ``mega5`` and
+                                       ``mega4`` read ``bsk_btk``,
                                        ``mega12.kmajor_from_btj``).  As big
                                        as ``bsk_bt``, built the same way.
 - ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
@@ -73,8 +72,9 @@ once, into:
                                        (j, c, q), K-major and 128-byte
                                        swizzled, so one bulk copy stages
                                        it.  The key of the ``mega12``,
-                                       ``mega7``, ``mega5`` and ``mega2``
-                                       engines (one kernel), as big as
+                                       ``mega7``, ``mega5``, ``mega4``,
+                                       ``mega2`` and ``mega`` engines (one
+                                       kernel), as big as
                                        ``bsk_btjj``.
 - ``bsk_btjm``  int8  [n, HALF, R, P, (k+1)*4*P]
                                        ``bsk_btj`` with each [P, (k+1)*4*P]
@@ -347,8 +347,8 @@ def fit_engine(engine: str, params: TFHEParams,
       fits ``budget_bytes``; else ``mega13`` (the JAX package keeps
       ``pallas_mega3``, ``_4``, ``_5``, ``pallas_mega`` and ``_mega2`` at
       every set; their keys fit the budget at every named set, and
-      ``mega5`` and ``mega2``, ``mega12``'s kernel since they read
-      ``bsk_btk``, take every named set with N >= 128);
+      ``mega5``, ``mega4``, ``mega2`` and ``mega``, ``mega12``'s kernel
+      since they read ``bsk_btk``, take every named set with N >= 128);
     - ``mega11`` / ``mega8`` / ``mega9`` / ``mega10`` while their doubled
       key (``bsk_btk2`` / ``bsk_btj2``) fits and their kernel takes the
       set (the JAX package's doubled-key check, ``server_key.py:694-699``);

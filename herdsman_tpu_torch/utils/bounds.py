@@ -110,10 +110,10 @@ TPU_KERNELS = [
     ("mega.py:84 _mega7_kernel", "std128_shortint", "bsk_btk"),
     ("mega.py:997 _mega14_kernel", "std128_k2", "bsk_btT2"),
     ("mega.py:1154 _mega15_kernel", "std128_shortint_l4", "bsk_btT4"),
-    ("legacy.py:37 _mega_kernel", "std128_k2", "bsk_bt"),
+    ("legacy.py:37 _mega_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:165 _mega2_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:295 _mega3_kernel", "std128_k2", "bsk_btj"),
-    ("legacy.py:423 _mega4_kernel", "std128_k2", "bsk_btj"),
+    ("legacy.py:423 _mega4_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:575 _mega5_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:705 _mega6_kernel", "std128_k2", "bsk_btj"),
     ("legacy.py:874 _mega9_kernel", "std128_k2", "bsk_btj2"),
@@ -128,7 +128,7 @@ FURTHER_SETS = [
     ("mega.py:997 _mega14_kernel", "std128_k4", "bsk_btT2"),
     ("legacy.py:1019 _mega10_kernel", "std128", "bsk_btj2"),
     ("legacy.py:295 _mega3_kernel", "std128", "bsk_btjm"),
-    ("legacy.py:423 _mega4_kernel", "std128", "bsk_btj"),
+    ("legacy.py:423 _mega4_kernel", "std128", "bsk_btk"),
     ("legacy.py:575 _mega5_kernel", "std128", "bsk_btk"),
 ]
 

@@ -235,9 +235,9 @@ def test_mega12_matches_plain(card, params, B):
     assert torch.equal(mega12.mega12_blind_rotate(p, acc0, a_t, key), got)
 
 
-# csrc/mega12.cu's other two instantiations, at every plan and geometry
-# class of mega12's: mega11 (the doubled window on bsk_btk2) and mega7 (the
-# single window, counted apart)
+# csrc/mega12.cu's wrappers, at every plan and geometry class of mega12's:
+# mega11 (the doubled window on bsk_btk2) and mega7, mega5, mega4, mega2 and
+# mega (the single window, each counted apart)
 @pytest.mark.parametrize("B", [1, 9, 129, 65, 256, 2048, 384])
 @pytest.mark.parametrize("params", MEGA12_TC_SETS,
                          ids=[q.name for q in MEGA12_TC_SETS])
@@ -453,10 +453,10 @@ def test_new_kernels_match_plain_at_width(card, params):
     assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))
 
 
-# the three kernels of csrc/megaJ_legacy.cu (mega10, mega3, mega4) on
-# random keys at the geometries of STD128_K2, STD128 and STD128_SHORTINT
-# (n cut to 2 steps), at the smoke run's widths and a ragged 37: B = 2048
-# fills the card (mega4 pads its launch to whole clusters, mega3 holds 8)
+# the two kernels of csrc/megaJ_legacy.cu (mega10, mega3) on random keys at
+# the geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2
+# steps), at the smoke run's widths and a ragged 37: B = 2048 fills the card
+# (mega3 holds 8)
 LEGACY_J_SETS = [dc.replace(PARAM_SETS[name], n=2)
                  for name in ("std128_k2", "std128", "std128_shortint")]
 
@@ -488,9 +488,9 @@ def test_legacy_j_matches_plain(card, params, name, B):
 
 @pytest.mark.parametrize("name", list(megaJ.LEGACY_SOURCE))
 def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
-    """A set whose one ciphertext leaves no room for the staged kernels' key
-    buffers (and, with wider digits, none for mega3's block) raises on a
-    card tensor before any launch, naming the shared memory."""
+    """A set whose one ciphertext leaves no room for mega3's block or
+    mega10's raises on a card tensor before any launch, naming the shared
+    memory."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
                       bg_bits=2, levels=16)
     if name in ("mega3", "mega10"):
@@ -505,66 +505,11 @@ def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
     assert kernel.launches == before
 
 
-# the kernel of csrc/megaR.cu (mega) on the R-major bsk_bt, on random keys
-# at the geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2
-# steps) and at N = 128 (one column tile, its widest block of 16) and k+1 =
-# 5, at the smoke run's widths and a ragged 37
-MEGAR_SETS = [dc.replace(PARAM_SETS[name], n=2)
-              for name in ("std128_k2", "std128", "std128_shortint")] + [
-    dc.replace(TOY, name="megaR_k1_n128_b8l2", n=3, N=128, k=1, bg_bits=8,
-               levels=2),
-    dc.replace(TOY, name="megaR_k4_n256_b8l2", n=3, N=256, k=4, bg_bits=8,
-               levels=2),
-]
-
-
-@pytest.mark.parametrize("B", [2048, 256, 37, 9])
-@pytest.mark.parametrize("name", list(megaJ.ROW_SOURCE))
-@pytest.mark.parametrize("params", MEGAR_SETS,
-                         ids=[q.name for q in MEGAR_SETS])
-def test_megaR_matches_plain(card, params, name, B):
-    p = params
-    kernel = getattr(megaJ, f"{name}_blind_rotate")
-    gen = torch.Generator(device=card)
-    gen.manual_seed(B + p.N + p.k + len(name))
-    acc0 = torch.randint(-2**31, 2**31, (B, p.k + 1, p.N), dtype=torch.int32,
-                         device=card, generator=gen)
-    a_t = torch.randint(0, 2 * p.N, (p.n, B), dtype=torch.int32, device=card,
-                        generator=gen)
-    key = torch.randint(-128, 128, megaJ.key_shape(p, name), dtype=torch.int8,
-                        device=card, generator=gen)
-    before = kernel.launches
-    got = kernel(p, acc0, a_t, key)
-    torch.cuda.synchronize()
-    assert kernel.launches == before + 1
-    G = megaJ.ciphertexts_per_block(p, B, card, name)
-    assert G in (1, 2, 4, 8, 16) and G * p.N // megaJ.P <= 16
-    assert torch.equal(got, megaJ.blind_rotate_plain_bt(p, acc0, a_t, key))
-
-
-def test_mega_refuses_a_set_without_room_for_its_ring(card):
-    """A set whose one ciphertext leaves no room for two stages of 8 key
-    rows raises on a card tensor before any launch, naming the shared
-    memory; mega2 (csrc/mega12.cu's single window, digits and accumulators
-    in device memory) takes it: mega12's own check passes."""
-    wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
-                      bg_bits=2, levels=16)
-    acc0 = torch.zeros(1, wide.k + 1, wide.N, dtype=torch.int32, device=card)
-    a_t = torch.zeros(wide.n, 1, dtype=torch.int32, device=card)
-    key = torch.zeros(1, dtype=torch.int8, device=card)  # checked after
-    before = megaJ.mega_blind_rotate.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        megaJ.mega_blind_rotate(wide, acc0, a_t, key)
-    assert megaJ.mega_blind_rotate.launches == before
-    mega12.check_params(wide, "mega2")
-    megaJ.check_params(wide, "mega2")
-
-
 # csrc/mega12.cu's single window under the wrappers of the JAX package's
-# legacy mega5 and mega2, on one random bsk_btk at the geometries of
-# STD128_K2, STD128 and STD128_SHORTINT (n cut to 2 steps), at the smoke
-# run's widths and a ragged 37: each equals the plain version and mega7 on
-# the same key, each launch counted on its own wrapper only
+# legacy mega5, mega4, mega2 and mega, on one random bsk_btk at the
+# geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2 steps), at
+# the smoke run's widths and a ragged 37: each equals the plain version and
+# mega7 on the same key, each launch counted on its own wrapper only
 @pytest.mark.parametrize("B", [2048, 256, 37, 9])
 @pytest.mark.parametrize("params", LEGACY_J_SETS,
                          ids=[q.name for q in LEGACY_J_SETS])
@@ -579,10 +524,11 @@ def test_single_window_wrappers_match_plain_and_mega7(card, params, B):
     key = torch.randint(-128, 128, mega12.key_shape(p), dtype=torch.int8,
                         device=card, generator=gen)
     want = mega12.blind_rotate_plain_btk(p, acc0, a_t, key)
+    names = ("mega7", "mega5", "mega4", "mega2", "mega")
     wrappers = {name: getattr(megaJ, f"{name}_blind_rotate")
-                for name in ("mega7", "mega5", "mega2")}
+                for name in names}
     wrappers["mega12"] = mega12.mega12_blind_rotate
-    for name in ("mega7", "mega5", "mega2"):
+    for name in names:
         before = {k: fn.launches for k, fn in wrappers.items()}
         got = wrappers[name](p, acc0, a_t, key)
         torch.cuda.synchronize()

@@ -1,5 +1,5 @@
-"""The port's ``mega10``, ``mega3`` and ``mega4`` engines
-(``ops/kernels/megaJ.py``, ``csrc/megaJ_legacy.cu``) and its ``mega5``
+"""The port's ``mega10`` and ``mega3`` engines (``ops/kernels/megaJ.py``,
+``csrc/megaJ_legacy.cu``) and its ``mega4`` and ``mega5``
 (``csrc/mega12.cu``'s single window on ``bsk_btk``) against the JAX
 package's legacy Pallas kernels, on the CPU:
 
@@ -10,8 +10,7 @@ package's legacy Pallas kernels, on the CPU:
 - NumPy emulations of the kernels' new address and fragment arithmetic,
   each held against the plain version: ``mega3``'s lane -> (row, K) maps
   of the ``mma.sync`` m16n8k32 A, B and C fragments over the ``bsk_btjm``
-  key, ``mega4``'s split of each staged chunk's rows across the two blocks
-  of a cluster, and ``mega10``'s poly-fused digit pass;
+  key, and ``mega10``'s poly-fused digit pass;
 - the byte map of ``bsk_btjm`` onto ``bsk_btj``;
 - the wrappers' checks, the gate path on each engine, and
   ``layouts_for_engine``, ``fit_engine`` and ``port_engine`` against the
@@ -226,79 +225,6 @@ def test_emulated_mma_fragments_equal_plain_step():
     np.testing.assert_array_equal(out, plain_step(p, acc, rot, key))
 
 
-def test_emulated_cluster_split_equals_plain_step():
-    """``mega4``'s staged contraction across a two-block cluster: every
-    group walks the chunks of the group with the most units (kc rows of its
-    unit's 512 columns per chunk); block b copies rows [b*kc/2, (b+1)*kc/2)
-    of each chunk into its own buffer f&1, and every row is read from the
-    block that copied it.  At k = 2 the 6 units fall 2, 2, 1, 1 on the four
-    groups, so two groups walk chunks they do not contract."""
-    p = dc.replace(TOY, n=2, N=256, k=2, bg_bits=8, levels=2)
-    G, P, NB, kc = 2, megaJ.P, 2, 16
-    acc, _, _ = step_inputs(p, G, 5)
-    rng = np.random.default_rng(6)
-    kp1, R, HALF = p.k + 1, (p.k + 1) * p.levels, p.N // P
-    C4P, N4, PW = kp1 * 4 * P, p.N // 4, P // 4
-    rots = rng.integers(0, 2 * p.N, (p.n, G))
-    keys_ = rng.integers(-128, 128, (p.n, HALF, R, P, C4P), dtype=np.int8)
-    units = HALF * kp1
-    cpb, kcs = P // kc, kc // NB
-    per_unit = HALF * R * cpb
-    walk = (units + 3) // 4 * per_unit
-    assert walk % 2 == 0  # a step's first chunk goes to buffer 0
-    out = acc.copy()
-    for i in range(p.n):
-        dig = digit_buffer(p, out, rots[i])
-        step = keys_[i].reshape(-1)
-        bufs = np.zeros((NB, 4, 2, kc, 4 * P), np.int8)
-        part = [None] * 4
-        for f in range(walk):
-            located = {}
-            for grp in range(4):
-                nu = (units - grp + 3) // 4 if grp < units else 0
-                if f >= nu * per_unit:
-                    continue
-                ui, rem = divmod(f, per_unit)
-                bi, xc = divmod(rem, cpb)
-                ct, c = divmod(grp + 4 * ui, kp1)
-                nneg = HALF - 1 - ct
-                mb, r = divmod(bi, R)
-                m = ct + 1 + mb if mb < nneg else mb - nneg
-                sub = HALF + ct - m if mb < nneg else ct - m
-                src = (m * R + r) * P * C4P + xc * kc * C4P + c * 4 * P
-                for rank in range(NB):  # each block copies its rows
-                    for row in range(rank * kcs, (rank + 1) * kcs):
-                        at = src + row * C4P
-                        bufs[rank, grp, f & 1, row] = step[at:at + 4 * P]
-                located[grp] = (ct, c, bi, xc, sub, r)
-            for grp, (ct, c, bi, xc, sub, r) in located.items():
-                if bi == 0 and xc == 0:
-                    part[grp] = np.zeros((G, 4 * P), np.int64)
-                if bi == (HALF - 1 - ct) * R and xc == 0:
-                    part[grp] = -part[grp]
-                rows = np.zeros((kc, 4 * P), np.int64)
-                for pw in range(kc // 4):
-                    owner = 0
-                    for b in range(1, NB):
-                        if 4 * pw >= b * kcs:
-                            owner = b
-                    rows[4 * pw:4 * pw + 4] = \
-                        bufs[owner, grp, f & 1, 4 * pw:4 * pw + 4]
-                w = dig[r, sub * PW + xc * (kc // 4):
-                        sub * PW + (xc + 1) * (kc // 4)]  # [kc/4, G]
-                d = bytes_s8(w).transpose(1, 0, 2).reshape(G, kc)
-                part[grp] += d.astype(np.int64) @ rows
-                if bi == HALF * R - 1 and xc == cpb - 1:
-                    limbs = part[grp].astype(np.uint32).reshape(G, 4, P)
-                    total = sum(limbs[:, jj] << np.uint32(8 * jj)
-                                for jj in range(4))
-                    out[:, c, ct * P:(ct + 1) * P] += total.astype(np.uint32)
-    want = acc
-    for i in range(p.n):
-        want = plain_step(p, want, rots[i], keys_[i])
-    np.testing.assert_array_equal(out, want)
-
-
 @pytest.mark.parametrize("N", [128, 256])
 def test_emulated_fused_digit_pass_equals_rotation(N):
     """``mega10``'s digit pass: for every rotation s, the source quads q0,
@@ -384,14 +310,17 @@ def test_legacy_j_wrapper_checks(name):
     p = tdsk.params
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
-    other = tdsk.bsk_btj if name == "mega10" else tdsk.bsk_btj2
+    # another key of the same size: the other window width, or the JAX
+    # package's bsk_btj for csrc/mega12.cu's single window
+    other = (tdsk.bsk_btj if name in ("mega10", *megaJ.TENSOR_CORE)
+             else tdsk.bsk_btj2)
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
     with pytest.raises(TypeError):
         kernel(p, acc, a_t.long(), key)
     with pytest.raises(ValueError):
         kernel(p, acc, a_t[:, :1].contiguous(), key)
-    with pytest.raises(ValueError):  # the other window width
+    with pytest.raises(ValueError):
         kernel(p, acc, a_t, other)
     with pytest.raises(ValueError, match="contiguous"):
         kernel(p, acc.transpose(1, 2).contiguous().transpose(1, 2), a_t, key)
@@ -405,21 +334,22 @@ def test_legacy_j_wrapper_checks(name):
         megaJ.check_params(PARAM_SETS[pset], name)
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
-    # mega5 is csrc/mega12.cu's single window (mega7's instantiation)
-    assert name in (megaJ.TENSOR_CORE if name == "mega5"
+    # mega5 and mega4 are csrc/mega12.cu's single window (mega7's
+    # instantiation)
+    assert name in (megaJ.TENSOR_CORE if name in ("mega5", "mega4")
                     else megaJ.LEGACY_SOURCE)
     assert port_engine(f"pallas_{name}") == name
 
 
 @pytest.mark.parametrize("name", ["mega4", "mega5", "mega3"])
 def test_check_params_names_shared_memory(name):
-    """A set whose ciphertext nearly fills a block fits ``mega7``'s block of
-    one, but not the staged blocks' key buffers beside one (``mega4``);
-    ``mega3`` (whose block may hold one ciphertext, zeros on the rest of
-    its n8 side) takes what ``mega7`` takes.  A refusal names the shared
-    memory.  ``mega5``, whose wide block was refused there, is now
+    """``mega3`` (whose block may hold one ciphertext, zeros on the rest of
+    its n8 side) takes a set whose ciphertext nearly fills a block, as
+    ``mega7`` does, but not one with wider digits, and the refusal names
+    the shared memory.  ``mega5`` and ``mega4``, whose wide block and
+    staged key buffers were refused at the first, are now
     ``csrc/mega12.cu``'s single window (digits and accumulators in device
-    memory) and behaves as ``mega7``: it takes both sets."""
+    memory) and behave as ``mega7``: they take both sets."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=16)
     wider = dc.replace(wide, bg_bits=1, levels=32)
@@ -428,22 +358,19 @@ def test_check_params_names_shared_memory(name):
     if name in megaJ.TENSOR_CORE:
         megaJ.check_params(wide, name)
         megaJ.check_params(wider, name)
-    elif name in megaJ.MMA:
+    else:
+        assert name in megaJ.MMA
         megaJ.check_params(wide, name)
         with pytest.raises(ValueError, match="shared memory"):
             megaJ.check_params(wider, name)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            megaJ.check_params(wide, name)
 
 
 @pytest.mark.parametrize("name", list(LEGACY))
 def test_plain_versions_share_the_serial_function(name):
-    """``mega10`` shares ``mega8``'s plain version; ``mega5`` ``mega7``'s
-    (``mega12.blind_rotate_plain_btk``, the same key); ``mega4``'s is
-    ``mega7``'s function on ``bsk_btj``, ``mega3``'s on its key out of
-    fragment order: each gives the serial kernel's rotation on the same
-    inputs."""
+    """``mega10`` shares ``mega8``'s plain version; ``mega5`` and ``mega4``
+    ``mega7``'s (``mega12.blind_rotate_plain_btk``, the same key);
+    ``mega3``'s is ``mega7``'s function on its key out of fragment order:
+    each gives the serial kernel's rotation on the same inputs."""
     _, _, _, tdsk = keys(MULTITILE)
     p = tdsk.params
     rng = np.random.default_rng(len(name))
@@ -490,9 +417,9 @@ def test_routes_equal_jax(name, budget_gib):
     STD128_SHORTINT's 18 GiB ``bsk_btj2`` goes to ``mega12``), the others
     (``mega`` on ``bsk_bt`` too) kept; ``layouts_for_engine`` is the JAX
     package's but for ``mega3``, whose ``bsk_btjm`` is ``bsk_btj`` in
-    fragment order, and ``mega5`` and ``mega2``, which read ``bsk_btk``
-    (``bsk_btjj`` in ``wgmma``'s order) for the JAX package's ``bsk_btj``
-    and ``bsk_bt``: all one size."""
+    fragment order, and ``mega5``, ``mega4``, ``mega2`` and ``mega``, which
+    read ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s order) for the JAX
+    package's ``bsk_btj`` and ``bsk_bt``: all one size."""
     budget = budget_gib * GIB
     for pset, p in PARAM_SETS.items():
         if p.N < 128:  # below the port's tile: mega13 (documented)
@@ -503,8 +430,9 @@ def test_routes_equal_jax(name, budget_gib):
         assert tsk.fit_engine(name, p, budget_bytes=budget) \
             == want.removeprefix("pallas_"), pset
     jax_layouts = jsk.layouts_for_engine(f"pallas_{name}")
-    if name in ("mega3", "mega5", "mega2"):
-        assert jax_layouts == ({"mega2": "bsk_bt"}.get(name, "bsk_btj"),)
+    if name in ("mega3", "mega5", "mega4", "mega2", "mega"):
+        assert jax_layouts == ("bsk_bt" if name in ("mega2", "mega")
+                               else "bsk_btj",)
         assert tsk.layouts_for_engine(name) == (
             "bsk_btjm" if name == "mega3" else "bsk_btk",)
     else:
@@ -513,9 +441,9 @@ def test_routes_equal_jax(name, budget_gib):
 
 
 def test_port_engine_refuses_mega_and_mega2():
-    """Refused until they were ported (``csrc/megaR.cu``): a config's
-    ``pallas_mega`` and ``pallas_mega2`` now map to the port's engines, and
-    the port's own names pass through."""
+    """Refused until they were ported: a config's ``pallas_mega`` and
+    ``pallas_mega2`` now map to the port's engines, and the port's own
+    names pass through."""
     for name in ("pallas_mega", "pallas_mega2"):
         assert port_engine(name) == name.removeprefix("pallas_")
         assert port_engine(port_engine(name)) == port_engine(name)

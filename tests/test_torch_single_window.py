@@ -1,25 +1,32 @@
-"""``csrc/mega12.cu``'s single window under the wrappers ``mega5`` and
-``mega2`` (``ops/kernels/megaJ.py``), which replace the JAX package's
-legacy ``_mega5_kernel`` (on ``bsk_btj``) and ``_mega2_kernel`` (on the
-R-major ``bsk_bt``) and read ``bsk_btk``, on the CPU:
+"""``csrc/mega12.cu``'s single window under the wrappers ``mega5``,
+``mega4``, ``mega2`` and ``mega`` (``ops/kernels/megaJ.py``), which replace
+the JAX package's legacy ``_mega5_kernel`` and ``_mega4_kernel`` (on
+``bsk_btj``) and ``_mega2_kernel`` and ``_mega_kernel`` (on the R-major
+``bsk_bt``) and read ``bsk_btk``, on the CPU:
 
 - ``mega12.kmajor_from_bt`` and ``kmajor_from_btj`` re-lay a ``bsk_bt``
   or ``bsk_btj`` as ``server_key.block_toeplitz_layout(..., kmajor=True)``
   builds ``bsk_btk``, at k = 1, 2, 4, N = 128, 256, 512 and levels 2, 3,
   and the JAX package's own keys as the port's ``bsk_btk``;
-- ``layouts_for_engine`` and ``fit_engine`` for both names at every named
-  set, at 40 and 12 GiB, against the JAX package's routes and ``mega7``'s;
-- both wrappers' plain versions (``mega12.blind_rotate_plain_btk``) at B =
-  1 and 37 against the NumPy ``reference.blind_rotate``, with no launch.
+- ``layouts_for_engine`` and ``fit_engine`` for the four names at every
+  named set, at 40 and 12 GiB against the JAX package's routes and
+  ``mega7``'s, and at 8 and 4 GiB against ``mega7``'s;
+- the wrappers' plain versions (``mega12.blind_rotate_plain_btk``) at B =
+  1 and 37 against the NumPy ``reference.blind_rotate``, with no launch;
+- ``mega4``'s and ``mega``'s plain version on the JAX package's
+  ``bsk_btj`` and ``bsk_bt``, re-laid, against ``legacy.mega4_blind_rotate``
+  and ``legacy.mega_blind_rotate`` in interpret mode on the same random
+  accumulators and rotation amounts.
 
 (``tests/test_torch_megaR.py`` and ``tests/test_torch_legacy_j.py`` hold
-them array-equal to the JAX package's interpret-mode kernels.)  Array
-equality throughout: the arithmetic is exact mod 2^32.
+the gate path on them array-equal to the JAX package's interpret-mode
+kernels.)  Array equality throughout: the arithmetic is exact mod 2^32.
 """
 
 import dataclasses as dc
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,13 +35,14 @@ from herdsman_tpu.core import PARAM_SETS as JAX_SETS
 from herdsman_tpu.core import TOY
 from herdsman_tpu.core import reference as jref
 from herdsman_tpu.ops import server_key as jsk
+from herdsman_tpu.ops.pallas import legacy
 from herdsman_tpu_torch.core import PARAM_SETS
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import server_key as tsk
 from herdsman_tpu_torch.ops.kernels import mega12, megaJ
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 
-NAMES = ["mega5", "mega2"]
+NAMES = ["mega5", "mega2", "mega4", "mega"]
 GIB = 1 << 30
 # HALF = 2 at N = 256 moves the negated run; n cut to 8 steps
 SETS = {"k1": dc.replace(TOY, name="toy_multitile", n=8, N=256),
@@ -90,7 +98,7 @@ def test_kmajor_from_refuses_other_shapes():
 @pytest.mark.parametrize("budget_gib", [40, 12])
 @pytest.mark.parametrize("pset", sorted(PARAM_SETS))
 def test_single_window_routes(pset, budget_gib, name):
-    """Both names read ``bsk_btk`` and route as the JAX package routes
+    """Each name reads ``bsk_btk`` and routes as the JAX package routes
     ``pallas_<name>`` (kept at every named set: their key fits either
     budget), as ``mega7`` does; at N < 128 (TOY) the port's 128-column tile
     sends them to ``mega13``."""
@@ -109,6 +117,18 @@ def test_single_window_routes(pset, budget_gib, name):
     assert tsk.bt_key_bytes(p) <= budget
 
 
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("budget_gib", [8, 4])
+def test_single_window_routes_at_small_budgets(budget_gib, name):
+    """Below the named sets' key sizes each name routes as ``mega7`` does,
+    set by set (to ``mega13`` where the single-width key does not fit): the
+    routes these names had on ``bsk_btj`` and ``bsk_bt``, one size."""
+    budget = budget_gib * GIB
+    for pset, p in PARAM_SETS.items():
+        assert tsk.fit_engine(name, p, budget_bytes=budget) == tsk.fit_engine(
+            "mega7", p, budget_bytes=budget).replace("mega7", name), pset
+
+
 @functools.cache
 def keys(set_id):
     """(params, server key, the port's key with ``bsk_btk``, the JAX
@@ -122,9 +142,9 @@ def keys(set_id):
 
 @pytest.mark.parametrize("set_id", list(SETS))
 def test_kmajor_from_jax_keys_equals_port_key(set_id):
-    """The JAX package's ``pallas_mega2`` key (``bsk_bt``) and
-    ``pallas_mega5`` key (``bsk_btj``), re-laid, are the port's
-    ``bsk_btk``."""
+    """The JAX package's ``pallas_mega2`` and ``pallas_mega`` key
+    (``bsk_bt``) and ``pallas_mega5`` and ``pallas_mega4`` key
+    (``bsk_btj``), re-laid, are the port's ``bsk_btk``."""
     params, _, tdsk, jdsk = keys(set_id)
     kp1 = params.k + 1
     for got in (mega12.kmajor_from_bt(torch.from_numpy(np.array(
@@ -159,3 +179,31 @@ def test_single_window_plain_equals_reference(name, set_id, B):
     np.testing.assert_array_equal(got, to_numpy_u32(tbs.blind_rotate_batch(
         tdsk, from_numpy_u32(ct), tbs.make_test_poly(tdsk.params),
         engine="mega7")))
+
+
+@pytest.mark.parametrize("set_id", list(SETS))
+@pytest.mark.parametrize("name", ["mega4", "mega"])
+def test_plain_on_relaid_key_equals_jax_legacy(name, set_id):
+    """``plain("mega4")`` on ``kmajor_from_btj(bsk_btj)`` and
+    ``plain("mega")`` on ``kmajor_from_bt(bsk_bt)`` (the JAX package's own
+    keys) equal ``legacy.mega4_blind_rotate`` and ``legacy.mega_blind_rotate``
+    (interpret mode) on the same random accumulators and rotation amounts."""
+    params, _, _, jdsk = keys(set_id)
+    B, kp1 = 5, params.k + 1
+    rng = np.random.default_rng(len(name) + params.k)
+    acc0 = rng.integers(0, 1 << 32, (B, kp1, params.N),
+                        dtype=np.uint64).astype(np.uint32)
+    a_t = rng.integers(0, 2 * params.N, (params.n, B)).astype(np.int32)
+    if name == "mega4":
+        jkey = jdsk.bsk_btj
+        key = mega12.kmajor_from_btj(torch.from_numpy(np.array(jkey)), kp1)
+        want = legacy.mega4_blind_rotate(params, jnp.asarray(acc0),
+                                         jnp.asarray(a_t), jkey)
+    else:
+        jkey = jdsk.bsk_bt
+        key = mega12.kmajor_from_bt(torch.from_numpy(np.array(jkey)), kp1)
+        want = legacy.mega_blind_rotate(params, jnp.asarray(acc0),
+                                        jnp.asarray(a_t), jkey)
+    got = megaJ.plain(name)(params, from_numpy_u32(acc0),
+                            torch.from_numpy(a_t), key)
+    np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
