@@ -9,14 +9,14 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
-(all twenty TPU kernel bodies) from seven CUDA sources; ``mega13``,
-``mega14``, ``mega17`` and ``mega15`` run ``csrc/megaS.cu`` (int8 tensor
-cores, the key a register operand built from its compact stream;
-``mega17`` and ``mega15`` are ``mega13``'s kernel through their own
-entries), and ``mega12``, ``mega7``, ``mega5``, ``mega4``, ``mega2`` and
-``mega`` (its single window on ``bsk_btk``, each wrapper counted apart)
-and ``mega11`` (its doubled window on ``bsk_btk2``) those of
-``csrc/mega12.cu``.
+(all twenty TPU kernel bodies) from six CUDA sources; ``mega13``,
+``mega14``, ``mega17``, ``mega15`` and ``mega16`` run ``csrc/megaS.cu``
+(int8 tensor cores, the key a register operand built from its compact
+stream; ``mega17``, ``mega15`` and ``mega16`` are ``mega13``'s kernel
+through their own entries), and ``mega12``, ``mega7``, ``mega5``,
+``mega4``, ``mega2`` and ``mega`` (its single window on ``bsk_btk``, each
+wrapper counted apart) and ``mega11`` and ``mega10`` (its doubled window
+on ``bsk_btk2``) those of ``csrc/mega12.cu``.
 
     python3 chip_smoke.py [--seed S]
 
@@ -66,8 +66,8 @@ Phases, in order; any failure raises and exits non-zero:
    B=2048 gate batch on ``bt`` and ``bt_fused``, and path C's jobs with
    the runner's load / exec / store split;
 9b. main path H, the j-major family at STD128_K2: path A's gate batch on
-    ``mega11`` (``mega12.cu``'s doubled window, key ``bsk_btk2``),
-    ``mega8``, ``mega9`` and ``mega10`` (``bsk_btj2``), ``mega7``,
+    ``mega11`` and ``mega10`` (``mega12.cu``'s doubled window, key
+    ``bsk_btk2``), ``mega8`` and ``mega9`` (``bsk_btj2``), ``mega7``,
     ``mega5`` and ``mega4`` (``mega12.cu``'s single window, ``bsk_btk``),
     ``mega6`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
     function built, used and freed in turn, each kernel against its plain
@@ -82,28 +82,30 @@ Phases, in order; any failure raises and exits non-zero:
     ``bsk_btTe``), the kernel against its plain version at B = 2048, 256,
     128, 9 and 1, the output array-equal to path A's and decrypted, and
     ``mega14``, ``mega16`` and ``mega13`` timed in turns at STD128_K2; then
-    each ``megaJ.cu`` and ``megaJ_legacy.cu`` kernel on random inputs and
-    keys at B=9 at the geometries of STD128, STD128_FAST, STD128_SHORTINT
-    and STD128_K4, ``mega14`` at STD128_FAST's, STD128_K4's,
-    STD128_SHORTINT_FAST's and N = 256's, and ``mega13`` at
-    STD128_SHORTINT_FAST's and TOY's, those two at B = 2048 and 9, and
-    ``mega11`` and ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega``
-    (one key and one plain rotation shared by the single window's
-    wrappers) at STD128_K2's, STD128's and STD128_SHORTINT's at B = 2048,
-    300 (ragged) and 9 (K split) (n cut to 32 steps);
+    each kernel of the j-major family on random inputs and keys at B=9 at
+    the geometries of STD128, STD128_FAST, STD128_SHORTINT and STD128_K4,
+    ``mega14`` at STD128_FAST's, STD128_K4's, STD128_SHORTINT_FAST's and N
+    = 256's, and ``mega13`` at STD128_SHORTINT_FAST's and TOY's, those two
+    at B = 2048 and 9, ``mega17``, ``mega15`` and ``mega16`` at their own
+    sets' at B = 2048, 300 and 9, and ``mega11`` and ``mega10``, and
+    ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` (one key and
+    one plain rotation shared by each window's wrappers) at STD128_K2's,
+    STD128's and STD128_SHORTINT's at B = 2048, 300 (ragged) and 9 (K
+    split) (n cut to 32 steps);
 9b''. main path L, the classic bool set STD128 (n=768, N=1024, k=1,
     bg=2^7, l=3; host keygen in a worker): path A's 2048-gate batch (the
     same gates and plaintexts) on ``mega13``, decrypted against the truth
     table and one gate against the NumPy ``bootstrap_bool``, the kernel
     against its plain version at B = 2048, 256, 128, 9 and 1; then on
-    ``mega10`` (``bsk_btj2``), ``mega3`` (``bsk_btjm``), then ``mega5``
-    and ``mega4`` (``mega12.cu``'s single window, on one ``bsk_btk``), one
-    key at a time (built, used, freed), each output array-equal to
-    ``mega13``'s and decrypted, each kernel equal to ``mega13`` and to its
-    plain version (tolerance 0) on the batch's rotation inputs at B = 2048
-    (``mega5`` and ``mega4`` also at 256 and 9, and timed in turns with
-    each other and ``mega13`` at B = 2048 and 256); end-to-end seconds,
-    gate bootstraps/s, the kernels' times and the path's peak memory;
+    ``mega10`` (``mega12.cu``'s doubled window, ``bsk_btk2``), ``mega3``
+    (``bsk_btjm``), then ``mega5`` and ``mega4`` (``mega12.cu``'s single
+    window, on one ``bsk_btk``), one key at a time (built, used, freed),
+    each output array-equal to ``mega13``'s and decrypted, each kernel
+    equal to ``mega13`` and to its plain version (tolerance 0) on the
+    batch's rotation inputs at B = 2048 (``mega12.cu``'s wrappers also at
+    256 and 9, and timed in turns with each other and ``mega13`` at B =
+    2048 and 256); end-to-end seconds, gate bootstraps/s, the kernels'
+    times and the path's peak memory;
 9c. main path I: path C's job over the rows of its first partition (512
     rows, one partition) on a coordinator whose in-code config names
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
@@ -160,11 +162,11 @@ Phases, in order; any failure raises and exits non-zero:
     (a*b)+a over 2048 values, decrypted, then the same on a ``mega12``
     context (same keys and seed) over the first 256 of those ciphertexts,
     whose results must equal the first 256 of E's;
-14. main path F, bool gates at STD128_SHORTINT_FAST on ``mega16``: a
-    heterogeneous ``gate_batch`` of 2048 gates, the kernel against its
-    plain version on its rotation inputs at B = 2048, 256 and 9, decrypted
-    against the truth table, then the same batch on ``mega13``, whose
-    outputs must be equal;
+14. main path F, bool gates at STD128_SHORTINT_FAST on ``mega16``
+    (``csrc/megaS.cu``): a heterogeneous ``gate_batch`` of 2048 gates, the
+    kernel against its plain version on its rotation inputs at B = 2048,
+    256 and 9, decrypted against the truth table, then the same batch on
+    ``mega13``, whose outputs must be equal;
 14b. main path F': F's batch on ``mega14``, the kernel against its plain
     version at B = 2048, 256, 128, 9 and 1, the outputs equal to F's on
     ``mega16``;
@@ -172,9 +174,9 @@ Phases, in order; any failure raises and exits non-zero:
     E, with its rerun on ``mega12``;
 16. for E, F and G: the kernel's time per rotation at B=2048 (beside its
     bound and the plain version's time) and B=256, the path end to end,
-    and the path's peak device memory; for E and G the kernel in turns
-    with ``mega13``'s entry on the same key bytes and inputs at B = 2048
-    and 256 (the same kernel: outputs array-equal, and the spread of two
+    and the path's peak device memory; the kernel in turns with
+    ``mega13``'s entry on the same key bytes and inputs at B = 2048 and
+    256 (the same kernel: outputs array-equal, and the spread of two
     timings of one kernel in turns);
 17. main path K, the eager API at STD128_K4: ``HerdContext(engine=
     "mega14")`` (``fit_engine`` keeps ``mega14``, only ``bsk_btTe`` is
@@ -1034,6 +1036,10 @@ def main() -> int:
             return lambda p, B, dev_: mega12.kernel_plan(p, B, n_sms)
         return functools.partial(megaJ.ciphertexts_per_block, name=name)
 
+    def megaS_units(name):
+        """(work units, K splits) of csrc/megaS.cu's entry ``name``."""
+        return lambda p, B, dev_: megaS.kernel_plan(p, B, name, n_sms)
+
     def print_times(name, p, t, plain_ms) -> None:
         lanes = ("on tensor cores" if name in megaJ.MMA or name in
                  megaS.KERNELS or name in megaJ.TENSOR_CORE else
@@ -1046,19 +1052,19 @@ def main() -> int:
               f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
 
     # 9b. main path H: path A's gate batch on the j-major family, one
-    # function's keys at a time (built, used, freed): mega11 on bsk_btk2
-    # (mega12.cu's doubled window, beside a bsk_btk for mega12 in turns);
-    # mega8, mega9 and mega10 on bsk_btj2; mega7, mega5 and mega4 on bsk_btk
-    # (mega12.cu's single window under three wrappers), mega6 on bsk_btj and
-    # mega3 on bsk_btjm (bsk_btj in fragment order); the kernels of one
-    # function are timed in turns --------------------------------------------
+    # function's keys at a time (built, used, freed): mega11 and mega10 on
+    # bsk_btk2 (mega12.cu's doubled window under two wrappers, beside a
+    # bsk_btk for mega12 in turns); mega8 and mega9 on bsk_btj2; mega7,
+    # mega5 and mega4 on bsk_btk (mega12.cu's single window under three
+    # wrappers), mega6 on bsk_btj and mega3 on bsk_btjm (bsk_btj in
+    # fragment order); the kernels of one function are timed in turns -----
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
     turns11 = {}
-    for group in (("mega11",), ("mega8", "mega9", "mega10"),
+    for group in (("mega11", "mega10"), ("mega8", "mega9"),
                   ("mega7", "mega5", "mega4", "mega6", "mega3")):
         layouts_h = tuple(dict.fromkeys(megaJ.KEY_LAYOUTS[n] for n in group))
-        if group == ("mega11",):  # mega12's key, to time mega11 beside it
+        if group[0] == "mega11":  # mega12's key, to time mega11 beside it
             layouts_h += ("bsk_btk",)
         for name in group:
             check(fit_engine(name, P) == name,
@@ -1104,7 +1110,7 @@ def main() -> int:
             del out_h
         times = rotation_times(group, P, acc0, a_t, keys_h,
                                {name: megaJ_blocks(name) for name in group})
-        if group == ("mega11",):
+        if group[0] == "mega11":
             # in turns on the same inputs: mega12 (the single window, on
             # this key in bsk_btk's order) and bt_fused's rotation (2n
             # launches on path A's bsk_bt), all array-equal
@@ -1161,7 +1167,8 @@ def main() -> int:
     keys_t = {"mega14": dsk_t.bsk_btTe, "mega16": dsk_t.bsk_btTc,
               "mega13": dsk.bsk_btS}
     res_a14 = rotation_times(("mega14", "mega16", "mega13"), P, acc0, a_t,
-                             keys_t, {"mega16": megaT.ciphertexts_per_block})
+                             keys_t, {name: megaS_units(name)
+                                      for name in keys_t})
     peak_t = torch.cuda.max_memory_allocated()
     print(f"main path A' (mega14): keys to the card (bsk_btTe "
           f"{dsk_t.bsk_btTe.numel() / 2**20:.1f} MiB, bsk_btTc "
@@ -1178,10 +1185,9 @@ def main() -> int:
               f"= {B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
               f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.4f} ms "
               f"bound ({t['bound_by']}); B={RADIX_VALUES} "
-              f"{t['narrow_ms']:.3f} ms; ciphertexts per block by B {t['G']} "
-              f"{card}")
-    print(f"time: mega16 dp4a share at {P.name} "
-          f"{res_a14['mega16']['dp4a_share']:.4f}; plain mega14 "
+              f"{t['narrow_ms']:.3f} ms; (work units, K splits) by B "
+              f"{t['G']} {card}")
+    print(f"time: plain mega14 at {P.name} "
           f"{plain14_k2_ms:.3f} ms at B={B_MAIN}; main path A' gate_batch "
           f"B={B_MAIN} end to end {t_s:.3f} s = {B_MAIN / t_s:.1f} "
           f"bootstraps/s {card}")
@@ -1247,8 +1253,8 @@ def main() -> int:
     # csrc/megaS.cu's kernels on random keys: mega14 at STD128_FAST's,
     # STD128_K4's and STD128_SHORTINT_FAST's geometries and its least N
     # (256); mega13 at STD128_SHORTINT_FAST's and TOY's (N = 64: the tile is
-    # N, the stream padded), at B = 2048 and 9; mega17 and mega15 at their
-    # own sets' geometries, also at B = 300 (a ragged tile)
+    # N, the stream padded), at B = 2048 and 9; mega17, mega15 and mega16 at
+    # their own sets' geometries, also at B = 300 (a ragged tile)
     geomsS = [("mega14", dataclasses.replace(PARAM_SETS[g], n=32))
               for g in ("std128_fast", "std128_k4", "std128_shortint_fast")]
     geomsS += [("mega14", dataclasses.replace(
@@ -1257,7 +1263,8 @@ def main() -> int:
                for g in ("std128_shortint_fast", "toy")]
     geomsS += [(name, dataclasses.replace(PARAM_SETS[g], n=32))
                for name, g in (("mega17", "std128_shortint_b8"),
-                               ("mega15", "std128_shortint_l4"))]
+                               ("mega15", "std128_shortint_l4"),
+                               ("mega16", "std128_shortint_fast"))]
     errS_random = {name: 0 for name in megaS.KERNELS}
     for name, Gp in geomsS:
         extended = megaS.KERNELS[name]
@@ -1279,14 +1286,15 @@ def main() -> int:
         del key_g
     err14 = max(err14, errS_random["mega14"])
     err = max(err, errS_random["mega13"])
-    errS_b8 = {name: errS_random[name] for name in ("mega17", "mega15")}
+    errS_b8 = {name: errS_random[name]
+               for name in ("mega17", "mega15", "mega16")}
     torch.cuda.empty_cache()
     print(f"kernel vs plain: {', '.join(megaJ.KERNELS)} == their plain "
           f"versions on random inputs and keys at B=9 at the geometries of "
           f"{[g.name for g in geoms]} (n = 32; array equality, max_abs_err "
-          f"{errs_j}); mega13, mega14 (and mega17, mega15, also at B=300) "
-          f"== their plain versions on random "
-          f"inputs and keys at B in {[B_MAIN, 9]} at "
+          f"{errs_j}); mega13, mega14 (and mega17, mega15, mega16, also at "
+          f"B=300) == their plain versions on random inputs and keys at B "
+          f"in {[B_MAIN, 9]} at "
           f"{[(k, g.name) for k, g in geomsS]} (n = 32; max_abs_err "
           f"{errS_random}); {', '.join(megaJ.TENSOR_CORE)} "
           f"(csrc/mega12.cu) == their "
@@ -1295,8 +1303,9 @@ def main() -> int:
           f"plans (rows a tile, K splits, blocks a cluster) {plans_w})")
 
     # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
-    # each kernel of megaJ_legacy.cu and on mega5 and mega4 (csrc/mega12.cu's
-    # single window, on one bsk_btk), one key at a time (built, used, freed)
+    # mega10 (csrc/mega12.cu's doubled window, on bsk_btk2), mega3 (the
+    # kernel of megaJ_legacy.cu) and mega5 and mega4 (csrc/mega12.cu's single
+    # window, on one bsk_btk), one key at a time (built, used, freed)
     PL = STD128
     groups_l = (("mega10",), ("mega3",), ("mega5", "mega4"))
     legacy_j = tuple(name for group in groups_l for name in group)
@@ -1407,15 +1416,16 @@ def main() -> int:
                   f"per block {megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
             del out_lk, got_l
         if group[0] in megaJ.TENSOR_CORE:
-            # the single window at N = 1024 under both wrappers, in turns
-            # with each other and with mega13 on the same batch (outputs
-            # array-equal)
-            turns_l = in_turns(PL, acc0_l, a_t_l, {
+            # mega12.cu's window at N = 1024 under the group's wrappers, in
+            # turns with each other and with mega13 on the same batch
+            # (outputs array-equal)
+            turns = in_turns(PL, acc0_l, a_t_l, {
                 **{name: (counters[name], key_l) for name in group},
                 "mega13": (mega13.mega13_blind_rotate, dsk_l.bsk_btS)},
                 same=(*group, "mega13"))
             for name in group:
-                report_turns(name, PL, turns_l, key_l.numel())
+                turns_l[name] = turns
+                report_turns(name, PL, turns, key_l.numel())
         peak_l = max(peak_l, torch.cuda.max_memory_allocated())
         del dsk_lk, key_l
     del rot_l, dsk_l
@@ -1838,8 +1848,8 @@ def main() -> int:
           f"{peak_j / 2**30:.3f} GiB {card}")
     del ctx7, key7, a7, b7, r7, d1_out, acc0_j, a_t_j
 
-    # 13-16. paths E, F, G: the byte-aligned kernels (mega17 and mega15 of
-    # megaS.cu, mega16 of megaT.cu) ------------------------------------------
+    # 13-16. paths E, F, G: the byte-aligned kernels (mega17, mega16 and
+    # mega15, mega13's kernel of megaS.cu through their own entries) -------
     def integer_path(label: str, pset: str, engine: str) -> dict:
         """Main path E or G: D1's (a*b)+a over the same 2048 values at
         ``pset`` on ``engine``, then on mega12 with the same keys and
@@ -1894,10 +1904,8 @@ def main() -> int:
               f"{RADIX_VALUES} values)")
         del ctx12, ya, yb, r12x
         torch.cuda.empty_cache()
-        t = rotation_times(
-            (engine,), PX, acc0_x, a_t_x, {engine: key},
-            {engine: lambda p, B, dev_: megaS.kernel_plan(p, B, engine,
-                                                          n_sms)})[engine]
+        t = rotation_times((engine,), PX, acc0_x, a_t_x, {engine: key},
+                           {engine: megaS_units(engine)})[engine]
         turns = in_turns(PX, acc0_x, a_t_x, {
             engine: (counters[engine], key),
             "mega13": (lambda p, a, b, k: megaS.launch("mega13", p, a, b, k),
@@ -1982,9 +1990,18 @@ def main() -> int:
     check(torch.equal(out_f13, out_f), "F on mega13 != F on mega16")
     t_f = rotation_times(("mega16",), PF, acc0_f, a_t_f,
                          {"mega16": dsk_f.bsk_btTc},
-                         {"mega16": megaT.ciphertexts_per_block})["mega16"]
-    res_f = {"counts": counts_f, "counts13": counts_f13, "err": err16,
-             "plain_ms": plain16_ms, **t_f}
+                         {"mega16": megaS_units("mega16")})["mega16"]
+    # in turns with mega13's entry of the same kernel on the same key bytes
+    # (bsk_btTc is bsk_btS at N >= 128) and inputs
+    turns_f = in_turns(PF, acc0_f, a_t_f, {
+        "mega16": (megaT.mega16_blind_rotate, dsk_f.bsk_btTc),
+        "mega13": (lambda p, a, b, k: megaS.launch("mega13", p, a, b, k),
+                   dsk_f.bsk_btTc)},
+        same=("mega16", "mega13"))
+    report_turns("mega16", PF, turns_f, dsk_f.bsk_btTc.numel())
+    res_f = {"counts": counts_f, "counts13": counts_f13,
+             "err": max(err16, errS_b8["mega16"]),
+             "plain_ms": plain16_ms, "turns": turns_f, **t_f}
     print(f"main path F: {PF.name} host keygen {keygen_f_s:.1f} s (worker "
           f"process); keys to the card (bsk_btTc "
           f"{dsk_f.bsk_btTc.numel() / 2**20:.1f} MiB, bsk_btS, bsk_btTe) "
@@ -1996,11 +2013,10 @@ def main() -> int:
           f"batch on mega13 is array-equal; launches {counts_f13}")
     print(f"time: mega16 B={B_MAIN} {t_f['ms']:.3f} ms = "
           f"{B_MAIN / t_f['ms'] * 1e3:.1f} bootstraps/s, "
-          f"{t_f['bound_ms'] / t_f['ms']:.4f} of the {t_f['bound_ms']:.2f} ms "
-          f"bound ({t_f['bound_by']}), {t_f['dp4a_share']:.4f} of the "
-          f"integer lanes' dp4a rate; B={RADIX_VALUES} "
+          f"{t_f['bound_ms'] / t_f['ms']:.4f} of the {t_f['bound_ms']:.4f} ms "
+          f"bound ({t_f['bound_by']}), on tensor cores; B={RADIX_VALUES} "
           f"{t_f['narrow_ms']:.3f} ms; plain {plain16_ms:.3f} ms at "
-          f"B={B_MAIN}; ciphertexts per block by B {t_f['G']} {card}")
+          f"B={B_MAIN}; (work units, K splits) by B {t_f['G']} {card}")
     print(f"time: main path F gate_batch B={B_MAIN} end to end {f_s:.3f} s "
           f"on mega16 = {B_MAIN / f_s:.1f} bootstraps/s, {f13_s:.3f} s on "
           f"mega13 {card}")
@@ -2267,9 +2283,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("herdsman_tpu_torch/csrc/megaT.cu"
-                       if name in megaT.DP4A
-                       else "herdsman_tpu_torch/csrc/megaS.cu"),
+            "source": "herdsman_tpu_torch/csrc/megaS.cu",
             "replaces": f"herdsman_tpu/ops/pallas/mega.py:{line}",
             **launches(name),
             "matches_plain": res["err"] == 0,
@@ -2339,14 +2353,17 @@ def main() -> int:
     kernels[-1]["ms_std128_shortint_fast"] = f14_ms
     kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
                         for B, t in turns14.items() for k, v in t.items()})
-    # the kernels of megaJ_legacy.cu timed at STD128_K2 in path H, in turns
-    # with the serial kernel of their function, and at STD128 in path L
+    # mega10 (csrc/mega12.cu's doubled window) and mega3 (megaJ_legacy.cu)
+    # timed at STD128_K2 in path H, in turns with the other kernels of their
+    # function, and at STD128 in path L (mega10 in turns with mega13)
     for name, line in (("mega10", 1019), ("mega3", 295)):
         res, res_std = res_h[name], res_l[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "herdsman_tpu_torch/csrc/megaJ_legacy.cu",
+            "source": ("herdsman_tpu_torch/csrc/mega12.cu"
+                       if name in megaJ.TENSOR_CORE
+                       else "herdsman_tpu_torch/csrc/megaJ_legacy.cu"),
             "replaces": f"herdsman_tpu/ops/pallas/legacy.py:{line}",
             **launches(name),
             "matches_plain": errs_j[name] == 0,
@@ -2361,6 +2378,13 @@ def main() -> int:
             "plain_ms_std128": res_std["plain_ms"],
             "bound_ms_std128": res_std["bound_ms"],
         })
+    kernels[-2].update({
+        "ms_mega11_in_turns": res_h["mega11"]["ms"],
+        "ratio_to_mega11": res_h["mega10"]["ms"] / res_h["mega11"]["ms"],
+        "ratio_to_mega11_b256": (res_h["mega10"]["narrow_ms"]
+                                 / res_h["mega11"]["narrow_ms"]),
+        **{f"ms_{k}_in_turns_std128_b{B}": v
+           for B, t in turns_l["mega10"].items() for k, v in t.items()}})
     # csrc/mega12.cu's single window under the wrappers of mega and mega2,
     # timed at STD128_K2 in path M1, in turns with bt_fused and mega7; under
     # those of mega5 and mega4 at STD128_K2 in path H, in turns with mega7,
@@ -2399,9 +2423,10 @@ def main() -> int:
                 "plain_ms_std128": res_l[name]["plain_ms"],
                 "bound_ms_std128": res_l[name]["bound_ms"],
                 **{f"ms_{k}_in_turns_std128_b{B}": v
-                   for B, t in turns_l.items() for k, v in t.items()},
+                   for B, t in turns_l[name].items() for k, v in t.items()},
                 **{f"ratio_to_{k}_std128_b{B}": t[name] / t[k]
-                   for B, t in turns_l.items() for k in t if k != name}})
+                   for B, t in turns_l[name].items() for k in t
+                   if k != name}})
     for name in row_j:  # path M2: the job's rotations on the engine
         next(k for k in kernels if k["name"] == name)["m2_rotation_s"] = \
             res_m2_s[name]

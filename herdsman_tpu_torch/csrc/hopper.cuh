@@ -6,7 +6,7 @@
 // prefetch, the cluster rank and barrier, the wgmma shared-memory
 // descriptor of a K-major 128-byte-swizzled operand, and int8 wgmma
 // m64n256k32 with int32 accumulators in registers.  Included by
-// bt_external_product.cu, megaR.cu and mega12.cu; each builds into its own
+// bt_external_product.cu, mega12.cu and megaS.cu; each builds into its own
 // library, so the helpers sit in an anonymous namespace.
 
 #pragma once

@@ -1,12 +1,11 @@
 // megaJ_common.cuh: the device code and launch helpers that csrc/megaJ.cu
-// (variants 8, 9, 6) and csrc/megaJ_legacy.cu (variant 10, and the
-// tensor-core variant 3) share: the block layout, the digit phase, the dp4a
-// contraction of one (column tile, output polynomial) unit, the staged
-// contraction of key rows in shared memory, and megaJ_kernel, the template
-// of every dp4a schedule.  csrc/megaJ.cu's note gives the arithmetic, the
-// bound and the serial, overlap and staged designs; csrc/megaJ_legacy.cu's
-// the poly-fused (10) one.  Each source that includes this file builds into
-// a library of its own.
+// (variants 8, 9, 6) and csrc/megaJ_legacy.cu (the tensor-core variant 3)
+// share: the block layout, the digit phase, the dp4a contraction of one
+// (column tile, output polynomial) unit, the staged contraction of key rows
+// in shared memory, and megaJ_kernel, the template of every dp4a schedule.
+// csrc/megaJ.cu's note gives the arithmetic, the bound and the serial,
+// overlap and staged designs.  Each source that includes this file builds
+// into a library of its own.
 
 #pragma once
 
@@ -25,7 +24,6 @@ constexpr int SMEM_PER_BLOCK = 232448;  // bytes one H100 block may use
 constexpr int SERIAL = 0;   // 8: digits, __syncthreads, contraction
 constexpr int OVERLAP = 1;  // 9: a producer warp's digits beside the contraction
 constexpr int STAGED = 2;   // 6: cp.async double-buffered key rows
-constexpr int FUSED = 3;    // 10: SERIAL with the poly-fused digit pass
 constexpr int PRODUCER = 32;           // producer threads of the overlap schedule
 constexpr int FULL0 = 1, EMPTY0 = 3;   // its named barriers: FULL0 + h, EMPTY0 + h
 constexpr int ROWB = 4 * P;            // bytes of one K row a unit reads
@@ -176,83 +174,24 @@ __device__ __forceinline__ void digit_words(const uint32_t* __restrict__ a,
   level_words(diff, gd, dst, stride);
 }
 
-// quad q (coefficients 4q .. 4q+3, q < N/2) of ext(a), a 16-byte aligned
-__device__ __forceinline__ uint4 ext_quad(const uint32_t* __restrict__ a,
-                                          int q, int N) {
-  uint4 w = *reinterpret_cast<const uint4*>(a + ((4 * q) & (N - 1)));
-  if (4 * q >= N) {  // the negated period: ext(a)[t + N] = -ext(a)[t]
-    w.x = 0u - w.x;
-    w.y = 0u - w.y;
-    w.z = 0u - w.z;
-    w.w = 0u - w.w;
-  }
-  return w;
-}
-
-// the poly-fused digit pass (variant 10): the digit words of coefficients
-// 4*y4 .. 4*y4+3 of X^s acc_c - acc_c for every polynomial c of one
-// ciphertext (ag: its KP1 polynomials).  The source quads of the rotation,
-// their wrap signs and the byte offset are computed once for all KP1
-// polynomials; each polynomial is read as three 16-byte words (its own
-// quad and the two source quads), and the 4 rotated coefficients are
-// coefficients off .. off+3 of the two source quads.  Row r = c*levels +
-// lev goes to dst[r * stride].
-template <int KP1>
-__device__ __forceinline__ void fused_digit_words(const uint32_t* __restrict__ ag,
-                                                  int s, int y4, int N,
-                                                  const Gadget& gd,
-                                                  uint32_t* __restrict__ dst,
-                                                  size_t stride) {
-  const int t0 = (4 * y4 - s) & (2 * N - 1);  // source of coefficient 4*y4
-  const int off = t0 & 3;
-  const int q0 = t0 >> 2;
-  const int q1 = (q0 + 1) & (N / 2 - 1);      // quads of ext: 2N/4
-#pragma unroll
-  for (int c = 0; c < KP1; ++c) {
-    const uint32_t* a = ag + c * N;
-    const uint4 x = *reinterpret_cast<const uint4*>(a + 4 * y4);
-    const uint4 w0 = ext_quad(a, q0, N);
-    const uint4 w1 = ext_quad(a, q1, N);
-    uint32_t r[4];
-    switch (off) {
-      case 0: r[0] = w0.x; r[1] = w0.y; r[2] = w0.z; r[3] = w0.w; break;
-      case 1: r[0] = w0.y; r[1] = w0.z; r[2] = w0.w; r[3] = w1.x; break;
-      case 2: r[0] = w0.z; r[1] = w0.w; r[2] = w1.x; r[3] = w1.y; break;
-      default: r[0] = w0.w; r[1] = w1.x; r[2] = w1.y; r[3] = w1.z; break;
-    }
-    const uint32_t diff[4] = {r[0] - x.x, r[1] - x.y, r[2] - x.z, r[3] - x.w};
-    level_words(diff, gd, dst + static_cast<size_t>(c) * gd.levels * stride,
-                stride);
-  }
-}
-
 // 1. digits of X^rot acc - acc for the block's G ciphertexts into dig
 // ([R][N/4][G] words), g fastest: one item per (ciphertext, polynomial,
-// quad), or with FUSED_PASS one per (ciphertext, quad) for all polynomials
-template <int G, int KP1, bool FUSED_PASS>
+// quad)
+template <int G, int KP1>
 __device__ __forceinline__ void digit_phase(const uint32_t* acc, uint32_t* dig,
                                             const int* rot, int N,
                                             const Gadget& gd, int tid,
                                             int nthreads) {
   const int N4 = N / 4;
   const size_t stride = static_cast<size_t>(N4) * G;
-  if constexpr (FUSED_PASS) {
-    for (int e = tid; e < G * N4; e += nthreads) {
-      const int g = e % G;
-      const int y4 = e / G;
-      fused_digit_words<KP1>(acc + g * KP1 * N, rot[g], y4, N, gd,
-                             dig + static_cast<size_t>(y4) * G + g, stride);
-    }
-  } else {
-    for (int e = tid; e < G * KP1 * N4; e += nthreads) {
-      const int g = e % G;
-      const int rest = e / G;
-      const int c = rest % KP1;
-      const int y4 = rest / KP1;
-      digit_words(acc + (g * KP1 + c) * N, rot[g], y4, N, gd,
-                  dig + (static_cast<size_t>(c * gd.levels) * N4 + y4) * G + g,
-                  stride);
-    }
+  for (int e = tid; e < G * KP1 * N4; e += nthreads) {
+    const int g = e % G;
+    const int rest = e / G;
+    const int c = rest % KP1;
+    const int y4 = rest / KP1;
+    digit_words(acc + (g * KP1 + c) * N, rot[g], y4, N, gd,
+                dig + (static_cast<size_t>(c * gd.levels) * N4 + y4) * G + g,
+                stride);
   }
 }
 
@@ -515,7 +454,7 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
       __syncthreads();  // rot set; the previous step's adds into acc are done
 
       // 1. digits of X^rot acc - acc, 4 coefficients per item, g fastest
-      digit_phase<G, KP1, SCHED == FUSED>(acc, dig, rot, N, gd, tid, BD);
+      digit_phase<G, KP1>(acc, dig, rot, N, gd, tid, BD);
       __syncthreads();  // digits ready; nothing reads acc until the next step
 
       // 2-3. one (column tile, output polynomial) unit per group of 128

@@ -1,16 +1,17 @@
-// megaJ_legacy: two more whole-rotation kernels against the j-major
-// block-Toeplitz int8 keys, each computing the function of a csrc/megaJ.cu
+// megaJ_legacy: one more whole-rotation kernel against a j-major
+// block-Toeplitz int8 key, computing the function of a csrc/megaJ.cu
 // variant with the scheduling idea of its TPU body carried over to Hopper:
 //
 //   variant  replaces (herdsman_tpu/ops/pallas/legacy.py)  key        function  construct
-//   10       _mega10_kernel (wrapper mega10_blind_rotate)   bsk_btj2   mega8's   poly-fused digit pass
 //    3       _mega3_kernel  (wrapper mega3_blind_rotate)    bsk_btjm   mega7's   int8 mma.sync m16n8k32
 //
 // (legacy.py's _mega5_kernel, mega7's function on a wide block, and its
 // _mega4_kernel, mega7's function with each step's key block fetched once
 // per group of chunks, are csrc/mega12.cu's single window on bsk_btk:
 // staging on the integer lanes did not pay, and int8 wgmma reads its key
-// operand K-major only.)
+// operand K-major only.  Its _mega10_kernel, mega8's function with the
+// digits built by a pass fused across the k+1 polynomials, is
+// csrc/mega12.cu's doubled window on bsk_btk2 for the same reason.)
 //
 // csrc/megaJ.cu's note gives the arithmetic (the doubled window, the two
 // runs of the single width with the negated one subtracted as an int32
@@ -21,21 +22,8 @@
 // at STD128 (n=768, N=1024, k=1, bg=2^7, l=3) at B = 2048 on the H100's
 // 1,979 int8 TOP/s; bound by operations.  Every megaJ.cu kernel runs the
 // products as __dp4a on the integer lanes and reads each key byte once per
-// block of G = 8 ciphertexts (0.125 bytes of L2 traffic per MAC); these
-// two separate the two things that could set that pace.
-//
-// Poly-fused digit pass (10).  _mega10_kernel views the k+1 accumulator
-// polynomials as one [(k+1)*Bt, N] array so that one barrel rotate, one
-// difference and one rounding chain serve all of them (legacy.py:1019-1034).
-// Here one work item is (ciphertext, coefficient quad) for all k+1
-// polynomials, where variant 8's digit loop has one per (ciphertext,
-// polynomial, quad): the item computes the rotation's source quads, their
-// wrap signs and the byte offset once, reads each polynomial's own quad and
-// its two source quads as three 16-byte shared-memory words (variant 8: 8
-// scalar reads and 4 sign tests per polynomial), and writes the R = (k+1) *
-// levels digit words of its quad.  The contraction is variant 8's.  The
-// digit phase is under 1% of a step's issue slots, so it should run within
-// a few percent of mega8.
+// block of G = 8 ciphertexts (0.125 bytes of L2 traffic per MAC); this one
+// moves the products onto the tensor cores.
 //
 // Tensor cores (3).  _mega3_kernel accumulates all R GGSW rows inside the
 // matrix unit, two dots of K up to R*N in place of R-1 vector adds
@@ -147,7 +135,7 @@ mma_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
     if (tid < G)
       rot[tid] = tid < nb ? a_t[static_cast<size_t>(i) * B + b0 + tid] : 0;
     __syncthreads();  // rot set; the previous step's adds into acc are done
-    digit_phase<G, KP1, false>(acc, dig, rot, N, gd, tid, BD);
+    digit_phase<G, KP1>(acc, dig, rot, N, gd, tid, BD);
     __syncthreads();  // digits ready; nothing reads acc until the next step
 
     const int8_t* kstep = key + static_cast<size_t>(i) * step_bytes;
@@ -231,8 +219,6 @@ cudaError_t launch_mma_g(int G, const Args& a) {
   }
 }
 
-bool known(int variant) { return variant == 10 || variant == 3; }
-
 }  // namespace
 
 extern "C" {
@@ -241,14 +227,12 @@ extern "C" {
 // ciphertexts on a card of `sms` SMs (0: none).
 int megaJ_legacy_ciphertexts_per_block(int variant, int B, int N, int kp1,
                                        int R, int sms) {
-  if (B <= 0 || sms <= 0 || !known(variant)) return 0;
-  if (variant == 3) return mma_pick_g(B, N, kp1, R, sms);
-  return pick_g(FUSED, B, N, kp1, R, sms);
+  if (B <= 0 || sms <= 0 || variant != 3) return 0;
+  return mma_pick_g(B, N, kp1, R, sms);
 }
 
-// variant 10 (key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128]) or 3 (bsk_btjm
-// [n, N/128, R, 128, kp1*4*128], each [128, kp1*4*128] block in fragment
-// order), both int8, R = kp1*levels;
+// variant 3: key bsk_btjm [n, N/128, R, 128, kp1*4*128] int8, each [128,
+// kp1*4*128] block in fragment order, R = kp1*levels;
 // acc0 [B, kp1, N] u32, a_t [n, B] i32 in [0, 2N), out [B, kp1, N] u32, all
 // device pointers; N a power of two in [128, 2048], kp1 in {2, 3, 5}, 1 <=
 // bg_bits <= 8, `sms` the card's SM count.  Launches on `stream` and returns
@@ -257,26 +241,18 @@ int megaJ_legacy_blind_rotate(int variant, const void* acc0, const void* a_t,
                               const void* key, void* out, int B, int n, int N,
                               int kp1, int bg_bits, int levels, int sms,
                               void* stream) {
-  if (!valid_args(B, n, N, bg_bits, levels, sms) || !known(variant))
+  if (!valid_args(B, n, N, bg_bits, levels, sms) || variant != 3)
     return cudaErrorInvalidValue;
-  const int R = kp1 * levels;
-  if (variant == 3) {
-    const int G = mma_pick_g(B, N, kp1, R, sms);
-    if (G == 0) return cudaErrorInvalidValue;
-    const Args a{acc0, a_t, key, out, B, n, N, bg_bits, levels, 0,
-                 static_cast<cudaStream_t>(stream)};
-    switch (kp1) {
-      case 2: return launch_mma_g<2>(G, a);
-      case 3: return launch_mma_g<3>(G, a);
-      case 5: return launch_mma_g<5>(G, a);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  const int G = pick_g(FUSED, B, N, kp1, R, sms);
+  const int G = mma_pick_g(B, N, kp1, kp1 * levels, sms);
   if (G == 0) return cudaErrorInvalidValue;
   const Args a{acc0, a_t, key, out, B, n, N, bg_bits, levels, 0,
                static_cast<cudaStream_t>(stream)};
-  return launch_kp1<true, FUSED>(kp1, G, a);
+  switch (kp1) {
+    case 2: return launch_mma_g<2>(G, a);
+    case 3: return launch_mma_g<3>(G, a);
+    case 5: return launch_mma_g<5>(G, a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* megaJ_legacy_error_string(int err) {

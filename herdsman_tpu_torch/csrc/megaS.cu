@@ -8,10 +8,11 @@
 //     engine, on the single-width key bsk_btS at any gadget with bg_bits <= 8
 //     and levels 1-4, N a power of two in [32, 2048]; and with its own C
 //     entries mega.py::_mega17_kernel (wrapper mega17_blind_rotate: bg = 2^8,
-//     levels 3, STD128_SHORTINT_B8) and _mega15_kernel (mega15_blind_rotate:
-//     bg = 2^8, levels 4, the exact gadget, STD128_SHORTINT_L4), on their
-//     key bsk_btTc, which at N >= 128 is bsk_btS byte for byte (L*N is a
-//     multiple of 128);
+//     levels 3, STD128_SHORTINT_B8), _mega15_kernel (mega15_blind_rotate:
+//     bg = 2^8, levels 4, the exact gadget, STD128_SHORTINT_L4) and
+//     _mega16_kernel (mega16_blind_rotate: bg = 2^8, levels 2,
+//     STD128_SHORTINT_FAST), on their key bsk_btTc, which at N >= 128 is
+//     bsk_btS byte for byte (L*N is a multiple of 128);
 //   - megaS_kernel<true> replaces mega.py::_mega14_kernel (wrapper
 //     mega14_blind_rotate) on the extended key bsk_btTe (bg = 2^8, levels 2,
 //     N >= 256).
@@ -721,9 +722,10 @@ int mega14_blind_rotate(const void* acc0, const void* a_t, const void* key,
                 stream);
 }
 
-// mega13's kernel at the byte-aligned gadget, levels 3 (mega17) and 4
-// (mega15), on bsk_btTc [n, kp1, kp1, 4, RB] (bsk_btS at bg 2^8), N a power
-// of two in [32, 2048]; the other arguments of mega13_blind_rotate
+// mega13's kernel at the byte-aligned gadget, levels 3 (mega17), 4
+// (mega15) and 2 (mega16), on bsk_btTc [n, kp1, kp1, 4, RB] (bsk_btS at bg
+// 2^8), N a power of two in [32, 2048]; the other arguments of
+// mega13_blind_rotate
 int mega17_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, void* dig, void* bar, int B, int n, int N,
                         int kp1, void* stream) {
@@ -735,6 +737,13 @@ int mega15_blind_rotate(const void* acc0, const void* a_t, const void* key,
                         void* out, void* dig, void* bar, int B, int n, int N,
                         int kp1, void* stream) {
   return rotate(false, acc0, a_t, key, out, dig, bar, B, n, N, kp1, 8, 4,
+                stream);
+}
+
+int mega16_blind_rotate(const void* acc0, const void* a_t, const void* key,
+                        void* out, void* dig, void* bar, int B, int n, int N,
+                        int kp1, void* stream) {
+  return rotate(false, acc0, a_t, key, out, dig, bar, B, n, N, kp1, 8, 2,
                 stream);
 }
 

@@ -20,22 +20,22 @@ through one of three kinds of engine:
   same function; the JAX package's ``pallas_mega7``, ``pallas_mega5`` and
   ``pallas_mega4`` read the same blocks with other columns,
   ``pallas_mega2`` and ``pallas_mega`` them R-major), and
-  ``mega11`` that source's doubled window against ``bsk_btk2``
-  (``bsk_btj2j`` in ``wgmma``'s order); ``mega16``, ``mega17`` and
-  ``mega15`` (the JAX package's engines of the same names, at the
-  byte-aligned gadget bg = 2^8 with levels 2, 3 and 4) read the compact
-  ``bsk_btTc`` key, ``mega16`` in ``csrc/megaT.cu`` and ``mega17`` and
-  ``mega15`` in ``csrc/megaS.cu`` (``mega13``'s kernel), and
+  ``mega11`` and the legacy ``mega10`` that source's doubled window
+  against ``bsk_btk2`` (``bsk_btj2j`` in ``wgmma``'s order; the JAX
+  package's ``pallas_mega10`` reads the same window with columns (c, j,
+  q), ``bsk_btj2``); ``mega16``, ``mega17`` and ``mega15`` (the JAX
+  package's engines of the same names, at the byte-aligned gadget bg =
+  2^8 with levels 2, 3 and 4) read the compact ``bsk_btTc`` key in
+  ``csrc/megaS.cu`` (``mega13``'s kernel, each through its own entry), and
   ``mega14`` (levels 2, N >= 256) is ``csrc/megaS.cu``'s extended
   instantiation against ``bsk_btTe`` (one run per column tile);
   ``mega8`` (the JAX package's engine of that name, any gadget) is
   ``csrc/megaJ.cu`` against the j-major doubled window ``bsk_btj2`` (one
   contraction per column tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
   the same source on ``bsk_btj2`` and on the single width ``bsk_btj`` (the
-  negated run subtracted) with other schedules; the legacy ``mega10`` (on
-  ``bsk_btj2``) is ``csrc/megaJ_legacy.cu``'s further schedule, and
-  ``mega3`` its tensor-core kernel on ``bsk_btj`` in fragment order
-  (``bsk_btjm``).
+  negated run subtracted) with other schedules; the legacy ``mega3`` is
+  ``csrc/megaJ_legacy.cu``'s tensor-core kernel on ``bsk_btj`` in
+  fragment order (``bsk_btjm``).
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -126,7 +126,7 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega7": (megaJ.mega7_blind_rotate, "bsk_btk"),
     "mega9": (megaJ.mega9_blind_rotate, "bsk_btj2"),
     "mega6": (megaJ.mega6_blind_rotate, "bsk_btj"),
-    "mega10": (megaJ.mega10_blind_rotate, "bsk_btj2"),
+    "mega10": (megaJ.mega10_blind_rotate, "bsk_btk2"),
     "mega3": (megaJ.mega3_blind_rotate, "bsk_btjm"),
     "mega4": (megaJ.mega4_blind_rotate, "bsk_btk"),
     "mega5": (megaJ.mega5_blind_rotate, "bsk_btk"),

@@ -13,15 +13,16 @@ launches the hand-written kernel (one launch per rotation, counted in
 ``mega12_blind_rotate.launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btk``.  The source note in ``csrc/mega12.cu`` gives
 the kernel's design and bound; ``plan`` mirrors its tiling.  The same
-source also serves ``megaJ.mega7_blind_rotate``,
-``megaJ.mega5_blind_rotate`` and ``megaJ.mega2_blind_rotate`` (this kernel
-on this key) and ``megaJ.mega11_blind_rotate`` (its doubled window on
-``bsk_btk2``), each through ``launch`` with its own counter.
+source also serves ``megaJ``'s ``mega7``, ``mega5``, ``mega4``, ``mega2``
+and ``mega`` wrappers (this kernel on this key) and its ``mega11`` and
+``mega10`` (the doubled window on ``bsk_btk2``), each through ``launch``
+with its own counter.
 
 ``check_args``, ``pack_digits``, ``recombine`` and the j-major contraction
 ``blind_rotate_plain_btjj`` also serve ``megaJ``'s plain versions;
 ``kmajor_from_bt`` and ``kmajor_from_btj`` re-lay the JAX package's
-``bsk_bt`` and ``bsk_btj`` as ``bsk_btk``.
+``bsk_bt`` and ``bsk_btj`` as ``bsk_btk``, and its doubled ``bsk_btj2`` as
+``bsk_btk2``.
 """
 
 from __future__ import annotations
@@ -188,8 +189,12 @@ def kmajor_from_bt(bsk_bt: torch.Tensor, kp1: int) -> torch.Tensor:
 
 def kmajor_from_btj(bsk_btj: torch.Tensor, kp1: int) -> torch.Tensor:
     """``bsk_btk`` from the j-major ``bsk_btj`` [n, HALF, R, P, (k+1)*4*P]
-    (the JAX package's ``pallas_mega7`` and ``pallas_mega5`` key): per step
-    the columns (c, j, q) made (j, c, q), then ``kmajor_order``."""
+    (the JAX package's ``pallas_mega7``, ``pallas_mega5`` and
+    ``pallas_mega4`` key): per step the columns (c, j, q) made (j, c, q),
+    then ``kmajor_order``.  The same re-lays the doubled ``bsk_btj2`` [n,
+    2*HALF, R, P, (k+1)*4*P] (``pallas_mega8``, ``_mega9`` and
+    ``_mega10``'s key) as ``bsk_btk2``: only the blocks' rows and columns
+    are checked, and the window's groups are blocks like any other."""
     return _kmajor_steps(bsk_btj, kp1, r_major=False)
 
 

@@ -34,9 +34,11 @@ the key they read and in how a block schedules a step:
 - ``mega6_blind_rotate``: ``legacy.py::_mega6_kernel``, ``mega7``'s
   function on ``bsk_btj``, with each group's key rows double-buffered in
   shared memory by ``cp.async``;
-- ``mega10_blind_rotate`` (``csrc/megaJ_legacy.cu``): ``legacy.py::
-  _mega10_kernel``, ``mega8``'s function and key, its digits built by a
-  pass fused across the k+1 polynomials;
+- ``mega10_blind_rotate``: ``legacy.py::_mega10_kernel``, ``mega8``'s
+  function (the doubled window on ``bsk_btj2``, its digits built by a pass
+  fused across the k+1 polynomials), so ``mega11``'s: ``csrc/mega12.cu``'s
+  doubled instantiation on ``bsk_btk2`` (``mega12.kmajor_from_btj``
+  re-lays the JAX package's ``bsk_btj2``);
 - ``mega3_blind_rotate``: ``legacy.py::_mega3_kernel``, ``mega7``'s
   function on int8 tensor cores (``mma.sync`` m16n8k32), reading
   ``bsk_btj``'s blocks in fragment order (``bsk_btjm``, ``fragment_order``).
@@ -50,7 +52,7 @@ with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
 (``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
 version of ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` is
-``mega12.blind_rotate_plain_btk`` and ``mega11``'s
+``mega12.blind_rotate_plain_btk`` and that of ``mega11`` and ``mega10``
 ``blind_rotate_plain_btk2`` (the doubled window's contraction on the key
 taken back to j-major order).
 
@@ -88,18 +90,19 @@ KERNELS = {"mega11": (None, "bsk_btk2", True, True),
            "mega7": (None, "bsk_btk", False, True),
            "mega9": (9, "bsk_btj2", True, False),
            "mega6": (6, "bsk_btj", False, False),
-           "mega10": (10, "bsk_btj2", True, False),
+           "mega10": (None, "bsk_btk2", True, True),
            "mega3": (3, "bsk_btjm", False, False),
            "mega4": (None, "bsk_btk", False, True),
            "mega5": (None, "bsk_btk", False, True),
            "mega": (None, "bsk_btk", False, True),
            "mega2": (None, "bsk_btk", False, True)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
-# the kernels of csrc/mega12.cu (the doubled window, then the single
-# window's five wrappers on int8 wgmma) and of csrc/megaJ_legacy.cu; the
+# the kernels of csrc/mega12.cu (the doubled window's two wrappers, then
+# the single window's five, on int8 wgmma) and of csrc/megaJ_legacy.cu; the
 # others are csrc/megaJ.cu's
-TENSOR_CORE = ("mega11", "mega7", "mega5", "mega4", "mega2", "mega")
-LEGACY_SOURCE = ("mega10", "mega3")
+TENSOR_CORE = ("mega11", "mega10", "mega7", "mega5", "mega4", "mega2",
+               "mega")
+LEGACY_SOURCE = ("mega3",)
 # the kernels whose block holds two halves of G ciphertexts (overlap), or
 # stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
 # per group at least); mega3 (tensor cores) holds G in {8, 4, 2, 1}, zeros
@@ -117,12 +120,12 @@ def smem_bytes(p: TFHEParams, G: int) -> int:
 
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
-    geometry (all that ``csrc/mega12.cu``'s ``mega11``, ``mega7``,
-    ``mega5``, ``mega4``, ``mega2`` and ``mega`` need: their digits and
-    accumulators live in device memory), then one ciphertext's accumulator
-    and digits within a block's shared memory (the dp4a block layout every
-    other kernel here shares), and one block of its schedule within the
-    card's shared memory."""
+    geometry (all that ``csrc/mega12.cu``'s ``mega11``, ``mega10``,
+    ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` need: their
+    digits and accumulators live in device memory), then one ciphertext's
+    accumulator and digits within a block's shared memory (the dp4a block
+    layout every other kernel here shares), and one block of its schedule
+    within the card's shared memory."""
     mega12.check_params(p, name)
     if name in TENSOR_CORE:
         return
@@ -198,9 +201,10 @@ def blind_rotate_plain_btj2(params: TFHEParams, acc0: torch.Tensor,
 def blind_rotate_plain_btk2(params: TFHEParams, acc0: torch.Tensor,
                             a_t: torch.Tensor,
                             bsk_btk2: torch.Tensor) -> torch.Tensor:
-    """The rotation of ``mega11`` in plain PyTorch, either device, reading
-    the same ``bsk_btk2``: ``blind_rotate_plain_btj2``'s steps, each on its
-    step key taken back to ``bsk_btj2j``'s order (``from_kmajor_order``)."""
+    """The rotation of ``mega11`` and ``mega10`` in plain PyTorch, either
+    device, reading the same ``bsk_btk2``: ``blind_rotate_plain_btj2``'s
+    steps, each on its step key taken back to ``bsk_btj2j``'s order
+    (``from_kmajor_order``)."""
     p = params
     _check_args(p, "mega11", acc0, a_t, bsk_btk2)
     acc = acc0
@@ -271,11 +275,11 @@ def blind_rotate_plain_btjm(params: TFHEParams, acc0: torch.Tensor,
 
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` and ``mega10`` share ``mega8``'s; ``mega6``'s is
+    (``mega9`` shares ``mega8``'s; ``mega6``'s is
     ``blind_rotate_plain_btj``, the single width on ``bsk_btj``, and
     ``mega3``'s is that on its key out of fragment order; ``mega7``,
-    ``mega5``, ``mega4``, ``mega2`` and ``mega`` share ``mega12``'s and
-    ``mega11``'s is ``blind_rotate_plain_btk2``)."""
+    ``mega5``, ``mega4``, ``mega2`` and ``mega`` share ``mega12``'s, and
+    ``mega11`` and ``mega10`` ``blind_rotate_plain_btk2``)."""
     _, _, doubled, jcq = KERNELS[name]
     if name in TENSOR_CORE:
         return (blind_rotate_plain_btk2 if doubled
@@ -406,13 +410,13 @@ def mega6_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega10_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                         a_t: torch.Tensor,
-                        bsk_btj2: torch.Tensor) -> torch.Tensor:
-    """``mega8``'s rotation on the doubled ``bsk_btj2``, the digits built by
-    one pass over (ciphertext, coefficient quad) for all k+1 polynomials;
-    the contract of ``mega8_blind_rotate``, CPU tensors through
-    ``blind_rotate_plain_btj2``."""
+                        bsk_btk2: torch.Tensor) -> torch.Tensor:
+    """``mega8``'s rotation (the TPU's poly-fused digit pass on
+    ``bsk_btj2``) against the doubled window ``bsk_btk2`` int8 [n, 2*HALF,
+    R, k+1, 2, 256, 128]: ``csrc/mega12.cu``'s doubled instantiation,
+    counted here; CPU tensors go through ``blind_rotate_plain_btk2``."""
     return _rotate("mega10", mega10_blind_rotate, params, acc0, a_t,
-                   bsk_btj2)
+                   bsk_btk2)
 
 
 def mega3_blind_rotate(params: TFHEParams, acc0: torch.Tensor,

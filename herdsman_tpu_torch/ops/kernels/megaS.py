@@ -1,10 +1,10 @@
 """The stream-key rotation kernel on int8 tensor cores (``csrc/megaS.cu``):
 its geometry, its work plan and the launch that ``mega13_blind_rotate``
 (``ops/kernels/mega13.py``, on ``bsk_btS``), ``mega14_blind_rotate`` (on
-``bsk_btTe``) and ``mega17_blind_rotate`` and ``mega15_blind_rotate`` (on
-``bsk_btTc``, which at N >= 128 is ``bsk_btS`` byte for byte: ``mega13``'s
-kernel with their own C entries; all three in ``ops/kernels/megaT.py``)
-share.
+``bsk_btTe``) and ``mega17_blind_rotate``, ``mega15_blind_rotate`` and
+``mega16_blind_rotate`` (on ``bsk_btTc``, which at N >= 128 is ``bsk_btS``
+byte for byte: ``mega13``'s kernel with their own C entries; all four in
+``ops/kernels/megaT.py``) share.
 
 Both keys hold, per (step, c_in, c_out, limb j), one L-fold interleaved limb
 sequence T[L*u + lb] = limb_j(ext(bsk[i, c_in*L + L-1-lb, c_out])[(P-1-u)
@@ -33,9 +33,11 @@ QI = 64       # output coefficients of an item (32 a consumer warpgroup)
 KSLOT = 512   # bytes of one limb's key slice in a stage
 
 # wrapper name -> whether its key is the extended one (P = N)
-KERNELS = {"mega13": False, "mega14": True, "mega17": False, "mega15": False}
+KERNELS = {"mega13": False, "mega14": True, "mega17": False, "mega15": False,
+           "mega16": False}
 # wrapper name -> the (bg_bits, levels) its C entry fixes
-GADGET = {"mega14": (8, 2), "mega17": (8, 3), "mega15": (8, 4)}
+GADGET = {"mega14": (8, 2), "mega17": (8, 3), "mega15": (8, 4),
+          "mega16": (8, 2)}
 
 
 class Geometry(NamedTuple):
@@ -196,6 +198,7 @@ def rotate_with(lib: ctypes.CDLL, name: str, p: TFHEParams,
 
 def launch(name: str, p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
            key: torch.Tensor) -> torch.Tensor:
-    """One launch of kernel ``name`` (``mega13``, ``mega14``, ``mega17`` or
-    ``mega15``) of the built ``csrc/megaS.cu`` (``rotate_with``)."""
+    """One launch of kernel ``name`` (``mega13``, ``mega14``, ``mega17``,
+    ``mega15`` or ``mega16``) of the built ``csrc/megaS.cu``
+    (``rotate_with``)."""
     return rotate_with(_lib(), name, p, acc0, a_t, key)

@@ -47,25 +47,21 @@ key's values (``ext_tile_rows``): the JAX package's pt-major window
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btTc`` (``blind_rotate_plain_btTe`` for ``mega14``).
-``mega17``, ``mega15`` and ``mega14`` are instantiations of
-``csrc/megaS.cu`` (int8 tensor cores, the key a register operand;
-``ops/kernels/megaS.py``): ``mega17`` and ``mega15`` read ``bsk_btTc``,
-which at N >= 128 is ``mega13``'s ``bsk_btS`` byte for byte, so they run
-``mega13``'s kernel through their own C entries; ``mega14`` reads
-``bsk_btTe``.  ``mega16`` is ``csrc/megaT.cu``'s dp4a kernel, whose source
-note gives its design and bound.
+All four are instantiations of ``csrc/megaS.cu`` (int8 tensor cores, the
+key a register operand; ``ops/kernels/megaS.py``), whose source note gives
+their design and bound: ``mega16``, ``mega17`` and ``mega15`` read
+``bsk_btTc``, which at N >= 128 is ``mega13``'s ``bsk_btS`` byte for byte,
+so they run ``mega13``'s kernel through their own C entries; ``mega14``
+reads ``bsk_btTe``.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import _build, megaS
+from herdsman_tpu_torch.ops.kernels import megaS
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 from herdsman_tpu_torch.ops.u32 import srl, u32_const
 
@@ -73,15 +69,11 @@ I32 = torch.int32
 I8 = torch.int8
 
 P = 128                    # column tile: the kernels take N >= 128 only
-NGROUP = 4                 # column tiles mega16's block contracts at once
-SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 # kernel -> the gadget depth it serves at bg = 2^8
 KERNELS = {"mega16": 2, "mega17": 3, "mega15": 4, "mega14": 2}
 # the kernels that read the extended key
 EXTENDED = ("mega14",)
-# the kernels of csrc/megaT.cu (dp4a); the others are csrc/megaS.cu's
-DP4A = ("mega16",)
 # kernel -> the key layout it reads
 KEY_LAYOUTS = {name: "bsk_btTe" if name in EXTENDED else "bsk_btTc"
                for name in KERNELS}
@@ -100,29 +92,11 @@ def key_bytes(p: TFHEParams, extended: bool = False) -> int:
     return p.n * (p.k + 1) ** 2 * 4 * row_bytes(p, extended)
 
 
-def c_out_slices(p: TFHEParams) -> int:
-    """c_out slices of the step key a ``mega16`` block stages at once:
-    enough (tile, c_out) units for its 4 groups where N has fewer than 4
-    column tiles."""
-    half = p.N // P
-    return 1 if half >= NGROUP else min(NGROUP // half, p.k + 1)
-
-
-def smem_bytes(p: TFHEParams, G: int) -> int:
-    """Shared memory of one ``mega16`` block of G ciphertexts at ``p``'s
-    shape: their accumulators (u32), one step's digit streams and rotation
-    amounts, and the staged (c_in, c_out) slices of the step key."""
-    kp1 = p.k + 1
-    return (G * (kp1 * p.N * 4 + kp1 * p.levels * p.N + 4)
-            + 4 * c_out_slices(p) * row_bytes(p))
-
-
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: its own
     gadget (bg_bits 8, levels KERNELS[name]), k+1 in (2, 3, 5), N a power
     of two in [128, 2048] ([256, 2048] for ``mega14``, the JAX kernel's N
-    >= 2P), and for ``mega16`` one ciphertext within a block's shared
-    memory."""
+    >= 2P; ``bsk_btTc``'s column tile is 128)."""
     L = KERNELS[name]
     extended = name in EXTENDED
     if p.bg_bits != 8 or p.levels != L:
@@ -135,10 +109,6 @@ def check_params(p: TFHEParams, name: str) -> None:
     if p.N & (p.N - 1) or not lo <= p.N <= 2048:
         raise ValueError(f"{name} takes N a power of two in [{lo}, 2048], "
                          f"not {p.N} ({p.name})")
-    if name in DP4A and smem_bytes(p, 1) > SMEM_LIMIT:
-        raise ValueError(f"{name} at {p.name} needs {smem_bytes(p, 1)} "
-                         f"bytes of shared memory per ciphertext, over "
-                         f"{SMEM_LIMIT}")
 
 
 def _check_args(p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
@@ -281,30 +251,6 @@ def plain(name: str):
             else blind_rotate_plain_btTc)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/megaT.cu`` with its C signatures declared."""
-    lib = _build.load("megaT")
-    lib.mega16_blind_rotate.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.mega16_blind_rotate.restype = ctypes.c_int
-    lib.megaT_ciphertexts_per_block.argtypes = [ctypes.c_int] * 4
-    lib.megaT_ciphertexts_per_block.restype = ctypes.c_int
-    lib.megaT_error_string.argtypes = [ctypes.c_int]
-    lib.megaT_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device) -> int:
-    """The G ``mega16`` picks for a rotation of B ciphertexts at ``p``'s
-    shape on the card ``device`` (0 where it takes none)."""
-    return _lib().megaT_ciphertexts_per_block(B, p.N, p.k + 1, _sms(device))
-
-
 def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
             a_t: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     check_params(p, name)
@@ -313,20 +259,7 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
-    if name not in DP4A:
-        out = megaS.launch(name, p, acc0, a_t, key)
-        wrapper.launches += 1
-        return out
-    lib = _lib()
-    out = torch.empty_like(acc0)
-    with torch.cuda.device(acc0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mega16_blind_rotate(
-            acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(), out.data_ptr(),
-            acc0.shape[0], p.n, p.N, p.k + 1, _sms(acc0.device), stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.megaT_error_string(err).decode())
+    out = megaS.launch(name, p, acc0, a_t, key)
     wrapper.launches += 1
     return out
 
@@ -337,8 +270,8 @@ def mega16_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
     """Whole blind rotation at bg = 2^8, levels 2 (adjacent-pair packing):
     acc0 [B, k+1, N] and a_t [n, B] (int32 carriers), bsk_btTc int8 [n,
     k+1, k+1, 4, row_bytes] -> acc [B, k+1, N].  CUDA tensors go through
-    the kernel (``csrc/megaT.cu``), CPU tensors through
-    ``blind_rotate_plain_btTc``."""
+    ``csrc/megaS.cu`` (``mega13``'s kernel, its own C entry), CPU tensors
+    through ``blind_rotate_plain_btTc``."""
     return _rotate("mega16", mega16_blind_rotate, params, acc0, a_t, bsk_btTc)
 
 

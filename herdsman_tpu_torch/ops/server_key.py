@@ -99,25 +99,28 @@ once, into:
                                        contraction is groups [HALF-1-ct,
                                        2*HALF-1-ct).  ``bsk_btj2`` is read
                                        by ``csrc/megaJ.cu`` (``mega8``,
-                                       ``mega9``) and ``megaJ_legacy.cu``
-                                       (``mega10``); ``bsk_btj2j`` by the
-                                       plain doubled contraction, held
-                                       equal to ``bsk_btk2``.  Twice
+                                       ``mega9``; the port's ``mega10``
+                                       reads ``bsk_btk2``,
+                                       ``mega12.kmajor_from_btj``);
+                                       ``bsk_btj2j`` by the plain doubled
+                                       contraction, held equal to
+                                       ``bsk_btk2``.  Twice
                                        ``bsk_bt``: 6.75 GiB at STD128_K2,
                                        18.0 GiB at STD128_SHORTINT.
 - ``bsk_btk2``  int8  [n, 2*HALF, R, k+1, 2, 256, 128]
                                        ``bsk_btj2j``'s bytes in ``wgmma``'s
                                        order (``mega12.kmajor_order``, as
                                        ``bsk_btk`` holds ``bsk_btjj``'s):
-                                       the key of ``mega11``,
-                                       ``csrc/mega12.cu``'s doubled window.
-                                       As big as ``bsk_btj2j``.
+                                       the key of ``mega11`` and
+                                       ``mega10``, ``csrc/mega12.cu``'s
+                                       doubled window.  As big as
+                                       ``bsk_btj2j``.
 - ``bsk_btTc``  int8  [n, k+1, k+1, 4, row_bytes]
                                        the compact step key of the
                                        byte-aligned gadget (bg = 2^8, levels
-                                       2, 3 or 4), read by ``mega16``
-                                       (``csrc/megaT.cu``) and by ``mega17``
-                                       and ``mega15`` (``csrc/megaS.cu``):
+                                       2, 3 or 4), read by ``mega16``,
+                                       ``mega17`` and ``mega15``
+                                       (``csrc/megaS.cu``):
                                        per (step, c_in, c_out, limb j) one
                                        L-fold interleaved limb sequence
                                        whose slice at (P-1-q)*L is row (j,
@@ -349,10 +352,11 @@ def fit_engine(engine: str, params: TFHEParams,
       every set; their keys fit the budget at every named set, and
       ``mega5``, ``mega4``, ``mega2`` and ``mega``, ``mega12``'s kernel
       since they read ``bsk_btk``, take every named set with N >= 128);
-    - ``mega11`` / ``mega8`` / ``mega9`` / ``mega10`` while their doubled
-      key (``bsk_btk2`` / ``bsk_btj2``) fits and their kernel takes the
-      set (the JAX package's doubled-key check, ``server_key.py:694-699``);
-      else whatever a ``mega12`` request gets;
+    - ``mega11`` / ``mega10`` / ``mega8`` / ``mega9`` while their doubled
+      key (``bsk_btk2`` / ``bsk_btj2``, one size) fits and their kernel
+      takes the set (the JAX package's doubled-key check,
+      ``server_key.py:694-699``); else whatever a ``mega12`` request
+      gets;
     - ``mega14`` where the set has bg_bits 8, levels 2 and N >= 256 and its
       extended ``bsk_btTe`` key fits (the JAX package's ``btT_bytes``
       check, ``pallas_mega14`` beside ``pallas_mega13``); else whatever a

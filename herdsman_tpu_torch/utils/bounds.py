@@ -19,6 +19,7 @@ the TPU kernels run: n * B * (R*N) * ((k+1)*4*N) MACs per rotation.
 from __future__ import annotations
 
 from herdsman_tpu_torch.core.params import PARAM_SETS, TFHEParams
+from herdsman_tpu_torch.ops.kernels import megaT
 
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -43,7 +44,8 @@ def key_layout_bytes(p: TFHEParams, layout: str) -> int:
     """Bytes of a JAX package key layout (int8), from the sizes its
     ``ops/server_key.py`` builds and ``fit_engine`` budgets, or of the
     port's ``bsk_btk`` and ``bsk_btk2`` (``bsk_btjj`` and ``bsk_btj2j``
-    reordered for ``csrc/mega12.cu``)."""
+    reordered for ``csrc/mega12.cu``) and ``bsk_btTc`` (the compact step
+    key of ``csrc/megaS.cu``'s byte-aligned entries)."""
     P, HALF = _tile(p)
     kp1, R = p.k + 1, (p.k + 1) * p.levels
     single = p.n * R * kp1 * 4 * p.N * P
@@ -57,6 +59,7 @@ def key_layout_bytes(p: TFHEParams, layout: str) -> int:
         "bsk_btTs": p.n * kp1 * kp1 * 4 * P * 2 * p.N,
         "bsk_btT3": p.n * kp1 * kp1 * 4 * P * 3 * p.N,
         "bsk_btT4": p.n * kp1 * kp1 * 4 * P * 4 * p.N,
+        "bsk_btTc": megaT.key_bytes(p),
     }
     sizes["bsk_btT2"] = sizes["bsk_btT"]
     return sizes[layout]
@@ -104,7 +107,7 @@ TPU_KERNELS = [
     ("mega.py:793 _mega13_kernel", "std128_k2", "bsk_btT"),
     ("mega.py:625 _mega12_kernel", "std128_shortint", "bsk_btk"),
     ("mega.py:1495 _mega17_kernel", "std128_shortint_b8", "bsk_btT3"),
-    ("mega.py:1323 _mega16_kernel", "std128_shortint_fast", "bsk_btTs"),
+    ("mega.py:1323 _mega16_kernel", "std128_shortint_fast", "bsk_btTc"),
     ("mega.py:449 _mega11_kernel", "std128_k2", "bsk_btk2"),
     ("mega.py:236 _mega8_kernel", "std128_k2", "bsk_btj2"),
     ("mega.py:84 _mega7_kernel", "std128_shortint", "bsk_btk"),
@@ -117,7 +120,7 @@ TPU_KERNELS = [
     ("legacy.py:575 _mega5_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:705 _mega6_kernel", "std128_k2", "bsk_btj"),
     ("legacy.py:874 _mega9_kernel", "std128_k2", "bsk_btj2"),
-    ("legacy.py:1019 _mega10_kernel", "std128_k2", "bsk_btj2"),
+    ("legacy.py:1019 _mega10_kernel", "std128_k2", "bsk_btk2"),
 ]
 
 
@@ -126,7 +129,7 @@ TPU_KERNELS = [
 # mega4 and mega5 serve path L's gate batch at STD128 beside path H's
 FURTHER_SETS = [
     ("mega.py:997 _mega14_kernel", "std128_k4", "bsk_btT2"),
-    ("legacy.py:1019 _mega10_kernel", "std128", "bsk_btj2"),
+    ("legacy.py:1019 _mega10_kernel", "std128", "bsk_btk2"),
     ("legacy.py:295 _mega3_kernel", "std128", "bsk_btjm"),
     ("legacy.py:423 _mega4_kernel", "std128", "bsk_btk"),
     ("legacy.py:575 _mega5_kernel", "std128", "bsk_btk"),

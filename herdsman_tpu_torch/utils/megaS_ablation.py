@@ -1,8 +1,9 @@
 """Where the time of ``csrc/megaS.cu`` goes, on the card: ``mega13`` (on
-``bsk_btS``), ``mega14`` (on ``bsk_btTe``), or ``mega17`` or ``mega15`` (on
-``bsk_btTc``: ``mega13``'s kernel at the byte-aligned gadget) timed in
-turns with variants built from the kernel's own source with one part taken
-out, on the same inputs and random keys of one parameter set:
+``bsk_btS``), ``mega14`` (on ``bsk_btTe``), or ``mega17``, ``mega15`` or
+``mega16`` (on ``bsk_btTc``: ``mega13``'s kernel at the byte-aligned
+gadget) timed in turns with variants built from the kernel's own source
+with one part taken out, on the same inputs and random keys of one
+parameter set:
 
 - ``no_products``: the consumers skip their ``wgmma``s (the ring, the
   copies, the fragments, the digits and the barriers stay);
@@ -23,7 +24,7 @@ card and ``nvcc``:
 
 (the default set is the kernel's own: ``std128_k2`` for ``mega13`` and
 ``mega14``, ``std128_shortint_b8`` for ``mega17``, ``std128_shortint_l4``
-for ``mega15``).
+for ``mega15``, ``std128_shortint_fast`` for ``mega16``).
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ VARIANTS = {
 # the kernel's default parameter set
 DEFAULT_SET = {"mega13": "std128_k2", "mega14": "std128_k2",
                "mega17": "std128_shortint_b8",
-               "mega15": "std128_shortint_l4"}
+               "mega15": "std128_shortint_l4",
+               "mega16": "std128_shortint_fast"}
 
 
 def build_variants(out_dir: pathlib.Path) -> dict[str, ctypes.CDLL]:

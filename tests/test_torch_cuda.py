@@ -236,8 +236,8 @@ def test_mega12_matches_plain(card, params, B):
 
 
 # csrc/mega12.cu's wrappers, at every plan and geometry class of mega12's:
-# mega11 (the doubled window on bsk_btk2) and mega7, mega5, mega4, mega2 and
-# mega (the single window, each counted apart)
+# mega11 and mega10 (the doubled window on bsk_btk2) and mega7, mega5,
+# mega4, mega2 and mega (the single window), each counted apart
 @pytest.mark.parametrize("B", [1, 9, 129, 65, 256, 2048, 384])
 @pytest.mark.parametrize("params", MEGA12_TC_SETS,
                          ids=[q.name for q in MEGA12_TC_SETS])
@@ -292,9 +292,9 @@ def test_mega12_engine_matches_mega13_and_reference(card, params):
 
 
 # the byte-aligned kernels' geometry classes (mega16 / mega17 / mega15 at
-# levels 2 / 3 / 4, mega14 at levels 2 on the extended key): k+1 in (2, 3,
-# 5), N from 256 to 2048 (HALF 2 to 16); B = 129 and 2001 take ragged last
-# blocks of mega16 (B = 2001 at G = 8) and ragged tiles of the others
+# levels 2 / 3 / 4, mega14 at levels 2 on the extended key), all of
+# csrc/megaS.cu: k+1 in (2, 3, 5), N from 256 to 2048 (HALF 2 to 16); B =
+# 129 and 2001 take ragged tiles, B = 1 and 9 split K
 MEGAT_GEOMETRIES = [(1, 256), (2, 512), (4, 256), (1, 1024), (1, 2048),
                     (2, 2048)]
 MEGAT_SETS = [dc.replace(TOY, name=f"{name}_k{k}_n{N}", n=4, N=N, k=k,
@@ -323,9 +323,7 @@ def test_megaT_matches_plain(card, params, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    if name in megaT.DP4A:
-        assert megaT.ciphertexts_per_block(p, B, card) in (1, 2, 4, 8)
-    elif not extended:  # mega17, mega15: csrc/megaS.cu (mega13's kernel)
+    if not extended:  # mega16, mega17, mega15: mega13's kernel
         n_sms = torch.cuda.get_device_properties(card).multi_processor_count
         pl = megaS.plan(p, B, n_sms=n_sms)
         assert megaS.kernel_plan(p, B, name, n_sms) == (pl.units, pl.splits)
@@ -453,10 +451,10 @@ def test_new_kernels_match_plain_at_width(card, params):
     assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))
 
 
-# the two kernels of csrc/megaJ_legacy.cu (mega10, mega3) on random keys at
-# the geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2
-# steps), at the smoke run's widths and a ragged 37: B = 2048 fills the card
-# (mega3 holds 8)
+# the kernel of csrc/megaJ_legacy.cu (mega3) on random keys at the
+# geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2 steps), at
+# the smoke run's widths and a ragged 37: B = 2048 fills the card (mega3
+# holds 8)
 LEGACY_J_SETS = [dc.replace(PARAM_SETS[name], n=2)
                  for name in ("std128_k2", "std128", "std128_shortint")]
 
@@ -488,13 +486,10 @@ def test_legacy_j_matches_plain(card, params, name, B):
 
 @pytest.mark.parametrize("name", list(megaJ.LEGACY_SOURCE))
 def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
-    """A set whose one ciphertext leaves no room for mega3's block or
-    mega10's raises on a card tensor before any launch, naming the shared
-    memory."""
+    """A set whose one ciphertext leaves no room for mega3's block raises on
+    a card tensor before any launch, naming the shared memory."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
-                      bg_bits=2, levels=16)
-    if name in ("mega3", "mega10"):
-        wide = dc.replace(wide, bg_bits=1, levels=32)
+                      bg_bits=1, levels=32)
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     acc0 = torch.zeros(1, wide.k + 1, wide.N, dtype=torch.int32, device=card)
     a_t = torch.zeros(wide.n, 1, dtype=torch.int32, device=card)
@@ -590,19 +585,21 @@ def test_megaS_matches_plain(card, params, B):
     assert torch.equal(got, plain(p, acc0, a_t, key))
 
 
-# mega17 and mega15 (csrc/megaS.cu's kernel through their own C entries,
-# on bsk_btTc) at the N = 2048 sets' geometries, n cut to 8 steps: a full
-# batch, a ragged one, the widths of paths E's and G's reruns, a K split,
-# one ciphertext; and each against mega13's entry on the same key bytes
+# mega17, mega15 and mega16 (csrc/megaS.cu's kernel through their own C
+# entries, on bsk_btTc) at the N = 2048 sets' geometries, n cut to 8 steps:
+# a full batch, a ragged one, the widths of paths E's, G's and F's reruns, a
+# K split, one ciphertext; and each against mega13's entry on the same key
+# bytes
 B8_SETS = [dc.replace(PARAM_SETS[s], n=8)
-           for s in ("std128_shortint_b8", "std128_shortint_l4")]
+           for s in ("std128_shortint_b8", "std128_shortint_l4",
+                     "std128_shortint_fast")]
 
 
 @pytest.mark.parametrize("B", [2048, 300, 256, 9, 1])
 @pytest.mark.parametrize("params", B8_SETS, ids=[q.name for q in B8_SETS])
 def test_megaS_b8_matches_plain_and_mega13(card, params, B):
     p = params
-    name = {3: "mega17", 4: "mega15"}[p.levels]
+    name = {3: "mega17", 4: "mega15", 2: "mega16"}[p.levels]
     kernel = getattr(megaT, f"{name}_blind_rotate")
     rng = np.random.default_rng(B + p.levels)
     acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)

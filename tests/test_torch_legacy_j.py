@@ -1,17 +1,20 @@
-"""The port's ``mega10`` and ``mega3`` engines (``ops/kernels/megaJ.py``,
-``csrc/megaJ_legacy.cu``) and its ``mega4`` and ``mega5``
-(``csrc/mega12.cu``'s single window on ``bsk_btk``) against the JAX
-package's legacy Pallas kernels, on the CPU:
+"""The port's ``mega3`` engine (``ops/kernels/megaJ.py``,
+``csrc/megaJ_legacy.cu``), its ``mega10`` (``csrc/mega12.cu``'s doubled
+window on ``bsk_btk2``) and its ``mega4`` and ``mega5`` (``csrc/mega12.cu``'s
+single window on ``bsk_btk``) against the JAX package's legacy Pallas
+kernels, on the CPU:
 
 - each plain rotation against ``legacy.py::_mega10_kernel``,
   ``_mega3_kernel``, ``_mega4_kernel`` and ``_mega5_kernel`` in interpret
   mode (run as the JAX package's own tests run them, each once per kernel
-  and set) and against the NumPy reference;
-- NumPy emulations of the kernels' new address and fragment arithmetic,
-  each held against the plain version: ``mega3``'s lane -> (row, K) maps
-  of the ``mma.sync`` m16n8k32 A, B and C fragments over the ``bsk_btjm``
-  key, and ``mega10``'s poly-fused digit pass;
-- the byte map of ``bsk_btjm`` onto ``bsk_btj``;
+  and set) and against the NumPy reference; ``mega10``'s plain version
+  also on the JAX package's own ``bsk_btj2`` re-laid by
+  ``mega12.kmajor_from_btj``, against ``legacy.mega10_blind_rotate``;
+- a NumPy emulation of ``mega3``'s fragment arithmetic, held against the
+  plain version: the lane -> (row, K) maps of the ``mma.sync`` m16n8k32 A,
+  B and C fragments over the ``bsk_btjm`` key;
+- the byte map of ``bsk_btjm`` onto ``bsk_btj``, and ``kmajor_from_btj``
+  of the doubled ``bsk_btj2`` as ``bsk_btk2``;
 - the wrappers' checks, the gate path on each engine, and
   ``layouts_for_engine``, ``fit_engine`` and ``port_engine`` against the
   JAX package, set by set, at 40 and 12 GiB.
@@ -32,13 +35,14 @@ from herdsman_tpu.core import TOY
 from herdsman_tpu.core import reference as jref
 from herdsman_tpu.ops import bootstrap as jbs
 from herdsman_tpu.ops import server_key as jsk
+from herdsman_tpu.ops.pallas import legacy
 from herdsman_tpu_torch.core import PARAM_SETS
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import gates as tgates
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops import server_key as tsk
 from herdsman_tpu_torch.ops.decomp import signed_decompose
-from herdsman_tpu_torch.ops.kernels import megaJ
+from herdsman_tpu_torch.ops.kernels import mega12, megaJ
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 from herdsman_tpu_torch.service.config import ConfigError, port_engine
 
@@ -47,8 +51,10 @@ from herdsman_tpu_torch.service.config import ConfigError, port_engine
 MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
 SETS = {"k1": MULTITILE, "k2": MULTITILE_K2}
-# the legacy kernel -> the serial kernel whose function it computes
-LEGACY = {"mega10": "mega8", "mega3": "mega7", "mega4": "mega7",
+# the legacy kernel -> the kernel whose function and key it shares: mega10
+# computes mega8's function, and the port runs it as mega11 runs (the
+# doubled window on bsk_btk2)
+LEGACY = {"mega10": "mega11", "mega3": "mega7", "mega4": "mega7",
           "mega5": "mega7"}
 B = 37
 GIB = 1 << 30
@@ -72,12 +78,14 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(client key, server key, JAX key in ``bsk_btj2`` and ``bsk_btj``,
-    port key in those, ``bsk_btjm`` and ``mega7``'s ``bsk_btk``)."""
+    port key in those, ``bsk_btjm``, ``mega7``'s ``bsk_btk`` and
+    ``mega11``'s ``bsk_btk2``)."""
     ck, sk = jref.keygen(params, np.random.default_rng(29))
     layouts = ("bsk_btj2", "bsk_btj")
     return (ck, sk, jsk.device_server_key(sk, layouts=layouts),
             tsk.device_server_key(sk, layouts=(*layouts, "bsk_btjm",
-                                               "bsk_btk"), device="cpu"))
+                                               "bsk_btk", "bsk_btk2"),
+                                  device="cpu"))
 
 
 @functools.cache
@@ -128,8 +136,28 @@ def test_plain_rotation_equals_reference(set_id, name):
             got[i], jref.blind_rotate(sk, ct[i], jref.make_test_poly(params)))
 
 
-# --- NumPy emulations of the kernels' arithmetic (csrc/megaJ_legacy.cu,
-# csrc/megaJ_common.cuh) on one CMux step -----------------------------------
+@pytest.mark.parametrize("set_id", list(SETS))
+def test_plain_on_relaid_btj2_equals_jax_mega10(set_id):
+    """``plain("mega10")`` on ``kmajor_from_btj(bsk_btj2)`` (the JAX
+    package's own doubled key, re-laid) equals
+    ``legacy.mega10_blind_rotate`` (interpret mode) on the same random
+    accumulators and rotation amounts."""
+    params = SETS[set_id]
+    jkey = keys(params)[2].bsk_btj2
+    kp1, n_ct = params.k + 1, 5
+    rng = np.random.default_rng(params.k + 17)
+    acc0 = rand_u32(rng, n_ct, kp1, params.N)
+    a_t = rng.integers(0, 2 * params.N, (params.n, n_ct)).astype(np.int32)
+    key = mega12.kmajor_from_btj(torch.from_numpy(np.array(jkey)), kp1)
+    want = legacy.mega10_blind_rotate(params, jnp.asarray(acc0),
+                                      jnp.asarray(a_t), jkey)
+    got = megaJ.plain("mega10")(params, from_numpy_u32(acc0),
+                                torch.from_numpy(a_t), key)
+    np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
+
+
+# --- a NumPy emulation of mega3's arithmetic (csrc/megaJ_legacy.cu) on one
+# CMux step ------------------------------------------------------------------
 
 def step_inputs(p, G, seed):
     """acc [G, k+1, N] u32, rotation amounts [G], and one step's random
@@ -225,58 +253,26 @@ def test_emulated_mma_fragments_equal_plain_step():
     np.testing.assert_array_equal(out, plain_step(p, acc, rot, key))
 
 
-@pytest.mark.parametrize("N", [128, 256])
-def test_emulated_fused_digit_pass_equals_rotation(N):
-    """``mega10``'s digit pass: for every rotation s, the source quads q0,
-    q1 = q0+1 mod N/2 of ext(a), their wrap signs and the offset off =
-    (4*y4 - s) & 3 give X^s a - a, whose digits fill the buffer as the
-    per-polynomial pass fills it."""
-    p = dc.replace(TOY, n=1, N=N, k=1, bg_bits=7, levels=3)
-    rng = np.random.default_rng(N)
-    a = rand_u32(rng, 2 * N, 2, N)  # one ciphertext per s
-    s = np.arange(2 * N)
-    y4 = np.arange(N // 4)
-    t0 = (4 * y4[None] - s[:, None]) & (2 * N - 1)
-    off, q0 = t0 & 3, t0 >> 2
-    q1 = (q0 + 1) & (N // 2 - 1)
-
-    def ext_quad(q):  # [2N, N/4, 4] per polynomial c, then stacked
-        idx = (4 * q)[..., None] % N + np.arange(4)
-        sign = np.where(4 * q >= N, -1, 1).astype(np.int64)[..., None]
-        return np.stack([(np.take_along_axis(
-            a[:, c, :], idx.reshape(2 * N, -1), axis=1).reshape(idx.shape)
-            .astype(np.int64) * sign) for c in range(2)], axis=1)
-
-    both = np.concatenate([ext_quad(q0), ext_quad(q1)], axis=-1)
-    pick = off[:, None, :, None] + np.arange(4)  # [2N, 1, N/4, 4]
-    rotated = np.take_along_axis(both, np.broadcast_to(
-        pick, both.shape[:3] + (4,)), axis=-1).reshape(2 * N, 2, N)
-    got = (rotated.astype(np.uint32) - a).astype(np.uint32)
-    want = poly.negacyclic_monomial_mul(from_numpy_u32(a),
-                                        torch.as_tensor(s)[:, None]) \
-        - from_numpy_u32(a)
-    np.testing.assert_array_equal(got, to_numpy_u32(want))
-    # level_words on those differences, row c*levels + lev of ciphertext g
-    # at dig + y4*G + g + (c*levels + lev)*N/4*G: the per-polynomial
-    # pass's buffer
-    G, W = 4, p.bg_bits * p.levels
-    half = 1 << (p.bg_bits - 1)
-    offset = sum(half << (p.bg_bits * t) for t in range(p.levels))
-    v = ((got[:G].astype(np.uint64) + (1 << (31 - W))) >> (32 - W)) + offset
-    v = (v & 0xFFFFFFFF).reshape(G, 2, N // 4, 4)
-    dig = np.zeros(2 * p.levels * (N // 4) * G, np.uint32)
-    for c in range(2):
-        for lev in range(p.levels):
-            sh = p.bg_bits * (p.levels - 1 - lev)
-            d = (((v[:, c] >> sh) & ((1 << p.bg_bits) - 1)) - half) & 0xFF
-            words = (d << (8 * np.arange(4, dtype=np.uint64))).sum(axis=-1)
-            at = (y4[None] * G + np.arange(G)[:, None]
-                  + (c * p.levels + lev) * (N // 4) * G)
-            dig[at] = words
-    np.testing.assert_array_equal(dig, digit_buffer(p, a[:G], s[:G]).reshape(-1))
-
-
 # --- the key layout, wrappers, engines and routes --------------------------
+
+@pytest.mark.parametrize("levels", [2, 3])
+@pytest.mark.parametrize("k", [1, 2])
+def test_kmajor_from_btj2_equals_btk2(k, levels):
+    """``mega12.kmajor_from_btj`` re-lays the doubled ``bsk_btj2`` (2*HALF
+    groups of blocks, columns (c, j, q)) as the ``bsk_btk2`` that
+    ``block_toeplitz_layout(..., windowed=True, kmajor=True)`` makes from
+    the same key."""
+    p = dc.replace(PARAM_SETS["toy"], n=2, N=256, k=k, bg_bits=7,
+                   levels=levels)
+    gen = torch.Generator().manual_seed(k + 10 * levels)
+    bsk = torch.randint(-2**31, 2**31, (p.n, (k + 1) * levels, k + 1, p.N),
+                        dtype=torch.int32, generator=gen)
+    want = tsk.block_toeplitz_layout(p, bsk, windowed=True, kmajor=True)
+    assert tuple(want.shape) == megaJ.key_shape(p, "mega10")
+    got = mega12.kmajor_from_btj(
+        tsk.block_toeplitz_layout(p, bsk, windowed=True), k + 1)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
 
 @pytest.mark.parametrize("set_id", list(SETS))
 def test_btjm_byte_map_onto_btj(set_id):
@@ -310,10 +306,10 @@ def test_legacy_j_wrapper_checks(name):
     p = tdsk.params
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
-    # another key of the same size: the other window width, or the JAX
-    # package's bsk_btj for csrc/mega12.cu's single window
-    other = (tdsk.bsk_btj if name in ("mega10", *megaJ.TENSOR_CORE)
-             else tdsk.bsk_btj2)
+    # another key: of the same size, the JAX package's bsk_btj2 for
+    # csrc/mega12.cu's doubled window (mega10's key on the TPU) and its
+    # bsk_btj for the single window; the other window width for mega3
+    other = (tdsk.bsk_btj if name in ("mega5", "mega4") else tdsk.bsk_btj2)
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -335,9 +331,9 @@ def test_legacy_j_wrapper_checks(name):
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
     # mega5 and mega4 are csrc/mega12.cu's single window (mega7's
-    # instantiation)
-    assert name in (megaJ.TENSOR_CORE if name in ("mega5", "mega4")
-                    else megaJ.LEGACY_SOURCE)
+    # instantiation), mega10 its doubled window (mega11's)
+    assert name in (megaJ.LEGACY_SOURCE if name == "mega3"
+                    else megaJ.TENSOR_CORE)
     assert port_engine(f"pallas_{name}") == name
 
 
@@ -367,7 +363,8 @@ def test_check_params_names_shared_memory(name):
 
 @pytest.mark.parametrize("name", list(LEGACY))
 def test_plain_versions_share_the_serial_function(name):
-    """``mega10`` shares ``mega8``'s plain version; ``mega5`` and ``mega4``
+    """``mega10`` shares ``mega11``'s plain version
+    (``blind_rotate_plain_btk2``, the same key); ``mega5`` and ``mega4``
     ``mega7``'s (``mega12.blind_rotate_plain_btk``, the same key);
     ``mega3``'s is ``mega7``'s function on its key out of fragment order:
     each gives the serial kernel's rotation on the same inputs."""
@@ -386,8 +383,8 @@ def test_plain_versions_share_the_serial_function(name):
 
 @pytest.mark.parametrize("name", list(LEGACY))
 def test_gate_batch_equals_serial_engine(name):
-    """``gate_batch`` on each engine gives the serial engine's outputs, which
-    decrypt to the truth table."""
+    """``gate_batch`` on each engine gives the outputs of the engine whose
+    function it shares, which decrypt to the truth table."""
     ck, _, _, tdsk = keys(MULTITILE_K2)
     rng = np.random.default_rng(43)
     n_gates = 12
@@ -417,9 +414,11 @@ def test_routes_equal_jax(name, budget_gib):
     STD128_SHORTINT's 18 GiB ``bsk_btj2`` goes to ``mega12``), the others
     (``mega`` on ``bsk_bt`` too) kept; ``layouts_for_engine`` is the JAX
     package's but for ``mega3``, whose ``bsk_btjm`` is ``bsk_btj`` in
-    fragment order, and ``mega5``, ``mega4``, ``mega2`` and ``mega``, which
+    fragment order, ``mega5``, ``mega4``, ``mega2`` and ``mega``, which
     read ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s order) for the JAX
-    package's ``bsk_btj`` and ``bsk_bt``: all one size."""
+    package's ``bsk_btj`` and ``bsk_bt``, and ``mega10``, which reads
+    ``bsk_btk2`` (``bsk_btj2j`` in that order) for its ``bsk_btj2``: each
+    pair one size."""
     budget = budget_gib * GIB
     for pset, p in PARAM_SETS.items():
         if p.N < 128:  # below the port's tile: mega13 (documented)
@@ -430,7 +429,10 @@ def test_routes_equal_jax(name, budget_gib):
         assert tsk.fit_engine(name, p, budget_bytes=budget) \
             == want.removeprefix("pallas_"), pset
     jax_layouts = jsk.layouts_for_engine(f"pallas_{name}")
-    if name in ("mega3", "mega5", "mega4", "mega2", "mega"):
+    if name == "mega10":
+        assert jax_layouts == ("bsk_btj2",)
+        assert tsk.layouts_for_engine(name) == ("bsk_btk2",)
+    elif name in ("mega3", "mega5", "mega4", "mega2", "mega"):
         assert jax_layouts == ("bsk_bt" if name in ("mega2", "mega")
                                else "bsk_btj",)
         assert tsk.layouts_for_engine(name) == (
@@ -438,6 +440,28 @@ def test_routes_equal_jax(name, budget_gib):
     else:
         assert tsk.layouts_for_engine(name) == jax_layouts
     assert port_engine(f"pallas_{name}") == name
+
+
+@pytest.mark.parametrize("budget_gib", [40, 12, 8, 4])
+def test_mega10_routes_as_mega8_and_mega11(budget_gib):
+    """``mega10`` on ``bsk_btk2`` routes as it did on ``bsk_btj2``, set by
+    set: as ``mega8`` (whose kernel and key did not move and whose checks
+    were ``mega10``'s: the doubled key's size, the dp4a block) and as
+    ``mega11`` (its kernel and key now); only the layout name changed."""
+    budget = budget_gib * GIB
+    for pset, p in PARAM_SETS.items():
+        got = tsk.fit_engine("mega10", p, budget_bytes=budget)
+        for same in ("mega8", "mega11"):
+            assert got == tsk.fit_engine(same, p, budget_bytes=budget
+                                         ).replace(same, "mega10"), pset
+    assert tsk.layouts_for_engine("mega10") == tsk.layouts_for_engine(
+        "mega11") == ("bsk_btk2",)
+    # fit_engine budgets the doubled key as 2 * bt_key_bytes: bsk_btk2's
+    # size, as it was bsk_btj2's
+    for p in PARAM_SETS.values():
+        if p.N >= megaJ.P:
+            assert np.prod(megaJ.key_shape(p, "mega10")) == \
+                2 * tsk.bt_key_bytes(p)
 
 
 def test_port_engine_refuses_mega_and_mega2():

@@ -1,5 +1,5 @@
 """The port's ``mega14`` engine (``ops/kernels/megaT.py``, the plain version
-of ``csrc/megaT.cu``'s extended-key variant) against the JAX package, on
+of ``csrc/megaS.cu``'s extended-key instantiation) against the JAX package, on
 the CPU: the plain rotation against the Pallas ``_mega14_kernel`` in
 interpret mode and the NumPy reference, the extended key ``bsk_btTe``
 against the JAX package's pt-major ``bsk_btT2`` windows, ``fit_engine``'s
@@ -205,9 +205,6 @@ def test_mega14_wrapper_checks():
     fast = PARAM_SETS["std128_shortint_fast"]
     assert megaS.geometry(fast.N, 2, True).RB == megaT.row_bytes(fast, True)
     assert megaS.key_shape(fast, True) == (768, 2, 2, 4, 8208)
-    # at N = 256 a block stages 2 c_out slices, one per pair of groups
-    assert megaT.c_out_slices(PARAM_SETS["std128_k4"]) == 2
-    assert megaT.c_out_slices(PARAM_SETS["std128_k2"]) == 1
     assert tbs.ROTATION_ENGINES["mega14"] == (megaT.mega14_blind_rotate,
                                               "bsk_btTe")
 

@@ -1,13 +1,13 @@
-"""``mega17`` and ``mega15`` on ``csrc/megaS.cu`` (``mega13``'s kernel at
-the byte-aligned gadget, levels 3 and 4, on ``bsk_btTc``), emulated in
-NumPy on the CPU with ``tests/test_torch_megaS.py``'s emulator and held
-array-equal to ``megaT.blind_rotate_plain_btTc`` (a ragged batch, the
-K-split form and the unsplit one) and to the JAX package's
-``_mega17_kernel`` / ``_mega15_kernel`` (Pallas interpret mode) at a toy
-geometry.  Beside it: ``bsk_btTc`` is ``bsk_btS`` byte for byte at these
-gadgets, so the two kernels read it as ``mega13`` reads ``bsk_btS``, and
-``megaS.plan``'s work units and K splits at the N = 2048 sets against a
-hand count.
+"""``mega17``, ``mega15`` and ``mega16`` on ``csrc/megaS.cu`` (``mega13``'s
+kernel at the byte-aligned gadget, levels 3, 4 and 2, on ``bsk_btTc``),
+emulated in NumPy on the CPU with ``tests/test_torch_megaS.py``'s emulator
+and held array-equal to ``megaT.blind_rotate_plain_btTc`` (a ragged batch,
+the K-split form and the unsplit one) and to the JAX package's
+``_mega17_kernel`` / ``_mega15_kernel`` / ``_mega16_kernel`` (Pallas
+interpret mode) at a toy geometry.  Beside it: ``bsk_btTc`` is ``bsk_btS``
+byte for byte at these gadgets, so the three kernels read it as ``mega13``
+reads ``bsk_btS``, and ``megaS.plan``'s work units and K splits at the N =
+2048 sets against a hand count.
 """
 
 import dataclasses as dc
@@ -48,8 +48,8 @@ LAYOUT_CASES = [(name, N) for name in ("std128_shortint_b8",
 def test_btTc_is_btS_at_the_byte_aligned_gadget(pset, N):
     """``stream_key_layout`` builds the same bytes as ``bsk_btTc`` and as
     ``bsk_btS``: L*N is a multiple of 128, so the two row lengths agree and
-    ``mega17`` and ``mega15`` read ``bsk_btTc`` as ``mega13`` reads
-    ``bsk_btS``."""
+    ``mega17``, ``mega15`` and ``mega16`` read ``bsk_btTc`` as ``mega13``
+    reads ``bsk_btS``."""
     p = dc.replace(PARAM_SETS[pset], n=2, N=N)
     rng = np.random.default_rng(N + p.levels)
     bsk = from_numpy_u32(rng.integers(
@@ -78,10 +78,11 @@ def test_plan_by_hand_at_the_n2048_sets():
     assert megaS.plan(l4, 9) == (1, 32, 64, 128, 2, 128)
     # a ragged batch: B = 300 is three tiles
     assert megaS.plan(b8, 300).units == 3 * 2 * 32
-    assert not megaS.KERNELS["mega17"] and not megaS.KERNELS["mega15"]
-    for name in ("mega17", "mega15", "mega14"):
+    for name in ("mega17", "mega15", "mega16"):
+        assert not megaS.KERNELS[name]
+    for name in ("mega17", "mega15", "mega16", "mega14"):
         assert megaS.GADGET[name] == (8, megaT.KERNELS[name])
-    assert megaT.DP4A == ("mega16",)
+    assert megaS.GADGET["mega16"] == (8, 2)
 
 
 def geometry(L: int, N: int = 256, k: int = 1):
@@ -99,11 +100,11 @@ def bsk_btTc(p) -> torch.Tensor:
 # (levels, N, k, B, SMs): at N = 256 two column tiles (a negated run), at
 # N = 128 one tile and k+1 = 3; a ragged tile unsplit (8 SMs: 8 items on 8
 # blocks) and split (132 SMs: 12 K splits of one block each), two tiles
-# unsplit with the second ragged, one tile in 2 and in 16 splits (the last
-# number: the K splits of the plan)
+# unsplit with the second ragged, one tile in 2 and in 16 splits, and at
+# levels 2 a ragged tile in 8 (the last number: the K splits of the plan)
 CASES = [(3, 256, 1, 37, 8, 1), (3, 256, 1, 37, 132, 12),
                  (4, 256, 1, 130, 16, 1), (4, 256, 1, 9, 132, 16),
-                 (3, 128, 2, 9, 12, 2)]
+                 (3, 128, 2, 9, 12, 2), (2, 256, 1, 37, 132, 8)]
 
 
 @pytest.mark.parametrize("L,N,k,B,n_sms,splits", CASES,
@@ -120,14 +121,17 @@ def test_emulated_b8_equals_plain(L, N, k, B, n_sms, splits):
     np.testing.assert_array_equal(got, plain)
 
 
-@pytest.mark.parametrize("L", [3, 4], ids=["mega17", "mega15"])
+ENGINE_AT_LEVELS = {3: "mega17", 4: "mega15", 2: "mega16"}
+
+
+@pytest.mark.parametrize("L", list(ENGINE_AT_LEVELS),
+                         ids=list(ENGINE_AT_LEVELS.values()))
 def test_emulated_b8_equals_jax_pallas(L):
-    """The emulated kernel at levels 3 and 4 against the JAX package's
-    ``pallas_mega17`` / ``pallas_mega15`` rotation of the same ciphertexts
-    (interpret mode)."""
+    """The emulated kernel at levels 3, 4 and 2 against the JAX package's
+    ``pallas_mega17`` / ``pallas_mega15`` / ``pallas_mega16`` rotation of
+    the same ciphertexts (interpret mode)."""
     p = geometry(L)
-    want, acc0, a_t, _ = jax_rotation(f"pallas_mega{17 if L == 3 else 15}",
-                                      p, 3)
+    want, acc0, a_t, _ = jax_rotation(f"pallas_{ENGINE_AT_LEVELS[L]}", p, 3)
     got = emulate(p, to_numpy_u32(acc0).astype(np.int64), a_t.numpy(),
                   bsk_btTc(p).numpy(), False, 132)
     np.testing.assert_array_equal(got, want)

@@ -1,5 +1,6 @@
 """The port's byte-aligned rotation engines (``mega16``, ``mega17``,
-``mega15``: ``ops/kernels/megaT.py``, the plain versions of ``csrc/megaT.cu``)
+``mega15``: ``ops/kernels/megaT.py``, the plain versions of ``csrc/megaS.cu``'s
+byte-aligned entries)
 against the JAX package, on the CPU: the compact ``bsk_btTc`` key's expansion
 against the JAX package's single-width layouts, each plain rotation against
 the Pallas ``_mega16/17/15_kernel`` in interpret mode and the NumPy
@@ -31,7 +32,7 @@ from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import gates as tgates
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops import server_key as tsk
-from herdsman_tpu_torch.ops.kernels import megaT
+from herdsman_tpu_torch.ops.kernels import megaS, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 
 # kernel -> (its levels, the JAX package's engine and key layout)
@@ -227,6 +228,24 @@ def test_fit_engine_keeps_mega13_at_shortint_fast():
         == "pallas_mega16"
 
 
+@pytest.mark.parametrize("budget_gib", [40, 12, 8, 4])
+def test_mega16_routes_at_every_budget(budget_gib):
+    """``mega16`` on ``csrc/megaS.cu`` routes as it did on the dp4a
+    kernel, whose shared-memory check no named set reached: kept at the
+    sets of its gadget (bg = 2^8, levels 2), whose ``bsk_btTc`` fits every
+    budget here; elsewhere ``mega11``'s route (``mega13`` at TOY's N <
+    128)."""
+    budget = budget_gib * (1 << 30)
+    own = {"std128_fast", "std128_k2", "std128_k4", "std128_shortint_fast"}
+    for pset, p in PARAM_SETS.items():
+        got = tsk.fit_engine("mega16", p, budget_bytes=budget)
+        if pset in own:
+            assert got == "mega16", pset
+        else:
+            assert got == tsk.fit_engine("mega11", p, budget_bytes=budget)
+    assert tsk.layouts_for_engine("mega16") == ("bsk_btTc",)
+
+
 def test_megaT_wrapper_checks():
     p = sets(3)[0]
     tp = port(p)
@@ -255,13 +274,22 @@ def test_megaT_wrapper_checks():
                        ("mega17", "std128_shortint_b8"),
                        ("mega15", "std128_shortint_l4")):
         megaT.check_params(PARAM_SETS[pset], name)
-    # one block of 4 ciphertexts fits the card's shared memory at N = 2048
-    # for levels 3 and 4, of 8 for levels 2
-    assert megaT.smem_bytes(PARAM_SETS["std128_shortint_b8"], 4) == 140_880
-    assert megaT.smem_bytes(PARAM_SETS["std128_shortint_l4"], 4) == 165_904
-    assert megaT.smem_bytes(PARAM_SETS["std128_shortint_fast"], 8) == 214_112
-    assert megaT.smem_bytes(PARAM_SETS["std128_shortint_b8"], 8) \
-        > megaT.SMEM_LIMIT
+        # bsk_btTc's column tile is 128: N from 128 to 2048; k+1 in (2, 3,
+        # 5); the kernel's own levels
+        p = PARAM_SETS[pset]
+        megaT.check_params(dc.replace(p, N=128), name)
+        for bad in (dc.replace(p, N=64), dc.replace(p, N=4096),
+                    dc.replace(p, k=3),
+                    dc.replace(p, levels=p.levels % 3 + 2)):
+            with pytest.raises(ValueError):
+                megaT.check_params(bad, name)
+    # every wrapper runs csrc/megaS.cu through an entry that fixes its
+    # gadget; the plain version of the compact-key ones is one function
+    for name, L in megaT.KERNELS.items():
+        assert megaS.GADGET[name] == (8, L)
+        assert megaT.plain(name) is (megaT.blind_rotate_plain_btTe
+                                     if name in megaT.EXTENDED
+                                     else megaT.blind_rotate_plain_btTc)
 
 
 @pytest.fixture(scope="module", params=[3, 4], ids=["mega17", "mega15"])
