@@ -9,14 +9,15 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
-(all twenty TPU kernel bodies) from six CUDA sources; ``mega13``,
+(all twenty TPU kernel bodies) from five CUDA sources; ``mega13``,
 ``mega14``, ``mega17``, ``mega15`` and ``mega16`` run ``csrc/megaS.cu``
 (int8 tensor cores, the key a register operand built from its compact
 stream; ``mega17``, ``mega15`` and ``mega16`` are ``mega13``'s kernel
-through their own entries), and ``mega12``, ``mega7``, ``mega5``,
-``mega4``, ``mega2`` and ``mega`` (its single window on ``bsk_btk``, each
-wrapper counted apart) and ``mega11`` and ``mega10`` (its doubled window
-on ``bsk_btk2``) those of ``csrc/mega12.cu``.
+through their own entries), ``mega12``, ``mega7``, ``mega5``, ``mega4``,
+``mega6``, ``mega3``, ``mega2`` and ``mega`` (its single window on
+``bsk_btk``, each wrapper counted apart) and ``mega11`` and ``mega10``
+(its doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``, and
+``mega8`` and ``mega9`` those of ``csrc/megaJ.cu`` (dp4a).
 
     python3 chip_smoke.py [--seed S]
 
@@ -68,9 +69,9 @@ Phases, in order; any failure raises and exits non-zero:
 9b. main path H, the j-major family at STD128_K2: path A's gate batch on
     ``mega11`` and ``mega10`` (``mega12.cu``'s doubled window, key
     ``bsk_btk2``), ``mega8`` and ``mega9`` (``bsk_btj2``), ``mega7``,
-    ``mega5`` and ``mega4`` (``mega12.cu``'s single window, ``bsk_btk``),
-    ``mega6`` (``bsk_btj``) and ``mega3`` (``bsk_btjm``), the keys of one
-    function built, used and freed in turn, each kernel against its plain
+    ``mega5``, ``mega4``, ``mega6`` and ``mega3`` (``mega12.cu``'s single
+    window, on one ``bsk_btk``), the key of one function built, used and
+    freed in turn, each kernel against its plain
     version (tolerance 0) on the batch's rotation inputs at B = 2048, 256
     and 9 (and 1 for ``mega12.cu``'s wrappers), each output array-equal to
     path A's ``mega13`` output and decrypted against the truth table, with
@@ -97,15 +98,15 @@ Phases, in order; any failure raises and exits non-zero:
     same gates and plaintexts) on ``mega13``, decrypted against the truth
     table and one gate against the NumPy ``bootstrap_bool``, the kernel
     against its plain version at B = 2048, 256, 128, 9 and 1; then on
-    ``mega10`` (``mega12.cu``'s doubled window, ``bsk_btk2``), ``mega3``
-    (``bsk_btjm``), then ``mega5`` and ``mega4`` (``mega12.cu``'s single
-    window, on one ``bsk_btk``), one key at a time (built, used, freed),
-    each output array-equal to ``mega13``'s and decrypted, each kernel
-    equal to ``mega13`` and to its plain version (tolerance 0) on the
-    batch's rotation inputs at B = 2048 (``mega12.cu``'s wrappers also at
-    256 and 9, and timed in turns with each other and ``mega13`` at B =
-    2048 and 256); end-to-end seconds, gate bootstraps/s, the kernels'
-    times and the path's peak memory;
+    ``mega10`` (``mega12.cu``'s doubled window, ``bsk_btk2``), then
+    ``mega3``, ``mega5`` and ``mega4`` (``mega12.cu``'s single window, on
+    one ``bsk_btk``), one key at a time (built, used, freed), each output
+    array-equal to ``mega13``'s and decrypted, each kernel equal to
+    ``mega13`` and to its plain version (tolerance 0) on the batch's
+    rotation inputs at B = 2048, 256 and 9, and timed in turns with the
+    others on its key and ``mega13`` at B = 2048 and 256; end-to-end
+    seconds, gate bootstraps/s, the kernels' times and the path's peak
+    memory;
 9c. main path I: path C's job over the rows of its first partition (512
     rows, one partition) on a coordinator whose in-code config names
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
@@ -1041,8 +1042,8 @@ def main() -> int:
         return lambda p, B, dev_: megaS.kernel_plan(p, B, name, n_sms)
 
     def print_times(name, p, t, plain_ms) -> None:
-        lanes = ("on tensor cores" if name in megaJ.MMA or name in
-                 megaS.KERNELS or name in megaJ.TENSOR_CORE else
+        lanes = ("on tensor cores" if name in megaS.KERNELS
+                 or name in megaJ.TENSOR_CORE else
                  f"{t['dp4a_share']:.4f} of the integer lanes' dp4a rate")
         print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
@@ -1055,9 +1056,9 @@ def main() -> int:
     # function's keys at a time (built, used, freed): mega11 and mega10 on
     # bsk_btk2 (mega12.cu's doubled window under two wrappers, beside a
     # bsk_btk for mega12 in turns); mega8 and mega9 on bsk_btj2; mega7,
-    # mega5 and mega4 on bsk_btk (mega12.cu's single window under three
-    # wrappers), mega6 on bsk_btj and mega3 on bsk_btjm (bsk_btj in
-    # fragment order); the kernels of one function are timed in turns -----
+    # mega5, mega4, mega6 and mega3 on one bsk_btk (mega12.cu's single
+    # window under five wrappers); the kernels of one function, which share
+    # a key and a plain version, are timed in turns -----------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
     turns11 = {}
@@ -1079,10 +1080,8 @@ def main() -> int:
               + ", ".join(f"{lay} {getattr(dsk_h, lay).numel() / 2**30:.3f} "
                           f"GiB" for lay in layouts_h)
               + f") {ingest_h_s:.1f} s")
-        plain_cache: dict = {}
+        cache: dict = {}
         for name in group:
-            # one cache per key: mega3's plain version reads its own
-            cache = plain_cache.setdefault(megaJ.KEY_LAYOUTS[name], {})
             err_h, plain_h_ms = vs_plain(
                 name, megaJ.plain(name), P, acc0, a_t, keys_h[name], cache,
                 widths=((B_MAIN, RADIX_VALUES, 9, 1)
@@ -1219,9 +1218,9 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain version at "
                   f"{Gp.name}'s geometry, B=9, random inputs")
             del key_g
-    # csrc/mega12.cu's wrappers (mega11; mega7, mega5, mega4, mega2 and
-    # mega on its single window, one key and one plain rotation shared by
-    # them) also at STD128_K2's geometry and at a full (2048, 128-row tiles
+    # csrc/mega12.cu's wrappers (mega11 and mega10; mega7, mega5, mega4,
+    # mega6, mega3, mega2 and mega on its single window, one key and one
+    # plain rotation shared by each window's) also at STD128_K2's geometry and at a full (2048, 128-row tiles
     # in clusters) and a ragged batch (300: a cluster with a lone M tile at
     # N = 2048); B=9 splits K
     geoms_w = [dataclasses.replace(PARAM_SETS[g], n=32)
@@ -1303,11 +1302,11 @@ def main() -> int:
           f"plans (rows a tile, K splits, blocks a cluster) {plans_w})")
 
     # 9b''. main path L: path A's gate batch at STD128 on mega13, then on
-    # mega10 (csrc/mega12.cu's doubled window, on bsk_btk2), mega3 (the
-    # kernel of megaJ_legacy.cu) and mega5 and mega4 (csrc/mega12.cu's single
-    # window, on one bsk_btk), one key at a time (built, used, freed)
+    # mega10 (csrc/mega12.cu's doubled window, on bsk_btk2) and mega3, mega5
+    # and mega4 (csrc/mega12.cu's single window, on one bsk_btk), one key at
+    # a time (built, used, freed)
     PL = STD128
-    groups_l = (("mega10",), ("mega3",), ("mega5", "mega4"))
+    groups_l = (("mega10",), ("mega3", "mega5", "mega4"))
     legacy_j = tuple(name for group in groups_l for name in group)
     for name in ("mega13", *legacy_j):
         check(fit_engine(name, PL) == name,
@@ -1384,19 +1383,10 @@ def main() -> int:
                 PL, acc0_l, a_t_l, key_l))
             check(torch.equal(got_l, rot_l),
                   f"L: {name} != mega13 on the batch's rotation inputs")
-            if name in megaJ.TENSOR_CORE:
-                widths_l = (B_MAIN, RADIX_VALUES, 9)
-                err_l, plain_l_ms = vs_plain(name, megaJ.plain(name), PL,
-                                             acc0_l, a_t_l, key_l,
-                                             plain_cache_l, widths=widths_l)
-            else:  # the dp4a kernels: the output above, one plain rotation
-                widths_l = (B_MAIN,)
-                want_l, plain_l_ms = timed_call(lambda: megaJ.plain(name)(
-                    PL, acc0_l, a_t_l, key_l))
-                err_l = abs_err(got_l, want_l)
-                check(torch.equal(got_l, want_l), f"L: {name} != plain "
-                      f"version at {PL.name} B={B_MAIN}")
-                del want_l
+            widths_l = (B_MAIN, RADIX_VALUES, 9)
+            err_l, plain_l_ms = vs_plain(name, megaJ.plain(name), PL, acc0_l,
+                                         a_t_l, key_l, plain_cache_l,
+                                         widths=widths_l)
             errs_j[name] = max(errs_j[name], err_l)
             bound_l, by_l = bounds.bound_ms(*bounds.rotation(
                 PL, B_MAIN, key_l.numel() * key_l.element_size()))
@@ -1415,17 +1405,16 @@ def main() -> int:
                   f"bound ({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts "
                   f"per block {megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
             del out_lk, got_l
-        if group[0] in megaJ.TENSOR_CORE:
-            # mega12.cu's window at N = 1024 under the group's wrappers, in
-            # turns with each other and with mega13 on the same batch
-            # (outputs array-equal)
-            turns = in_turns(PL, acc0_l, a_t_l, {
-                **{name: (counters[name], key_l) for name in group},
-                "mega13": (mega13.mega13_blind_rotate, dsk_l.bsk_btS)},
-                same=(*group, "mega13"))
-            for name in group:
-                turns_l[name] = turns
-                report_turns(name, PL, turns, key_l.numel())
+        # mega12.cu's window at N = 1024 under the group's wrappers, in
+        # turns with each other and with mega13 on the same batch (outputs
+        # array-equal)
+        turns = in_turns(PL, acc0_l, a_t_l, {
+            **{name: (counters[name], key_l) for name in group},
+            "mega13": (mega13.mega13_blind_rotate, dsk_l.bsk_btS)},
+            same=(*group, "mega13"))
+        for name in group:
+            turns_l[name] = turns
+            report_turns(name, PL, turns, key_l.numel())
         peak_l = max(peak_l, torch.cuda.max_memory_allocated())
         del dsk_lk, key_l
     del rot_l, dsk_l
@@ -2326,11 +2315,10 @@ def main() -> int:
     kernels[-1]["ms_std128_k2"] = res_h["mega7"]["ms"]
     kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
                         for B, t in turns7.items() for k, v in t.items()})
-    # mega9 and mega6 timed at STD128_K2 in path H, in turns with mega8 and
-    # mega7; mega14 at STD128_K4 (path K), beside its STD128_K2 time (A')
+    # mega9 timed at STD128_K2 in path H, in turns with mega8; mega14 at
+    # STD128_K4 (path K), beside its STD128_K2 time (A')
     for name, line, res, err_k in (
             ("mega9", "legacy.py:874", res_h["mega9"], errs_j["mega9"]),
-            ("mega6", "legacy.py:705", res_h["mega6"], errs_j["mega6"]),
             ("mega14", "mega.py:997", {**res_k, "plain_ms": plain14_ms},
              err14)):
         kernels.append({
@@ -2353,32 +2341,28 @@ def main() -> int:
     kernels[-1]["ms_std128_shortint_fast"] = f14_ms
     kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
                         for B, t in turns14.items() for k, v in t.items()})
-    # mega10 (csrc/mega12.cu's doubled window) and mega3 (megaJ_legacy.cu)
-    # timed at STD128_K2 in path H, in turns with the other kernels of their
-    # function, and at STD128 in path L (mega10 in turns with mega13)
-    for name, line in (("mega10", 1019), ("mega3", 295)):
-        res, res_std = res_h[name], res_l[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": ("herdsman_tpu_torch/csrc/mega12.cu"
-                       if name in megaJ.TENSOR_CORE
-                       else "herdsman_tpu_torch/csrc/megaJ_legacy.cu"),
-            "replaces": f"herdsman_tpu/ops/pallas/legacy.py:{line}",
-            **launches(name),
-            "matches_plain": errs_j[name] == 0,
-            "max_abs_err": errs_j[name],
-            "ms": res["ms"],
-            "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"],
-            "library_ms": None,
-            "ms_b256": res["narrow_ms"],
-            "ms_std128": res_std["ms"],
-            "plain_ms_std128": res_std["plain_ms"],
-            "bound_ms_std128": res_std["bound_ms"],
-        })
-    kernels[-2].update({
+    # mega10 (csrc/mega12.cu's doubled window) timed at STD128_K2 in path H,
+    # in turns with mega11, and at STD128 in path L, in turns with mega13
+    res, res_std = res_h["mega10"], res_l["mega10"]
+    kernels.append({
+        "name": "mega10",
+        "route": "cuda",
+        "source": "herdsman_tpu_torch/csrc/mega12.cu",
+        "replaces": "herdsman_tpu/ops/pallas/legacy.py:1019",
+        **launches("mega10"),
+        "matches_plain": errs_j["mega10"] == 0,
+        "max_abs_err": errs_j["mega10"],
+        "ms": res["ms"],
+        "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"],
+        "library_ms": None,
+        "ms_b256": res["narrow_ms"],
+        "ms_std128": res_std["ms"],
+        "plain_ms_std128": res_std["plain_ms"],
+        "bound_ms_std128": res_std["bound_ms"],
+    })
+    kernels[-1].update({
         "ms_mega11_in_turns": res_h["mega11"]["ms"],
         "ratio_to_mega11": res_h["mega10"]["ms"] / res_h["mega11"]["ms"],
         "ratio_to_mega11_b256": (res_h["mega10"]["narrow_ms"]
@@ -2387,14 +2371,17 @@ def main() -> int:
            for B, t in turns_l["mega10"].items() for k, v in t.items()}})
     # csrc/mega12.cu's single window under the wrappers of mega and mega2,
     # timed at STD128_K2 in path M1, in turns with bt_fused and mega7; under
-    # those of mega5 and mega4 at STD128_K2 in path H, in turns with mega7,
-    # and at STD128 in path L, in turns with each other and mega13
+    # those of mega5, mega4, mega6 and mega3 at STD128_K2 in path H, in
+    # turns with mega7, and (mega5, mega4, mega3) at STD128 in path L, in
+    # turns with each other and mega13
     for name, line, res, turns in (
             ("mega", 37, res_m["mega"], times_m),
             ("mega2", 165, res_m["mega2"], times_m),
             ("mega5", 575, res_h["mega5"], {"mega7": res_h["mega7"]}),
             ("mega4", 423, res_h["mega4"], {"mega7": res_h["mega7"],
-                                            "mega5": res_h["mega5"]})):
+                                            "mega5": res_h["mega5"]}),
+            ("mega6", 705, res_h["mega6"], {"mega7": res_h["mega7"]}),
+            ("mega3", 295, res_h["mega3"], {"mega7": res_h["mega7"]})):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2417,7 +2404,7 @@ def main() -> int:
             **{f"ratio_to_{k}_b256": res["narrow_ms"] / t["narrow_ms"]
                for k, t in turns.items() if k != name},
         })
-        if name in res_l:  # mega5 and mega4 at STD128 (path L)
+        if name in res_l:  # mega5, mega4 and mega3 at STD128 (path L)
             kernels[-1].update({
                 "ms_std128": res_l[name]["ms"],
                 "plain_ms_std128": res_l[name]["plain_ms"],

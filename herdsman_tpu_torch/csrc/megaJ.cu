@@ -1,16 +1,17 @@
 // megaJ: the whole GINX blind rotation of a ciphertext batch in one launch,
-// against the j-major block-Toeplitz int8 keys, in three variants:
+// against the j-major doubled block-Toeplitz int8 key, in two variants:
 //
 //   variant  replaces (herdsman_tpu/ops/pallas/)                  key        window   columns   schedule
 //    8       mega.py::_mega8_kernel  (wrapper mega8_blind_rotate)   bsk_btj2   doubled  (c, j, q)  serial
 //    9       legacy.py::_mega9_kernel (wrapper mega9_blind_rotate)  bsk_btj2   doubled  (c, j, q)  overlap
-//    6       legacy.py::_mega6_kernel (wrapper mega6_blind_rotate)  bsk_btj    single   (c, j, q)  staged
 //
 // (mega.py's _mega11_kernel and _mega7_kernel, the serial schedule on the
 // limb-major doubled window and on the single width, are csrc/mega12.cu's
-// two instantiations on int8 tensor cores.)  All three compute what
-// csrc/mega12.cu computes: for i in 0..n-1 and every ciphertext b of the
-// batch,
+// two instantiations on int8 tensor cores; so are legacy.py's
+// _mega10_kernel, on its doubled window, and _mega6_kernel and
+// _mega3_kernel, with _mega5_kernel, _mega4_kernel, _mega2_kernel and
+// _mega_kernel, on its single window.)  Both compute what csrc/mega12.cu
+// computes: for i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)
 //
@@ -29,16 +30,8 @@
 //
 //   part_j[q] = sum_{sub < HALF} sum_r sum_p d_r[sub*P + p] key[HALF-1-ct+sub, r, p, (j, c, q)]
 //
-// with no subtraction.  The single width (bsk_btj: [n, HALF, R, P, C4P],
-// block m at group m) is the two runs of _ep_column_total_jmajor_packed
-// (blind_rotate.py:129-150), as in mega12:
-//
-//   part_j[q] =   sum_{m <= ct} sum_r sum_p d_r[(ct - m)*P + p]        key[m, r, p, (j, c, q)]
-//               - sum_{m > ct}  sum_r sum_p d_r[(HALF + ct - m)*P + p] key[m, r, p, (j, c, q)]
-//
-// the negated run contracted first into the int32 partials, which are
-// negated once before the positive run adds on: never negated digits,
-// because the digits of -x are not -digits(x).  Then, for every variant,
+// with no subtraction: the negated blocks are stored, never negated
+// digits, because the digits of -x are not -digits(x).  Then
 //
 //   acc[c][ct*P + q] += sum_j part_j[q] << 8j                  (mod 2^32)
 //
@@ -55,18 +48,18 @@
 // Bound.  One rotation is n * B * (R*N) * ((k+1)*4*N) int8 MACs: 2.97e13 at
 // STD128_K2 and B = 2048, 30.00 ms at the H100's 1,979 int8 TOP/s, and
 // 3.17e14 at STD128_SHORTINT, 320.02 ms.  The doubled key is 6.75 GiB at
-// STD128_K2 and the single one 9.0 GiB at
-// STD128_SHORTINT (2.2 ms and 2.9 ms at 3.35 TB/s if read once per rotation
-// from device memory), and one step's block (9.4 MB and 12.6 MB) stays in
-// the 50 MB L2 while every block reads it, so the work is bound by
-// operations.  The kernel runs the int8 products on the SMs' integer lanes
+// STD128_K2 and 18.0 GiB at STD128_SHORTINT (2.2 ms and 5.8 ms at 3.35 TB/s
+// if read once per rotation from device memory), and one step's block (9.4
+// MB and 25.2 MB) stays in the 50 MB L2 while every block reads it, so the
+// work is bound by operations.  The kernel runs the int8 products on the SMs' integer lanes
 // as __dp4a (4 MACs each), a ceiling about 16 times the tensor-core bound.
 // Each thread reads 16 key bytes from L2 per 32 dp4a at G = 8 (0.125 bytes
 // per MAC): 3.7 TB per rotation at STD128_K2, about 4.2-4.6 TB/s at the
-// half of the dp4a rate these loops reach on an H100 (PERF.md), and
-// staging those words in shared memory (the staged schedule) made the loop
-// slower, so the L2 traffic of key words, not their latency, is the likely
-// limit.  csrc/mega12.cu runs the same function on wgmma (PERF.md).
+// half of the dp4a rate these loops reach on an H100 (PERF.md); staging
+// those words in shared memory (a schedule since removed) made the loop
+// slower, so the dp4a issue rate and the L2 traffic of key words, not
+// their latency, set the pace.  csrc/mega12.cu runs the same function on
+// wgmma (PERF.md).
 //
 // Design of the serial schedule (8): csrc/mega12.cu's first design, which
 // the TPU kernels' VMEM group scratch and digit pack order do not carry
@@ -83,9 +76,8 @@
 //      contiguous bytes of one limb's columns of a K row in either column
 //      order), reads one 32-bit key word from each of 4 consecutive K rows,
 //      turns them into 4 column words with byte permutes, and runs 4*G
-//      __dp4a per 4 K rows, each digit word a shared-memory broadcast; the
-//      doubled window walks one run of HALF*R blocks of P K rows, the
-//      single width (variant 6) two;
+//      __dp4a per 4 K rows, each digit word a shared-memory broadcast,
+//      along one run of HALF*R blocks of P K rows;
 //   3. shifts its partials by 8j and adds them into the accumulators with
 //      shared-memory atomics (the 4 limbs of a column sit in 4 warps).
 // Accumulators plus digits fit G = 8 in one block's 232,448 bytes for N =
@@ -96,8 +88,8 @@
 // the largest G on a tie, within the shared-memory limit.  Missing
 // ciphertexts of a ragged batch rotate zeros and store nothing.
 //
-// The two legacy bodies compute mega8's (9) and mega7's (6) function on the
-// same keys; each carries its TPU body's scheduling idea over to Hopper.
+// The legacy body (9) computes mega8's function on the same key and carries
+// its TPU body's scheduling idea over to Hopper.
 //
 // Overlap (9).  _mega9_kernel gives each chunk of the batch its own VMEM
 // scratch so that chunk g+1's rotate/decompose is not serialised behind
@@ -117,35 +109,15 @@
 // STD128_K2 and B = 2048 (16% slower at B = 256, where a half holds one
 // ciphertext): PERF.md.
 //
-// Staged (6).  _mega6_kernel staggers its op stream so that the next fetch
-// is issued before the current result is waited on (legacy.py:705-724).
-// Here each group of 128 threads double-buffers its unit's key rows in
-// shared memory with cp.async: chunk f+1 (KC rows of the 512 bytes its
-// unit reads, c*4*P onward) is in flight while chunk f is contracted from
-// shared memory, one group barrier (bar.sync 1+group, 128) per chunk, in
-// place of the serial schedule's __ldg of each key word with one K pack of
-// prefetch.  Two buffers of KC rows per group: KC = 32 (128 KB) where it
-// fits beside G's accumulators and digits (G = 8 at STD128_K2), else KC =
-// 16 (64 KB; G = 4 at STD128_SHORTINT, G = 8 at STD128).  It answers
-// whether L2 latency on key words holds the serial loop back: no, it ran
-// 36% slower than the serial schedule on the same key (the dp4a mega7) at
-// STD128_K2 on an H100 (PERF.md).
-
-//
-// The device code and launch helpers sit in csrc/megaJ_common.cuh, which
-// csrc/megaJ_legacy.cu (variants 10, 3, 4, 5) shares.
+// The device code and launch helpers sit in csrc/megaJ_common.cuh.
 
 #include "megaJ_common.cuh"
 
 namespace {
 
-int schedule(int variant) {
-  return variant == 9 ? OVERLAP : variant == 6 ? STAGED : SERIAL;
-}
+int schedule(int variant) { return variant == 9 ? OVERLAP : SERIAL; }
 
-bool known(int variant) {
-  return variant == 8 || variant == 9 || variant == 6;
-}
+bool known(int variant) { return variant == 8 || variant == 9; }
 
 }  // namespace
 
@@ -161,9 +133,8 @@ int megaJ_ciphertexts_per_block(int variant, int B, int N, int kp1, int R,
   return sched == OVERLAP ? 2 * G : G;
 }
 
-// variant 8 and 9 (key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128]) or 6
-// (bsk_btj [n, N/128, R, 128, kp1*4*128]), all int8, R = kp1*levels;
-// acc0 [B, kp1, N] u32, a_t [n, B]
+// variant 8 or 9: key bsk_btj2 [n, 2*N/128, R, 128, kp1*4*128] int8, R =
+// kp1*levels; acc0 [B, kp1, N] u32, a_t [n, B]
 // i32 in [0, 2N), out [B, kp1, N] u32, all device pointers; N a power of
 // two in [128, 2048], kp1 in {2, 3, 5}, 1 <= bg_bits <= 8, `sms` the card's
 // SM count.  Launches on `stream` and returns cudaGetLastError().
@@ -178,14 +149,9 @@ int megaJ_blind_rotate(int variant, const void* acc0, const void* a_t,
   const int G = pick_g(sched, B, N, kp1, R, sms);
   if (G == 0) return cudaErrorInvalidValue;
   const Args a{acc0, a_t, key, out, B, n, N, bg_bits, levels,
-               sched == STAGED ? pick_kc(sched, G, N, kp1, R) : 0,
                static_cast<cudaStream_t>(stream)};
-  switch (variant) {
-    case 8: return launch_kp1<true, SERIAL>(kp1, G, a);
-    case 9: return launch_kp1<true, OVERLAP>(kp1, G, a);
-    case 6: return launch_kp1<false, STAGED>(kp1, G, a);
-    default: return cudaErrorInvalidValue;
-  }
+  return sched == OVERLAP ? launch_kp1<OVERLAP>(kp1, G, a)
+                          : launch_kp1<SERIAL>(kp1, G, a);
 }
 
 const char* megaJ_error_string(int err) {

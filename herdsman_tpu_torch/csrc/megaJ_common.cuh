@@ -1,11 +1,9 @@
-// megaJ_common.cuh: the device code and launch helpers that csrc/megaJ.cu
-// (variants 8, 9, 6) and csrc/megaJ_legacy.cu (the tensor-core variant 3)
-// share: the block layout, the digit phase, the dp4a contraction of one
-// (column tile, output polynomial) unit, the staged contraction of key rows
-// in shared memory, and megaJ_kernel, the template of every dp4a schedule.
-// csrc/megaJ.cu's note gives the arithmetic, the bound and the serial,
-// overlap and staged designs.  Each source that includes this file builds
-// into a library of its own.
+// megaJ_common.cuh: the device code and launch helpers of csrc/megaJ.cu
+// (variants 8 and 9): the block layout, the digit phase, the dp4a
+// contraction of one (column tile, output polynomial) unit of the doubled
+// window, and megaJ_kernel, the template of both dp4a schedules.
+// csrc/megaJ.cu's note gives the arithmetic, the bound and the serial and
+// overlap designs.
 
 #pragma once
 
@@ -23,14 +21,8 @@ constexpr int SMEM_PER_BLOCK = 232448;  // bytes one H100 block may use
 // schedules
 constexpr int SERIAL = 0;   // 8: digits, __syncthreads, contraction
 constexpr int OVERLAP = 1;  // 9: a producer warp's digits beside the contraction
-constexpr int STAGED = 2;   // 6: cp.async double-buffered key rows
 constexpr int PRODUCER = 32;           // producer threads of the overlap schedule
 constexpr int FULL0 = 1, EMPTY0 = 3;   // its named barriers: FULL0 + h, EMPTY0 + h
-constexpr int ROWB = 4 * P;            // bytes of one K row a unit reads
-
-__host__ __device__ constexpr bool stages_key(int sched) {
-  return sched == STAGED;
-}
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
@@ -38,20 +30,6 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 __device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1,
@@ -195,11 +173,10 @@ __device__ __forceinline__ void digit_phase(const uint32_t* acc, uint32_t* dig,
   }
 }
 
-// unit (ct, c) of the serial and overlap schedules: this thread's limb j
-// and 4 columns from qq on, key words from L2 (__ldg).  A single-width step
-// key holds block (m, r) at (m * R + r) * BLOCK (step-major by stored block,
-// bsk_btj)
-template <int G, int KP1, bool DOUBLED>
+// unit (ct, c) of the doubled window: this thread's limb j and 4 columns
+// from qq on, key words from L2 (__ldg); one run, digit chunk sub against
+// group HALF-1-ct+sub
+template <int G, int KP1>
 __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
                                               const uint32_t* __restrict__ dig,
                                               int ct, int c, int j, int qq,
@@ -212,36 +189,13 @@ __device__ __forceinline__ void contract_unit(const int8_t* __restrict__ kstep,
 #pragma unroll
     for (int k = 0; k < 4; ++k) part[g][k] = 0;
   // this thread's 4 columns: limb j of output polynomial c
-  const int8_t* kcol = kstep + (c * 4 + j) * P + qq;
-  if constexpr (DOUBLED) {
-    // one run: digit chunk sub against group HALF-1-ct+sub
-    const int8_t* kw = kcol + static_cast<size_t>(HALF - 1 - ct) * R * BLOCK;
-    for (int sub = 0; sub < HALF; ++sub)
-      for (int r = 0; r < R; ++r)
-        contract_block<G, C4P>(
-            kw + static_cast<size_t>(sub * R + r) * BLOCK,
-            dig + (static_cast<size_t>(r) * N4 + sub * PW) * G, part);
-  } else {
-    // pass 0: the negated run m in (ct, HALF); pass 1: the positive run
-    for (int pass = 0; pass < 2; ++pass) {
-      const int m_lo = pass == 0 ? ct + 1 : 0;
-      const int m_hi = pass == 0 ? HALF : ct + 1;
-      for (int m = m_lo; m < m_hi; ++m) {
-        const int sub = pass == 0 ? HALF + ct - m : ct - m;
-        for (int r = 0; r < R; ++r)
-          contract_block<G, C4P>(
-              kcol + static_cast<size_t>(m * R + r) * BLOCK,
-              dig + (static_cast<size_t>(r) * N4 + sub * PW) * G, part);
-      }
-      if (pass == 0) {  // subtract the negated run's partial
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            part[g][k] = static_cast<int>(0u - static_cast<uint32_t>(part[g][k]));
-      }
-    }
-  }
+  const int8_t* kw = kstep + (c * 4 + j) * P + qq +
+                     static_cast<size_t>(HALF - 1 - ct) * R * BLOCK;
+  for (int sub = 0; sub < HALF; ++sub)
+    for (int r = 0; r < R; ++r)
+      contract_block<G, C4P>(
+          kw + static_cast<size_t>(sub * R + r) * BLOCK,
+          dig + (static_cast<size_t>(r) * N4 + sub * PW) * G, part);
 }
 
 // recombine: this thread's limb j, shifted, into the accumulators of its
@@ -258,111 +212,15 @@ __device__ __forceinline__ void recombine(uint32_t* acc, const int (&part)[G][4]
   }
 }
 
-// the staged schedule's contraction of one step: this group's units, a
-// chunk of kc key rows at a time, chunk f+1 copied (cp.async) into the
-// other of the group's two buffers while chunk f is contracted; a group
-// copies its chunks' rows alone and syncs with a group barrier.  A step's
-// chunk count is even (P/kc chunks per block), so its first chunk's buffer
-// was last read two chunks earlier, before the last barrier of the
-// previous step.
-template <int G, int KP1>
-__device__ __forceinline__ void contract_staged(
-    const int8_t* __restrict__ kstep, const uint32_t* __restrict__ dig,
-    uint8_t* __restrict__ sbuf, uint32_t* acc, int grp, int lt, int j, int qq,
-    int R, int HALF, int N, int kc) {
-  constexpr int C4P = KP1 * 4 * P;
-  constexpr size_t BLOCK = static_cast<size_t>(P) * C4P;
-  const int N4 = N / 4;
-  const int units = HALF * KP1;
-  const int nu = grp < units ? (units - grp + 3) / 4 : 0;
-  const int cpb = P / kc;               // chunks per (m, r) block
-  const int per_unit = HALF * R * cpb;  // chunks per unit
-  const int nchunks = nu * per_unit;    // this group's chunks
-  const size_t buf_bytes = static_cast<size_t>(kc) * ROWB;
-
-  // chunk f: (unit, block bi in pass order, chunk xc of the block) -> the
-  // key rows' source and the digits it meets
-  auto locate = [&](int f, int& ct, int& c, int& bi, int& xc, int& sub,
-                    int& r) -> const int8_t* {
-    const int ui = f / per_unit;
-    const int rem = f - ui * per_unit;
-    bi = rem / cpb;
-    xc = rem - bi * cpb;
-    const int unit = grp + 4 * ui;
-    ct = unit / KP1;
-    c = unit - ct * KP1;
-    const int nneg = HALF - 1 - ct;     // blocks of the negated run
-    const int mb = bi / R;
-    r = bi - mb * R;
-    const int m = mb < nneg ? ct + 1 + mb : mb - nneg;
-    sub = mb < nneg ? HALF + ct - m : ct - m;
-    return kstep + static_cast<size_t>(m * R + r) * BLOCK +
-           static_cast<size_t>(xc) * kc * C4P + c * 4 * P;
-  };
-  auto issue = [&](int f) {
-    if (f < nchunks) {
-      int ct, c, bi, xc, sub, r;
-      const int8_t* src = locate(f, ct, c, bi, xc, sub, r);
-      uint8_t* dst = sbuf + (f & 1) * buf_bytes;
-      for (int e = lt; e < kc * (ROWB / 16); e += GROUP) {
-        const int row = e / (ROWB / 16);
-        const int seg = e % (ROWB / 16);
-        cp_async16(dst + row * ROWB + seg * 16,
-                   src + static_cast<size_t>(row) * C4P + seg * 16);
-      }
-    }
-    cp_async_commit();
-  };
-
-  int part[G][4];
-  if (nchunks > 0) issue(0);
-  for (int f = 0; f < nchunks; ++f) {
-    cp_async_wait_all();        // this thread's copies of chunk f are in
-    bar_sync(1 + grp, GROUP);   // everyone's are; chunk f-1's reads are done
-    if (f + 1 < nchunks) issue(f + 1);
-    int ct, c, bi, xc, sub, r;
-    locate(f, ct, c, bi, xc, sub, r);
-    if (bi == 0 && xc == 0) {
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) part[g][k] = 0;
-    }
-    if (bi == (HALF - 1 - ct) * R && xc == 0) {
-      // the negated run (m > ct) is in: subtract its partial
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          part[g][k] = static_cast<int>(0u - static_cast<uint32_t>(part[g][k]));
-    }
-    const size_t at = (f & 1) * buf_bytes + j * P + qq;
-    const uint32_t* db =
-        dig + (static_cast<size_t>(r) * N4 + sub * PW + xc * (kc / 4)) * G;
-    for (int pw = 0; pw < kc / 4; ++pw) {
-      const uint8_t* rows = sbuf + at + static_cast<size_t>(4 * pw) * ROWB;
-      int col[4];
-      transpose4x4(*reinterpret_cast<const uint32_t*>(rows),
-                   *reinterpret_cast<const uint32_t*>(rows + ROWB),
-                   *reinterpret_cast<const uint32_t*>(rows + 2 * ROWB),
-                   *reinterpret_cast<const uint32_t*>(rows + 3 * ROWB),
-                   col);
-      dot_pack<G>(db + pw * G, col, part);
-    }
-    if (bi == HALF * R - 1 && xc == cpb - 1)
-      recombine<G, KP1>(acc, part, ct, c, j, qq, N);
-  }
-}
-
-// Every dp4a schedule: a block owns GB ciphertexts for all n steps, their
+// Both dp4a schedules: a block owns GB ciphertexts for all n steps, their
 // accumulators resident in shared memory.
-template <int G, int KP1, bool DOUBLED, int SCHED>
+template <int G, int KP1, int SCHED>
 __global__ void __launch_bounds__(SCHED == OVERLAP ? BD + PRODUCER : BD, 1)
 megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
              const int32_t* __restrict__ a_t,    // [n, B] in [0, 2N)
-             const int8_t* __restrict__ key,     // [n, groups, R, P, C4P]
+             const int8_t* __restrict__ key,     // [n, 2*HALF, R, P, C4P]
              uint32_t* __restrict__ out,         // [B, KP1, N]
-             int B, int n, int N, int bg_bits, int levels, int kc) {
+             int B, int n, int N, int bg_bits, int levels) {
   // ciphertexts of a block: two halves of G in the overlap schedule
   constexpr int GB = SCHED == OVERLAP ? 2 * G : G;
   constexpr int NT = SCHED == OVERLAP ? BD + PRODUCER : BD;
@@ -372,10 +230,7 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   const int HALF = N / P;
   uint32_t* acc = smem;                                      // [GB][KP1][N]
   uint32_t* dig = acc + GB * KP1 * N;                        // [GB/G][R][N/4][G]
-  // the staged schedule's key buffers, 2 per group: [4][2][kc][ROWB]
-  uint8_t* sbuf = reinterpret_cast<uint8_t*>(dig + static_cast<size_t>(GB) * R * N4);
-  int* rot = reinterpret_cast<int*>(
-      sbuf + (stages_key(SCHED) ? static_cast<size_t>(4) * 2 * kc * ROWB : 0));
+  int* rot = reinterpret_cast<int*>(dig + static_cast<size_t>(GB) * R * N4);
 
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * GB;
@@ -390,8 +245,7 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
   const int lt = tid - grp * GROUP;
   const int j = lt / PW;              // limb of this thread's columns
   const int qq = (lt - j * PW) * 4;   // the first of its 4 columns q
-  const size_t step_bytes =
-      (DOUBLED ? 2 : 1) * static_cast<size_t>(HALF) * R * P * KP1 * 4 * P;
+  const size_t step_bytes = 2 * static_cast<size_t>(HALF) * R * P * KP1 * 4 * P;
 
   if constexpr (SCHED == OVERLAP) {
     __syncthreads();  // accumulators loaded; the last block-wide barrier
@@ -438,8 +292,8 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
           const int ct = unit / KP1;
           const int c = unit - ct * KP1;
           int part[G][4];
-          contract_unit<G, KP1, DOUBLED>(kstep, dig_h, ct, c, j, qq,
-                                                     R, HALF, N4, part);
+          contract_unit<G, KP1>(kstep, dig_h, ct, c, j, qq, R, HALF, N4,
+                                part);
           recombine<G, KP1>(acc_h, part, ct, c, j, qq, N);
         }
         bar_arrive(EMPTY0 + h, NT);
@@ -459,19 +313,12 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
 
       // 2-3. one (column tile, output polynomial) unit per group of 128
       const int8_t* kstep = key + static_cast<size_t>(i) * step_bytes;
-      if constexpr (stages_key(SCHED)) {
-        contract_staged<G, KP1>(
-            kstep, dig, sbuf + static_cast<size_t>(grp) * 2 * kc * ROWB, acc,
-            grp, lt, j, qq, R, HALF, N, kc);
-      } else {
-        for (int unit = grp; unit < HALF * KP1; unit += BD / GROUP) {
-          const int ct = unit / KP1;
-          const int c = unit - ct * KP1;
-          int part[G][4];
-          contract_unit<G, KP1, DOUBLED>(kstep, dig, ct, c, j, qq,
-                                                     R, HALF, N4, part);
-          recombine<G, KP1>(acc, part, ct, c, j, qq, N);
-        }
+      for (int unit = grp; unit < HALF * KP1; unit += BD / GROUP) {
+        const int ct = unit / KP1;
+        const int c = unit - ct * KP1;
+        int part[G][4];
+        contract_unit<G, KP1>(kstep, dig, ct, c, j, qq, R, HALF, N4, part);
+        recombine<G, KP1>(acc, part, ct, c, j, qq, N);
       }
     }
   }
@@ -480,25 +327,11 @@ megaJ_kernel(const uint32_t* __restrict__ acc0,  // [B, KP1, N]
 }
 
 // shared memory of one block of G ciphertexts (two halves of G in the
-// overlap schedule) and, in the staged one, its key buffers of kc rows
-size_t smem_bytes(int sched, int G, int N, int kp1, int R, int kc) {
+// overlap schedule)
+size_t smem_bytes(int sched, int G, int N, int kp1, int R) {
   const size_t gb = sched == OVERLAP ? 2 * G : G;
   return gb * (static_cast<size_t>(kp1) * N * 4 + static_cast<size_t>(R) * N) +
-         4 * static_cast<size_t>(G) +
-         (stages_key(sched) ? static_cast<size_t>(4) * 2 * kc * ROWB : 0);
-}
-
-// the staged schedule's chunk of key rows: the larger of 32 and 16 whose two
-// buffers fit beside G ciphertexts (0: G does not fit)
-int pick_kc(int sched, int G, int N, int kp1, int R) {
-  if (!stages_key(sched))
-    return smem_bytes(sched, G, N, kp1, R, 0) <=
-           static_cast<size_t>(SMEM_PER_BLOCK) ? 1 : 0;
-  const int kcs[2] = {32, 16};
-  for (int kc : kcs)
-    if (smem_bytes(sched, G, N, kp1, R, kc) <= static_cast<size_t>(SMEM_PER_BLOCK))
-      return kc;
-  return 0;
+         4 * static_cast<size_t>(G);
 }
 
 // G (per half in the overlap schedule): least (waves of one block per SM) x
@@ -509,7 +342,8 @@ int pick_g(int sched, int B, int N, int kp1, int R, int sms) {
   int best = 0;
   long long best_cost = 0;
   for (int g : choices) {
-    if (!pick_kc(sched, g, N, kp1, R)) continue;
+    if (smem_bytes(sched, g, N, kp1, R) > static_cast<size_t>(SMEM_PER_BLOCK))
+      continue;
     const int per_block = sched == OVERLAP ? 2 * g : g;
     const long long waves = ((B + per_block - 1) / per_block + sms - 1) / sms;
     const long long cost = waves * (per_block / g) * (4 * g + 14);
@@ -526,14 +360,14 @@ struct Args {
   const void* a_t;
   const void* key;
   void* out;
-  int B, n, N, bg_bits, levels, kc;
+  int B, n, N, bg_bits, levels;
   cudaStream_t stream;
 };
 
-template <int G, int KP1, bool DOUBLED, int SCHED>
+template <int G, int KP1, int SCHED>
 cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes(SCHED, G, a.N, KP1, KP1 * a.levels, a.kc);
-  auto kern = megaJ_kernel<G, KP1, DOUBLED, SCHED>;
+  const size_t smem = smem_bytes(SCHED, G, a.N, KP1, KP1 * a.levels);
+  auto kern = megaJ_kernel<G, KP1, SCHED>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -543,27 +377,27 @@ cudaError_t launch(const Args& a) {
   kern<<<blocks, threads, smem, a.stream>>>(
       static_cast<const uint32_t*>(a.acc0), static_cast<const int32_t*>(a.a_t),
       static_cast<const int8_t*>(a.key), static_cast<uint32_t*>(a.out), a.B,
-      a.n, a.N, a.bg_bits, a.levels, a.kc);
+      a.n, a.N, a.bg_bits, a.levels);
   return cudaGetLastError();
 }
 
-template <int KP1, bool DOUBLED, int SCHED>
+template <int KP1, int SCHED>
 cudaError_t launch_g(int G, const Args& a) {
   switch (G) {
-    case 8: return launch<8, KP1, DOUBLED, SCHED>(a);
-    case 4: return launch<4, KP1, DOUBLED, SCHED>(a);
-    case 2: return launch<2, KP1, DOUBLED, SCHED>(a);
-    case 1: return launch<1, KP1, DOUBLED, SCHED>(a);
+    case 8: return launch<8, KP1, SCHED>(a);
+    case 4: return launch<4, KP1, SCHED>(a);
+    case 2: return launch<2, KP1, SCHED>(a);
+    case 1: return launch<1, KP1, SCHED>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool DOUBLED, int SCHED>
+template <int SCHED>
 cudaError_t launch_kp1(int kp1, int G, const Args& a) {
   switch (kp1) {
-    case 2: return launch_g<2, DOUBLED, SCHED>(G, a);
-    case 3: return launch_g<3, DOUBLED, SCHED>(G, a);
-    case 5: return launch_g<5, DOUBLED, SCHED>(G, a);
+    case 2: return launch_g<2, SCHED>(G, a);
+    case 3: return launch_g<3, SCHED>(G, a);
+    case 5: return launch_g<5, SCHED>(G, a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,9 +16,10 @@ through one of three kinds of engine:
   tensor; ``mega12`` (the integer tier's engine, the JAX package's
   ``pallas_mega12``) is ``csrc/mega12.cu`` on int8 tensor cores against
   ``bsk_btk`` (the JAX package's ``bsk_btjj`` in ``wgmma``'s byte order),
-  and so are ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` (the
-  same function; the JAX package's ``pallas_mega7``, ``pallas_mega5`` and
-  ``pallas_mega4`` read the same blocks with other columns,
+  and so are ``mega7``, ``mega5``, ``mega4``, ``mega6``, ``mega3``,
+  ``mega2`` and ``mega`` (the same function; the JAX package's
+  ``pallas_mega7``, ``pallas_mega5``, ``pallas_mega4``, ``pallas_mega6``
+  and ``pallas_mega3`` read the same blocks with other columns,
   ``pallas_mega2`` and ``pallas_mega`` them R-major), and
   ``mega11`` and the legacy ``mega10`` that source's doubled window
   against ``bsk_btk2`` (``bsk_btj2j`` in ``wgmma``'s order; the JAX
@@ -31,11 +32,8 @@ through one of three kinds of engine:
   instantiation against ``bsk_btTe`` (one run per column tile);
   ``mega8`` (the JAX package's engine of that name, any gadget) is
   ``csrc/megaJ.cu`` against the j-major doubled window ``bsk_btj2`` (one
-  contraction per column tile), and ``mega9`` and ``mega6`` (the JAX package's legacy engines)
-  the same source on ``bsk_btj2`` and on the single width ``bsk_btj`` (the
-  negated run subtracted) with other schedules; the legacy ``mega3`` is
-  ``csrc/megaJ_legacy.cu``'s tensor-core kernel on ``bsk_btj`` in
-  fragment order (``bsk_btjm``).
+  contraction per column tile), and ``mega9`` (the JAX package's legacy
+  engine) the same source on the same key with another schedule.
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -125,9 +123,9 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega8": (megaJ.mega8_blind_rotate, "bsk_btj2"),
     "mega7": (megaJ.mega7_blind_rotate, "bsk_btk"),
     "mega9": (megaJ.mega9_blind_rotate, "bsk_btj2"),
-    "mega6": (megaJ.mega6_blind_rotate, "bsk_btj"),
+    "mega6": (megaJ.mega6_blind_rotate, "bsk_btk"),
     "mega10": (megaJ.mega10_blind_rotate, "bsk_btk2"),
-    "mega3": (megaJ.mega3_blind_rotate, "bsk_btjm"),
+    "mega3": (megaJ.mega3_blind_rotate, "bsk_btk"),
     "mega4": (megaJ.mega4_blind_rotate, "bsk_btk"),
     "mega5": (megaJ.mega5_blind_rotate, "bsk_btk"),
     "mega": (megaJ.mega_blind_rotate, "bsk_btk"),

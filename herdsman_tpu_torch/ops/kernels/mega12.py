@@ -13,10 +13,10 @@ launches the hand-written kernel (one launch per rotation, counted in
 ``mega12_blind_rotate.launches``) or raises; on a CPU tensor it runs
 ``blind_rotate_plain_btk``.  The source note in ``csrc/mega12.cu`` gives
 the kernel's design and bound; ``plan`` mirrors its tiling.  The same
-source also serves ``megaJ``'s ``mega7``, ``mega5``, ``mega4``, ``mega2``
-and ``mega`` wrappers (this kernel on this key) and its ``mega11`` and
-``mega10`` (the doubled window on ``bsk_btk2``), each through ``launch``
-with its own counter.
+source also serves ``megaJ``'s ``mega7``, ``mega5``, ``mega4``, ``mega6``,
+``mega3``, ``mega2`` and ``mega`` wrappers (this kernel on this key) and
+its ``mega11`` and ``mega10`` (the doubled window on ``bsk_btk2``), each
+through ``launch`` with its own counter.
 
 ``check_args``, ``pack_digits``, ``recombine`` and the j-major contraction
 ``blind_rotate_plain_btjj`` also serve ``megaJ``'s plain versions;
@@ -229,8 +229,8 @@ def recombine(total: torch.Tensor, kp1: int, jcq: bool) -> torch.Tensor:
 
 
 def _plain_step(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
-                key_i: torch.Tensor, jcq: bool) -> torch.Tensor:
-    """One CMux step against one step's j-major key [HALF, R, P,
+                key_i: torch.Tensor) -> torch.Tensor:
+    """One CMux step against one step's limb-major j-major key [HALF, R, P,
     (k+1)*4*P]: rotate, decompose and pack the digits; per column tile ct
     the digits' tail against stored blocks 0..ct minus their head against
     the negated blocks ct+1..HALF-1 (``torch._int_mm``); the recombine."""
@@ -247,24 +247,22 @@ def _plain_step(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
         if split:
             total = total - int8_matmul(D[:, :split].contiguous(),
                                         key[(ct + 1) * R * P:])
-        tiles.append(recombine(total, kp1, jcq))  # [B, k+1, P]
+        tiles.append(recombine(total, kp1, True))  # [B, k+1, P]
     return acc + torch.cat(tiles, dim=-1)
 
 
 def blind_rotate_plain_btjj(params: TFHEParams, acc0: torch.Tensor,
-                            a_t: torch.Tensor, bsk_btjj: torch.Tensor,
-                            jcq: bool = True) -> torch.Tensor:
+                            a_t: torch.Tensor,
+                            bsk_btjj: torch.Tensor) -> torch.Tensor:
     """The rotation in plain PyTorch, either device, on the JAX package's
     ``bsk_btjj`` key: per step the two-dot contraction of
     ``_ep_column_total_jmajor_packed`` (``ops/pallas/blind_rotate.py:129``)
-    and the limb-major recombine (``mega.py:703-715``).  With ``jcq`` false
-    the key's columns are (c, j, q): the ``bsk_btj`` key of
-    ``megaJ.mega7_blind_rotate``."""
+    and the limb-major recombine (``mega.py:703-715``)."""
     p = params
     check_args(p, acc0, a_t, bsk_btjj)
     acc = acc0
     for i in range(p.n):
-        acc = _plain_step(p, acc, a_t[i], bsk_btjj[i], jcq)
+        acc = _plain_step(p, acc, a_t[i], bsk_btjj[i])
     return acc
 
 
@@ -278,8 +276,7 @@ def blind_rotate_plain_btk(params: TFHEParams, acc0: torch.Tensor,
     check_args(p, acc0, a_t, bsk_btk, "bsk_btk", key_shape(p))
     acc = acc0
     for i in range(p.n):
-        acc = _plain_step(p, acc, a_t[i], from_kmajor_order(bsk_btk[i]),
-                          True)
+        acc = _plain_step(p, acc, a_t[i], from_kmajor_order(bsk_btk[i]))
     return acc
 
 

@@ -1,47 +1,47 @@
 """Whole-rotation blind-rotation kernels of the JAX package's j-major
-family and legacy schedules: against the j-major block-Toeplitz keys
-(``csrc/megaJ.cu`` and ``csrc/megaJ_legacy.cu``) and against the K-major
-tensor-core keys (``csrc/mega12.cu``), and their plain PyTorch versions.
+family and legacy schedules: against the j-major doubled window
+(``csrc/megaJ.cu``) and against the K-major tensor-core keys
+(``csrc/mega12.cu``), and their plain PyTorch versions.
 
 The eleven kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
-wrappers they replace; they differ from ``mega12`` and from each other in
-the key they read and in how a block schedules a step:
+wrappers they replace.  Seven wrappers are ``csrc/mega12.cu``'s single
+window (int8 ``wgmma``) on ``mega12``'s key ``bsk_btk``, each counted
+apart, and two its doubled window on ``bsk_btk2``; only ``mega8`` and
+``mega9`` are ``csrc/megaJ.cu``'s:
 
 - ``mega11_blind_rotate``: ``herdsman_tpu/ops/pallas/mega.py::
   _mega11_kernel``, the doubled window: ``csrc/mega12.cu``'s doubled
-  instantiation (int8 ``wgmma``) on ``bsk_btk2``, the JAX package's
-  ``bsk_btj2j`` (limb-major columns (j, c, q)) in ``wgmma``'s byte order
+  instantiation on ``bsk_btk2``, the JAX package's ``bsk_btj2j``
+  (limb-major columns (j, c, q)) in ``wgmma``'s byte order
   (``mega12.kmajor_order``);
-- ``mega8_blind_rotate``: ``mega.py::_mega8_kernel``, the doubled window
-  ``bsk_btj2`` with columns (c, j, q);
-- ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single width:
-  ``mega12``'s function, so ``csrc/mega12.cu``'s single instantiation on
-  ``mega12``'s key ``bsk_btk`` (the JAX package's ``bsk_btj`` is the same
-  blocks with columns (c, j, q), an order int8 ``wgmma`` cannot read);
-- ``mega5_blind_rotate``, ``mega4_blind_rotate``, ``mega2_blind_rotate``
-  and ``mega_blind_rotate``: ``herdsman_tpu/ops/pallas/legacy.py::
-  _mega5_kernel`` (a wide block on ``bsk_btj``), ``_mega4_kernel`` (each
-  step's key block fetched once per group of chunks, ``bsk_btj``),
-  ``_mega2_kernel`` (an inline step on the R-major ``bsk_bt``) and
-  ``_mega_kernel`` (row-phased, ``bsk_bt``): ``mega7``'s function, so
-  ``csrc/mega12.cu``'s single instantiation on ``bsk_btk`` too
-  (``mega12.kmajor_from_btj`` and ``kmajor_from_bt`` re-lay the JAX
-  package's keys);
-- ``mega9_blind_rotate``: ``legacy.py::_mega9_kernel``, ``mega8``'s
-  function and key, with a producer warp building one half's digits while
-  four consumer groups contract the other's (named-barrier hand-off);
-- ``mega6_blind_rotate``: ``legacy.py::_mega6_kernel``, ``mega7``'s
-  function on ``bsk_btj``, with each group's key rows double-buffered in
-  shared memory by ``cp.async``;
 - ``mega10_blind_rotate``: ``legacy.py::_mega10_kernel``, ``mega8``'s
   function (the doubled window on ``bsk_btj2``, its digits built by a pass
   fused across the k+1 polynomials), so ``mega11``'s: ``csrc/mega12.cu``'s
   doubled instantiation on ``bsk_btk2`` (``mega12.kmajor_from_btj``
   re-lays the JAX package's ``bsk_btj2``);
-- ``mega3_blind_rotate``: ``legacy.py::_mega3_kernel``, ``mega7``'s
-  function on int8 tensor cores (``mma.sync`` m16n8k32), reading
-  ``bsk_btj``'s blocks in fragment order (``bsk_btjm``, ``fragment_order``).
+- ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single width:
+  ``mega12``'s function, so ``csrc/mega12.cu``'s single instantiation on
+  ``bsk_btk`` (the JAX package's ``bsk_btj`` is the same blocks with
+  columns (c, j, q), an order int8 ``wgmma`` cannot read);
+- ``mega5_blind_rotate``, ``mega4_blind_rotate``, ``mega6_blind_rotate``,
+  ``mega3_blind_rotate``, ``mega2_blind_rotate`` and
+  ``mega_blind_rotate``: ``herdsman_tpu/ops/pallas/legacy.py::
+  _mega5_kernel`` (a wide block on ``bsk_btj``), ``_mega4_kernel`` (each
+  step's key block fetched once per group of chunks, ``bsk_btj``),
+  ``_mega6_kernel`` (a staggered fetch stream, ``bsk_btj``),
+  ``_mega3_kernel`` (all R rows accumulated in the matrix unit,
+  ``bsk_btj``), ``_mega2_kernel`` (an inline step on the R-major
+  ``bsk_bt``) and ``_mega_kernel`` (row-phased, ``bsk_bt``): ``mega7``'s
+  function, so ``csrc/mega12.cu``'s single instantiation on ``bsk_btk``
+  too (``mega12.kmajor_from_btj`` and ``kmajor_from_bt`` re-lay the JAX
+  package's keys);
+- ``mega8_blind_rotate``: ``mega.py::_mega8_kernel``, the doubled window
+  ``bsk_btj2`` with columns (c, j, q), ``csrc/megaJ.cu``'s serial dp4a
+  schedule;
+- ``mega9_blind_rotate``: ``legacy.py::_mega9_kernel``, ``mega8``'s
+  function and key, with a producer warp building one half's digits while
+  four consumer groups contract the other's (named-barrier hand-off).
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -51,16 +51,16 @@ contraction is one product of the step's digits (sub ascending, r minor)
 with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
 (``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
-version of ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` is
-``mega12.blind_rotate_plain_btk`` and that of ``mega11`` and ``mega10``
-``blind_rotate_plain_btk2`` (the doubled window's contraction on the key
-taken back to j-major order).
+version of ``mega7``, ``mega5``, ``mega4``, ``mega6``, ``mega3``, ``mega2``
+and ``mega`` is ``mega12.blind_rotate_plain_btk``, that of ``mega11`` and
+``mega10`` ``blind_rotate_plain_btk2`` (the doubled window's contraction
+on the key taken back to j-major order), and that of ``mega8`` and
+``mega9`` ``blind_rotate_plain_btj2``.
 
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
-its plain version (``plain``).  The source notes in ``csrc/megaJ.cu``,
-``csrc/megaJ_legacy.cu`` and ``csrc/mega12.cu`` give the kernels' design
-and bound.
+its plain version (``plain``).  The source notes in ``csrc/megaJ.cu`` and
+``csrc/mega12.cu`` give the kernels' design and bound.
 """
 
 from __future__ import annotations
@@ -73,9 +73,7 @@ import torch
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops.kernels import _build, mega12
-from herdsman_tpu_torch.ops.kernels.mega12 import (P,
-                                                   blind_rotate_plain_btjj,
-                                                   check_args,
+from herdsman_tpu_torch.ops.kernels.mega12 import (P, check_args,
                                                    from_kmajor_order,
                                                    pack_digits, recombine)
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
@@ -89,26 +87,21 @@ KERNELS = {"mega11": (None, "bsk_btk2", True, True),
            "mega8": (8, "bsk_btj2", True, False),
            "mega7": (None, "bsk_btk", False, True),
            "mega9": (9, "bsk_btj2", True, False),
-           "mega6": (6, "bsk_btj", False, False),
+           "mega6": (None, "bsk_btk", False, True),
            "mega10": (None, "bsk_btk2", True, True),
-           "mega3": (3, "bsk_btjm", False, False),
+           "mega3": (None, "bsk_btk", False, True),
            "mega4": (None, "bsk_btk", False, True),
            "mega5": (None, "bsk_btk", False, True),
            "mega": (None, "bsk_btk", False, True),
            "mega2": (None, "bsk_btk", False, True)}
 KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
 # the kernels of csrc/mega12.cu (the doubled window's two wrappers, then
-# the single window's five, on int8 wgmma) and of csrc/megaJ_legacy.cu; the
-# others are csrc/megaJ.cu's
-TENSOR_CORE = ("mega11", "mega10", "mega7", "mega5", "mega4", "mega2",
-               "mega")
-LEGACY_SOURCE = ("mega3",)
-# the kernels whose block holds two halves of G ciphertexts (overlap), or
-# stages its key rows in shared memory (two buffers of 16 rows of 512 bytes
-# per group at least); mega3 (tensor cores) holds G in {8, 4, 2, 1}, zeros
-# on the rest of its n8 side
-OVERLAP, STAGED, MMA = ("mega9",), ("mega6",), ("mega3",)
-STAGED_BYTES = 4 * 2 * 16 * 512
+# the single window's seven, on int8 wgmma); mega8 and mega9 are
+# csrc/megaJ.cu's
+TENSOR_CORE = ("mega11", "mega10", "mega7", "mega5", "mega4", "mega6",
+               "mega3", "mega2", "mega")
+# the kernel whose block holds two halves of G ciphertexts
+OVERLAP = ("mega9",)
 
 
 def smem_bytes(p: TFHEParams, G: int) -> int:
@@ -120,12 +113,11 @@ def smem_bytes(p: TFHEParams, G: int) -> int:
 
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
-    geometry (all that ``csrc/mega12.cu``'s ``mega11``, ``mega10``,
-    ``mega7``, ``mega5``, ``mega4``, ``mega2`` and ``mega`` need: their
-    digits and accumulators live in device memory), then one ciphertext's
-    accumulator and digits within a block's shared memory (the dp4a block
-    layout every other kernel here shares), and one block of its schedule
-    within the card's shared memory."""
+    geometry (all that ``csrc/mega12.cu``'s wrappers, ``TENSOR_CORE``,
+    need: their digits and accumulators live in device memory), then one
+    ciphertext's accumulator and digits within a block's shared memory (the
+    dp4a block layout of ``mega8`` and ``mega9``), and for ``mega9`` its two
+    halves."""
     mega12.check_params(p, name)
     if name in TENSOR_CORE:
         return
@@ -133,26 +125,22 @@ def check_params(p: TFHEParams, name: str) -> None:
     if one > SMEM_LIMIT:
         raise ValueError(f"{name} at {p.name} needs {one} bytes of shared "
                          f"memory per ciphertext, over {SMEM_LIMIT}")
-    if name in OVERLAP:
-        need = 2 * one - 4
-    elif name in STAGED:
-        need = one + STAGED_BYTES
-    else:
+    if name not in OVERLAP:
         return
+    need = 2 * one - 4
     if need > SMEM_LIMIT:
         raise ValueError(f"{name} at {p.name} needs {need} bytes of shared "
                          f"memory per block, over {SMEM_LIMIT}")
 
 
 def key_shape(p: TFHEParams, name: str) -> tuple[int, ...]:
-    """The shape of kernel ``name``'s key at ``p``: [n, groups, R, P,
-    (k+1)*4*P] (groups 2*HALF for the doubled window, else HALF), or the
-    K-major [n, groups, R, k+1, 2, 256, 128] of ``csrc/mega12.cu``."""
-    _, _, doubled, _ = KERNELS[name]
-    HALF, R, C4P = p.N // P, (p.k + 1) * p.levels, (p.k + 1) * 4 * P
+    """The shape of kernel ``name``'s key at ``p``: the K-major [n, groups,
+    R, k+1, 2, 256, 128] of ``csrc/mega12.cu`` (groups 2*HALF for the
+    doubled window, else HALF), or ``bsk_btj2``'s [n, 2*HALF, R, P,
+    (k+1)*4*P] for ``mega8`` and ``mega9``."""
     if name in TENSOR_CORE:
-        return mega12.key_shape(p, doubled)
-    return (p.n, 2 * HALF if doubled else HALF, R, P, C4P)
+        return mega12.key_shape(p, KERNELS[name][2])
+    return (p.n, 2 * (p.N // P), (p.k + 1) * p.levels, P, (p.k + 1) * 4 * P)
 
 
 def _check_args(p: TFHEParams, name: str, acc0: torch.Tensor,
@@ -214,105 +202,34 @@ def blind_rotate_plain_btk2(params: TFHEParams, acc0: torch.Tensor,
     return acc
 
 
-def blind_rotate_plain_btj(params: TFHEParams, acc0: torch.Tensor,
-                           a_t: torch.Tensor,
-                           bsk_btj: torch.Tensor) -> torch.Tensor:
-    """The single width's rotation in plain PyTorch, either device, on the
-    JAX package's ``bsk_btj`` (the TPU's ``mega7``; here the plain version
-    of ``mega6``): the two-dot of
-    ``_ep_column_total_jmajor_packed``, then the per-polynomial recombine
-    of its (c, j, q) columns (``mega.py:150-161``).
-    ``blind_rotate_plain_btjj`` (the contraction ``mega12``'s plain version
-    runs) with the other column order."""
-    return blind_rotate_plain_btjj(params, acc0, a_t, bsk_btj, jcq=False)
-
-
-# bsk_btj's [P, C4P] block as (K chunk kc, K half kh, tq, byte b, 16-column
-# tile mt, column half ch, gq): K row kc*32 + kh*16 + 4*tq + b, column
-# mt*16 + ch*8 + gq; in fragment order the same bytes run (kc, mt, gq, tq,
-# kh, ch, b), lane 4*gq + tq's A fragment of m16n8k32 (register kh*2 + ch)
-_TO_FRAGMENT = (0, 4, 6, 2, 1, 5, 3)
-_FROM_FRAGMENT = (0, 4, 3, 6, 1, 5, 2)
-
-
-def _permute_blocks(key: torch.Tensor, dims: tuple[int, ...],
-                    order: tuple[int, ...]) -> torch.Tensor:
-    lead = key.shape[:-2]
-    nl = len(lead)
-    return key.reshape(*lead, *dims).permute(
-        *range(nl), *(nl + d for d in order)).reshape(key.shape)
-
-
-def fragment_order(bsk_btj: torch.Tensor) -> torch.Tensor:
-    """``bsk_btjm``, the key of ``mega3``, from ``bsk_btj`` (any leading
-    dimensions, then [P, C4P] blocks): each block's bytes in the order of
-    ``mma.sync`` m16n8k32's A fragments, [P/32 (kc), C4P/16 (mt), 32
-    (lane), 16 (byte)], byte 4*reg + b of lane 4*gq + tq holding column
-    mt*16 + gq + 8*(reg & 1), K row kc*32 + 4*tq + 16*(reg >> 1) + b.  The
-    same shape and size as ``bsk_btj``."""
-    mt = bsk_btj.shape[-1] // 16
-    return _permute_blocks(bsk_btj, (P // 32, 2, 4, 4, mt, 2, 8),
-                           _TO_FRAGMENT)
-
-
-def from_fragment_order(bsk_btjm: torch.Tensor) -> torch.Tensor:
-    """``bsk_btj`` from ``bsk_btjm``: the inverse of ``fragment_order``."""
-    mt = bsk_btjm.shape[-1] // 16
-    return _permute_blocks(bsk_btjm, (P // 32, mt, 8, 4, 2, 2, 4),
-                           _FROM_FRAGMENT)
-
-
-def blind_rotate_plain_btjm(params: TFHEParams, acc0: torch.Tensor,
-                            a_t: torch.Tensor,
-                            bsk_btjm: torch.Tensor) -> torch.Tensor:
-    """The rotation of ``mega3`` in plain PyTorch, either device: ``mega7``'s
-    (``blind_rotate_plain_btj``) on the key taken back out of fragment
-    order."""
-    _check_args(params, "mega3", acc0, a_t, bsk_btjm)
-    return blind_rotate_plain_btj(params, acc0, a_t,
-                                  from_fragment_order(bsk_btjm))
-
-
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` shares ``mega8``'s; ``mega6``'s is
-    ``blind_rotate_plain_btj``, the single width on ``bsk_btj``, and
-    ``mega3``'s is that on its key out of fragment order; ``mega7``,
-    ``mega5``, ``mega4``, ``mega2`` and ``mega`` share ``mega12``'s, and
+    (``mega9`` shares ``mega8``'s; ``mega7``, ``mega5``, ``mega4``,
+    ``mega6``, ``mega3``, ``mega2`` and ``mega`` share ``mega12``'s, and
     ``mega11`` and ``mega10`` ``blind_rotate_plain_btk2``)."""
     _, _, doubled, jcq = KERNELS[name]
     if name in TENSOR_CORE:
         return (blind_rotate_plain_btk2 if doubled
                 else mega12.blind_rotate_plain_btk)
-    if name in MMA:
-        return blind_rotate_plain_btjm
-    if not doubled:
-        return blind_rotate_plain_btj
     return functools.partial(blind_rotate_plain_btj2, jcq=jcq)
 
 
 @functools.cache
-def _entry_points(source: str):
+def _entry_points():
     """(blind_rotate, ciphertexts_per_block, error_string) of the built
-    ``csrc/<source>.cu`` (``megaJ`` or ``megaJ_legacy``), their C
-    signatures declared."""
-    lib = _build.load(source)
-    rotate = getattr(lib, f"{source}_blind_rotate")
+    ``csrc/megaJ.cu``, their C signatures declared."""
+    lib = _build.load("megaJ")
+    rotate = lib.megaJ_blind_rotate
     rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     rotate.restype = ctypes.c_int
-    per_block = getattr(lib, f"{source}_ciphertexts_per_block")
+    per_block = lib.megaJ_ciphertexts_per_block
     per_block.argtypes = [ctypes.c_int] * 6
     per_block.restype = ctypes.c_int
-    error = getattr(lib, f"{source}_error_string")
+    error = lib.megaJ_error_string
     error.argtypes = [ctypes.c_int]
     error.restype = ctypes.c_char_p
     return rotate, per_block, error
-
-
-def _kernel_entry_points(name: str):
-    return _entry_points("megaJ_legacy" if name in LEGACY_SOURCE
-                         else "megaJ")
 
 
 def _sms(device: torch.device) -> int:
@@ -327,7 +244,7 @@ def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
     if name in TENSOR_CORE:
         raise ValueError(f"{name} tiles its batch by mega12.plan, not by "
                          f"ciphertexts per block")
-    _, per_block, _ = _kernel_entry_points(name)
+    _, per_block, _ = _entry_points()
     return per_block(
         KERNELS[name][0], B, p.N, p.k + 1, (p.k + 1) * p.levels,
         _sms(device))
@@ -345,7 +262,7 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         if key.data_ptr() % 16:  # the bulk copies' alignment
             raise ValueError(f"{name} takes a key on a 16-byte boundary")
         return mega12.launch(p, acc0, a_t, key, KERNELS[name][2], wrapper)
-    rotate, _, error = _kernel_entry_points(name)
+    rotate, _, error = _entry_points()
     out = torch.empty_like(acc0)
     with torch.cuda.device(acc0.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -401,11 +318,13 @@ def mega9_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega6_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btj: torch.Tensor) -> torch.Tensor:
-    """``mega7``'s rotation on the single-width ``bsk_btj``, its key rows
-    double-buffered in shared memory by ``cp.async``; CPU tensors go
-    through ``blind_rotate_plain_btj``."""
-    return _rotate("mega6", mega6_blind_rotate, params, acc0, a_t, bsk_btj)
+                       bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation (the TPU's staggered fetch stream on
+    ``bsk_btj``) against the single window ``bsk_btk`` int8 [n, HALF, R,
+    k+1, 2, 256, 128] (two runs, the negated one subtracted):
+    ``csrc/mega12.cu``'s single instantiation, counted here; CPU tensors go
+    through ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega6", mega6_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 def mega10_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
@@ -421,12 +340,13 @@ def mega10_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega3_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btjm: torch.Tensor) -> torch.Tensor:
-    """``mega7``'s rotation on int8 tensor cores (``mma.sync`` m16n8k32),
-    against ``bsk_btjm`` int8 [n, HALF, R, P, (k+1)*4*P] (``bsk_btj`` in
-    fragment order, ``fragment_order``); CPU tensors go through
-    ``blind_rotate_plain_btjm``."""
-    return _rotate("mega3", mega3_blind_rotate, params, acc0, a_t, bsk_btjm)
+                       bsk_btk: torch.Tensor) -> torch.Tensor:
+    """``mega7``'s rotation (the TPU's R rows accumulated in the matrix unit
+    on ``bsk_btj``) against the single window ``bsk_btk`` int8 [n, HALF, R,
+    k+1, 2, 256, 128] (two runs, the negated one subtracted):
+    ``csrc/mega12.cu``'s single instantiation, counted here; CPU tensors go
+    through ``mega12.blind_rotate_plain_btk``."""
+    return _rotate("mega3", mega3_blind_rotate, params, acc0, a_t, bsk_btk)
 
 
 def mega4_blind_rotate(params: TFHEParams, acc0: torch.Tensor,

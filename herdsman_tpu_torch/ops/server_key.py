@@ -47,10 +47,12 @@ once, into:
                                        (c, j, q): the key of the JAX
                                        package's ``pallas_mega7``
                                        (``_block_toeplitz_layout_device(...,
-                                       j_major=True)``), read by
-                                       ``csrc/megaJ.cu``'s ``mega6`` (the
-                                       port's ``mega7``, ``mega5`` and
-                                       ``mega4`` read ``bsk_btk``,
+                                       j_major=True)``) and of its
+                                       ``pallas_mega6``, ``_mega5``,
+                                       ``_mega4`` and ``_mega3``, held
+                                       equal to the JAX package's (the
+                                       port's engines of those names read
+                                       ``bsk_btk``,
                                        ``mega12.kmajor_from_btj``).  As big
                                        as ``bsk_bt``, built the same way.
 - ``bsk_btjj``  int8  [n, HALF, R, P, (k+1)*4*P]
@@ -73,18 +75,9 @@ once, into:
                                        swizzled, so one bulk copy stages
                                        it.  The key of the ``mega12``,
                                        ``mega7``, ``mega5``, ``mega4``,
-                                       ``mega2`` and ``mega`` engines (one
-                                       kernel), as big as
-                                       ``bsk_btjj``.
-- ``bsk_btjm``  int8  [n, HALF, R, P, (k+1)*4*P]
-                                       ``bsk_btj`` with each [P, (k+1)*4*P]
-                                       block's bytes in the order of the
-                                       A fragments of int8 ``mma.sync``
-                                       m16n8k32 (``megaJ.fragment_order``:
-                                       4 consecutive K rows of one column
-                                       per 32-bit word), read by ``mega3``
-                                       of ``csrc/megaJ_legacy.cu``.  As big
-                                       as ``bsk_btj``: 3.375 GiB at
+                                       ``mega6``, ``mega3``, ``mega2`` and
+                                       ``mega`` engines (one kernel), as
+                                       big as ``bsk_btjj``: 3.375 GiB at
                                        STD128_K2, 4.5 GiB at STD128.
 - ``bsk_btj2``  int8  [n, 2*HALF, R, P, (k+1)*4*P]
 - ``bsk_btj2j`` int8  [n, 2*HALF, R, P, (k+1)*4*P]
@@ -165,7 +158,7 @@ from herdsman_tpu_torch.ops.kernels import mega12, mega13, megaJ, megaS, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
 LAYOUTS = ("bsk", "bsk_btS", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj",
-           "bsk_btk", "bsk_btjm", "bsk_btj2", "bsk_btj2j", "bsk_btk2",
+           "bsk_btk", "bsk_btj2", "bsk_btj2j", "bsk_btk2",
            "bsk_btTc", "bsk_btTe")
 DEFAULT_LAYOUTS = ("bsk_btS",)  # the mega13 kernel and its plain version
 
@@ -194,7 +187,6 @@ class DeviceServerKey:
     bsk_btj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btjj: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btk: torch.Tensor | None = None  # int8 [n, HALF, R, k+1, 2, 256, 128]
-    bsk_btjm: torch.Tensor | None = None  # int8 [n, HALF, R, P, (k+1)*4*P]
     bsk_btj2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btj2j: torch.Tensor | None = None  # int8 [n, 2*HALF, R, P, (k+1)*4*P]
     bsk_btk2: torch.Tensor | None = None  # int8 [n, 2*HALF, R, k+1, 2, 256,
@@ -231,7 +223,7 @@ def bt_key_bytes(p: TFHEParams) -> int:
 
 def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
                           j_major: bool = False, jcq: bool = False,
-                          windowed: bool = False, fragment: bool = False,
+                          windowed: bool = False,
                           kmajor: bool = False) -> torch.Tensor:
     """``bsk_bt`` int8 [n, R, HALF, P, (k+1)*4*P] from the int32 ``bsk``
     [n, R, k+1, N], on ``bsk``'s device, a chunk of steps at a time: one
@@ -242,9 +234,7 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     or ``windowed``: the JAX ``_block_toeplitz_layout_device(...,
     j_major=True)``; ``jcq`` orders the columns (j, c, q) (``col_order=
     "jcq"``); ``windowed`` stores 2*HALF groups, group g diagonal block
-    (HALF-1-g) mod 2*HALF (``windowed=True``); ``fragment`` stores each
-    [P, (k+1)*4*P] block of ``j_major`` in ``mma.sync``'s fragment order
-    (``bsk_btjm``, ``megaJ.fragment_order``); ``kmajor`` stores ``jcq``'s
+    (HALF-1-g) mod 2*HALF (``windowed=True``); ``kmajor`` stores ``jcq``'s
     blocks as ``mega12``'s K-major swizzled key tiles (``bsk_btk`` [n,
     HALF, R, k+1, 2, 256, 128], ``mega12.kmajor_order``; with ``windowed``
     ``bsk_btk2``, the 2*HALF groups).  Blocks
@@ -260,7 +250,7 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
     q = torch.arange(P, device=bsk.device)[None, None, :]
     idx = (P * m + q - row) % (2 * N)                # [M, P(row), P(q)]
     jcq = jcq or kmajor
-    step_major = j_major or jcq or windowed or fragment
+    step_major = j_major or jcq or windowed
     shape = (M, R) if step_major else (R, M)
     out = torch.empty(n, *shape, *((kp1, P // mega12.QH, mega12.BN, P)
                                    if kmajor else (P, kp1 * 4 * P)),
@@ -278,9 +268,7 @@ def block_toeplitz_layout(p: TFHEParams, bsk: torch.Tensor,
         limbs = poly.to_i8_limbs(blocks)  # [c, R, k+1, M, P, P, 4]
         chunk = limbs.permute(*order).reshape(i1 - i0, *shape, P,
                                               kp1 * 4 * P)
-        if fragment:
-            chunk = megaJ.fragment_order(chunk)
-        elif kmajor:
+        if kmajor:
             chunk = mega12.kmajor_order(chunk, kp1)
         out[i0:i1] = chunk
     return out
@@ -346,12 +334,12 @@ def fit_engine(engine: str, params: TFHEParams,
     - ``bt``, ``bt_fused``, and ``mega12`` / ``mega7`` / ``mega6`` /
       ``mega3`` / ``mega4`` / ``mega5`` / ``mega`` / ``mega2``, whose
       kernel must also take the set, while their single-width key
-      (``bsk_bt``, ``bsk_btk``, ``bsk_btj``, ``bsk_btjm``: the same size)
-      fits ``budget_bytes``; else ``mega13`` (the JAX package keeps
-      ``pallas_mega3``, ``_4``, ``_5``, ``pallas_mega`` and ``_mega2`` at
-      every set; their keys fit the budget at every named set, and
-      ``mega5``, ``mega4``, ``mega2`` and ``mega``, ``mega12``'s kernel
-      since they read ``bsk_btk``, take every named set with N >= 128);
+      (``bsk_bt``, ``bsk_btk``: the same size, as is the JAX package's
+      ``bsk_btj``) fits ``budget_bytes``; else ``mega13`` (the JAX package
+      keeps ``pallas_mega3`` .. ``_6``, ``pallas_mega`` and ``_mega2`` at
+      every set; their keys fit the budget at every named set, and the
+      port's engines of those names, ``mega12``'s kernel since they read
+      ``bsk_btk``, take every named set with N >= 128);
     - ``mega11`` / ``mega10`` / ``mega8`` / ``mega9`` while their doubled
       key (``bsk_btk2`` / ``bsk_btj2``, one size) fits and their kernel
       takes the set (the JAX package's doubled-key check,
@@ -477,8 +465,6 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                   if "bsk_btjj" in layouts else None),
         bsk_btk=(block_toeplitz_layout(p, bsk, kmajor=True)
                  if "bsk_btk" in layouts else None),
-        bsk_btjm=(block_toeplitz_layout(p, bsk, fragment=True)
-                  if "bsk_btjm" in layouts else None),
         bsk_btj2=(block_toeplitz_layout(p, bsk, windowed=True)
                   if "bsk_btj2" in layouts else None),
         bsk_btj2j=(block_toeplitz_layout(p, bsk, jcq=True, windowed=True)

@@ -51,7 +51,7 @@ def key_layout_bytes(p: TFHEParams, layout: str) -> int:
     single = p.n * R * kp1 * 4 * p.N * P
     sizes = {
         "bsk_bt": single, "bsk_btj": single, "bsk_btjj": single,
-        "bsk_btk": single, "bsk_btjm": single,
+        "bsk_btk": single,
         "bsk_btj2": 2 * single, "bsk_btj2j": 2 * single,
         "bsk_btk2": 2 * single,
         "bsk_btT": p.n * kp1 * 4 * kp1 * P * (p.N // (2 * P) + HALF - 1)
@@ -115,10 +115,10 @@ TPU_KERNELS = [
     ("mega.py:1154 _mega15_kernel", "std128_shortint_l4", "bsk_btT4"),
     ("legacy.py:37 _mega_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:165 _mega2_kernel", "std128_k2", "bsk_btk"),
-    ("legacy.py:295 _mega3_kernel", "std128_k2", "bsk_btj"),
+    ("legacy.py:295 _mega3_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:423 _mega4_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:575 _mega5_kernel", "std128_k2", "bsk_btk"),
-    ("legacy.py:705 _mega6_kernel", "std128_k2", "bsk_btj"),
+    ("legacy.py:705 _mega6_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:874 _mega9_kernel", "std128_k2", "bsk_btj2"),
     ("legacy.py:1019 _mega10_kernel", "std128_k2", "bsk_btk2"),
 ]
@@ -130,7 +130,7 @@ TPU_KERNELS = [
 FURTHER_SETS = [
     ("mega.py:997 _mega14_kernel", "std128_k4", "bsk_btT2"),
     ("legacy.py:1019 _mega10_kernel", "std128", "bsk_btk2"),
-    ("legacy.py:295 _mega3_kernel", "std128", "bsk_btjm"),
+    ("legacy.py:295 _mega3_kernel", "std128", "bsk_btk"),
     ("legacy.py:423 _mega4_kernel", "std128", "bsk_btk"),
     ("legacy.py:575 _mega5_kernel", "std128", "bsk_btk"),
 ]

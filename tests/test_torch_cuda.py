@@ -237,7 +237,8 @@ def test_mega12_matches_plain(card, params, B):
 
 # csrc/mega12.cu's wrappers, at every plan and geometry class of mega12's:
 # mega11 and mega10 (the doubled window on bsk_btk2) and mega7, mega5,
-# mega4, mega2 and mega (the single window), each counted apart
+# mega4, mega6, mega3, mega2 and mega (the single window), each counted
+# apart
 @pytest.mark.parametrize("B", [1, 9, 129, 65, 256, 2048, 384])
 @pytest.mark.parametrize("params", MEGA12_TC_SETS,
                          ids=[q.name for q in MEGA12_TC_SETS])
@@ -354,9 +355,9 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
                              ref.make_test_poly(params)))
 
 
-# the j-major family (mega8, mega9, mega6 of megaJ.cu, mega11 and mega7 of
-# mega12.cu, the legacy and R-major kernels) at mega12's geometry classes;
-# B = 129 takes a ragged last block at every ciphertexts-per-block choice
+# the j-major family (mega8 and mega9 of megaJ.cu, the other wrappers of
+# mega12.cu's two windows) at mega12's geometry classes; B = 129 takes a
+# ragged last block at every ciphertexts-per-block choice
 @pytest.mark.parametrize("B", [1, 9, 129])
 @pytest.mark.parametrize("name", sorted(megaJ.KERNELS))
 @pytest.mark.parametrize("params", MEGA12_SETS,
@@ -409,10 +410,9 @@ def test_megaJ_engines_match_mega13_and_reference(card, params, name):
                              ref.make_test_poly(params)))
 
 
-# the three kernels of this slice at the widths of the smoke run's paths
-# (B = 2048 fills the card: mega9 takes 16 ciphertexts a block at
-# STD128_K2's geometry, mega6 stages 32 key rows a chunk there and 16 at
-# N = 2048), n cut to 4 steps
+# mega14 and mega9 at the widths of the smoke run's paths (B = 2048 fills
+# the card: mega9 takes 16 ciphertexts a block at STD128_K2's geometry), n
+# cut to 4 steps
 WIDE_SETS = [
     dc.replace(TOY, name="mega14_k2_n512", n=4, N=512, k=2, bg_bits=8,
                levels=2),
@@ -420,10 +420,6 @@ WIDE_SETS = [
                levels=2),
     dc.replace(TOY, name="mega9_k2_n512", n=4, N=512, k=2, bg_bits=8,
                levels=2),
-    dc.replace(TOY, name="mega6_k2_n512", n=4, N=512, k=2, bg_bits=8,
-               levels=2),
-    dc.replace(TOY, name="mega6_k1_n2048", n=2, N=2048, k=1, bg_bits=7,
-               levels=3),
 ]
 
 
@@ -441,9 +437,7 @@ def test_new_kernels_match_plain_at_width(card, params):
     if module is megaT:
         shape = (p.n, p.k + 1, p.k + 1, 4, megaT.row_bytes(p, True))
     else:
-        HALF, R = p.N // megaJ.P, (p.k + 1) * p.levels
-        groups = 2 * HALF if megaJ.KERNELS[name][2] else HALF
-        shape = (p.n, groups, R, megaJ.P, (p.k + 1) * 4 * megaJ.P)
+        shape = megaJ.key_shape(p, name)
     key = torch.as_tensor(rng.integers(-128, 128, shape), dtype=torch.int8,
                           device=card)
     got = kernel(p, acc0, a_t, key)
@@ -451,60 +445,17 @@ def test_new_kernels_match_plain_at_width(card, params):
     assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))
 
 
-# the kernel of csrc/megaJ_legacy.cu (mega3) on random keys at the
-# geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2 steps), at
-# the smoke run's widths and a ragged 37: B = 2048 fills the card (mega3
-# holds 8)
+# the geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2
+# steps)
 LEGACY_J_SETS = [dc.replace(PARAM_SETS[name], n=2)
                  for name in ("std128_k2", "std128", "std128_shortint")]
 
 
-@pytest.mark.parametrize("B", [2048, 256, 37, 9])
-@pytest.mark.parametrize("name", list(megaJ.LEGACY_SOURCE))
-@pytest.mark.parametrize("params", LEGACY_J_SETS,
-                         ids=[q.name for q in LEGACY_J_SETS])
-def test_legacy_j_matches_plain(card, params, name, B):
-    p = params
-    _, _, doubled, _ = megaJ.KERNELS[name]
-    HALF, R = p.N // megaJ.P, (p.k + 1) * p.levels
-    kernel = getattr(megaJ, f"{name}_blind_rotate")
-    gen = torch.Generator(device=card)
-    gen.manual_seed(B + p.N + len(name))
-    acc0 = torch.randint(-2**31, 2**31, (B, p.k + 1, p.N), dtype=torch.int32,
-                         device=card, generator=gen)
-    a_t = torch.randint(0, 2 * p.N, (p.n, B), dtype=torch.int32, device=card,
-                        generator=gen)
-    key = torch.randint(-128, 128, (p.n, 2 * HALF if doubled else HALF, R,
-                                    megaJ.P, (p.k + 1) * 4 * megaJ.P),
-                        dtype=torch.int8, device=card, generator=gen)
-    before = kernel.launches
-    got = kernel(p, acc0, a_t, key)
-    torch.cuda.synchronize()
-    assert kernel.launches == before + 1
-    assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
-
-
-@pytest.mark.parametrize("name", list(megaJ.LEGACY_SOURCE))
-def test_legacy_j_refuses_a_set_that_does_not_fit(card, name):
-    """A set whose one ciphertext leaves no room for mega3's block raises on
-    a card tensor before any launch, naming the shared memory."""
-    wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", n=1, k=4,
-                      bg_bits=1, levels=32)
-    kernel = getattr(megaJ, f"{name}_blind_rotate")
-    acc0 = torch.zeros(1, wide.k + 1, wide.N, dtype=torch.int32, device=card)
-    a_t = torch.zeros(wide.n, 1, dtype=torch.int32, device=card)
-    key = torch.zeros(1, dtype=torch.int8, device=card)  # checked after
-    before = kernel.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        kernel(wide, acc0, a_t, key)
-    assert kernel.launches == before
-
-
 # csrc/mega12.cu's single window under the wrappers of the JAX package's
-# legacy mega5, mega4, mega2 and mega, on one random bsk_btk at the
-# geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2 steps), at
-# the smoke run's widths and a ragged 37: each equals the plain version and
-# mega7 on the same key, each launch counted on its own wrapper only
+# legacy mega5, mega4, mega6, mega3, mega2 and mega, on one random bsk_btk
+# at LEGACY_J_SETS' geometries, at the smoke run's widths (B = 2048 fills
+# the card) and a ragged 37: each equals the plain version and mega7 on the
+# same key, each launch counted on its own wrapper only
 @pytest.mark.parametrize("B", [2048, 256, 37, 9])
 @pytest.mark.parametrize("params", LEGACY_J_SETS,
                          ids=[q.name for q in LEGACY_J_SETS])
@@ -519,7 +470,7 @@ def test_single_window_wrappers_match_plain_and_mega7(card, params, B):
     key = torch.randint(-128, 128, mega12.key_shape(p), dtype=torch.int8,
                         device=card, generator=gen)
     want = mega12.blind_rotate_plain_btk(p, acc0, a_t, key)
-    names = ("mega7", "mega5", "mega4", "mega2", "mega")
+    names = ("mega7", "mega5", "mega4", "mega6", "mega3", "mega2", "mega")
     wrappers = {name: getattr(megaJ, f"{name}_blind_rotate")
                 for name in names}
     wrappers["mega12"] = mega12.mega12_blind_rotate

@@ -1,12 +1,13 @@
-"""The port's ``mega9`` and ``mega6`` engines (``ops/kernels/megaJ.py``, the
-overlap and staged schedules of ``csrc/megaJ.cu``) against the JAX
-package's legacy Pallas kernels, on the CPU: each plain rotation (the one
-``mega8`` and ``mega7`` share) against ``legacy.py::_mega9_kernel`` and
-``_mega6_kernel`` in interpret mode, run as the JAX package's own tests run
-them, and the NumPy reference; the wrappers' checks; the gate path on each
-engine; and ``fit_engine``'s routes of both names against the JAX
-package's at the port's key budget.  Array equality throughout: the
-arithmetic is exact mod 2^32.
+"""The port's ``mega9`` and ``mega6`` engines (``ops/kernels/megaJ.py``:
+the overlap schedule of ``csrc/megaJ.cu``, and ``csrc/mega12.cu``'s single
+window on ``bsk_btk``) against the JAX package's legacy Pallas kernels, on
+the CPU: each plain rotation (the one ``mega8`` and ``mega7`` share)
+against ``legacy.py::_mega9_kernel`` and ``_mega6_kernel`` in interpret
+mode, run as the JAX package's own tests run them, and the NumPy
+reference; the wrappers' checks; the gate path on each engine; and
+``fit_engine``'s routes of both names against the JAX package's at the
+port's key budget.  Array equality throughout: the arithmetic is exact mod
+2^32.
 """
 
 import dataclasses as dc
@@ -36,9 +37,10 @@ MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
 # the legacy kernel -> the serial kernel whose function it shares
 LEGACY = {"mega9": "mega8", "mega6": "mega7"}
-# the legacy kernel -> the j-major key of the JAX package's serial kernel,
-# which it reads (the port's mega7 reads bsk_btk, bsk_btj in wgmma's order)
-SERIAL_KEYS = {"mega9": "bsk_btj2", "mega6": "bsk_btj"}
+# the legacy kernel -> the port key of that serial kernel, which it reads:
+# mega8's j-major bsk_btj2, and mega7's bsk_btk (the JAX package's mega7
+# and mega6 read bsk_btj, in wgmma's order there)
+SERIAL_KEYS = {"mega9": "bsk_btj2", "mega6": "bsk_btk"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -96,14 +98,16 @@ def test_legacy_wrapper_checks(name):
     p = tdsk.params
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
-    other = tdsk.bsk_btj if name == "mega9" else tdsk.bsk_btj2
+    # another key: the other window width for mega9, the JAX package's
+    # bsk_btj (bsk_btk's size) for mega6
+    other = tdsk.bsk_btj
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
     with pytest.raises(TypeError):
         kernel(p, acc, a_t.long(), key)
     with pytest.raises(ValueError):
         kernel(p, acc, a_t[:, :1].contiguous(), key)
-    with pytest.raises(ValueError):  # the other window width
+    with pytest.raises(ValueError):
         kernel(p, acc, a_t, other)
     with pytest.raises(ValueError, match="contiguous"):
         kernel(p, acc.transpose(1, 2).contiguous().transpose(1, 2), a_t, key)
@@ -112,23 +116,26 @@ def test_legacy_wrapper_checks(name):
             megaJ.check_params(bad, name)
     for pset in ("std128_k2", "std128", "std128_fast", "std128_shortint"):
         megaJ.check_params(PARAM_SETS[pset], name)
-    # a block of the overlap schedule holds two ciphertexts at least, and
-    # the staged one its key buffers beside one: a set whose one
-    # ciphertext fills most of the block fits mega8's and mega7's block
-    # but not theirs
+    # a block of the overlap schedule holds two ciphertexts at least: a set
+    # whose one ciphertext fills most of the block fits mega8's block but
+    # not mega9's; mega6, csrc/mega12.cu's single window (digits and
+    # accumulators in device memory), takes it as mega7 does
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=13)
     megaJ.check_params(wide, LEGACY[name])
-    with pytest.raises(ValueError, match="shared memory"):
+    if name == "mega9":
+        with pytest.raises(ValueError, match="shared memory"):
+            megaJ.check_params(wide, name)
+    else:
+        assert name in megaJ.TENSOR_CORE
         megaJ.check_params(wide, name)
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
     assert megaJ.KEY_LAYOUTS[name] == SERIAL_KEYS[name]
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
-    # the serial kernel's plain version on that key: mega8's, and the
-    # single width's that the JAX package's mega7 ran on bsk_btj
+    # the serial kernel's plain version on that key: mega8's, and mega7's
+    # (mega12.blind_rotate_plain_btk)
     mine = megaJ.plain(name)
-    serial = (megaJ.plain(LEGACY[name]) if name == "mega9"
-              else megaJ.blind_rotate_plain_btj)
+    serial = megaJ.plain(LEGACY[name])
     assert getattr(mine, "func", mine) is getattr(serial, "func", serial)
     assert getattr(mine, "keywords", {}) == getattr(serial, "keywords", {})
     assert port_engine(f"pallas_{name}") == name

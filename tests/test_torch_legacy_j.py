@@ -1,20 +1,17 @@
-"""The port's ``mega3`` engine (``ops/kernels/megaJ.py``,
-``csrc/megaJ_legacy.cu``), its ``mega10`` (``csrc/mega12.cu``'s doubled
-window on ``bsk_btk2``) and its ``mega4`` and ``mega5`` (``csrc/mega12.cu``'s
-single window on ``bsk_btk``) against the JAX package's legacy Pallas
-kernels, on the CPU:
+"""The port's ``mega10`` engine (``ops/kernels/megaJ.py``,
+``csrc/mega12.cu``'s doubled window on ``bsk_btk2``) and its ``mega3``,
+``mega4`` and ``mega5`` (``csrc/mega12.cu``'s single window on ``bsk_btk``)
+against the JAX package's legacy Pallas kernels, on the CPU:
 
 - each plain rotation against ``legacy.py::_mega10_kernel``,
   ``_mega3_kernel``, ``_mega4_kernel`` and ``_mega5_kernel`` in interpret
   mode (run as the JAX package's own tests run them, each once per kernel
   and set) and against the NumPy reference; ``mega10``'s plain version
   also on the JAX package's own ``bsk_btj2`` re-laid by
-  ``mega12.kmajor_from_btj``, against ``legacy.mega10_blind_rotate``;
-- a NumPy emulation of ``mega3``'s fragment arithmetic, held against the
-  plain version: the lane -> (row, K) maps of the ``mma.sync`` m16n8k32 A,
-  B and C fragments over the ``bsk_btjm`` key;
-- the byte map of ``bsk_btjm`` onto ``bsk_btj``, and ``kmajor_from_btj``
-  of the doubled ``bsk_btj2`` as ``bsk_btk2``;
+  ``mega12.kmajor_from_btj``, against ``legacy.mega10_blind_rotate``
+  (``tests/test_torch_single_window.py`` holds ``mega3``'s on the re-laid
+  ``bsk_btj`` against ``legacy.mega3_blind_rotate``);
+- ``kmajor_from_btj`` of the doubled ``bsk_btj2`` as ``bsk_btk2``;
 - the wrappers' checks, the gate path on each engine, and
   ``layouts_for_engine``, ``fit_engine`` and ``port_engine`` against the
   JAX package, set by set, at 40 and 12 GiB.
@@ -39,9 +36,7 @@ from herdsman_tpu.ops.pallas import legacy
 from herdsman_tpu_torch.core import PARAM_SETS
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import gates as tgates
-from herdsman_tpu_torch.ops import poly
 from herdsman_tpu_torch.ops import server_key as tsk
-from herdsman_tpu_torch.ops.decomp import signed_decompose
 from herdsman_tpu_torch.ops.kernels import mega12, megaJ
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 from herdsman_tpu_torch.service.config import ConfigError, port_engine
@@ -53,7 +48,8 @@ MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
 SETS = {"k1": MULTITILE, "k2": MULTITILE_K2}
 # the legacy kernel -> the kernel whose function and key it shares: mega10
 # computes mega8's function, and the port runs it as mega11 runs (the
-# doubled window on bsk_btk2)
+# doubled window on bsk_btk2); mega3, mega4 and mega5 run as mega7 runs
+# (the single window on bsk_btk)
 LEGACY = {"mega10": "mega11", "mega3": "mega7", "mega4": "mega7",
           "mega5": "mega7"}
 B = 37
@@ -78,13 +74,13 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(client key, server key, JAX key in ``bsk_btj2`` and ``bsk_btj``,
-    port key in those, ``bsk_btjm``, ``mega7``'s ``bsk_btk`` and
-    ``mega11``'s ``bsk_btk2``)."""
+    port key in those, ``mega7``'s ``bsk_btk`` and ``mega11``'s
+    ``bsk_btk2``)."""
     ck, sk = jref.keygen(params, np.random.default_rng(29))
     layouts = ("bsk_btj2", "bsk_btj")
     return (ck, sk, jsk.device_server_key(sk, layouts=layouts),
-            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btjm",
-                                               "bsk_btk", "bsk_btk2"),
+            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btk",
+                                               "bsk_btk2"),
                                   device="cpu"))
 
 
@@ -156,103 +152,6 @@ def test_plain_on_relaid_btj2_equals_jax_mega10(set_id):
     np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
 
 
-# --- a NumPy emulation of mega3's arithmetic (csrc/megaJ_legacy.cu) on one
-# CMux step ------------------------------------------------------------------
-
-def step_inputs(p, G, seed):
-    """acc [G, k+1, N] u32, rotation amounts [G], and one step's random
-    single-width key [HALF, R, P, C4P] int8."""
-    rng = np.random.default_rng(seed)
-    HALF, R = p.N // megaJ.P, (p.k + 1) * p.levels
-    acc = rand_u32(rng, G, p.k + 1, p.N)
-    rot = rng.integers(0, 2 * p.N, G)
-    key = rng.integers(-128, 128, (HALF, R, megaJ.P, (p.k + 1) * 4 * megaJ.P),
-                       dtype=np.int8)
-    return acc, rot, key
-
-
-def plain_step(p, acc, rot, key):
-    """One step of ``mega7``'s plain rotation on those inputs."""
-    p1 = dc.replace(p, n=1)
-    out = megaJ.blind_rotate_plain_btj(
-        p1, from_numpy_u32(acc), torch.as_tensor(rot[None], dtype=torch.int32),
-        torch.as_tensor(key[None]))
-    return to_numpy_u32(out)
-
-
-def digit_buffer(p, acc, rot):
-    """The kernels' digit buffer [R][N/4][G] of 32-bit words, byte u of word
-    (r, y4, g) digit r of coefficient 4*y4+u of ciphertext g."""
-    G = acc.shape[0]
-    x = from_numpy_u32(acc)
-    d = poly.negacyclic_monomial_mul(x, torch.as_tensor(rot)[:, None]) - x
-    digits = signed_decompose(d, p.bg_bits, p.levels)  # [G, k+1, N, levels]
-    d8 = digits.permute(1, 3, 2, 0).reshape(-1, p.N, G).to(torch.int8)
-    words = d8.numpy().astype(np.uint8).reshape(-1, p.N // 4, 4, G)
-    return (words.astype(np.uint32) << (8 * np.arange(4))[:, None]).sum(
-        axis=2).astype(np.uint32)  # [R, N/4, G]
-
-
-def bytes_s8(words):
-    """int32 words -> their 4 bytes as int8 (byte 0 first)."""
-    return np.asarray(words, dtype=np.uint32).view(np.uint8).reshape(
-        *np.shape(words), 4).view(np.int8)
-
-
-def test_emulated_mma_fragments_equal_plain_step():
-    """``mega3``'s m16n8k32 contraction, lane by lane: A from ``bsk_btjm`` at
-    the kernel's address (kc*MT*512 + mt*512 + lane*16), B from the digit
-    buffer at (r*N/4 + sub*PW + kc*8 + tq [+4])*8 + gq, D = A @ B with the
-    PTX fragment maps, the negated run's fragments subtracted once, then
-    the recombine of c0..c3 into the accumulators."""
-    p = dc.replace(TOY, n=1, N=256, k=1, bg_bits=8, levels=2)
-    G, P = 8, megaJ.P
-    acc, rot, key = step_inputs(p, G, 3)
-    kp1, R, HALF = p.k + 1, (p.k + 1) * p.levels, p.N // P
-    C4P, MT, PW, N4 = kp1 * 4 * P, kp1 * 4 * P // 16, P // 4, p.N // 4
-    btjm = megaJ.fragment_order(torch.as_tensor(key)).numpy().reshape(-1)
-    BLOCK = P * C4P
-    dig = digit_buffer(p, acc, rot).reshape(-1)
-    lane = np.arange(32)
-    gq, tq = lane >> 2, lane & 3
-    e = np.arange(16)
-    reg, byte = e // 4, e % 4
-    # A (16 x 32): lane's register reg, byte b -> row gq + 8*(reg&1), K
-    # 4*tq + 16*(reg>>1) + b
-    a_row = gq[:, None] + 8 * (reg & 1)[None]
-    a_k = 4 * tq[:, None] + 16 * (reg >> 1)[None] + byte[None]
-    out = acc.astype(np.uint32).copy()
-    for ct in range(HALF):
-        for mt in range(MT):
-            frags = {False: np.zeros((16, 8), np.int64),
-                     True: np.zeros((16, 8), np.int64)}
-            for m in range(HALF):
-                negrun = m > ct
-                sub = HALF + ct - m if negrun else ct - m
-                for r in range(R):
-                    for kc in range(P // 32):
-                        at = ((m * R + r) * BLOCK + kc * MT * 512 + mt * 512
-                              + lane[:, None] * 16 + e[None])
-                        A = np.zeros((16, 32), np.int64)
-                        A[a_row, a_k] = btjm[at]
-                        w = (r * N4 + sub * PW + kc * 8 + tq) * G + gq
-                        b0, b1 = bytes_s8(dig[w]), bytes_s8(dig[w + 4 * G])
-                        Bm = np.zeros((32, 8), np.int64)
-                        for half, bb in ((0, b0), (1, b1)):
-                            Bm[(4 * tq + 16 * half)[:, None] + np.arange(4),
-                               gq[:, None]] = bb
-                        frags[negrun] += A @ Bm
-            D = (frags[False] - frags[True]).astype(np.uint32)
-            col0 = mt * 16
-            c, j = col0 // (4 * P), (col0 // P) & 3
-            for x in range(4):
-                row = gq + 8 * (x >> 1)
-                b = 2 * tq + (x & 1)
-                np.add.at(out, (b, c, ct * P + col0 % P + row),
-                          (D[row, b] << np.uint32(8 * j)).astype(np.uint32))
-    np.testing.assert_array_equal(out, plain_step(p, acc, rot, key))
-
-
 # --- the key layout, wrappers, engines and routes --------------------------
 
 @pytest.mark.parametrize("levels", [2, 3])
@@ -274,42 +173,16 @@ def test_kmajor_from_btj2_equals_btk2(k, levels):
     assert got.dtype == torch.int8 and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("set_id", list(SETS))
-def test_btjm_byte_map_onto_btj(set_id):
-    """Byte 4*reg + b of lane 4*gq + tq of A tile (kc, mt) of each block of
-    ``bsk_btjm`` is ``bsk_btj``'s column mt*16 + gq + 8*(reg & 1), K row
-    kc*32 + 4*tq + 16*(reg >> 1) + b, and the port's ``bsk_btj`` is the JAX
-    package's; the two are one size."""
-    params = SETS[set_id]
-    _, _, jdsk, tdsk = keys(params)
-    btj, btjm = tdsk.bsk_btj.numpy(), tdsk.bsk_btjm.numpy()
-    np.testing.assert_array_equal(btj, np.asarray(jdsk.bsk_btj))
-    assert btjm.shape == btj.shape and btjm.dtype == btj.dtype
-    np.testing.assert_array_equal(
-        megaJ.from_fragment_order(tdsk.bsk_btjm).numpy(), btj)
-    assert tsk.bt_key_bytes(params) == btjm.size
-    MT = btj.shape[-1] // 16
-    btj, btjm = btj[::5], btjm[::5]  # every fifth step: 2 of 8
-    flat = btjm.reshape(*btj.shape[:3], -1)
-    kc, mt, lane, e = np.meshgrid(np.arange(4), np.arange(MT), np.arange(32),
-                                  np.arange(16), indexing="ij")
-    gq, tq, reg, b = lane >> 2, lane & 3, e >> 2, e & 3
-    col = mt * 16 + gq + 8 * (reg & 1)
-    K = kc * 32 + 4 * tq + 16 * (reg >> 1) + b
-    at = kc * MT * 512 + mt * 512 + lane * 16 + e
-    np.testing.assert_array_equal(flat[..., at], btj[..., K, col])
-
-
 @pytest.mark.parametrize("name", list(LEGACY))
 def test_legacy_j_wrapper_checks(name):
     _, _, _, tdsk = keys(MULTITILE_K2)
     p = tdsk.params
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
-    # another key: of the same size, the JAX package's bsk_btj2 for
+    # another key of the same size: the JAX package's bsk_btj2 for
     # csrc/mega12.cu's doubled window (mega10's key on the TPU) and its
-    # bsk_btj for the single window; the other window width for mega3
-    other = (tdsk.bsk_btj if name in ("mega5", "mega4") else tdsk.bsk_btj2)
+    # bsk_btj for the single window
+    other = tdsk.bsk_btj2 if name == "mega10" else tdsk.bsk_btj
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -330,44 +203,40 @@ def test_legacy_j_wrapper_checks(name):
         megaJ.check_params(PARAM_SETS[pset], name)
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
-    # mega5 and mega4 are csrc/mega12.cu's single window (mega7's
+    # mega3, mega5 and mega4 are csrc/mega12.cu's single window (mega7's
     # instantiation), mega10 its doubled window (mega11's)
-    assert name in (megaJ.LEGACY_SOURCE if name == "mega3"
-                    else megaJ.TENSOR_CORE)
+    assert name in megaJ.TENSOR_CORE
     assert port_engine(f"pallas_{name}") == name
 
 
 @pytest.mark.parametrize("name", ["mega4", "mega5", "mega3"])
 def test_check_params_names_shared_memory(name):
-    """``mega3`` (whose block may hold one ciphertext, zeros on the rest of
-    its n8 side) takes a set whose ciphertext nearly fills a block, as
-    ``mega7`` does, but not one with wider digits, and the refusal names
-    the shared memory.  ``mega5`` and ``mega4``, whose wide block and
-    staged key buffers were refused at the first, are now
-    ``csrc/mega12.cu``'s single window (digits and accumulators in device
-    memory) and behave as ``mega7``: they take both sets."""
+    """``mega5``, ``mega4`` and ``mega3``, whose wide block, staged key
+    buffers and shared-memory ciphertext blocks refused a set whose
+    ciphertext fills a block (the first two) or one with wider digits
+    (``mega3``), are now ``csrc/mega12.cu``'s single window (digits and
+    accumulators in device memory) and behave as ``mega7``: they take both
+    sets.  ``mega8``, whose dp4a block holds a ciphertext in shared memory,
+    still refuses the wider one and names the shared memory."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=16)
     wider = dc.replace(wide, bg_bits=1, levels=32)
-    megaJ.check_params(wide, "mega7")
-    megaJ.check_params(wider, "mega7")
-    if name in megaJ.TENSOR_CORE:
-        megaJ.check_params(wide, name)
-        megaJ.check_params(wider, name)
-    else:
-        assert name in megaJ.MMA
-        megaJ.check_params(wide, name)
-        with pytest.raises(ValueError, match="shared memory"):
-            megaJ.check_params(wider, name)
+    assert name in megaJ.TENSOR_CORE
+    for p in (wide, wider):
+        megaJ.check_params(p, "mega7")
+        megaJ.check_params(p, name)
+    megaJ.check_params(wide, "mega8")
+    with pytest.raises(ValueError, match="shared memory"):
+        megaJ.check_params(wider, "mega8")
 
 
 @pytest.mark.parametrize("name", list(LEGACY))
 def test_plain_versions_share_the_serial_function(name):
     """``mega10`` shares ``mega11``'s plain version
     (``blind_rotate_plain_btk2``, the same key); ``mega5`` and ``mega4``
-    ``mega7``'s (``mega12.blind_rotate_plain_btk``, the same key);
-    ``mega3``'s is ``mega7``'s function on its key out of fragment order:
-    each gives the serial kernel's rotation on the same inputs."""
+    ``mega7``'s (``mega12.blind_rotate_plain_btk``, the same key), and so
+    does ``mega3``: each gives the serial kernel's rotation on the same
+    inputs."""
     _, _, _, tdsk = keys(MULTITILE)
     p = tdsk.params
     rng = np.random.default_rng(len(name))
@@ -413,10 +282,10 @@ def test_routes_equal_jax(name, budget_gib):
     through the doubled key's check (``server_key.py:694-699``: at 12 GiB
     STD128_SHORTINT's 18 GiB ``bsk_btj2`` goes to ``mega12``), the others
     (``mega`` on ``bsk_bt`` too) kept; ``layouts_for_engine`` is the JAX
-    package's but for ``mega3``, whose ``bsk_btjm`` is ``bsk_btj`` in
-    fragment order, ``mega5``, ``mega4``, ``mega2`` and ``mega``, which
-    read ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s order) for the JAX
-    package's ``bsk_btj`` and ``bsk_bt``, and ``mega10``, which reads
+    package's but for ``mega3``, ``mega5``, ``mega4``, ``mega2`` and
+    ``mega``, which read ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s order)
+    for the JAX package's ``bsk_btj`` and ``bsk_bt``, and ``mega10``, which
+    reads
     ``bsk_btk2`` (``bsk_btj2j`` in that order) for its ``bsk_btj2``: each
     pair one size."""
     budget = budget_gib * GIB
@@ -435,8 +304,7 @@ def test_routes_equal_jax(name, budget_gib):
     elif name in ("mega3", "mega5", "mega4", "mega2", "mega"):
         assert jax_layouts == ("bsk_bt" if name in ("mega2", "mega")
                                else "bsk_btj",)
-        assert tsk.layouts_for_engine(name) == (
-            "bsk_btjm" if name == "mega3" else "bsk_btk",)
+        assert tsk.layouts_for_engine(name) == ("bsk_btk",)
     else:
         assert tsk.layouts_for_engine(name) == jax_layouts
     assert port_engine(f"pallas_{name}") == name

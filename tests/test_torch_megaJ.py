@@ -49,8 +49,8 @@ from herdsman_tpu_torch.utils import rowcodec
 # interpret-mode rotations stay fast
 MULTITILE = dc.replace(TOY, name="toy_multitile", n=8, N=256)
 MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
-# the serial-schedule kernels; the legacy mega9 and mega6 (the same source,
-# other schedules) are tests/test_torch_legacy.py's
+# the serial-schedule kernels; the legacy mega9 (mega8's source, another
+# schedule) and mega6 (mega7's kernel and key) are tests/test_torch_legacy.py's
 ENGINES = ["mega11", "mega8", "mega7"]
 # layout -> the JAX package's _block_toeplitz_layout_device arguments
 JAX_LAYOUTS = {"bsk_btj": {"j_major": True},

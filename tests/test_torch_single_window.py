@@ -1,22 +1,25 @@
 """``csrc/mega12.cu``'s single window under the wrappers ``mega5``,
-``mega4``, ``mega2`` and ``mega`` (``ops/kernels/megaJ.py``), which replace
-the JAX package's legacy ``_mega5_kernel`` and ``_mega4_kernel`` (on
-``bsk_btj``) and ``_mega2_kernel`` and ``_mega_kernel`` (on the R-major
-``bsk_bt``) and read ``bsk_btk``, on the CPU:
+``mega4``, ``mega6``, ``mega3``, ``mega2`` and ``mega``
+(``ops/kernels/megaJ.py``), which replace the JAX package's legacy
+``_mega5_kernel``, ``_mega4_kernel``, ``_mega6_kernel`` and
+``_mega3_kernel`` (on ``bsk_btj``) and ``_mega2_kernel`` and
+``_mega_kernel`` (on the R-major ``bsk_bt``) and read ``bsk_btk``, on the
+CPU:
 
 - ``mega12.kmajor_from_bt`` and ``kmajor_from_btj`` re-lay a ``bsk_bt``
   or ``bsk_btj`` as ``server_key.block_toeplitz_layout(..., kmajor=True)``
   builds ``bsk_btk``, at k = 1, 2, 4, N = 128, 256, 512 and levels 2, 3,
   and the JAX package's own keys as the port's ``bsk_btk``;
-- ``layouts_for_engine`` and ``fit_engine`` for the four names at every
+- ``layouts_for_engine`` and ``fit_engine`` for the six names at every
   named set, at 40 and 12 GiB against the JAX package's routes and
   ``mega7``'s, and at 8 and 4 GiB against ``mega7``'s;
 - the wrappers' plain versions (``mega12.blind_rotate_plain_btk``) at B =
   1 and 37 against the NumPy ``reference.blind_rotate``, with no launch;
-- ``mega4``'s and ``mega``'s plain version on the JAX package's
-  ``bsk_btj`` and ``bsk_bt``, re-laid, against ``legacy.mega4_blind_rotate``
-  and ``legacy.mega_blind_rotate`` in interpret mode on the same random
-  accumulators and rotation amounts.
+- ``mega4``'s, ``mega6``'s, ``mega3``'s and ``mega``'s plain version on
+  the JAX package's ``bsk_btj`` (the first three) and ``bsk_bt``, re-laid,
+  against ``legacy.mega4_blind_rotate``, ``mega6_blind_rotate``,
+  ``mega3_blind_rotate`` and ``mega_blind_rotate`` in interpret mode on the
+  same random accumulators and rotation amounts.
 
 (``tests/test_torch_megaR.py`` and ``tests/test_torch_legacy_j.py`` hold
 the gate path on them array-equal to the JAX package's interpret-mode
@@ -42,7 +45,7 @@ from herdsman_tpu_torch.ops import server_key as tsk
 from herdsman_tpu_torch.ops.kernels import mega12, megaJ
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 
-NAMES = ["mega5", "mega2", "mega4", "mega"]
+NAMES = ["mega5", "mega2", "mega4", "mega", "mega6", "mega3"]
 GIB = 1 << 30
 # HALF = 2 at N = 256 moves the negated run; n cut to 8 steps
 SETS = {"k1": dc.replace(TOY, name="toy_multitile", n=8, N=256),
@@ -143,8 +146,8 @@ def keys(set_id):
 @pytest.mark.parametrize("set_id", list(SETS))
 def test_kmajor_from_jax_keys_equals_port_key(set_id):
     """The JAX package's ``pallas_mega2`` and ``pallas_mega`` key
-    (``bsk_bt``) and ``pallas_mega5`` and ``pallas_mega4`` key
-    (``bsk_btj``), re-laid, are the port's ``bsk_btk``."""
+    (``bsk_bt``) and ``pallas_mega5``, ``_mega4``, ``_mega6`` and
+    ``_mega3`` key (``bsk_btj``), re-laid, are the port's ``bsk_btk``."""
     params, _, tdsk, jdsk = keys(set_id)
     kp1 = params.k + 1
     for got in (mega12.kmajor_from_bt(torch.from_numpy(np.array(
@@ -154,6 +157,23 @@ def test_kmajor_from_jax_keys_equals_port_key(set_id):
         assert torch.equal(got, tdsk.bsk_btk)
 
 
+@functools.cache
+def reference(set_id, B):
+    """(ciphertexts, their NumPy reference rotations, ``mega7``'s rotation
+    of them): computed once per set and width for every name."""
+    params, sk, tdsk, _ = keys(set_id)
+    rng = np.random.default_rng(B + params.k)
+    ct = rng.integers(0, 1 << 32, (B, params.n + 1),
+                      dtype=np.uint64).astype(np.uint32)
+    test_poly = jref.make_test_poly(params)
+    want = np.stack([jref.blind_rotate(sk, ct[i], test_poly)
+                     for i in range(B)])
+    mega7 = to_numpy_u32(tbs.blind_rotate_batch(
+        tdsk, from_numpy_u32(ct), tbs.make_test_poly(tdsk.params),
+        engine="mega7"))
+    return ct, want, mega7
+
+
 @pytest.mark.parametrize("B", [1, 37])
 @pytest.mark.parametrize("set_id", list(SETS))
 @pytest.mark.parametrize("name", NAMES)
@@ -161,10 +181,8 @@ def test_single_window_plain_equals_reference(name, set_id, B):
     """``blind_rotate_batch`` on each engine (its wrapper's plain version on
     CPU tensors, no launch counted) equals the NumPy reference rotation of
     every ciphertext, and ``mega7``'s rotation."""
-    params, sk, tdsk, _ = keys(set_id)
-    rng = np.random.default_rng(B + params.k)
-    ct = rng.integers(0, 1 << 32, (B, params.n + 1),
-                      dtype=np.uint64).astype(np.uint32)
+    tdsk = keys(set_id)[2]
+    ct, want, mega7 = reference(set_id, B)
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     before = kernel.launches
     got = to_numpy_u32(tbs.blind_rotate_batch(
@@ -172,38 +190,37 @@ def test_single_window_plain_equals_reference(name, set_id, B):
         engine=name))
     assert kernel.launches == before  # no kernel on the CPU
     assert megaJ.plain(name) is mega12.blind_rotate_plain_btk
-    test_poly = jref.make_test_poly(params)
-    for i in range(B):
-        np.testing.assert_array_equal(
-            got[i], jref.blind_rotate(sk, ct[i], test_poly))
-    np.testing.assert_array_equal(got, to_numpy_u32(tbs.blind_rotate_batch(
-        tdsk, from_numpy_u32(ct), tbs.make_test_poly(tdsk.params),
-        engine="mega7")))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, mega7)
+
+
+# the legacy kernel -> the JAX package's key of it and the re-lay of that
+# key into bsk_btk
+RELAY = {"mega4": ("bsk_btj", mega12.kmajor_from_btj),
+         "mega6": ("bsk_btj", mega12.kmajor_from_btj),
+         "mega3": ("bsk_btj", mega12.kmajor_from_btj),
+         "mega": ("bsk_bt", mega12.kmajor_from_bt)}
 
 
 @pytest.mark.parametrize("set_id", list(SETS))
-@pytest.mark.parametrize("name", ["mega4", "mega"])
+@pytest.mark.parametrize("name", list(RELAY))
 def test_plain_on_relaid_key_equals_jax_legacy(name, set_id):
-    """``plain("mega4")`` on ``kmajor_from_btj(bsk_btj)`` and
-    ``plain("mega")`` on ``kmajor_from_bt(bsk_bt)`` (the JAX package's own
-    keys) equal ``legacy.mega4_blind_rotate`` and ``legacy.mega_blind_rotate``
-    (interpret mode) on the same random accumulators and rotation amounts."""
+    """``plain(name)`` on the JAX package's own key of ``pallas_<name>``
+    re-laid (``kmajor_from_btj(bsk_btj)`` for ``mega4``, ``mega6`` and
+    ``mega3``, ``kmajor_from_bt(bsk_bt)`` for ``mega``) equals
+    ``legacy.<name>_blind_rotate`` (interpret mode) on the same random
+    accumulators and rotation amounts."""
     params, _, _, jdsk = keys(set_id)
     B, kp1 = 5, params.k + 1
     rng = np.random.default_rng(len(name) + params.k)
     acc0 = rng.integers(0, 1 << 32, (B, kp1, params.N),
                         dtype=np.uint64).astype(np.uint32)
     a_t = rng.integers(0, 2 * params.N, (params.n, B)).astype(np.int32)
-    if name == "mega4":
-        jkey = jdsk.bsk_btj
-        key = mega12.kmajor_from_btj(torch.from_numpy(np.array(jkey)), kp1)
-        want = legacy.mega4_blind_rotate(params, jnp.asarray(acc0),
-                                         jnp.asarray(a_t), jkey)
-    else:
-        jkey = jdsk.bsk_bt
-        key = mega12.kmajor_from_bt(torch.from_numpy(np.array(jkey)), kp1)
-        want = legacy.mega_blind_rotate(params, jnp.asarray(acc0),
-                                        jnp.asarray(a_t), jkey)
+    layout, relay = RELAY[name]
+    jkey = getattr(jdsk, layout)
+    key = relay(torch.from_numpy(np.array(jkey)), kp1)
+    want = getattr(legacy, f"{name}_blind_rotate")(
+        params, jnp.asarray(acc0), jnp.asarray(a_t), jkey)
     got = megaJ.plain(name)(params, from_numpy_u32(acc0),
                             torch.from_numpy(a_t), key)
     np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
