@@ -9,15 +9,15 @@ switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
 host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
 processes while the card runs the earlier paths.  Nineteen kernel wrappers
-(all twenty TPU kernel bodies) from five CUDA sources; ``mega13``,
+(all twenty TPU kernel bodies) from four CUDA sources; ``mega13``,
 ``mega14``, ``mega17``, ``mega15`` and ``mega16`` run ``csrc/megaS.cu``
 (int8 tensor cores, the key a register operand built from its compact
 stream; ``mega17``, ``mega15`` and ``mega16`` are ``mega13``'s kernel
 through their own entries), ``mega12``, ``mega7``, ``mega5``, ``mega4``,
 ``mega6``, ``mega3``, ``mega2`` and ``mega`` (its single window on
-``bsk_btk``, each wrapper counted apart) and ``mega11`` and ``mega10``
-(its doubled window on ``bsk_btk2``) those of ``csrc/mega12.cu``, and
-``mega8`` and ``mega9`` those of ``csrc/megaJ.cu`` (dp4a).
+``bsk_btk``, each wrapper counted apart) and ``mega11``, ``mega10``,
+``mega8`` and ``mega9`` (its doubled window on ``bsk_btk2``) those of
+``csrc/mega12.cu``.
 
     python3 chip_smoke.py [--seed S]
 
@@ -67,13 +67,12 @@ Phases, in order; any failure raises and exits non-zero:
    B=2048 gate batch on ``bt`` and ``bt_fused``, and path C's jobs with
    the runner's load / exec / store split;
 9b. main path H, the j-major family at STD128_K2: path A's gate batch on
-    ``mega11`` and ``mega10`` (``mega12.cu``'s doubled window, key
-    ``bsk_btk2``), ``mega8`` and ``mega9`` (``bsk_btj2``), ``mega7``,
-    ``mega5``, ``mega4``, ``mega6`` and ``mega3`` (``mega12.cu``'s single
-    window, on one ``bsk_btk``), the key of one function built, used and
-    freed in turn, each kernel against its plain
-    version (tolerance 0) on the batch's rotation inputs at B = 2048, 256
-    and 9 (and 1 for ``mega12.cu``'s wrappers), each output array-equal to
+    ``mega11``, ``mega10``, ``mega8`` and ``mega9`` (``mega12.cu``'s
+    doubled window, on one ``bsk_btk2``), ``mega7``, ``mega5``, ``mega4``,
+    ``mega6`` and ``mega3`` (``mega12.cu``'s single window, on one
+    ``bsk_btk``), the key of one window built, used and freed in turn, each
+    kernel against its plain version (tolerance 0) on the batch's rotation
+    inputs at B = 2048, 256, 9 and 1, each output array-equal to
     path A's ``mega13`` output and decrypted against the truth table, with
     times (the kernels of one function in turns) and peak memory;
     ``mega11`` also in turns with ``mega12`` (on a ``bsk_btk`` of the same
@@ -204,7 +203,6 @@ from __future__ import annotations
 import argparse
 import atexit
 import dataclasses
-import functools
 import gc
 import json
 import logging
@@ -988,15 +986,15 @@ def main() -> int:
                   f"at {p.name} B={B}")
         return err, cache[B_MAIN][1]
 
-    def rotation_times(names, p, acc0, a_t, keys, per_block,
+    def rotation_times(names, p, acc0, a_t, keys, plans,
                        fns: dict | None = None) -> dict:
         """ms per rotation at B=2048 and at B=256 of each kernel of
         ``names`` (warm: each ran at these shapes in vs_plain) on the same
         inputs, in turns (``names``, then in reverse, where there are
-        several); with each one's bound, its share of the integer lanes'
-        dp4a rate, and the ciphertexts per block ``per_block[name]`` gives
-        (None where the kernel has no such function).  ``fns`` names a
-        rotation that is no kernel wrapper (fn(params, acc0, a_t, key))."""
+        several); with each one's bound and the split of a batch
+        ``plans[name]`` gives (None where the kernel has no such
+        function).  ``fns`` names a rotation that is no kernel wrapper
+        (fn(params, acc0, a_t, key))."""
         fns = fns or {}
         order = [*names, *names[::-1]] if len(names) > 1 else list(names)
         narrow = (acc0[:RADIX_VALUES].contiguous(),
@@ -1014,55 +1012,46 @@ def main() -> int:
                                           key.numel() * key.element_size())
             bound, by = bounds.bound_ms(ops, nbytes)
             ms = sum(runs[name]["ms"]) / len(runs[name]["ms"])
-            pb = per_block.get(name)
+            pb = plans.get(name)
             out[name] = {
                 "ms": ms,
                 "narrow_ms": (sum(runs[name]["narrow_ms"])
                               / len(runs[name]["narrow_ms"])),
                 "bound_ms": bound, "bound_by": by,
-                # the share of the integer lanes' issue rate its __dp4a use
-                # (4 MACs each, ops / 8 of them), its own ceiling short of
-                # tensor cores
-                "dp4a_share": ops / 8 / bounds.PEAK_INT32_OPS / (ms / 1e3),
                 "G": {B: pb(p, B, dev) if pb else None
                       for B in (B_MAIN, RADIX_VALUES, 9)}}
         return out
 
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def megaJ_blocks(name):
-        """Kernel ``name``'s split of a batch: ciphertexts per block, or for
-        csrc/mega12.cu's its (bm, splits, cluster) plan."""
-        if name in megaJ.TENSOR_CORE:
-            return lambda p, B, dev_: mega12.kernel_plan(p, B, n_sms)
-        return functools.partial(megaJ.ciphertexts_per_block, name=name)
+    def mega12_plan(p, B, dev_):
+        """csrc/mega12.cu's split of a batch: its (rows a tile, K splits,
+        blocks a cluster) plan."""
+        return mega12.kernel_plan(p, B, n_sms)
 
     def megaS_units(name):
         """(work units, K splits) of csrc/megaS.cu's entry ``name``."""
         return lambda p, B, dev_: megaS.kernel_plan(p, B, name, n_sms)
 
     def print_times(name, p, t, plain_ms) -> None:
-        lanes = ("on tensor cores" if name in megaS.KERNELS
-                 or name in megaJ.TENSOR_CORE else
-                 f"{t['dp4a_share']:.4f} of the integer lanes' dp4a rate")
         print(f"time: {name} at {p.name} B={B_MAIN} {t['ms']:.3f} ms = "
               f"{B_MAIN / t['ms'] * 1e3:.1f} bootstraps/s, "
               f"{t['bound_ms'] / t['ms']:.4f} of the {t['bound_ms']:.4f} ms "
-              f"bound ({t['bound_by']}), {lanes}; B={RADIX_VALUES} "
+              f"bound ({t['bound_by']}), on tensor cores; B={RADIX_VALUES} "
               f"{t['narrow_ms']:.3f} ms; plain {plain_ms:.3f} ms at "
-              f"B={B_MAIN}; ciphertexts per block by B {t['G']} {card}")
+              f"B={B_MAIN}; plan by B {t['G']} {card}")
 
     # 9b. main path H: path A's gate batch on the j-major family, one
-    # function's keys at a time (built, used, freed): mega11 and mega10 on
-    # bsk_btk2 (mega12.cu's doubled window under two wrappers, beside a
-    # bsk_btk for mega12 in turns); mega8 and mega9 on bsk_btj2; mega7,
-    # mega5, mega4, mega6 and mega3 on one bsk_btk (mega12.cu's single
-    # window under five wrappers); the kernels of one function, which share
-    # a key and a plain version, are timed in turns -----------------------
+    # window's keys at a time (built, used, freed): mega11, mega10, mega8
+    # and mega9 on one bsk_btk2 (mega12.cu's doubled window under four
+    # wrappers, beside a bsk_btk for mega12 in turns); mega7, mega5, mega4,
+    # mega6 and mega3 on one bsk_btk (mega12.cu's single window under five
+    # wrappers); the kernels of one window, which share a key and a plain
+    # version, are timed in turns ------------------------------------------
     errs_j = {name: 0 for name in megaJ.KERNELS}
     res_h = {}
     turns11 = {}
-    for group in (("mega11", "mega10"), ("mega8", "mega9"),
+    for group in (("mega11", "mega10", "mega8", "mega9"),
                   ("mega7", "mega5", "mega4", "mega6", "mega3")):
         layouts_h = tuple(dict.fromkeys(megaJ.KEY_LAYOUTS[n] for n in group))
         if group[0] == "mega11":  # mega12's key, to time mega11 beside it
@@ -1084,9 +1073,7 @@ def main() -> int:
         for name in group:
             err_h, plain_h_ms = vs_plain(
                 name, megaJ.plain(name), P, acc0, a_t, keys_h[name], cache,
-                widths=((B_MAIN, RADIX_VALUES, 9, 1)
-                        if name in megaJ.TENSOR_CORE
-                        else (B_MAIN, RADIX_VALUES, 9)))
+                widths=(B_MAIN, RADIX_VALUES, 9, 1))
             errs_j[name] = max(errs_j[name], err_h)
             reset_counts()
             out_h, h_s = host_s(lambda: gates.gate_batch(
@@ -1108,7 +1095,7 @@ def main() -> int:
                   f"{counts_h}")
             del out_h
         times = rotation_times(group, P, acc0, a_t, keys_h,
-                               {name: megaJ_blocks(name) for name in group})
+                               dict.fromkeys(group, mega12_plan))
         if group[0] == "mega11":
             # in turns on the same inputs: mega12 (the single window, on
             # this key in bsk_btk's order) and bt_fused's rotation (2n
@@ -1227,8 +1214,8 @@ def main() -> int:
                for g in ("std128_k2", "std128", "std128_shortint")]
     plans_w = {}
     windows_w = {}
-    for name in megaJ.TENSOR_CORE:
-        windows_w.setdefault(megaJ.KERNELS[name][2], []).append(name)
+    for name, doubled in megaJ.KERNELS.items():
+        windows_w.setdefault(doubled, []).append(name)
     for Gp in geoms_w:
         for doubled, names_w in windows_w.items():
             key_g = torch.randint(-128, 128, mega12.key_shape(Gp, doubled),
@@ -1295,7 +1282,7 @@ def main() -> int:
           f"B=300) == their plain versions on random inputs and keys at B "
           f"in {[B_MAIN, 9]} at "
           f"{[(k, g.name) for k, g in geomsS]} (n = 32; max_abs_err "
-          f"{errS_random}); {', '.join(megaJ.TENSOR_CORE)} "
+          f"{errS_random}); {', '.join(megaJ.KERNELS)} "
           f"(csrc/mega12.cu) == their "
           f"plain versions on random inputs and keys at B in "
           f"{[B_MAIN, 300, 9]} at {[g.name for g in geoms_w]} (n = 32; "
@@ -1402,8 +1389,8 @@ def main() -> int:
                   f"end {lk_s:.3f} s = {B_MAIN / lk_s:.1f} bootstraps/s; "
                   f"{name} {kernel_l_ms:.3f} ms per rotation, "
                   f"{bound_l / kernel_l_ms:.4f} of the {bound_l:.4f} ms "
-                  f"bound ({by_l}); plain {plain_l_ms:.3f} ms; ciphertexts "
-                  f"per block {megaJ_blocks(name)(PL, B_MAIN, dev)} {card}")
+                  f"bound ({by_l}); plain {plain_l_ms:.3f} ms; plan "
+                  f"{mega12_plan(PL, B_MAIN, dev)} {card}")
             del out_lk, got_l
         # mega12.cu's window at N = 1024 under the group's wrappers, in
         # turns with each other and with mega13 on the same batch (outputs
@@ -1510,7 +1497,7 @@ def main() -> int:
     times_m = rotation_times(
         names_m, P, acc0, a_t, {"mega": key_k, "mega2": key_k,
                                 "bt_fused": dsk.bsk_bt, "mega7": key_k},
-        {name: megaJ_blocks(name) for name in (*row_j, "mega7")},
+        dict.fromkeys((*row_j, "mega7"), mega12_plan),
         fns={"bt_fused": bt_fused_rotation})
     del dsk_m, key_k
     torch.cuda.empty_cache()
@@ -1814,7 +1801,7 @@ def main() -> int:
     check(torch.equal(r7.data, d1_out), "J on mega7 != D1 on mega12")
     res_j = {"counts": counts_j, "plain_ms": plain7_ms,
              **rotation_times(("mega7",), PS, acc0_j, a_t_j, {"mega7": key7},
-                              {"mega7": megaJ_blocks("mega7")})["mega7"]}
+                              {"mega7": mega12_plan})["mega7"]}
     # mega7 in turns with mega12 on the same key and inputs: one kernel
     turns7 = in_turns(PS, acc0_j, a_t_j, {
         "mega7": (megaJ.mega7_blind_rotate, key7),
@@ -2287,18 +2274,25 @@ def main() -> int:
                for B, t in res.get("turns", {}).items()
                for k, v in t.items()},
         })
-    # mega11 (csrc/mega12.cu's doubled window) and mega8 timed at STD128_K2
+    def vs_mega11(name) -> dict:
+        """Kernel ``name``'s time beside ``mega11``'s, timed in turns on
+        one bsk_btk2 in path H (csrc/mega12.cu's doubled window)."""
+        a, b = res_h["mega11"], res_h[name]
+        return {"ms_mega11_in_turns": a["ms"],
+                "ratio_to_mega11": b["ms"] / a["ms"],
+                "ratio_to_mega11_b256": b["narrow_ms"] / a["narrow_ms"]}
+
+    # mega11 and mega8 (csrc/mega12.cu's doubled window) timed at STD128_K2
     # (path H), mega7 (its single window) at STD128_SHORTINT (path J),
-    # beside its STD128_K2 time; mega11 and mega7 also in turns with mega12
+    # beside its STD128_K2 time; mega11 and mega7 also in turns with mega12,
+    # mega8 with mega11
     for name, line, res in (("mega11", 449, res_h["mega11"]),
                             ("mega8", 236, res_h["mega8"]),
                             ("mega7", 84, res_j)):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("herdsman_tpu_torch/csrc/mega12.cu"
-                       if name in megaJ.TENSOR_CORE
-                       else "herdsman_tpu_torch/csrc/megaJ.cu"),
+            "source": "herdsman_tpu_torch/csrc/mega12.cu",
             "replaces": f"herdsman_tpu/ops/pallas/mega.py:{line}",
             **launches(name),
             "matches_plain": errs_j[name] == 0,
@@ -2312,11 +2306,13 @@ def main() -> int:
         })
     kernels[-3].update({f"ms_{k}_in_turns_b{B}": v
                         for B, t in turns11.items() for k, v in t.items()})
+    kernels[-2].update(vs_mega11("mega8"))
     kernels[-1]["ms_std128_k2"] = res_h["mega7"]["ms"]
     kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
                         for B, t in turns7.items() for k, v in t.items()})
-    # mega9 timed at STD128_K2 in path H, in turns with mega8; mega14 at
-    # STD128_K4 (path K), beside its STD128_K2 time (A')
+    # mega9 (csrc/mega12.cu's doubled window) timed at STD128_K2 in path H,
+    # in turns with mega11; mega14 at STD128_K4 (path K), beside its
+    # STD128_K2 time (A')
     for name, line, res, err_k in (
             ("mega9", "legacy.py:874", res_h["mega9"], errs_j["mega9"]),
             ("mega14", "mega.py:997", {**res_k, "plain_ms": plain14_ms},
@@ -2325,7 +2321,7 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": ("herdsman_tpu_torch/csrc/megaS.cu" if name == "mega14"
-                       else "herdsman_tpu_torch/csrc/megaJ.cu"),
+                       else "herdsman_tpu_torch/csrc/mega12.cu"),
             "replaces": f"herdsman_tpu/ops/pallas/{line}",
             **launches(name),
             "matches_plain": err_k == 0,
@@ -2337,6 +2333,7 @@ def main() -> int:
             "library_ms": None,
             "ms_b256": res["narrow_ms"],
         })
+    kernels[-2].update(vs_mega11("mega9"))
     kernels[-1]["ms_std128_k2"] = res_a14["mega14"]["ms"]
     kernels[-1]["ms_std128_shortint_fast"] = f14_ms
     kernels[-1].update({f"ms_{k}_in_turns_b{B}": v
@@ -2363,10 +2360,7 @@ def main() -> int:
         "bound_ms_std128": res_std["bound_ms"],
     })
     kernels[-1].update({
-        "ms_mega11_in_turns": res_h["mega11"]["ms"],
-        "ratio_to_mega11": res_h["mega10"]["ms"] / res_h["mega11"]["ms"],
-        "ratio_to_mega11_b256": (res_h["mega10"]["narrow_ms"]
-                                 / res_h["mega11"]["narrow_ms"]),
+        **vs_mega11("mega10"),
         **{f"ms_{k}_in_turns_std128_b{B}": v
            for B, t in turns_l["mega10"].items() for k, v in t.items()}})
     # csrc/mega12.cu's single window under the wrappers of mega and mega2,

@@ -2,7 +2,7 @@
 // on the H100's int8 tensor cores, against a K-major pre-swizzled
 // block-Toeplitz key: one template, two windows.
 //
-// Replaces ten bodies of herdsman_tpu/ops/pallas/ (mega.py, legacy.py), one
+// Replaces twelve bodies of herdsman_tpu/ops/pallas/ (mega.py, legacy.py), one
 // function at any gadget with int8 digits:
 //
 //   body                           wrapper              window   key
@@ -16,15 +16,18 @@
 //   legacy.py:37   _mega_kernel    mega_blind_rotate    single   bsk_btk
 //   mega.py:449    _mega11_kernel  mega11_blind_rotate  doubled  bsk_btk2
 //   legacy.py:1019 _mega10_kernel  mega10_blind_rotate  doubled  bsk_btk2
+//   mega.py:236    _mega8_kernel   mega8_blind_rotate   doubled  bsk_btk2
+//   legacy.py:874  _mega9_kernel   mega9_blind_rotate   doubled  bsk_btk2
 //
 // mega12, mega7, mega5, mega4, mega6, mega3, mega2 and mega are one
 // instantiation: the TPU's mega7, mega5, mega4, mega6 and mega3 read
 // bsk_btj, bsk_btjj with its columns in (c, j, q) order, and its mega2 and
 // mega the R-major bsk_bt (bsk_btj with the block axes swapped), choices of
 // VMEM; int8 wgmma reads both operands K-major only, so on this card all
-// eight are this kernel on bsk_btk, each wrapper counting its own launches.  So are mega11 and mega10 the doubled
-// instantiation on bsk_btk2: the TPU's read the doubled window with columns
-// (j, c, q) (bsk_btj2j) and (c, j, q) (bsk_btj2).
+// eight are this kernel on bsk_btk, each wrapper counting its own launches.  So are mega11, mega10, mega8 and mega9 the doubled
+// instantiation on bsk_btk2: the TPU's mega11 reads the doubled window with
+// columns (j, c, q) (bsk_btj2j), its mega10, mega8 and mega9 with columns
+// (c, j, q) (bsk_btj2).
 // For i in 0..n-1 and every ciphertext b of the batch,
 //
 //     acc_b <- acc_b + BSK_i (x) (X^{a_t[i, b]} * acc_b - acc_b)

@@ -21,19 +21,16 @@ through one of three kinds of engine:
   ``pallas_mega7``, ``pallas_mega5``, ``pallas_mega4``, ``pallas_mega6``
   and ``pallas_mega3`` read the same blocks with other columns,
   ``pallas_mega2`` and ``pallas_mega`` them R-major), and
-  ``mega11`` and the legacy ``mega10`` that source's doubled window
-  against ``bsk_btk2`` (``bsk_btj2j`` in ``wgmma``'s order; the JAX
-  package's ``pallas_mega10`` reads the same window with columns (c, j,
-  q), ``bsk_btj2``); ``mega16``, ``mega17`` and ``mega15`` (the JAX
+  ``mega11``, ``mega8`` and the legacy ``mega10`` and ``mega9`` that
+  source's doubled window against ``bsk_btk2`` (``bsk_btj2j`` in
+  ``wgmma``'s order; the JAX package's ``pallas_mega8``, ``pallas_mega9``
+  and ``pallas_mega10`` read the same window with columns (c, j, q),
+  ``bsk_btj2``); ``mega16``, ``mega17`` and ``mega15`` (the JAX
   package's engines of the same names, at the byte-aligned gadget bg =
   2^8 with levels 2, 3 and 4) read the compact ``bsk_btTc`` key in
   ``csrc/megaS.cu`` (``mega13``'s kernel, each through its own entry), and
   ``mega14`` (levels 2, N >= 256) is ``csrc/megaS.cu``'s extended
-  instantiation against ``bsk_btTe`` (one run per column tile);
-  ``mega8`` (the JAX package's engine of that name, any gadget) is
-  ``csrc/megaJ.cu`` against the j-major doubled window ``bsk_btj2`` (one
-  contraction per column tile), and ``mega9`` (the JAX package's legacy
-  engine) the same source on the same key with another schedule.
+  instantiation against ``bsk_btTe`` (one run per column tile).
 - ``STEP_ENGINES``: one call per step, inside a Python loop over i, owns the
   whole CMux step.  ``bt_fused`` (the JAX package's ``pallas_fused``) is
   ``csrc/rotate_decompose.cu`` then ``csrc/bt_external_product.cu`` fused
@@ -120,9 +117,9 @@ ROTATION_ENGINES: dict[str, tuple[Callable, str]] = {
     "mega15": (megaT.mega15_blind_rotate, "bsk_btTc"),
     "mega14": (megaT.mega14_blind_rotate, "bsk_btTe"),
     "mega11": (megaJ.mega11_blind_rotate, "bsk_btk2"),
-    "mega8": (megaJ.mega8_blind_rotate, "bsk_btj2"),
+    "mega8": (megaJ.mega8_blind_rotate, "bsk_btk2"),
     "mega7": (megaJ.mega7_blind_rotate, "bsk_btk"),
-    "mega9": (megaJ.mega9_blind_rotate, "bsk_btj2"),
+    "mega9": (megaJ.mega9_blind_rotate, "bsk_btk2"),
     "mega6": (megaJ.mega6_blind_rotate, "bsk_btk"),
     "mega10": (megaJ.mega10_blind_rotate, "bsk_btk2"),
     "mega3": (megaJ.mega3_blind_rotate, "bsk_btk"),

@@ -1,25 +1,28 @@
 """Whole-rotation blind-rotation kernels of the JAX package's j-major
-family and legacy schedules: against the j-major doubled window
-(``csrc/megaJ.cu``) and against the K-major tensor-core keys
-(``csrc/mega12.cu``), and their plain PyTorch versions.
+family and legacy schedules, all against the K-major tensor-core keys of
+``csrc/mega12.cu``, and their plain PyTorch versions.
 
 The eleven kernels compute the GINX rotation of ``mega12`` at any gadget
 (bg_bits <= 8, any levels) and keep the contract of the JAX package's
-wrappers they replace.  Seven wrappers are ``csrc/mega12.cu``'s single
-window (int8 ``wgmma``) on ``mega12``'s key ``bsk_btk``, each counted
-apart, and two its doubled window on ``bsk_btk2``; only ``mega8`` and
-``mega9`` are ``csrc/megaJ.cu``'s:
+wrappers they replace.  Every wrapper is ``csrc/mega12.cu``'s (int8
+``wgmma``), each counted apart: seven its single window on ``mega12``'s
+key ``bsk_btk``, four (``mega11``, ``mega10``, ``mega8``, ``mega9``) its
+doubled window on ``bsk_btk2``:
 
 - ``mega11_blind_rotate``: ``herdsman_tpu/ops/pallas/mega.py::
   _mega11_kernel``, the doubled window: ``csrc/mega12.cu``'s doubled
   instantiation on ``bsk_btk2``, the JAX package's ``bsk_btj2j``
   (limb-major columns (j, c, q)) in ``wgmma``'s byte order
   (``mega12.kmajor_order``);
-- ``mega10_blind_rotate``: ``legacy.py::_mega10_kernel``, ``mega8``'s
-  function (the doubled window on ``bsk_btj2``, its digits built by a pass
-  fused across the k+1 polynomials), so ``mega11``'s: ``csrc/mega12.cu``'s
-  doubled instantiation on ``bsk_btk2`` (``mega12.kmajor_from_btj``
-  re-lays the JAX package's ``bsk_btj2``);
+- ``mega10_blind_rotate``, ``mega8_blind_rotate`` and
+  ``mega9_blind_rotate``: ``legacy.py::_mega10_kernel`` (digits built by a
+  pass fused across the k+1 polynomials), ``mega.py::_mega8_kernel`` (the
+  serial schedule) and ``legacy.py::_mega9_kernel`` (a producer of one
+  half's digits beside the contraction of the other's), all on the doubled
+  window ``bsk_btj2`` with columns (c, j, q): ``mega11``'s function, so
+  ``csrc/mega12.cu``'s doubled instantiation on ``bsk_btk2`` too
+  (``mega12.kmajor_from_btj`` re-lays the JAX package's ``bsk_btj2``;
+  int8 ``wgmma`` cannot read its column order);
 - ``mega7_blind_rotate``: ``mega.py::_mega7_kernel``, the single width:
   ``mega12``'s function, so ``csrc/mega12.cu``'s single instantiation on
   ``bsk_btk`` (the JAX package's ``bsk_btj`` is the same blocks with
@@ -35,13 +38,7 @@ apart, and two its doubled window on ``bsk_btk2``; only ``mega8`` and
   ``bsk_bt``) and ``_mega_kernel`` (row-phased, ``bsk_bt``): ``mega7``'s
   function, so ``csrc/mega12.cu``'s single instantiation on ``bsk_btk``
   too (``mega12.kmajor_from_btj`` and ``kmajor_from_bt`` re-lay the JAX
-  package's keys);
-- ``mega8_blind_rotate``: ``mega.py::_mega8_kernel``, the doubled window
-  ``bsk_btj2`` with columns (c, j, q), ``csrc/megaJ.cu``'s serial dp4a
-  schedule;
-- ``mega9_blind_rotate``: ``legacy.py::_mega9_kernel``, ``mega8``'s
-  function and key, with a producer warp building one half's digits while
-  four consumer groups contract the other's (named-barrier hand-off).
+  package's keys).
 
 acc0 [B, k+1, N] and a_t [n, B] in [0, 2N) in (int32 carriers), the
 accumulator after the n CMux steps out, exact mod 2^32.  A doubled key
@@ -51,101 +48,55 @@ contraction is one product of the step's digits (sub ascending, r minor)
 with groups [HALF-1-ct, 2*HALF-1-ct) (``mega.py:542-547``).  The
 single-width key contracts the negated run apart and subtracts it
 (``_ep_column_total_jmajor_packed``), as ``mega12`` does.  The plain
-version of ``mega7``, ``mega5``, ``mega4``, ``mega6``, ``mega3``, ``mega2``
-and ``mega`` is ``mega12.blind_rotate_plain_btk``, that of ``mega11`` and
-``mega10`` ``blind_rotate_plain_btk2`` (the doubled window's contraction
-on the key taken back to j-major order), and that of ``mega8`` and
-``mega9`` ``blind_rotate_plain_btj2``.
+version of the single window's wrappers is
+``mega12.blind_rotate_plain_btk``, that of the doubled window's
+``blind_rotate_plain_btk2`` (the doubled window's contraction on the key
+taken back to j-major order).
 
 On a CUDA tensor each wrapper launches its kernel (one launch per
 rotation, counted in its ``launches``) or raises; on a CPU tensor it runs
-its plain version (``plain``).  The source notes in ``csrc/megaJ.cu`` and
-``csrc/mega12.cu`` give the kernels' design and bound.
+its plain version (``plain``).  The source note in ``csrc/mega12.cu``
+gives the kernel's design and bound.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import poly
-from herdsman_tpu_torch.ops.kernels import _build, mega12
+from herdsman_tpu_torch.ops.kernels import mega12
 from herdsman_tpu_torch.ops.kernels.mega12 import (P, check_args,
                                                    from_kmajor_order,
                                                    pack_digits, recombine)
 from herdsman_tpu_torch.ops.kernels.mega13 import int8_matmul
 
-SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
-
-# kernel -> (its variant number in its source, the key layout it reads,
-# doubled window, limb-major columns); csrc/mega12.cu's instantiations
-# (TENSOR_CORE) have no variant number: the window picks one
-KERNELS = {"mega11": (None, "bsk_btk2", True, True),
-           "mega8": (8, "bsk_btj2", True, False),
-           "mega7": (None, "bsk_btk", False, True),
-           "mega9": (9, "bsk_btj2", True, False),
-           "mega6": (None, "bsk_btk", False, True),
-           "mega10": (None, "bsk_btk2", True, True),
-           "mega3": (None, "bsk_btk", False, True),
-           "mega4": (None, "bsk_btk", False, True),
-           "mega5": (None, "bsk_btk", False, True),
-           "mega": (None, "bsk_btk", False, True),
-           "mega2": (None, "bsk_btk", False, True)}
-KEY_LAYOUTS = {name: layout for name, (_, layout, _, _) in KERNELS.items()}
-# the kernels of csrc/mega12.cu (the doubled window's two wrappers, then
-# the single window's seven, on int8 wgmma); mega8 and mega9 are
-# csrc/megaJ.cu's
-TENSOR_CORE = ("mega11", "mega10", "mega7", "mega5", "mega4", "mega6",
-               "mega3", "mega2", "mega")
-# the kernel whose block holds two halves of G ciphertexts
-OVERLAP = ("mega9",)
-
-
-def smem_bytes(p: TFHEParams, G: int) -> int:
-    """Shared memory of one block of G ciphertexts: their accumulators
-    (u32) and one step's int8 digits, plus the G rotation amounts."""
-    R = (p.k + 1) * p.levels
-    return G * ((p.k + 1) * p.N * 4 + R * p.N + 4)
+# kernel -> whether it reads csrc/mega12.cu's doubled window (bsk_btk2) or
+# its single one (bsk_btk)
+KERNELS = {"mega11": True, "mega8": True, "mega7": False, "mega9": True,
+           "mega6": False, "mega10": True, "mega3": False, "mega4": False,
+           "mega5": False, "mega": False, "mega2": False}
+KEY_LAYOUTS = {name: "bsk_btk2" if doubled else "bsk_btk"
+               for name, doubled in KERNELS.items()}
 
 
 def check_params(p: TFHEParams, name: str) -> None:
     """Raise on a parameter set kernel ``name`` does not take: ``mega12``'s
-    geometry (all that ``csrc/mega12.cu``'s wrappers, ``TENSOR_CORE``,
-    need: their digits and accumulators live in device memory), then one
-    ciphertext's accumulator and digits within a block's shared memory (the
-    dp4a block layout of ``mega8`` and ``mega9``), and for ``mega9`` its two
-    halves."""
+    geometry, all that ``csrc/mega12.cu``'s windows need (their digits and
+    accumulators live in device memory)."""
     mega12.check_params(p, name)
-    if name in TENSOR_CORE:
-        return
-    one = smem_bytes(p, 1)
-    if one > SMEM_LIMIT:
-        raise ValueError(f"{name} at {p.name} needs {one} bytes of shared "
-                         f"memory per ciphertext, over {SMEM_LIMIT}")
-    if name not in OVERLAP:
-        return
-    need = 2 * one - 4
-    if need > SMEM_LIMIT:
-        raise ValueError(f"{name} at {p.name} needs {need} bytes of shared "
-                         f"memory per block, over {SMEM_LIMIT}")
 
 
 def key_shape(p: TFHEParams, name: str) -> tuple[int, ...]:
     """The shape of kernel ``name``'s key at ``p``: the K-major [n, groups,
     R, k+1, 2, 256, 128] of ``csrc/mega12.cu`` (groups 2*HALF for the
-    doubled window, else HALF), or ``bsk_btj2``'s [n, 2*HALF, R, P,
-    (k+1)*4*P] for ``mega8`` and ``mega9``."""
-    if name in TENSOR_CORE:
-        return mega12.key_shape(p, KERNELS[name][2])
-    return (p.n, 2 * (p.N // P), (p.k + 1) * p.levels, P, (p.k + 1) * 4 * P)
+    doubled window, else HALF)."""
+    return mega12.key_shape(p, KERNELS[name])
 
 
 def _check_args(p: TFHEParams, name: str, acc0: torch.Tensor,
                 a_t: torch.Tensor, key: torch.Tensor) -> None:
-    check_args(p, acc0, a_t, key, KERNELS[name][1],
+    check_args(p, acc0, a_t, key, KEY_LAYOUTS[name],
                key_shape=key_shape(p, name))
 
 
@@ -176,10 +127,12 @@ def blind_rotate_plain_btj2(params: TFHEParams, acc0: torch.Tensor,
                             jcq: bool) -> torch.Tensor:
     """The doubled window's rotation in plain PyTorch, either device, on
     the JAX package's ``bsk_btj2j`` (``jcq``: the TPU's ``mega11``) or
-    ``bsk_btj2`` (``mega8``): ``_window_step`` n times."""
+    ``bsk_btj2`` (its ``mega8``, ``mega9`` and ``mega10``) [n, 2*HALF, R,
+    P, (k+1)*4*P]: ``_window_step`` n times."""
     p = params
     check_args(p, acc0, a_t, key, "bsk_btj2j" if jcq else "bsk_btj2",
-               key_shape=key_shape(p, "mega8"))
+               key_shape=(p.n, 2 * (p.N // P), (p.k + 1) * p.levels, P,
+                          (p.k + 1) * 4 * P))
     acc = acc0
     for i in range(p.n):
         acc = _window_step(p, acc, a_t[i], key[i], jcq)
@@ -189,10 +142,10 @@ def blind_rotate_plain_btj2(params: TFHEParams, acc0: torch.Tensor,
 def blind_rotate_plain_btk2(params: TFHEParams, acc0: torch.Tensor,
                             a_t: torch.Tensor,
                             bsk_btk2: torch.Tensor) -> torch.Tensor:
-    """The rotation of ``mega11`` and ``mega10`` in plain PyTorch, either
-    device, reading the same ``bsk_btk2``: ``blind_rotate_plain_btj2``'s
-    steps, each on its step key taken back to ``bsk_btj2j``'s order
-    (``from_kmajor_order``)."""
+    """The rotation of ``mega11``, ``mega10``, ``mega8`` and ``mega9`` in
+    plain PyTorch, either device, reading the same ``bsk_btk2``:
+    ``blind_rotate_plain_btj2``'s steps, each on its step key taken back
+    to ``bsk_btj2j``'s order (``from_kmajor_order``)."""
     p = params
     _check_args(p, "mega11", acc0, a_t, bsk_btk2)
     acc = acc0
@@ -204,50 +157,10 @@ def blind_rotate_plain_btk2(params: TFHEParams, acc0: torch.Tensor,
 
 def plain(name: str):
     """The plain version of kernel ``name``: fn(params, acc0, a_t, key)
-    (``mega9`` shares ``mega8``'s; ``mega7``, ``mega5``, ``mega4``,
-    ``mega6``, ``mega3``, ``mega2`` and ``mega`` share ``mega12``'s, and
-    ``mega11`` and ``mega10`` ``blind_rotate_plain_btk2``)."""
-    _, _, doubled, jcq = KERNELS[name]
-    if name in TENSOR_CORE:
-        return (blind_rotate_plain_btk2 if doubled
-                else mega12.blind_rotate_plain_btk)
-    return functools.partial(blind_rotate_plain_btj2, jcq=jcq)
-
-
-@functools.cache
-def _entry_points():
-    """(blind_rotate, ciphertexts_per_block, error_string) of the built
-    ``csrc/megaJ.cu``, their C signatures declared."""
-    lib = _build.load("megaJ")
-    rotate = lib.megaJ_blind_rotate
-    rotate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rotate.restype = ctypes.c_int
-    per_block = lib.megaJ_ciphertexts_per_block
-    per_block.argtypes = [ctypes.c_int] * 6
-    per_block.restype = ctypes.c_int
-    error = lib.megaJ_error_string
-    error.argtypes = [ctypes.c_int]
-    error.restype = ctypes.c_char_p
-    return rotate, per_block, error
-
-
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def ciphertexts_per_block(p: TFHEParams, B: int, device: torch.device,
-                          name: str = "mega8") -> int:
-    """The ciphertexts one block of kernel ``name`` owns in a rotation of B
-    ciphertexts at ``p`` on the card ``device`` (0 where it takes none):
-    G, or two halves of G for ``mega9``."""
-    if name in TENSOR_CORE:
-        raise ValueError(f"{name} tiles its batch by mega12.plan, not by "
-                         f"ciphertexts per block")
-    _, per_block, _ = _entry_points()
-    return per_block(
-        KERNELS[name][0], B, p.N, p.k + 1, (p.k + 1) * p.levels,
-        _sms(device))
+    (the single window's wrappers share ``mega12``'s, the doubled
+    window's ``blind_rotate_plain_btk2``)."""
+    return (blind_rotate_plain_btk2 if KERNELS[name]
+            else mega12.blind_rotate_plain_btk)
 
 
 def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
@@ -258,22 +171,9 @@ def _rotate(name: str, wrapper, p: TFHEParams, acc0: torch.Tensor,
         return plain(name)(p, acc0, a_t, key)
     if acc0.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {acc0.device}")
-    if name in TENSOR_CORE:
-        if key.data_ptr() % 16:  # the bulk copies' alignment
-            raise ValueError(f"{name} takes a key on a 16-byte boundary")
-        return mega12.launch(p, acc0, a_t, key, KERNELS[name][2], wrapper)
-    rotate, _, error = _entry_points()
-    out = torch.empty_like(acc0)
-    with torch.cuda.device(acc0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = rotate(
-            KERNELS[name][0], acc0.data_ptr(), a_t.data_ptr(), key.data_ptr(),
-            out.data_ptr(), acc0.shape[0], p.n, p.N, p.k + 1, p.bg_bits,
-            p.levels, _sms(acc0.device), stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: " + error(err).decode())
-    wrapper.launches += 1
-    return out
+    if key.data_ptr() % 16:  # the bulk copies' alignment
+        raise ValueError(f"{name} takes a key on a 16-byte boundary")
+    return mega12.launch(p, acc0, a_t, key, KERNELS[name], wrapper)
 
 
 def mega11_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
@@ -290,11 +190,12 @@ def mega11_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega8_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btj2: torch.Tensor) -> torch.Tensor:
-    """Whole blind rotation against the doubled window with (c, j, q)
-    columns, bsk_btj2 int8 [n, 2*HALF, R, P, (k+1)*4*P]; CPU tensors go
-    through ``blind_rotate_plain_btj2``."""
-    return _rotate("mega8", mega8_blind_rotate, params, acc0, a_t, bsk_btj2)
+                       bsk_btk2: torch.Tensor) -> torch.Tensor:
+    """``mega11``'s rotation (the TPU's serial schedule on ``bsk_btj2``)
+    against the doubled window ``bsk_btk2`` int8 [n, 2*HALF, R, k+1, 2,
+    256, 128]: ``csrc/mega12.cu``'s doubled instantiation, counted here;
+    CPU tensors go through ``blind_rotate_plain_btk2``."""
+    return _rotate("mega8", mega8_blind_rotate, params, acc0, a_t, bsk_btk2)
 
 
 def mega7_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
@@ -309,11 +210,13 @@ def mega7_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
 
 def mega9_blind_rotate(params: TFHEParams, acc0: torch.Tensor,
                        a_t: torch.Tensor,
-                       bsk_btj2: torch.Tensor) -> torch.Tensor:
-    """``mega8``'s rotation on the doubled ``bsk_btj2``, the digit phase on
-    a producer warp beside the contraction; the contract of
-    ``mega8_blind_rotate``, CPU tensors through ``blind_rotate_plain_btj2``."""
-    return _rotate("mega9", mega9_blind_rotate, params, acc0, a_t, bsk_btj2)
+                       bsk_btk2: torch.Tensor) -> torch.Tensor:
+    """``mega11``'s rotation (the TPU's digit producer beside the
+    contraction on ``bsk_btj2``) against the doubled window ``bsk_btk2``
+    int8 [n, 2*HALF, R, k+1, 2, 256, 128]: ``csrc/mega12.cu``'s doubled
+    instantiation, counted here; CPU tensors go through
+    ``blind_rotate_plain_btk2``."""
+    return _rotate("mega9", mega9_blind_rotate, params, acc0, a_t, bsk_btk2)
 
 
 def mega6_blind_rotate(params: TFHEParams, acc0: torch.Tensor,

@@ -90,10 +90,11 @@ once, into:
                                        blocks taken from ext(p)[t+N] =
                                        -ext(p)[t], so column tile ct's whole
                                        contraction is groups [HALF-1-ct,
-                                       2*HALF-1-ct).  ``bsk_btj2`` is read
-                                       by ``csrc/megaJ.cu`` (``mega8``,
-                                       ``mega9``; the port's ``mega10``
-                                       reads ``bsk_btk2``,
+                                       2*HALF-1-ct).  ``bsk_btj2`` is the
+                                       key of the JAX package's
+                                       ``pallas_mega8``, ``_mega9`` and
+                                       ``_mega10``; no port engine reads
+                                       it (theirs read ``bsk_btk2``,
                                        ``mega12.kmajor_from_btj``);
                                        ``bsk_btj2j`` by the plain doubled
                                        contraction, held equal to
@@ -104,8 +105,9 @@ once, into:
                                        ``bsk_btj2j``'s bytes in ``wgmma``'s
                                        order (``mega12.kmajor_order``, as
                                        ``bsk_btk`` holds ``bsk_btjj``'s):
-                                       the key of ``mega11`` and
-                                       ``mega10``, ``csrc/mega12.cu``'s
+                                       the key of ``mega11``,
+                                       ``mega10``, ``mega8`` and
+                                       ``mega9``, ``csrc/mega12.cu``'s
                                        doubled window.  As big as
                                        ``bsk_btj2j``.
 - ``bsk_btTc``  int8  [n, k+1, k+1, 4, row_bytes]
@@ -341,8 +343,8 @@ def fit_engine(engine: str, params: TFHEParams,
       port's engines of those names, ``mega12``'s kernel since they read
       ``bsk_btk``, take every named set with N >= 128);
     - ``mega11`` / ``mega10`` / ``mega8`` / ``mega9`` while their doubled
-      key (``bsk_btk2`` / ``bsk_btj2``, one size) fits and their kernel
-      takes the set (the JAX package's doubled-key check,
+      key (``bsk_btk2``, the size of the JAX package's ``bsk_btj2``)
+      fits and their kernel takes the set (the JAX package's doubled-key check,
       ``server_key.py:694-699``); else whatever a ``mega12`` request
       gets;
     - ``mega14`` where the set has bg_bits 8, levels 2 and N >= 256 and its

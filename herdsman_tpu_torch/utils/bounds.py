@@ -109,7 +109,7 @@ TPU_KERNELS = [
     ("mega.py:1495 _mega17_kernel", "std128_shortint_b8", "bsk_btT3"),
     ("mega.py:1323 _mega16_kernel", "std128_shortint_fast", "bsk_btTc"),
     ("mega.py:449 _mega11_kernel", "std128_k2", "bsk_btk2"),
-    ("mega.py:236 _mega8_kernel", "std128_k2", "bsk_btj2"),
+    ("mega.py:236 _mega8_kernel", "std128_k2", "bsk_btk2"),
     ("mega.py:84 _mega7_kernel", "std128_shortint", "bsk_btk"),
     ("mega.py:997 _mega14_kernel", "std128_k2", "bsk_btT2"),
     ("mega.py:1154 _mega15_kernel", "std128_shortint_l4", "bsk_btT4"),
@@ -119,7 +119,7 @@ TPU_KERNELS = [
     ("legacy.py:423 _mega4_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:575 _mega5_kernel", "std128_k2", "bsk_btk"),
     ("legacy.py:705 _mega6_kernel", "std128_k2", "bsk_btk"),
-    ("legacy.py:874 _mega9_kernel", "std128_k2", "bsk_btj2"),
+    ("legacy.py:874 _mega9_kernel", "std128_k2", "bsk_btk2"),
     ("legacy.py:1019 _mega10_kernel", "std128_k2", "bsk_btk2"),
 ]
 

@@ -188,8 +188,7 @@ def test_bt_engines_match_mega13_and_reference(card, params):
 
 # mega12's geometry classes: k+1 in (2, 3) (and 5), N from 256 to 2048
 # (HALF 2 to 16), the two gadgets (2^8, 2) and (2^7, 3); B = 129 takes a
-# ragged last block at every ciphertexts-per-block choice of the j-major
-# kernels
+# ragged M tile
 MEGA12_SETS = [
     dc.replace(TOY, name="m12_k1_n256_b8l2", n=4, N=256, k=1, bg_bits=8,
                levels=2),
@@ -236,13 +235,13 @@ def test_mega12_matches_plain(card, params, B):
 
 
 # csrc/mega12.cu's wrappers, at every plan and geometry class of mega12's:
-# mega11 and mega10 (the doubled window on bsk_btk2) and mega7, mega5,
-# mega4, mega6, mega3, mega2 and mega (the single window), each counted
-# apart
+# mega11, mega10, mega8 and mega9 (the doubled window on bsk_btk2) and
+# mega7, mega5, mega4, mega6, mega3, mega2 and mega (the single window),
+# each counted apart
 @pytest.mark.parametrize("B", [1, 9, 129, 65, 256, 2048, 384])
 @pytest.mark.parametrize("params", MEGA12_TC_SETS,
                          ids=[q.name for q in MEGA12_TC_SETS])
-@pytest.mark.parametrize("name", list(megaJ.TENSOR_CORE))
+@pytest.mark.parametrize("name", list(megaJ.KERNELS))
 def test_mega12_windows_match_plain(card, name, params, B):
     p = params
     kernel = getattr(megaJ, f"{name}_blind_rotate")
@@ -259,7 +258,7 @@ def test_mega12_windows_match_plain(card, name, params, B):
         before[0] + 1, before[1])
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
     assert torch.equal(kernel(p, acc0, a_t, key), got)
-    if not megaJ.KERNELS[name][2]:  # the single window: mega12's launch
+    if not megaJ.KERNELS[name]:  # the single window: mega12's launch
         assert torch.equal(mega12.mega12_blind_rotate(p, acc0, a_t, key), got)
 
 
@@ -355,9 +354,9 @@ def test_megaT_engines_match_mega12_and_reference(card, name):
                              ref.make_test_poly(params)))
 
 
-# the j-major family (mega8 and mega9 of megaJ.cu, the other wrappers of
-# mega12.cu's two windows) at mega12's geometry classes; B = 129 takes a
-# ragged last block at every ciphertexts-per-block choice
+# the j-major family (every wrapper of mega12.cu's two windows) at
+# mega12's geometry classes, tiled as mega12 tiles; B = 129 takes a ragged
+# M tile
 @pytest.mark.parametrize("B", [1, 9, 129])
 @pytest.mark.parametrize("name", sorted(megaJ.KERNELS))
 @pytest.mark.parametrize("params", MEGA12_SETS,
@@ -376,13 +375,9 @@ def test_megaJ_matches_plain(card, params, name, B):
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    if name in megaJ.TENSOR_CORE:  # tiled as mega12 tiles
-        n_sms = torch.cuda.get_device_properties(card).multi_processor_count
-        assert mega12.kernel_plan(p, B, n_sms) == tuple(
-            mega12.plan(p, B, n_sms))[:3]
-    else:
-        assert megaJ.ciphertexts_per_block(p, B, card, name) in (
-            1, 2, 4, 8, 16)
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert mega12.kernel_plan(p, B, n_sms) == tuple(
+        mega12.plan(p, B, n_sms))[:3]
     assert torch.equal(got, megaJ.plain(name)(p, acc0, a_t, key))
 
 
@@ -410,15 +405,13 @@ def test_megaJ_engines_match_mega13_and_reference(card, params, name):
                              ref.make_test_poly(params)))
 
 
-# mega14 and mega9 at the widths of the smoke run's paths (B = 2048 fills
-# the card: mega9 takes 16 ciphertexts a block at STD128_K2's geometry), n
-# cut to 4 steps
+# mega14 at the widths of the smoke run's paths (B = 2048 fills the card),
+# n cut to 4 steps (test_mega12_windows_match_plain holds mega9 at B =
+# 2048)
 WIDE_SETS = [
     dc.replace(TOY, name="mega14_k2_n512", n=4, N=512, k=2, bg_bits=8,
                levels=2),
     dc.replace(TOY, name="mega14_k4_n256", n=4, N=256, k=4, bg_bits=8,
-               levels=2),
-    dc.replace(TOY, name="mega9_k2_n512", n=4, N=512, k=2, bg_bits=8,
                levels=2),
 ]
 
@@ -427,22 +420,18 @@ WIDE_SETS = [
 def test_new_kernels_match_plain_at_width(card, params):
     p = params
     name = p.name.split("_")[0]
-    module = megaT if name in megaT.KERNELS else megaJ
-    kernel = getattr(module, f"{name}_blind_rotate")
+    kernel = getattr(megaT, f"{name}_blind_rotate")
     B = 2048
     rng = np.random.default_rng(p.N + p.k)
     acc0 = from_numpy_u32(rand_u32(rng, B, p.k + 1, p.N), card)
     a_t = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n, B)),
                           dtype=torch.int32, device=card)
-    if module is megaT:
-        shape = (p.n, p.k + 1, p.k + 1, 4, megaT.row_bytes(p, True))
-    else:
-        shape = megaJ.key_shape(p, name)
+    shape = (p.n, p.k + 1, p.k + 1, 4, megaT.row_bytes(p, True))
     key = torch.as_tensor(rng.integers(-128, 128, shape), dtype=torch.int8,
                           device=card)
     got = kernel(p, acc0, a_t, key)
     torch.cuda.synchronize()
-    assert torch.equal(got, module.plain(name)(p, acc0, a_t, key))
+    assert torch.equal(got, megaT.plain(name)(p, acc0, a_t, key))
 
 
 # the geometries of STD128_K2, STD128 and STD128_SHORTINT (n cut to 2

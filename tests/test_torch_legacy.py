@@ -1,9 +1,8 @@
 """The port's ``mega9`` and ``mega6`` engines (``ops/kernels/megaJ.py``:
-the overlap schedule of ``csrc/megaJ.cu``, and ``csrc/mega12.cu``'s single
-window on ``bsk_btk``) against the JAX package's legacy Pallas kernels, on
-the CPU: each plain rotation (the one ``mega8`` and ``mega7`` share)
-against ``legacy.py::_mega9_kernel`` and ``_mega6_kernel`` in interpret
-mode, run as the JAX package's own tests run them, and the NumPy
+``csrc/mega12.cu``'s doubled window on ``bsk_btk2`` and its single window
+on ``bsk_btk``) against the JAX package's legacy Pallas kernels, on the
+CPU: each plain rotation (the one ``mega8`` and ``mega7`` share) against
+``legacy.py::_mega9_kernel`` and ``_mega6_kernel`` in interpret mode, run as the JAX package's own tests run them, and the NumPy
 reference; the wrappers' checks; the gate path on each engine; and
 ``fit_engine``'s routes of both names against the JAX package's at the
 port's key budget.  Array equality throughout: the arithmetic is exact mod
@@ -38,9 +37,9 @@ MULTITILE_K2 = dc.replace(TOY, name="toy_k2", n=8, N=256, k=2)
 # the legacy kernel -> the serial kernel whose function it shares
 LEGACY = {"mega9": "mega8", "mega6": "mega7"}
 # the legacy kernel -> the port key of that serial kernel, which it reads:
-# mega8's j-major bsk_btj2, and mega7's bsk_btk (the JAX package's mega7
-# and mega6 read bsk_btj, in wgmma's order there)
-SERIAL_KEYS = {"mega9": "bsk_btj2", "mega6": "bsk_btk"}
+# mega8's bsk_btk2 and mega7's bsk_btk (the JAX package's mega8 and mega9
+# read bsk_btj2, its mega7 and mega6 bsk_btj, in wgmma's order here)
+SERIAL_KEYS = {"mega9": "bsk_btk2", "mega6": "bsk_btk"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,12 +60,13 @@ def rand_u32(rng, *shape):
 @functools.cache
 def keys(params):
     """(client key, server key, JAX key, port key), in ``bsk_btj2`` and
-    ``bsk_btj``, the port's also in ``mega7``'s ``bsk_btk``."""
+    ``bsk_btj``, the port's also in ``mega7``'s ``bsk_btk`` and ``mega8``'s
+    ``bsk_btk2``."""
     ck, sk = jref.keygen(params, np.random.default_rng(23))
     layouts = ("bsk_btj2", "bsk_btj")
     return (ck, sk, jsk.device_server_key(sk, layouts=layouts),
-            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btk"),
-                                  device="cpu"))
+            tsk.device_server_key(sk, layouts=(*layouts, "bsk_btk",
+                                               "bsk_btk2"), device="cpu"))
 
 
 @pytest.mark.parametrize("B", [3, 37])
@@ -99,7 +99,7 @@ def test_legacy_wrapper_checks(name):
     kernel = getattr(megaJ, f"{name}_blind_rotate")
     key = getattr(tdsk, megaJ.KEY_LAYOUTS[name])
     # another key: the other window width for mega9, the JAX package's
-    # bsk_btj (bsk_btk's size) for mega6
+    # bsk_btj (bsk_btk's size) for mega6; both are csrc/mega12.cu's
     other = tdsk.bsk_btj
     acc = torch.zeros(2, p.k + 1, p.N, dtype=torch.int32)
     a_t = torch.zeros(p.n, 2, dtype=torch.int32)
@@ -116,28 +116,21 @@ def test_legacy_wrapper_checks(name):
             megaJ.check_params(bad, name)
     for pset in ("std128_k2", "std128", "std128_fast", "std128_shortint"):
         megaJ.check_params(PARAM_SETS[pset], name)
-    # a block of the overlap schedule holds two ciphertexts at least: a set
-    # whose one ciphertext fills most of the block fits mega8's block but
-    # not mega9's; mega6, csrc/mega12.cu's single window (digits and
-    # accumulators in device memory), takes it as mega7 does
+    # a set whose one ciphertext fills most of a shared-memory block, which
+    # mega9's two-half block refused: csrc/mega12.cu's windows (digits and
+    # accumulators in device memory) take it, mega9 and mega6 as mega8 and
+    # mega7 do
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=13)
     megaJ.check_params(wide, LEGACY[name])
-    if name == "mega9":
-        with pytest.raises(ValueError, match="shared memory"):
-            megaJ.check_params(wide, name)
-    else:
-        assert name in megaJ.TENSOR_CORE
-        megaJ.check_params(wide, name)
+    megaJ.check_params(wide, name)
+    assert megaJ.KERNELS[name] == megaJ.KERNELS[LEGACY[name]]
     assert tsk.layouts_for_engine(name) == (megaJ.KEY_LAYOUTS[name],)
     assert megaJ.KEY_LAYOUTS[name] == SERIAL_KEYS[name]
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
-    # the serial kernel's plain version on that key: mega8's, and mega7's
-    # (mega12.blind_rotate_plain_btk)
-    mine = megaJ.plain(name)
-    serial = megaJ.plain(LEGACY[name])
-    assert getattr(mine, "func", mine) is getattr(serial, "func", serial)
-    assert getattr(mine, "keywords", {}) == getattr(serial, "keywords", {})
+    # the serial kernel's plain version on that key: mega8's
+    # (blind_rotate_plain_btk2), and mega7's (mega12.blind_rotate_plain_btk)
+    assert megaJ.plain(name) is megaJ.plain(LEGACY[name])
     assert port_engine(f"pallas_{name}") == name
 
 

@@ -6,11 +6,13 @@ against the JAX package's legacy Pallas kernels, on the CPU:
 - each plain rotation against ``legacy.py::_mega10_kernel``,
   ``_mega3_kernel``, ``_mega4_kernel`` and ``_mega5_kernel`` in interpret
   mode (run as the JAX package's own tests run them, each once per kernel
-  and set) and against the NumPy reference; ``mega10``'s plain version
-  also on the JAX package's own ``bsk_btj2`` re-laid by
-  ``mega12.kmajor_from_btj``, against ``legacy.mega10_blind_rotate``
-  (``tests/test_torch_single_window.py`` holds ``mega3``'s on the re-laid
-  ``bsk_btj`` against ``legacy.mega3_blind_rotate``);
+  and set) and against the NumPy reference; the plain version of
+  ``mega10``, ``mega8`` and ``mega9`` (the doubled window's) also on the
+  JAX package's own ``bsk_btj2`` re-laid by ``mega12.kmajor_from_btj``,
+  against ``legacy.mega10_blind_rotate``, ``mega.mega8_blind_rotate`` and
+  ``legacy.mega9_blind_rotate`` (``tests/test_torch_single_window.py``
+  holds ``mega3``'s on the re-laid ``bsk_btj`` against
+  ``legacy.mega3_blind_rotate``);
 - ``kmajor_from_btj`` of the doubled ``bsk_btj2`` as ``bsk_btk2``;
 - the wrappers' checks, the gate path on each engine, and
   ``layouts_for_engine``, ``fit_engine`` and ``port_engine`` against the
@@ -32,7 +34,7 @@ from herdsman_tpu.core import TOY
 from herdsman_tpu.core import reference as jref
 from herdsman_tpu.ops import bootstrap as jbs
 from herdsman_tpu.ops import server_key as jsk
-from herdsman_tpu.ops.pallas import legacy
+from herdsman_tpu.ops.pallas import legacy, mega
 from herdsman_tpu_torch.core import PARAM_SETS
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import gates as tgates
@@ -132,12 +134,21 @@ def test_plain_rotation_equals_reference(set_id, name):
             got[i], jref.blind_rotate(sk, ct[i], jref.make_test_poly(params)))
 
 
+# the JAX package's wrappers of the doubled window with columns (c, j, q),
+# on bsk_btj2
+JAX_BTJ2 = {"mega10": legacy.mega10_blind_rotate,
+            "mega8": mega.mega8_blind_rotate,
+            "mega9": legacy.mega9_blind_rotate}
+
+
+@pytest.mark.parametrize("name", list(JAX_BTJ2))
 @pytest.mark.parametrize("set_id", list(SETS))
-def test_plain_on_relaid_btj2_equals_jax_mega10(set_id):
-    """``plain("mega10")`` on ``kmajor_from_btj(bsk_btj2)`` (the JAX
-    package's own doubled key, re-laid) equals
-    ``legacy.mega10_blind_rotate`` (interpret mode) on the same random
-    accumulators and rotation amounts."""
+def test_plain_on_relaid_btj2_equals_jax(set_id, name):
+    """``plain(name)`` on ``kmajor_from_btj(bsk_btj2)`` (the JAX package's
+    own doubled key, re-laid) equals the JAX package's ``mega10``,
+    ``mega8`` or ``mega9`` rotation (interpret mode) on the same random
+    accumulators and rotation amounts, and so does
+    ``blind_rotate_plain_btj2`` on ``bsk_btj2`` itself."""
     params = SETS[set_id]
     jkey = keys(params)[2].bsk_btj2
     kp1, n_ct = params.k + 1, 5
@@ -145,11 +156,14 @@ def test_plain_on_relaid_btj2_equals_jax_mega10(set_id):
     acc0 = rand_u32(rng, n_ct, kp1, params.N)
     a_t = rng.integers(0, 2 * params.N, (params.n, n_ct)).astype(np.int32)
     key = mega12.kmajor_from_btj(torch.from_numpy(np.array(jkey)), kp1)
-    want = legacy.mega10_blind_rotate(params, jnp.asarray(acc0),
-                                      jnp.asarray(a_t), jkey)
-    got = megaJ.plain("mega10")(params, from_numpy_u32(acc0),
-                                torch.from_numpy(a_t), key)
+    want = JAX_BTJ2[name](params, jnp.asarray(acc0), jnp.asarray(a_t), jkey)
+    got = megaJ.plain(name)(params, from_numpy_u32(acc0),
+                            torch.from_numpy(a_t), key)
     np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
+    direct = megaJ.blind_rotate_plain_btj2(
+        params, from_numpy_u32(acc0), torch.from_numpy(a_t),
+        torch.from_numpy(np.array(jkey)), jcq=False)
+    np.testing.assert_array_equal(to_numpy_u32(direct), np.asarray(want))
 
 
 # --- the key layout, wrappers, engines and routes --------------------------
@@ -205,7 +219,7 @@ def test_legacy_j_wrapper_checks(name):
     assert tbs.ROTATION_ENGINES[name] == (kernel, megaJ.KEY_LAYOUTS[name])
     # mega3, mega5 and mega4 are csrc/mega12.cu's single window (mega7's
     # instantiation), mega10 its doubled window (mega11's)
-    assert name in megaJ.TENSOR_CORE
+    assert megaJ.KERNELS[name] == megaJ.KERNELS[LEGACY[name]]
     assert port_engine(f"pallas_{name}") == name
 
 
@@ -216,18 +230,17 @@ def test_check_params_names_shared_memory(name):
     ciphertext fills a block (the first two) or one with wider digits
     (``mega3``), are now ``csrc/mega12.cu``'s single window (digits and
     accumulators in device memory) and behave as ``mega7``: they take both
-    sets.  ``mega8``, whose dp4a block holds a ciphertext in shared memory,
-    still refuses the wider one and names the shared memory."""
+    sets.  So does ``mega8``, whose block held a ciphertext in shared
+    memory and refused the wider one, now ``csrc/mega12.cu``'s doubled
+    window."""
     wide = dc.replace(PARAM_SETS["std128_shortint"], name="wide", k=4,
                       bg_bits=2, levels=16)
     wider = dc.replace(wide, bg_bits=1, levels=32)
-    assert name in megaJ.TENSOR_CORE
+    assert not megaJ.KERNELS[name]
     for p in (wide, wider):
         megaJ.check_params(p, "mega7")
         megaJ.check_params(p, name)
-    megaJ.check_params(wide, "mega8")
-    with pytest.raises(ValueError, match="shared memory"):
-        megaJ.check_params(wider, "mega8")
+        megaJ.check_params(p, "mega8")
 
 
 @pytest.mark.parametrize("name", list(LEGACY))
@@ -275,7 +288,7 @@ def test_gate_batch_equals_serial_engine(name):
 
 
 @pytest.mark.parametrize("budget_gib", [40, 12])
-@pytest.mark.parametrize("name", [*LEGACY, "mega", "mega2"])
+@pytest.mark.parametrize("name", [*LEGACY, "mega", "mega2", "mega8", "mega9"])
 def test_routes_equal_jax(name, budget_gib):
     """``fit_engine`` routes each name as the JAX package routes
     ``pallas_<name>`` on every named set at 40 and 12 GiB: ``mega10``
@@ -284,10 +297,9 @@ def test_routes_equal_jax(name, budget_gib):
     (``mega`` on ``bsk_bt`` too) kept; ``layouts_for_engine`` is the JAX
     package's but for ``mega3``, ``mega5``, ``mega4``, ``mega2`` and
     ``mega``, which read ``bsk_btk`` (``bsk_btjj`` in ``wgmma``'s order)
-    for the JAX package's ``bsk_btj`` and ``bsk_bt``, and ``mega10``, which
-    reads
-    ``bsk_btk2`` (``bsk_btj2j`` in that order) for its ``bsk_btj2``: each
-    pair one size."""
+    for the JAX package's ``bsk_btj`` and ``bsk_bt``, and ``mega10``,
+    ``mega8`` and ``mega9``, which read ``bsk_btk2`` (``bsk_btj2j`` in that
+    order) for its ``bsk_btj2``: each pair one size."""
     budget = budget_gib * GIB
     for pset, p in PARAM_SETS.items():
         if p.N < 128:  # below the port's tile: mega13 (documented)
@@ -298,7 +310,7 @@ def test_routes_equal_jax(name, budget_gib):
         assert tsk.fit_engine(name, p, budget_bytes=budget) \
             == want.removeprefix("pallas_"), pset
     jax_layouts = jsk.layouts_for_engine(f"pallas_{name}")
-    if name == "mega10":
+    if name in JAX_BTJ2:
         assert jax_layouts == ("bsk_btj2",)
         assert tsk.layouts_for_engine(name) == ("bsk_btk2",)
     elif name in ("mega3", "mega5", "mega4", "mega2", "mega"):
@@ -311,19 +323,21 @@ def test_routes_equal_jax(name, budget_gib):
 
 
 @pytest.mark.parametrize("budget_gib", [40, 12, 8, 4])
-def test_mega10_routes_as_mega8_and_mega11(budget_gib):
-    """``mega10`` on ``bsk_btk2`` routes as it did on ``bsk_btj2``, set by
-    set: as ``mega8`` (whose kernel and key did not move and whose checks
-    were ``mega10``'s: the doubled key's size, the dp4a block) and as
-    ``mega11`` (its kernel and key now); only the layout name changed."""
+def test_doubled_window_wrappers_route_as_mega11(budget_gib):
+    """``mega10``, ``mega8`` and ``mega9`` on ``bsk_btk2`` route as they did
+    on ``bsk_btj2``, set by set: as ``mega11`` (their kernel and key now;
+    their checks were the doubled key's size and, for ``mega8`` and
+    ``mega9``, a shared-memory block no named set overflowed); only the
+    layout name changed."""
     budget = budget_gib * GIB
     for pset, p in PARAM_SETS.items():
-        got = tsk.fit_engine("mega10", p, budget_bytes=budget)
-        for same in ("mega8", "mega11"):
-            assert got == tsk.fit_engine(same, p, budget_bytes=budget
-                                         ).replace(same, "mega10"), pset
-    assert tsk.layouts_for_engine("mega10") == tsk.layouts_for_engine(
-        "mega11") == ("bsk_btk2",)
+        want = tsk.fit_engine("mega11", p, budget_bytes=budget)
+        for name in JAX_BTJ2:
+            assert tsk.fit_engine(name, p, budget_bytes=budget) == \
+                want.replace("mega11", name), (pset, name)
+    for name in ("mega11", *JAX_BTJ2):
+        assert tsk.layouts_for_engine(name) == ("bsk_btk2",)
+        assert megaJ.KERNELS[name]
     # fit_engine budgets the doubled key as 2 * bt_key_bytes: bsk_btk2's
     # size, as it was bsk_btj2's
     for p in PARAM_SETS.values():

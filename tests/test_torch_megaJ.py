@@ -1,7 +1,7 @@
 """The port's j-major block-Toeplitz rotation engines (``mega11``, ``mega8``,
 ``mega7``: ``ops/kernels/megaJ.py``, the plain versions of
-``csrc/megaJ.cu``) against the JAX package, on the CPU: the three key
-layouts against ``_block_toeplitz_layout_device``, each plain rotation
+``csrc/mega12.cu``'s two windows) against the JAX package, on the CPU: the
+three key layouts against ``_block_toeplitz_layout_device``, each plain rotation
 against the Pallas ``_mega11/8/7_kernel`` in interpret mode and the NumPy
 reference, the wrappers' checks, ``gate_batch`` on each engine, a
 coordinator job on ``pallas_mega11`` against the same job on
@@ -34,7 +34,7 @@ from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import gates as tgates
 from herdsman_tpu_torch.ops import server_key as tsk
-from herdsman_tpu_torch.ops.kernels import megaJ
+from herdsman_tpu_torch.ops.kernels import mega12, megaJ
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
 from herdsman_tpu_torch.service import coordinator as tcoord
 from herdsman_tpu_torch.service import frames as frame_codec
@@ -171,22 +171,18 @@ def test_megaJ_wrapper_checks(geometry, name):
     with pytest.raises(ValueError):
         kernel(p, acc, a_t[:, :1].contiguous(), key)
     with pytest.raises(ValueError):  # the other window width
-        other = {"mega11": tdsk.bsk_btk, "mega8": tdsk.bsk_btj,
-                 "mega7": tdsk.bsk_btk2}[name]
+        other = tdsk.bsk_btk if megaJ.KERNELS[name] else tdsk.bsk_btk2
         kernel(p, acc, a_t, other)
     with pytest.raises(ValueError):
         kernel(p, acc[:, :, ::2], a_t, key)
     with pytest.raises(ValueError, match="contiguous"):
         kernel(p, acc.transpose(1, 2).contiguous().transpose(1, 2), a_t, key)
-    bads = [dc.replace(p, N=64), dc.replace(p, k=3), dc.replace(p, N=4096)]
-    # one ciphertext over a dp4a block's shared memory: csrc/mega12.cu's
-    # mega11 and mega7 keep digits and accumulators in device memory
-    big = dc.replace(p, N=2048, k=4, bg_bits=1, levels=32)
-    if name in megaJ.TENSOR_CORE:
-        megaJ.check_params(big, name)
-    else:
-        bads.append(big)
-    for bad in bads:
+    # one ciphertext over a block's shared memory: csrc/mega12.cu's windows
+    # keep digits and accumulators in device memory
+    megaJ.check_params(dc.replace(p, N=2048, k=4, bg_bits=1, levels=32),
+                       name)
+    for bad in (dc.replace(p, N=64), dc.replace(p, k=3),
+                dc.replace(p, N=4096)):
         with pytest.raises(ValueError):
             megaJ.check_params(bad, name)
     megaJ.check_params(PARAM_SETS["std128_shortint"], name)
@@ -195,23 +191,19 @@ def test_megaJ_wrapper_checks(geometry, name):
 
 
 def test_block_layout_limits():
-    """The dp4a block layout the kernels share (moved here from ``mega12``,
-    which left it): one block of 8 ciphertexts fits the card's shared
-    memory at N = 2048, and a set whose one ciphertext does not fit is
-    refused by every kernel of the family on that layout; ``mega11`` and
-    ``mega7`` (``csrc/mega12.cu``, digits and accumulators in device
-    memory) take it."""
+    """No wrapper of the family has a shared-memory block layout left to
+    limit it: every one is ``csrc/mega12.cu``'s (digits and accumulators in
+    device memory), and takes STD128_SHORTINT and a set whose one
+    ciphertext (accumulator and digits, 368,644 bytes) is over a block's
+    232,448 bytes of shared memory, as ``mega12`` does, and reads the key
+    of its window."""
     si = PARAM_SETS["std128_shortint"]
-    assert megaJ.smem_bytes(si, 8) == 229_408 <= megaJ.SMEM_LIMIT
     big = dc.replace(si, N=2048, k=4, bg_bits=1, levels=32)
-    assert megaJ.smem_bytes(big, 1) > megaJ.SMEM_LIMIT
-    for name in megaJ.KERNELS:
-        if name in megaJ.TENSOR_CORE:
-            megaJ.check_params(big, name)
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                megaJ.check_params(big, name)
-        megaJ.check_params(si, name)
+    assert (big.k + 1) * big.N * (4 + big.levels) + 4 > 232_448
+    for name, doubled in megaJ.KERNELS.items():
+        for p in (si, big):
+            megaJ.check_params(p, name)
+            assert megaJ.key_shape(p, name) == mega12.key_shape(p, doubled)
 
 
 @pytest.mark.parametrize("name", ENGINES)

@@ -169,7 +169,7 @@ def test_megaR_wrapper_checks(name):
     assert tsk.layouts_for_engine(name) == ("bsk_btk",)
     assert tbs.ROTATION_ENGINES[name] == (kernel, "bsk_btk")
     assert megaJ.plain(name) is mega12.blind_rotate_plain_btk
-    assert name in megaJ.TENSOR_CORE
+    assert not megaJ.KERNELS[name]  # the single window
     assert port_engine(f"pallas_{name}") == name
 
 

@@ -149,8 +149,7 @@ def test_mega12_wrapper_checks(geometry):
             mega12.check_params(bad)
     mega12.check_params(PARAM_SETS["std128_shortint"])
     # no shared-memory limit per ciphertext: the accumulators live in
-    # device memory (the dp4a block layout's limit is megaJ's,
-    # tests/test_torch_megaJ.py)
+    # device memory
     mega12.check_params(dc.replace(p, N=2048, k=4, bg_bits=1, levels=32))
 
 
