@@ -7,8 +7,9 @@ STD128_SHORTINT_B8 (bg=2^8, l=3), STD128_SHORTINT_FAST (bg=2^8, l=2, key
 switch 2^3 x 5) and STD128_SHORTINT_L4 (bg=2^8, l=4), at STD128_K4
 (n=768, N=256, k=4, bg=2^8, l=2) and at the classic bool set STD128
 (n=768, N=1024, k=1, bg=2^7, l=3), with keys made from a seed.  The six
-host keygens of the N=2048 sets, STD128_K4 and STD128 run in worker
-processes while the card runs the earlier paths.  Nineteen kernel wrappers
+host keygens of the N=2048 sets, STD128_K4 and STD128, path N's seeded
+keygen and the packing keys run in worker processes while the card runs
+the earlier paths.  Nineteen kernel wrappers
 (all twenty TPU kernel bodies) from four CUDA sources; ``mega13``,
 ``mega14``, ``mega17``, ``mega15`` and ``mega16`` run ``csrc/megaS.cu``
 (int8 tensor cores, the key a register operand built from its compact
@@ -40,6 +41,13 @@ Phases, in order; any failure raises and exits non-zero:
    128, the key switch, the plain version and both main paths end to end;
    the kernel in turns with its yardsticks at B = 2048 and 256: bt_fused's
    rotation on the same key (array-equal) and mega12 on a random key;
+6b. path A's gate batch on ``conv_i8`` (the JAX package's default engine:
+   one ``torch._int_mm`` a step against the Toeplitz expansion of the
+   compact ``bsk_conv``, no hand-written kernel): the gate outputs
+   array-equal to path A's on ``mega13`` and decrypted against the truth
+   table, the rotation equal to ``mega13``'s, timed in turns with
+   ``mega13`` and bt_fused's rotation at B = 2048 and 256, and one step
+   split into the expansion, the product and the rest;
 7. kernel vs plain for the block-Toeplitz kernels (tolerance 0):
    ``bt_external_product`` (unfused and fused) and ``rotate_decompose``
    against their plain PyTorch versions on the card, on step 0 of the
@@ -56,8 +64,11 @@ Phases, in order; any failure raises and exits non-zero:
    as JSON -> wait (COMPLETED, no retry) -> download of the output and the
    map's intermediate frame, every row decrypted against the plaintext;
    then the same on a second coordinator with ``pallas_fused``, whose
-   frames must equal the first's byte for byte; each job's rotation widths
-   with their counts and the host milliseconds per step at each width;
+   frames must equal the first's byte for byte, and which then takes a
+   ``TFHE_PACKING`` key and downloads both row frames packed on the card
+   (``pack_lwes_batch``, 4 x 512 rows), decrypted as their rows; each
+   job's rotation widths with their counts and the host milliseconds per
+   step at each width;
 9. times of the block-Toeplitz kernels per step at B=2048 (with bound,
    plain and library times), fused at path C's narrow widths B=288 and 9
    and unfused at STD128's geometry (each with its share of the bound and
@@ -187,7 +198,25 @@ Phases, in order; any failure raises and exits non-zero:
     ciphertexts must be equal; the kernel's time per rotation, in turns
     with ``mega13`` on the same inputs, bt_fused's rotation and ``mega12``
     (random keys) at B = 2048 and 256, the path's gate bootstraps per
-    second and its peak device memory.
+    second and its peak device memory;
+18. main path N, the coordinator's compact wire path at STD128_K2 on
+    ``conv_i8`` (keys from ``keygen_seeded`` and ``make_packing_key`` in a
+    worker process): a coordinator whose in-code config has
+    ``workers.mesh {engine: conv_i8, glwe_inputs, glwe_frames,
+    glwe_outputs}`` takes the compressed server key and the
+    ``TFHE_PACKING`` key in 64 KiB chunks and path C's 2048 rows in 4
+    partitions uploaded seeded (``encrypt_rows_seeded``, one u32 a bit, in
+    64 KiB chunks cut mid-row), packs them at ingest, runs path C's plan to
+    COMPLETED with no retry and no hand-written kernel, every frame
+    GLWE-packed, and the output and intermediate frames downloaded packed
+    decrypt to the plaintext (``decrypt_rows_packed``); with the ingest
+    time, the job's load / exec / store split, its rotation widths with the
+    host ms per step and the path's peak memory.  Then ``pack_lwes_batch``
+    against the NumPy ``pack_lwes`` (tolerance 0) on a group of 512 at
+    STD128_K2 and of 512 at STD128 (each from a worker process; both
+    groups decrypt), ``conv_i8_correlate`` on saturated inputs whose sums
+    pass 2^31 (they wrap mod 2^32, where one ``torch._int_mm`` of them
+    saturates), and the pack's time on one partition of path N.
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
@@ -239,6 +268,45 @@ def keygen(name: str, seed: int):
     t0 = time.perf_counter()
     ck, sk = ref.keygen(PARAM_SETS[name], np.random.default_rng(seed))
     return ck, sk, time.perf_counter() - t0
+
+
+def seeded_keygen(seed: int):
+    """Path N's keys at STD128_K2 on the host (a worker process's job): the
+    client key and compressed server key of ``keygen_seeded``, the packing
+    key, seconds, and one group of N fresh bits with its ciphertexts packed
+    by the NumPy ``pack_lwes``."""
+    from herdsman_tpu_torch.core import STD128_K2
+    from herdsman_tpu_torch.core import reference as ref
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 20)
+    ck, csk = ref.keygen_seeded(STD128_K2, rng, seed + 21)
+    pk = ref.make_packing_key(ck, rng)
+    secs = time.perf_counter() - t0
+    bits = rng.integers(0, 2, STD128_K2.N).astype(bool)
+    cts = ref.encrypt_bool(ck, bits, rng)
+    return ck, csk, pk, secs, bits, cts, ref.pack_lwes(pk, cts)
+
+
+def packing_group(name: str, seed: int, count: int):
+    """A client key of the set ``name``, its packing key, ``count`` fresh
+    bits, their ciphertexts and those packed by the NumPy ``pack_lwes`` (a
+    worker process's job)."""
+    from herdsman_tpu_torch.core import PARAM_SETS
+    from herdsman_tpu_torch.core import reference as ref
+    p = PARAM_SETS[name]
+    rng = np.random.default_rng(seed + 30)
+    ck = ref.ClientKey(p, rng.integers(0, 2, p.n, dtype=np.uint32),
+                       rng.integers(0, 2, (p.k, p.N), dtype=np.uint32))
+    pk = ref.make_packing_key(ck, rng)
+    bits = rng.integers(0, 2, count).astype(bool)
+    cts = ref.encrypt_bool(ck, bits, rng)
+    return ck, pk, bits, cts, ref.pack_lwes(pk, cts)
+
+
+def packing_key(ck, seed: int):
+    """The packing key of client key ``ck`` (a worker process's job)."""
+    from herdsman_tpu_torch.core import reference as ref
+    return ref.make_packing_key(ck, np.random.default_rng(seed + 40))
 
 
 def check(ok: bool, what: str) -> None:
@@ -348,7 +416,7 @@ def main() -> int:
         from herdsman_tpu_torch.core import client
         from herdsman_tpu_torch.core import reference as ref
         from herdsman_tpu_torch.ops import bootstrap as bs
-        from herdsman_tpu_torch.ops import gates, pbs, poly
+        from herdsman_tpu_torch.ops import gates, pack, pbs, poly
         from herdsman_tpu_torch.ops.decomp import signed_decompose
         from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
                                                     megaJ, megaS, megaT)
@@ -361,7 +429,8 @@ def main() -> int:
         from herdsman_tpu_torch.service.config import (
             Config, MeshWorkersConfig, SecurityConfig, ServerConfig)
         from herdsman_tpu_torch.service.coordinator import (
-            Coordinator, serialize_server_key)
+            Coordinator, serialize_packing_key, serialize_server_key,
+            serialize_server_key_compressed)
         from herdsman_tpu_torch.service.execution import JobStatus
         from herdsman_tpu_torch.shortint import EncShort, ShortContext
         from herdsman_tpu_torch.utils import bounds, rowcodec
@@ -369,12 +438,16 @@ def main() -> int:
         print(f"chip_smoke: the herdsman_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
         return 2
-    # the N=2048 host keygens (30-60 s each) run beside paths A-D; the
-    # workers are killed at exit, also when a check fails
-    pool = multiprocessing.get_context("spawn").Pool(len(KEYGEN_SETS))
+    # the N=2048 host keygens (30-60 s each), path N's seeded keygen and the
+    # packing keys run beside paths A-D; the workers are killed at exit, also
+    # when a check fails
+    pool = multiprocessing.get_context("spawn").Pool(len(KEYGEN_SETS) + 3)
     atexit.register(pool.terminate)
     keys_of = {name: pool.apply_async(keygen, (name, args.seed))
                for name in KEYGEN_SETS}
+    keys_n = pool.apply_async(seeded_keygen, (args.seed,))
+    group_std128 = pool.apply_async(packing_group,
+                                    ("std128", args.seed, JOB_ROWS // 4))
     dev = torch.device("cuda", 0)
 
     # path C's plan: the map and reduce of tests/test_e2e.py
@@ -426,7 +499,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     ck, sk = ref.keygen(P, rng)
-    layouts = ("bsk_btS", "bsk_ext", "bsk_bt")
+    pk_c = pool.apply_async(packing_key, (ck, args.seed))  # path C's
+    layouts = ("bsk_btS", "bsk_ext", "bsk_bt", "bsk_conv")
     dsk = device_server_key(sk, layouts=layouts, device=dev)
     torch.cuda.synchronize()
     print(f"keys: {P.name} keygen + carry to the card in layouts {layouts} "
@@ -635,12 +709,16 @@ def main() -> int:
     d8 = signed_decompose(raw[:, :P.kN], P.ks_base_bits, P.ks_levels
                           ).reshape(B_MAIN, -1).to(torch.int8)
     mm_ms = timed_ms(lambda: mega13.int8_matmul(d8, dsk.ksk_limbs), reps=10)
+    ksk_row = dsk.ksk_limbs.contiguous()  # the same key stored row-major
+    mm_row_ms = timed_ms(lambda: mega13.int8_matmul(d8, ksk_row), reps=10)
+    del ksk_row
     ks_bound_ms, ks_by = bounds.bound_ms(
         2 * d8.numel() * dsk.ksk_limbs.shape[1],
         4 * raw.numel() + dsk.ksk_limbs.numel() + 4 * B_MAIN * (P.n + 1))
     print(f"time: key_switch_batch B={B_MAIN} {ks_ms:.3f} ms, of which "
           f"torch._int_mm [{B_MAIN}, {d8.shape[1]}] x "
-          f"{list(dsk.ksk_limbs.shape)} {mm_ms:.3f} ms; bound "
+          f"{list(dsk.ksk_limbs.shape)} {mm_ms:.3f} ms (the key K-major; "
+          f"{mm_row_ms:.3f} ms on it row-major); bound "
           f"{ks_bound_ms:.4f} ms ({ks_by}) {card}")
     _, gate2_s = host_s(lambda: gates.gate_batch(dsk, batch, device=dev))
     print(f"time: main path A gate_batch B={B_MAIN} end to end {gate_s:.3f} s "
@@ -651,6 +729,79 @@ def main() -> int:
     print(f"time: main path B adder job {ROWS} rows end to end "
           f"{job_s:.3f} s first call, {job2_s:.3f} s second = "
           f"{n_bs / job2_s:.1f} bootstraps/s {card}")
+
+    # 6b. path A's gate batch on conv_i8: the JAX package's default engine,
+    # an int8 product per step (torch._int_mm) against the Toeplitz
+    # expansion of bsk_conv, no hand-written kernel ------------------------
+    reset_counts()
+    out_conv, conv_s = host_s(lambda: gates.gate_batch(
+        dsk, batch, engine="conv_i8", device=dev))
+    counts_conv = read_counts()
+    only(counts_conv, (), "path A on conv_i8")
+    check(torch.equal(out_conv, out), "path A's gate batch on conv_i8 != on "
+          "mega13")
+    dec = ref.lwe_decrypt_bool(ck, to_numpy_u32(out_conv))
+    check(np.array_equal(dec, expect), f"{int((dec != expect).sum())} of "
+          f"{B_MAIN} gates on conv_i8 decrypt wrong")
+    rot_conv = bs.blind_rotate_batch(dsk, lin, tp, engine="conv_i8")
+    check(torch.equal(rot_conv, outs[B_MAIN]),
+          "blind_rotate_batch on conv_i8 != mega13's rotation")
+    del rot_conv, out_conv
+    R_c, O_c = (P.k + 1) * P.levels, (P.k + 1) * 4
+
+    def conv_rotation(p, acc, a_t_, key):
+        """The conv_i8 engine's rotation: n steps of PyTorch ops."""
+        return bs.step_rotation(p, bs._ep_conv_i8, acc, a_t_, key)
+
+    def conv_expand(w):
+        """A step's Toeplitz expansion, K-major: [O*N, R*N], the transpose
+        of the B operand (conv_i8_correlate's)."""
+        return w.flip(-1).unfold(-1, P.N, 1).permute(1, 3, 0, 2).reshape(
+            O_c * P.N, R_c * P.N)
+
+    def conv_step(acc, a_i, w):
+        """One whole conv_i8 CMux step, as step_rotation runs it."""
+        rot = poly.negacyclic_monomial_mul(acc, a_i[:, None])
+        digits = signed_decompose(rot - acc, P.bg_bits, P.levels)
+        digits = digits.permute(0, 1, 3, 2).reshape(acc.shape[0], R_c, P.N)
+        return acc + bs._ep_conv_i8(P, digits, w)
+
+    turns_conv = in_turns(P, acc0, a_t, {
+        "conv_i8": (conv_rotation, dsk.bsk_conv),
+        "mega13": (mega13.mega13_blind_rotate, dsk.bsk_btS),
+        "bt_fused": (bt_fused_rotation, dsk.bsk_bt)},
+        same=("conv_i8", "mega13", "bt_fused"))
+    w0 = dsk.bsk_conv[0]
+    digits0 = signed_decompose(
+        poly.negacyclic_monomial_mul(acc0, a_t[0][:, None]) - acc0,
+        P.bg_bits, P.levels).permute(0, 1, 3, 2).reshape(B_MAIN, R_c, P.N)
+    d8_0, E0 = digits0.to(torch.int8).reshape(B_MAIN, -1), conv_expand(w0)
+    conv_t = {"step": timed_ms(lambda: conv_step(acc0, a_t[0], w0), reps=5),
+              "product": timed_ms(lambda: bs._ep_conv_i8(P, digits0, w0),
+                                  reps=5),
+              "expansion": timed_ms(lambda: conv_expand(w0), reps=5),
+              "int_mm": timed_ms(lambda: mega13.int8_matmul(d8_0, E0.t()),
+                                 reps=5),
+              "int_mm_row_major": timed_ms(
+                  lambda: mega13.int8_matmul(d8_0, E0.t().contiguous()),
+                  reps=5)}
+    del digits0, d8_0, E0
+    conv_bound = bounds.bound_ms(*bounds.correlation(B_MAIN, R_c, P.N, O_c))
+    print(f"path A on conv_i8: gate_batch of {B_MAIN} gates == path A's on "
+          f"mega13 (array equality) and decrypts to the truth table; "
+          f"blind_rotate_batch == mega13's rotation; {conv_s:.3f} s end to "
+          f"end; launches {counts_conv} (no hand-written kernel) {card}")
+    report_turns("conv_i8", P, turns_conv, dsk.bsk_conv.numel())
+    print(f"time: conv_i8 step at {P.name} B={B_MAIN} {conv_t['step']:.4f} "
+          f"ms, of which the product (_ep_conv_i8: expansion "
+          f"{conv_t['expansion']:.4f} ms, torch._int_mm [{B_MAIN}, "
+          f"{R_c * P.N}] x [{R_c * P.N}, {O_c * P.N}] "
+          f"{conv_t['int_mm']:.4f} ms with B K-major, "
+          f"{conv_t['int_mm_row_major']:.4f} ms with B row-major; the limb "
+          f"recombine) "
+          f"{conv_t['product']:.4f} ms; the product's bound "
+          f"{conv_bound[0]:.4f} ms ({conv_bound[1]}); bsk_conv "
+          f"{dsk.bsk_conv.numel() / 1e6:.1f} MB {card}")
 
     # 7. kernel vs plain: the block-Toeplitz kernels, tolerance 0 ----------
     errs = {"bt_external_product": 0, "rotate_decompose": 0}
@@ -715,10 +866,55 @@ def main() -> int:
     runner_log.propagate = False
     runner_log.addHandler(phase_log)
 
+    def recorded(run):
+        """(result, host seconds, rotations, device seconds) of ``run()``:
+        each blind rotation it makes, as (width, host seconds of the call),
+        and the CUDA events on the stream around each (their device time)
+        summed."""
+        rotations: list[tuple[int, float]] = []
+        events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        rotate_batch = bs.blind_rotate_batch
+
+        def recording(dsk_, ct, *a, **kw):
+            ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = rotate_batch(dsk_, ct, *a, **kw)
+            ev[1].record()
+            rotations.append((int(ct.shape[0]), time.perf_counter() - t0))
+            events.append(ev)
+            return out
+
+        bs.blind_rotate_batch = recording
+        try:
+            result, host = host_s(run)
+        finally:
+            bs.blind_rotate_batch = rotate_batch
+        torch.cuda.synchronize()
+        return (result, host, rotations,
+                sum(a.elapsed_time(b) for a, b in events) / 1e3)
+
+    def widths_line(rotations, p) -> str:
+        """A job's rotation widths with their counts and host ms per step."""
+        by_width: dict[int, list[float]] = {}
+        for B, secs in rotations:
+            by_width.setdefault(B, []).append(secs)
+        counts = {B: len(v) for B, v in sorted(by_width.items(),
+                                                 reverse=True)}
+        host_ms = {B: round(sum(v) / len(v) / p.n * 1e3, 4)
+                   for B, v in sorted(by_width.items(), reverse=True)}
+        return (f"rotation widths with their counts {counts} "
+                f"({len(rotations)} rotations, {len(rotations) * p.n} "
+                f"steps); host ms per step (the rotation's Python loop "
+                f"issuing its {p.n} steps, host clock without a "
+                f"synchronize) by width {host_ms}")
+
     def path_c(engine: str, workdir: str, rows: int = JOB_ROWS,
-               partitions: int = JOB_PARTITIONS) -> dict:
+               partitions: int = JOB_PARTITIONS, pk_bytes=None) -> dict:
         """Path C's job on ``engine`` over the first ``rows`` rows of the
-        table in ``partitions`` partitions."""
+        table in ``partitions`` partitions; with ``pk_bytes`` (a packing
+        key of the client key) the output and intermediate row frames are
+        then also downloaded packed, on the card, and decrypted."""
         upload = [rowcodec.frame_rows(payloads[i:min(i + per_chunk, rows)])
                   for i in range(0, rows, per_chunk)]
         want_out = [{"x": int(np.bitwise_xor.reduce(xs[:rows])),
@@ -752,34 +948,12 @@ def main() -> int:
                   f"{job.message}")
             return job
 
-        # the rotations the job runs: (width, host seconds of the call), and
-        # CUDA events on the stream around each (their device time)
-        rotations: list[tuple[int, float]] = []
-        events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
-        rotate_batch = bs.blind_rotate_batch
-
-        def recording(dsk_, ct, *a, **kw):
-            ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0 = time.perf_counter()
-            ev[0].record()
-            out = rotate_batch(dsk_, ct, *a, **kw)
-            ev[1].record()
-            rotations.append((int(ct.shape[0]), time.perf_counter() - t0))
-            events.append(ev)
-            return out
-
-        bs.blind_rotate_batch = recording
         reset_counts()
-        try:
-            job, host = host_s(run_job)
-        finally:
-            bs.blind_rotate_batch = rotate_batch
+        job, host, rotations, rotation_s = recorded(run_job)
         counts = read_counts()
-        torch.cuda.synchronize()
         res = {"job": job, "host_s": host, "counts": counts,
                "phases": phase_log.phases[job.job_uuid],
-               "rotations": rotations,
-               "rotation_s": sum(a.elapsed_time(b) for a, b in events) / 1e3}
+               "rotations": rotations, "rotation_s": rotation_s}
 
         def frame_bytes(uuid):
             return list(coord.download_data_frame(tok, sess, uuid))
@@ -788,23 +962,42 @@ def main() -> int:
         (mid,) = [f.uuid for f in coord.list_data_frames(tok, sess)
                   if f.name.startswith(f"intermediate-{job.job_uuid}-")]
         res["out"], res["mid"] = frame_bytes(out_uuid), frame_bytes(mid)
+        packed = {}
+        if pk_bytes is not None:  # the row frames packed on the card
+            coord.add_key(tok, sess, SchemaType.TFHE_PACKING, len(pk_bytes),
+                          (pk_bytes[i:i + (1 << 16)]
+                           for i in range(0, len(pk_bytes), 1 << 16)))
+            for name, uuid in (("intermediate", mid), ("output", out_uuid)):
+                packed[name] = host_s(lambda: list(
+                    coord.download_data_frame_packed(tok, sess, uuid)))
+            res["packed"] = {name: (secs, sum(map(len, parts)))
+                             for name, (parts, secs) in packed.items()}
         for name, parts, want in (("intermediate", res["mid"],
                                    want_rows[:rows]),
                                   ("output", res["out"], want_out)):
-            rows = [pl for part in parts for pl in rowcodec.parse_rows(part)]
-            cts = frame_codec.payloads_to_rows(rows, 9, P)
+            payloads_ = [pl for part in parts
+                         for pl in rowcodec.parse_rows(part)]
+            cts = frame_codec.payloads_to_rows(payloads_, 9, P)
             got = client.decrypt_rows(ck, JOB_MID_COLS, cts)
             bad = sum(g != w for g, w in zip(got, want))
             check(len(got) == len(want) and bad == 0,
                   f"path C ({engine}) {name} frame: {len(got)} rows, {bad} "
                   f"decrypt wrong")
+            if name in packed:
+                check(client.decrypt_rows_packed(
+                    ck, JOB_MID_COLS, packed[name][0]) == got,
+                    f"path C ({engine}) {name} frame downloaded packed "
+                    f"decrypts otherwise than its rows")
         coord.shutdown()
         return res
 
     runs = {}
     for engine in ("pallas_bt", "pallas_fused"):
         with tempfile.TemporaryDirectory() as workdir:
-            runs[engine] = path_c(engine, workdir)
+            runs[engine] = path_c(
+                engine, workdir, pk_bytes=(serialize_packing_key(pk_c.get())
+                                           if engine == "pallas_fused"
+                                           else None))
         torch.cuda.empty_cache()
         r = runs[engine]
         print(f"main path C ({engine}): {JOB_ROWS} rows in {JOB_PARTITIONS} "
@@ -823,19 +1016,17 @@ def main() -> int:
     print("main path C: pallas_bt and pallas_fused output and intermediate "
           "frames are byte-equal")
     for engine, r in runs.items():  # the widths the job's rotations ran at
-        by_width: dict[int, list[float]] = {}
-        for B, secs in r["rotations"]:
-            by_width.setdefault(B, []).append(secs)
-        host_ms = {B: round(sum(v) / len(v) / P.n * 1e3, 4)
-                   for B, v in sorted(by_width.items(), reverse=True)}
-        print(f"main path C ({engine}): rotation widths with their counts "
-              f"{ {B: len(v) for B, v in sorted(by_width.items(), reverse=True)} }"
-              f" ({len(r['rotations'])} rotations, "
-              f"{len(r['rotations']) * P.n} steps); host ms per step (the "
-              f"rotation's Python loop issuing its {P.n} steps, host clock "
-              f"without a synchronize) by width {host_ms}; CUDA events "
-              f"around each rotation span {r['rotation_s']:.3f} s of the "
-              f"stream in all {card}")
+        print(f"main path C ({engine}): {widths_line(r['rotations'], P)}; "
+              f"CUDA events around each rotation span "
+              f"{r['rotation_s']:.3f} s of the stream in all {card}")
+    print(f"main path C (pallas_fused): the TFHE_PACKING key uploaded, both "
+          f"row frames downloaded packed on the card (pack_lwes_batch, "
+          f"{JOB_PARTITIONS} x {JOB_ROWS // JOB_PARTITIONS} rows a frame) "
+          f"decrypt as their rows: (seconds, bytes) "
+          f"{runs['pallas_fused']['packed']} against "
+          f"{sum(map(len, runs['pallas_fused']['mid']))} and "
+          f"{sum(map(len, runs['pallas_fused']['out']))} bytes of rows "
+          f"{card}")
 
     # 9. times of the block-Toeplitz engines --------------------------------
     R = (P.k + 1) * P.levels
@@ -878,7 +1069,10 @@ def main() -> int:
         0, 2, 1, 3, 4).reshape(R * P.N, (P.k + 1) * P.N * 4)
     d_flat = d8_s.reshape(R, HALF, B_MAIN, -1).permute(2, 0, 1, 3).reshape(
         B_MAIN, R * P.N)
-    lib_ms = timed_ms(lambda: torch._int_mm(d_flat, full), reps=20)
+    # the same matrix stored K-major, which torch._int_mm reads faster
+    full_t = full.t().contiguous()
+    lib_ms = timed_ms(lambda: torch._int_mm(d_flat, full_t.t()), reps=20)
+    lib_row_ms = timed_ms(lambda: torch._int_mm(d_flat, full), reps=20)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for fused in (False, True):
         e = ep[fused]
@@ -888,7 +1082,8 @@ def main() -> int:
               f"per {P.n}-step rotation); {e['bound_ms'] / e['ms']:.4f} of "
               f"the {e['bound_ms']:.4f} ms bound ({e['bound_by']}); plain "
               f"{e['plain_ms']:.4f} ms; torch._int_mm [{B_MAIN}, {R * P.N}] x "
-              f"{list(full.shape)} {lib_ms:.4f} ms; "
+              f"{list(full.shape)} {lib_ms:.4f} ms (B K-major; "
+              f"{lib_row_ms:.4f} ms row-major); "
               f"{bt.plan(P, B_MAIN, sms)} {card}")
     narrow = {}
     for B in (288, 9):  # path C's narrow reduce levels
@@ -901,7 +1096,7 @@ def main() -> int:
         # mega13.int8_matmul pads them
         d_flat_n = d8_n.reshape(R, HALF, B, -1).permute(2, 0, 1, 3).reshape(
             B, R * P.N)
-        nlib_ms = timed_ms(lambda: mega13.int8_matmul(d_flat_n, full),
+        nlib_ms = timed_ms(lambda: mega13.int8_matmul(d_flat_n, full_t.t()),
                            reps=20)
         # the same launches replayed from one CUDA graph: the device time
         # alone, without the wrapper's host cost per launch
@@ -914,7 +1109,8 @@ def main() -> int:
         print(f"time: bt_external_product fused one step B={B} {n_ms:.4f} "
               f"ms ({ng_ms:.4f} ms replayed from a CUDA graph), "
               f"{n_bound / n_ms:.4f} of the {n_bound:.4f} ms bound "
-              f"({n_by}); mega13.int8_matmul (torch._int_mm, rows padded to "
+              f"({n_by}); mega13.int8_matmul (torch._int_mm, B K-major, rows "
+              f"padded to "
               f"{max(32, -(-B // 8) * 8)}) x {list(full.shape)} "
               f"{nlib_ms:.4f} ms; rotate_decompose {nrd_ms:.4f} ms "
               f"({(n_ms + nrd_ms) * P.n:.1f} ms per rotation); "
@@ -933,8 +1129,8 @@ def main() -> int:
     # STD128's library yardstick: one int8 product of the same shapes
     # (expanded step matrix [R*N, (k+1)*4*N], random: the time does not
     # depend on the values)
-    full_q = torch.randint(-128, 128, (RQ * Q.N, (Q.k + 1) * 4 * Q.N),
-                           dtype=torch.int8, device=dev)
+    full_q = torch.randint(-128, 128, ((Q.k + 1) * 4 * Q.N, RQ * Q.N),
+                           dtype=torch.int8, device=dev).t()  # K-major
     d_flat_q = d8_q.reshape(RQ, HALFQ, B_MAIN, -1).permute(
         2, 0, 1, 3).reshape(B_MAIN, RQ * Q.N)
     q_lib_ms = timed_ms(lambda: torch._int_mm(d_flat_q, full_q), reps=10)
@@ -942,7 +1138,7 @@ def main() -> int:
     print(f"time: bt_external_product unfused one step at {Q.name} B={B_MAIN} "
           f"{q_ms:.4f} ms; {q_bound / q_ms:.4f} of the {q_bound:.4f} ms "
           f"bound ({q_by}); torch._int_mm [{B_MAIN}, {RQ * Q.N}] x "
-          f"[{RQ * Q.N}, {(Q.k + 1) * 4 * Q.N}] {q_lib_ms:.4f} ms; "
+          f"[{RQ * Q.N}, {(Q.k + 1) * 4 * Q.N}] (K-major) {q_lib_ms:.4f} ms; "
           f"{bt.plan(Q, B_MAIN, sms)} {card}")
     for engine in ("bt", "bt_fused"):
         got, s1 = host_s(lambda: gates.gate_batch(dsk, batch, engine=engine,
@@ -1567,7 +1763,7 @@ def main() -> int:
     PS = PARAM_SETS["std128_shortint"]
     # path A-C's keys and inputs; the adder job and path C's jobs hold
     # STD128_K2 keys (3.4 GiB of bsk_bt each)
-    del dsk, key_q, full, d8_q, run, runs, r, job, res_i, job_i
+    del dsk, key_q, full, full_t, d8_q, run, runs, r, job, res_i, job_i
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2138,6 +2334,168 @@ def main() -> int:
           f"{peak_k / 2**30:.3f} GiB {card}")
     del ctx_k, ctx13, xk, yk, xk13, yk13, sum_k, min_k, sum13
 
+    # 18. main path N: the coordinator's compact wire path on conv_i8 at
+    # STD128_K2: a compressed server key, a seeded upload packed at ingest,
+    # GLWE-packed frames end to end, packed downloads -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck_n, csk_n, pk_n, keygen_n_s, bits_n, cts_n, packed_ref_n = keys_n.get()
+    key_n, pkn_bytes = (serialize_server_key_compressed(csk_n),
+                        serialize_packing_key(pk_n))
+    (bodies_n, seed_n), enc_n_s = host_s(lambda: client.encrypt_rows_seeded(
+        ck_n, JOB_IN_COLS, table.tolist(), rng))
+    seeded_n = rowcodec.frame_rows([row.tobytes() for row in bodies_n])
+    want_out_all = {"x": int(np.bitwise_xor.reduce(xs)),
+                    "odd": int(np.bitwise_xor.reduce(odd))}
+    flags_n = dict(glwe_inputs=True, glwe_frames=True, glwe_outputs=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        coord = Coordinator(Config(
+            server=ServerConfig(key_directory=workdir + "/keys",
+                                storage_directory=workdir + "/st"),
+            security=SecurityConfig(secret_key="chip-smoke"),
+            mesh_workers=MeshWorkersConfig(engine="conv_i8", **flags_n)),
+            device=dev)
+        tok = coord.authorize_connection("admin==true")
+        sess = coord.create_session(tok, "chip-smoke-n").uuid
+        for schema, blob in ((SchemaType.TFHE_BOOL, key_n),
+                             (SchemaType.TFHE_PACKING, pkn_bytes)):
+            coord.add_key(tok, sess, schema, len(blob),
+                          (blob[i:i + (1 << 16)]
+                           for i in range(0, len(blob), 1 << 16)))
+        meta = coord.begin_data_frame_upload(
+            tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, JOB_ROWS,
+            JOB_PARTITIONS, seeded_seed=seed_n)
+        for i in range(0, len(seeded_n), 1 << 16):  # cut mid-row
+            coord.append_data_frame(tok, sess, meta.uuid,
+                                    seeded_n[i:i + (1 << 16)])
+        _, ingest_n_s = host_s(lambda: coord.finish_data_frame_upload(
+            tok, sess, meta.uuid))
+        check(coord.storage.get_data_frame(sess, meta.uuid).glwe_packed,
+              "path N: the seeded upload was not packed at ingest")
+        in_bytes = sum(
+            coord.storage.partition_path(sess, meta.uuid, q).stat().st_size
+            for q in range(JOB_PARTITIONS))
+        plan_n = job_plan(meta.uuid).to_json()
+
+        def run_job_n():
+            job = coord.schedule_job(tok, sess, plan_n)
+            return coord.wait_for_job(tok, sess, job.job_uuid, timeout=900)
+
+        reset_counts()
+        job_n, job_n_s, rot_n, rot_n_s = recorded(run_job_n)
+        counts_n = read_counts()
+        check(job_n.status == JobStatus.COMPLETED and job_n.retries == 0,
+              f"path N job {job_n.status.name}, retries {job_n.retries}: "
+              f"{job_n.message}")
+        only(counts_n, (), "main path N on conv_i8")
+        frames_n = {f.name: f for f in coord.list_data_frames(tok, sess)}
+        check(all(f.glwe_packed for f in frames_n.values()),
+              f"path N: frames in the row format "
+              f"{[n for n, f in frames_n.items() if not f.glwe_packed]}")
+        (out_n,) = job_n.output_frames.values()
+        (mid_n,) = [f.uuid for n, f in frames_n.items()
+                    if n.startswith(f"intermediate-{job_n.job_uuid}-")]
+        down_n = {}
+        for name, uuid, want in (("intermediate", mid_n, want_rows),
+                                 ("output", out_n, [want_out_all])):
+            parts, secs = host_s(lambda: list(
+                coord.download_data_frame_packed(tok, sess, uuid)))
+            got = client.decrypt_rows_packed(ck_n, JOB_MID_COLS, parts)
+            bad = sum(g != w for g, w in zip(got, want))
+            check(len(got) == len(want) and bad == 0,
+                  f"path N {name} frame: {len(got)} rows, {bad} decrypt "
+                  f"wrong")
+            down_n[name] = (secs, sum(map(len, parts)))
+        peak_n = torch.cuda.max_memory_allocated()
+        coord.shutdown()
+        del coord
+    phases_n = phase_log.phases[job_n.job_uuid]
+    print(f"main path N (conv_i8; glwe_inputs, glwe_frames, glwe_outputs): "
+          f"{P.name} keygen_seeded + make_packing_key {keygen_n_s:.1f} s "
+          f"(worker process); compressed server key {len(key_n)} bytes "
+          f"(the full key {len(key_bytes)}), packing key "
+          f"{len(pkn_bytes)} bytes, both in 64 KiB chunks; {JOB_ROWS} rows "
+          f"encrypted seeded in {enc_n_s:.3f} s, {len(seeded_n)} bytes "
+          f"uploaded in {JOB_PARTITIONS} partitions, packed at ingest into "
+          f"{in_bytes} bytes; job COMPLETED, retries 0, "
+          f"{job_n.bootstraps_executed} bootstraps, every frame GLWE-packed; "
+          f"all {JOB_ROWS} intermediate rows and the reduced row downloaded "
+          f"packed decrypt right (decrypt_rows_packed); launches {counts_n} "
+          f"(no hand-written kernel)")
+    print(f"time: main path N ingest (finish_data_frame_upload: mark, read "
+          f"and pack {JOB_PARTITIONS} partitions on the card) "
+          f"{ingest_n_s:.3f} s; job {job_n_s:.3f} s host (wall_time_s "
+          f"{job_n.wall_time_s:.3f}), load / exec / store "
+          f"{phases_n[0]:.3f} / {phases_n[1]:.3f} / {phases_n[2]:.3f} s = "
+          f"{job_n.bootstraps_executed / job_n_s:.1f} bootstraps/s; packed "
+          f"downloads (seconds, bytes) {down_n} {card}")
+    print(f"main path N: {widths_line(rot_n, P)}; CUDA events around each "
+          f"rotation span {rot_n_s:.3f} s of the stream in all {card}")
+    print(f"memory: path N torch.cuda.max_memory_allocated "
+          f"{peak_n / 2**30:.3f} GiB {card}")
+
+    # pack_lwes_batch against the NumPy pack_lwes, tolerance 0, at
+    # STD128_K2 (path N's key) and STD128's geometry, where the partial sums'
+    # bound passes 2^31; conv_i8_correlate on saturated inputs past 2^31
+    pkc_n = pack.packing_key_conv(pk_n, device=dev)
+    got_n = to_numpy_u32(pack.pack_lwes_batch(
+        P, pkc_n, from_numpy_u32(cts_n[None], dev)))[0]
+    err_pack = abs_err(torch.from_numpy(got_n.view(np.int32)),
+                       torch.from_numpy(packed_ref_n.view(np.int32)))
+    check(np.array_equal(got_n, packed_ref_n),
+          f"pack_lwes_batch != reference.pack_lwes at {P.name}")
+    check(np.array_equal(ref.unpack_bools(ck_n, got_n, P.N), bits_n),
+          f"a group packed at {P.name} decrypts wrong")
+    ck_s, pk_s, bits_s, cts_s, packed_ref_s = group_std128.get()
+    pkc_s = pack.packing_key_conv(pk_s, device=dev)
+    got_s = to_numpy_u32(pack.pack_lwes_batch(
+        STD128, pkc_s, from_numpy_u32(cts_s[None], dev)))[0]
+    check(np.array_equal(got_s, packed_ref_s),
+          f"pack_lwes_batch != reference.pack_lwes at {STD128.name}")
+    check(np.array_equal(ref.unpack_bools(ck_s, got_s, len(bits_s)), bits_s),
+          f"the {len(bits_s)}-row group packed at {STD128.name} decrypts "
+          f"wrong")
+    R_w, O_w = 260, (P.k + 1) * 4
+    sat = bs.conv_i8_correlate(
+        torch.full((2, R_w, P.N), -128, dtype=torch.int8, device=dev),
+        torch.full((R_w, O_w, 2 * P.N - 1), -128, dtype=torch.int8,
+                   device=dev))
+    want_sat = (R_w * P.N * 128 * 128 + (1 << 31)) % (1 << 32) - (1 << 31)
+    check(bool((sat == want_sat).all()),
+          f"conv_i8_correlate on saturated inputs ({R_w * P.N} rows, sums "
+          f"{R_w * P.N * 128 * 128} > 2^31) does not wrap mod 2^32")
+    # what one product of those sums gives: the reason for the chunks
+    raw_sat = int(mega13.int8_matmul(
+        torch.full((1, R_w * P.N), -128, dtype=torch.int8, device=dev),
+        torch.full((R_w * P.N, 8), -128, dtype=torch.int8, device=dev)
+    )[0, 0])
+    del sat
+    groups_n = JOB_ROWS // JOB_PARTITIONS * 16 // P.N  # a partition's
+    lwes_r = torch.randint(-2**31, 2**31, (groups_n, P.N, P.n + 1),
+                           dtype=torch.int32, device=dev)
+    pack_ms = timed_ms(lambda: pack.pack_lwes_batch(P, pkc_n, lwes_r),
+                       reps=3)
+    pack_bound = bounds.bound_ms(*bounds.pack_lwes(P, groups_n))
+    lwes_s = torch.randint(-2**31, 2**31, (1, STD128.N, STD128.n + 1),
+                           dtype=torch.int32, device=dev)
+    pack_s_ms = timed_ms(lambda: pack.pack_lwes_batch(STD128, pkc_s, lwes_s),
+                         reps=3)
+    pack_s_bound = bounds.bound_ms(*bounds.pack_lwes(STD128, 1))
+    print(f"pack: pack_lwes_batch == reference.pack_lwes (array equality, "
+          f"max_abs_err {err_pack}) on a group of {P.N} at {P.name} and of "
+          f"{len(bits_s)} at {STD128.name} (bounds on the partial sums "
+          f"2^30.8 and 2^31.8), both groups decrypt right; "
+          f"conv_i8_correlate wraps mod 2^32 past 2^31 on saturated inputs "
+          f"({R_w * P.N} rows: {want_sat}), where one torch._int_mm of the "
+          f"same sums gives {raw_sat}")
+    print(f"time: pack_lwes_batch at {P.name} {groups_n} groups of {P.N} "
+          f"(one path N partition) {pack_ms:.3f} ms, {pack_bound[0] / pack_ms:.4f}"
+          f" of the {pack_bound[0]:.4f} ms bound ({pack_bound[1]}); at "
+          f"{STD128.name} 1 group {pack_s_ms:.3f} ms, bound "
+          f"{pack_s_bound[0]:.4f} ms ({pack_s_bound[1]}) {card}")
+    del pkc_n, pkc_s, lwes_r, lwes_s
+
     # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
                "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
@@ -2168,7 +2526,9 @@ def main() -> int:
                   for name in legacy_j},
                **{f"M1_gate_batch_{name}": res_m[name]["counts"]
                   for name in row_j},
-               **{f"M2_job_pallas_{name}": res_m2[name] for name in row_j}}
+               **{f"M2_job_pallas_{name}": res_m2[name] for name in row_j},
+               "A_gate_batch_conv_i8": counts_conv,
+               "N_job_conv_i8": counts_n}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}
@@ -2228,6 +2588,7 @@ def main() -> int:
         "bound_ms": ep[False]["bound_ms"],
         "bound_by": ep[False]["bound_by"],
         "library_ms": lib_ms,
+        "library_ms_row_major": lib_row_ms,
         "graph_ms": ep[False]["graph_ms"],
         "ms_fused": ep[True]["ms"],
         "graph_ms_fused": ep[True]["graph_ms"],

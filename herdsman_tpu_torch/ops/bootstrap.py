@@ -37,9 +37,14 @@ through one of three kinds of engine:
   with the accumulate, against the ``bsk_bt`` key.
 - ``ENGINES``: a per-step external product inside a Python loop over i,
   after a PyTorch rotate and decompose.  ``bt`` (the JAX package's
-  ``pallas_bt``) is ``csrc/bt_external_product.cu`` unfused; ``gather_u32``
-  is the gather-Toeplitz u32 product of the JAX package's engine of the
-  same name (any device, slow; a second yardstick).
+  ``pallas_bt``) is ``csrc/bt_external_product.cu`` unfused; ``conv_i8``
+  (the JAX package's default engine, an XLA int8 convolution there) is the
+  same correlation as one int8 product per step against the Toeplitz
+  expansion of the compact ``bsk_conv`` key (``conv_i8_correlate``: a
+  plain matrix product through ``torch._int_mm``, no hand-written kernel,
+  on both devices); ``gather_u32`` is the gather-Toeplitz u32 product of
+  the JAX package's engine of the same name (any device, slow; a second
+  yardstick).
 
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor and
 only then.  The per-step engines launch 2 kernels per step (n = 768 steps
@@ -88,6 +93,55 @@ def _ep_bt(p: TFHEParams, digits: torch.Tensor,
     return bt.external_product_bt(p, d8, bsk_bt_i)
 
 
+# bytes of the Toeplitz expansion of the key that conv_i8_correlate builds
+# at a time, and the most K rows of one int8 product whose int32 sum cannot
+# overflow (|digit * key limb| <= 2^14), so that every partial sum is exact
+# and only the int32 adds of the chunks wrap, mod 2^32 as XLA's accumulator
+_CONV_CHUNK_BYTES = 1 << 28
+_CONV_EXACT_ROWS = ((1 << 31) - 1) // (128 * 128)
+
+
+def conv_i8_correlate(d8: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The JAX package's int8 correlation ``lax.conv_general_dilated(d8, w,
+    padding (N-1, N-1), ("NCH", "IOH", "NCH"))`` with int32 output, exact
+    mod 2^32: d8 [B, R, N] int8, w [R, O, 2N-1] int8 -> [B, O, N] int32,
+
+        out[b, o, x] = sum_r sum_m d8[b, r, m] * w[r, o, m - x + N - 1].
+
+    One ``mega13.int8_matmul`` of the digits, reversed along m, [B, R*N]
+    against the Toeplitz expansion of the key with its taps reversed,
+    E[(r, N-1-m), (o, x)] = w[r, o, m + N-1-x] = rev(w)[r, o, (N-1-m) + x]
+    [R*N, O*N] (``unfold`` of the reversed taps: runs of N contiguous
+    bytes), stored K-major (column-major), which ``torch._int_mm`` reads
+    about 5x faster on the card than a row-major one.  The expansion is
+    built for a chunk of r at a time and never kept: each chunk stays under
+    ``_CONV_CHUNK_BYTES`` and ``_CONV_EXACT_ROWS`` rows, and the chunks are
+    summed in int32."""
+    B, R, N = d8.shape
+    O = w.shape[1]
+    rc = max(1, min(_CONV_CHUNK_BYTES // (N * O * N), _CONV_EXACT_ROWS // N))
+    out = None
+    for r0 in range(0, R, rc):
+        r1 = min(r0 + rc, R)
+        E = w[r0:r1].flip(-1).unfold(-1, N, 1)       # [r, O, N(m'), N(x)]
+        E = E.permute(1, 3, 0, 2).reshape(O * N, (r1 - r0) * N)
+        d = d8[:, r0:r1].flip(-1).reshape(B, (r1 - r0) * N)
+        part = mega13.int8_matmul(d, E.t())
+        out = part if out is None else out + part
+    return out.reshape(B, O, N)
+
+
+def _ep_conv_i8(p: TFHEParams, digits: torch.Tensor,
+                bsk_conv_i: torch.Tensor) -> torch.Tensor:
+    """digits [B, R, N] int32 (|digit| <= Bg/2 <= 128), bsk_conv_i [R,
+    (k+1)*4, 2N-1] int8 -> [B, k+1, N]: the limb partials of the
+    correlation, recombined mod 2^32."""
+    B = digits.shape[0]
+    out = conv_i8_correlate(digits.to(I8), bsk_conv_i)    # [B, (k+1)*4, N]
+    return poly.from_i32_limb_partials(
+        out.reshape(B, p.k + 1, 4, p.N).permute(0, 1, 3, 2))
+
+
 def _step_bt_fused(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
                    bsk_bt_i: torch.Tensor) -> torch.Tensor:
     """Whole CMux step, two kernels: acc + BSK_i (x) (X^{a_i} acc - acc)."""
@@ -98,6 +152,7 @@ def _step_bt_fused(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
 # engine name -> (fn(params, digits, bsk_i), key layout it reads)
 ENGINES: dict[str, tuple[Callable, str]] = {
     "bt": (_ep_bt, "bsk_bt"),
+    "conv_i8": (_ep_conv_i8, "bsk_conv"),
     "gather_u32": (_ep_gather_u32, "bsk_ext"),
 }
 
@@ -182,12 +237,19 @@ def blind_rotate_batch(dsk: DeviceServerKey, ct: torch.Tensor,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     ep, layout = ENGINES[engine]
-    bsk = _key(dsk, layout, engine)
-    acc = acc0
+    return step_rotation(p, ep, acc0, a_t, _key(dsk, layout, engine))
+
+
+def step_rotation(p: TFHEParams, ep: Callable, acc: torch.Tensor,
+                  a_t: torch.Tensor, bsk: torch.Tensor) -> torch.Tensor:
+    """The n CMux steps of a per-step product engine ``ep`` of ``ENGINES``
+    from acc0 [B, k+1, N] and a_t [n, B]: rotate, subtract and decompose in
+    PyTorch, then ``ep``'s external product against step i of ``bsk``."""
+    B, R = acc.shape[0], (p.k + 1) * p.levels
     for i in range(p.n):
         rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
         digits = signed_decompose(rot - acc, p.bg_bits, p.levels)
-        digits = digits.permute(0, 1, 3, 2).reshape(B, dsk.R, p.N)
+        digits = digits.permute(0, 1, 3, 2).reshape(B, R, p.N)
         acc = acc + ep(p, digits, bsk[i])
     return acc
 

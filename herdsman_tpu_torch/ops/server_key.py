@@ -138,10 +138,24 @@ once, into:
                                        STD128_K4, 101 MB at
                                        STD128_SHORTINT_FAST, where the JAX
                                        layout takes 17.25 GiB.
+- ``bsk_conv``  int8  [n, R, (k+1)*4, 2N-1]
+                                       the correlation key of the
+                                       ``conv_i8`` engine (the JAX package's
+                                       ``bsk_conv``): tap dx of output
+                                       channel (c, j) is limb j of
+                                       ext(bsk[i, r, c])[(N-1-dx) mod 2N]
+                                       (``conv_key_layout``).  56.6 MB at
+                                       STD128_K2; the engine expands one
+                                       step of it at a time into the
+                                       Toeplitz matrix of its product
+                                       (``bootstrap.conv_i8_correlate``).
 - ``ksk_limbs`` int8  [kN*t, C]        the key-switching key as balanced int8
                                        limbs for one ``torch._int_mm``;
                                        C = (n+1)*4 padded to a multiple of 8,
-                                       which the CUDA int8 matmul requires.
+                                       which the CUDA int8 matmul requires;
+                                       stored column-major (K-major), which
+                                       ``torch._int_mm`` reads about 5x
+                                       faster on the card.
 
 ``layouts_for_engine`` names the layout each engine reads, and
 ``fit_engine`` picks the engine a key fits on the card for (the port of
@@ -161,12 +175,13 @@ from herdsman_tpu_torch.ops.u32 import from_numpy_u32, resolve_device
 
 LAYOUTS = ("bsk", "bsk_btS", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj",
            "bsk_btk", "bsk_btj2", "bsk_btj2j", "bsk_btk2",
-           "bsk_btTc", "bsk_btTe")
+           "bsk_btTc", "bsk_btTe", "bsk_conv")
 DEFAULT_LAYOUTS = ("bsk_btS",)  # the mega13 kernel and its plain version
 
 # the layout each engine of ops.bootstrap reads
 ENGINE_LAYOUTS = {"mega13": "bsk_btS", "mega12": "bsk_btk", "bt": "bsk_bt",
                   "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
+                  "conv_i8": "bsk_conv",
                   **megaT.KEY_LAYOUTS, **megaJ.KEY_LAYOUTS}
 
 # device memory the key layouts of one session may take: half of an H100's
@@ -195,6 +210,7 @@ class DeviceServerKey:
     #                                       128]
     bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
     bsk_btTe: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
+    bsk_conv: torch.Tensor | None = None  # int8 [n, R, (k+1)*4, 2N-1]
 
     @property
     def R(self) -> int:
@@ -319,6 +335,25 @@ def stream_key_layout(p: TFHEParams, bsk: torch.Tensor,
     return out
 
 
+def conv_key_layout(rows: torch.Tensor) -> torch.Tensor:
+    """The correlation key of ``conv_i8`` from int32 polynomials [..., k+1,
+    N]: int8 [..., (k+1)*4, 2N-1], tap dx of channel (c, j) limb j of
+    ext(rows[..., c, :])[(N-1-dx) mod 2N] — the JAX package's ``bsk_conv``
+    (``server_key.py:134-145``) and ``ops/pack.packing_key_conv``.  Built on
+    ``rows``' device, a chunk of the leading axis at a time."""
+    *lead, kp1, N = rows.shape
+    rows = rows.reshape(-1, kp1, N)
+    idx = (N - 1 - torch.arange(2 * N - 1, device=rows.device)) % (2 * N)
+    out = torch.empty(rows.shape[0], kp1, 4, 2 * N - 1, dtype=torch.int8,
+                      device=rows.device)
+    step = max(1, _BT_CHUNK_BYTES // (kp1 * 2 * N * 4 * 8))
+    for i0 in range(0, rows.shape[0], step):
+        limbs = poly.to_i8_limbs(
+            poly.negacyclic_extend(rows[i0:i0 + step])[..., idx])
+        out[i0:i0 + step] = limbs.transpose(-1, -2)  # [.., k+1, 4, 2N-1]
+    return out.reshape(*lead, kp1 * 4, 2 * N - 1)
+
+
 def layouts_for_engine(engine: str) -> tuple[str, ...]:
     """Key layout(s) ``device_server_key`` must build for ``engine``."""
     if engine not in ENGINE_LAYOUTS:
@@ -356,7 +391,9 @@ def fit_engine(engine: str, params: TFHEParams,
       compact ``bsk_btTc`` key fits; else ``mega11`` where its doubled key
       fits and its kernel takes the set; else whatever a ``mega12`` request
       gets;
-    - ``mega13`` where its kernel takes the set, else ``bt_fused``.
+    - ``mega13`` where its kernel takes the set, else ``bt_fused``;
+    - ``gather_u32`` and ``conv_i8`` (PyTorch products, any set) as they
+      are, as the JAX package passes ``conv_i8`` through.
 
     The coordinator and the integer tier build every key through this, so
     none of them can run the card out of memory at key ingest.
@@ -418,7 +455,7 @@ def fit_engine(engine: str, params: TFHEParams,
             return route
         if bt_fits:
             return "bt_fused"
-    elif route == "gather_u32":
+    elif route in ("gather_u32", "conv_i8"):
         return route
     else:
         layouts_for_engine(route)  # raises for an unknown engine
@@ -450,10 +487,12 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
     cols = (p.n + 1) * 4
     ksk_limbs = poly.to_i8_limbs(ksk).reshape(p.kN * p.ks_levels, cols)
     ksk_limbs = torch.nn.functional.pad(ksk_limbs, (0, (-cols) % 8))
+    # stored K-major: torch._int_mm reads a column-major B about 5x faster
+    ksk_limbs = ksk_limbs.t().contiguous().t()
     return DeviceServerKey(
         params=p,
         device=dev,
-        ksk_limbs=ksk_limbs.contiguous(),
+        ksk_limbs=ksk_limbs,
         bsk=bsk if "bsk" in layouts else None,
         bsk_btS=(stream_key_layout(p, bsk, any_gadget=True)
                  if "bsk_btS" in layouts else None),
@@ -477,4 +516,5 @@ def device_server_key(sk, layouts: tuple[str, ...] = DEFAULT_LAYOUTS,
                   if "bsk_btTc" in layouts else None),
         bsk_btTe=(stream_key_layout(p, bsk, extended=True)
                   if "bsk_btTe" in layouts else None),
+        bsk_conv=(conv_key_layout(bsk) if "bsk_conv" in layouts else None),
     )

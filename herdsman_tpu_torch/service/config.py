@@ -22,8 +22,7 @@ The port's copy of ``herdsman_tpu.service.config``.  Two differences:
   GPU machines the port runs on do not have it.
 - Engine names in a config stay the JAX package's.  ``ENGINE_NAMES`` maps
   the ones the port has to its own engines (``template.yaml`` loads as it
-  is); ``port_engine`` raises at load for any other, naming the ROADMAP
-  item that ports it.
+  is); ``port_engine`` raises at load for any other.
 """
 
 from __future__ import annotations
@@ -47,7 +46,8 @@ ENGINE_NAMES = {"pallas_bt": "bt", "pallas_fused": "bt_fused",
                 "pallas_mega6": "mega6", "pallas_mega10": "mega10",
                 "pallas_mega3": "mega3", "pallas_mega4": "mega4",
                 "pallas_mega5": "mega5", "pallas_mega": "mega",
-                "pallas_mega2": "mega2", "gather_u32": "gather_u32"}
+                "pallas_mega2": "mega2", "gather_u32": "gather_u32",
+                "conv_i8": "conv_i8"}
 
 
 def port_engine(name: str) -> str:
@@ -59,8 +59,7 @@ def port_engine(name: str) -> str:
         return name
     raise ConfigError(
         f"engine {name!r} is not ported: the port has "
-        f"{sorted(ENGINE_NAMES)}; conv_i8 (an XLA engine with no kernel) is "
-        f"not served by the port's coordinator (ROADMAP queue 1 item 19)")
+        f"{sorted(ENGINE_NAMES)}")
 
 
 @dataclasses.dataclass

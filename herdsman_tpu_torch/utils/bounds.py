@@ -60,6 +60,7 @@ def key_layout_bytes(p: TFHEParams, layout: str) -> int:
         "bsk_btT3": p.n * kp1 * kp1 * 4 * P * 3 * p.N,
         "bsk_btT4": p.n * kp1 * kp1 * 4 * P * 4 * p.N,
         "bsk_btTc": megaT.key_bytes(p),
+        "bsk_conv": p.n * R * kp1 * 4 * (2 * p.N - 1),
     }
     sizes["bsk_btT2"] = sizes["bsk_btT"]
     return sizes[layout]
@@ -85,6 +86,27 @@ def external_product_step(p: TFHEParams, B: int,
     glwe = 4 * B * (p.k + 1) * p.N
     nbytes = B * R * p.N + R * HALF * P * (p.k + 1) * 4 * P \
         + glwe * (2 if fused else 1)
+    return ops, nbytes
+
+
+def correlation(B: int, R: int, N: int, O: int) -> tuple[float, float]:
+    """(int8 ops, bytes) of ``bootstrap.conv_i8_correlate``: digits [B, R,
+    N] and the compact key [R, O, 2N-1] in, the int32 partials [B, O, N]
+    out; B * R*N * O*N MACs.  A ``conv_i8`` step's product has R = (k+1)*l
+    and O = (k+1)*4."""
+    ops = 2 * B * R * N * O * N
+    nbytes = B * R * N + R * O * (2 * N - 1) + 4 * B * O * N
+    return ops, nbytes
+
+
+def pack_lwes(p: TFHEParams, groups: int) -> tuple[float, float]:
+    """(int8 ops, bytes) of ``ops.pack.pack_lwes_batch`` on ``groups``
+    groups of N LWEs: the LWEs and the packing key [n*t, (k+1)*4, 2N-1] in,
+    the GLWEs out; the correlation's MACs with R = n*t."""
+    R, O = p.n * p.ks_levels, (p.k + 1) * 4
+    ops = 2 * groups * R * p.N * O * p.N
+    nbytes = (4 * groups * p.N * (p.n + 1) + R * O * (2 * p.N - 1)
+              + 4 * groups * (p.k + 1) * p.N)
     return ops, nbytes
 
 

@@ -87,3 +87,25 @@ def test_mul_and_bits_equal_jax(pair):
     same(jx.mux(ja, jb), tx.mux(ta, tb))
     assert t.decrypt(tx.mux(ta, tb)) == [3, 3, 15]
     assert t.decrypt(tx & tx) == [True, False, True]
+
+
+def test_context_on_conv_i8_equals_jax(pair):
+    """``HerdContext(engine="conv_i8")`` keeps the engine, builds only
+    ``bsk_conv``, and its a + b and min equal a fresh JAX context's on the
+    same keys and seed."""
+    j, t = pair
+    keys = (t.ck, t.sk)
+    jc = japi.HerdContext(TOY, engine="conv_i8", keys=keys, seed=4)
+    tc = tapi.HerdContext(PARAM_SETS["toy"], engine="conv_i8", keys=keys,
+                          seed=4, device="cpu")
+    assert tc.engine == "conv_i8" and tc.dsk.bsk_conv is not None
+    assert tc.dsk.bsk_btS is None
+    av, bv = [3, 9, 15, 0], [5, 9, 1, 0]
+    ja, jb = jc.encrypt(av, width=4), jc.encrypt(bv, width=4)
+    ta, tb = tc.encrypt(av, width=4), tc.encrypt(bv, width=4)
+    same(ja, ta)
+    ts, tm = ta + tb, ta.min(tb)
+    same(ja + jb, ts)
+    same(ja.min(jb), tm)
+    assert tc.decrypt(ts) == [(x + y) % 16 for x, y in zip(av, bv)]
+    assert tc.decrypt(tm) == [min(x, y) for x, y in zip(av, bv)]

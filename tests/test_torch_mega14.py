@@ -242,3 +242,23 @@ def test_herd_context_on_mega14_equals_jax(contexts):
                                   np.asarray(ja.min(jb).data))
     assert t.decrypt(ts) == [(x + y) % 16 for x, y in zip(av, bv)]
     assert t.decrypt(tm) == [min(x, y) for x, y in zip(av, bv)]
+
+
+def test_herd_context_on_conv_i8_equals_jax(contexts):
+    """The port's ``HerdContext`` on ``conv_i8`` at STD128_K4's gadget and
+    shape: a + b equal to a JAX context's (``conv_i8``) with the same keys
+    and seed."""
+    j, t = contexts
+    c = tapi.HerdContext(port(K4_TOY), engine="conv_i8", keys=(t.ck, t.sk),
+                         seed=6, device="cpu")
+    assert c.engine == "conv_i8" and c.dsk.bsk_conv is not None
+    jc = japi.HerdContext(K4_TOY, engine="conv_i8", keys=(t.ck, t.sk),
+                          seed=6)
+    av, bv = [3, 9, 15, 0, 7], [5, 9, 1, 0, 12]
+    ja, jb = jc.encrypt(av, width=4), jc.encrypt(bv, width=4)
+    ca, cb = c.encrypt(av, width=4), c.encrypt(bv, width=4)
+    np.testing.assert_array_equal(to_numpy_u32(ca.data), np.asarray(ja.data))
+    cs = ca + cb
+    np.testing.assert_array_equal(to_numpy_u32(cs.data),
+                                  np.asarray((ja + jb).data))
+    assert c.decrypt(cs) == [(x + y) % 16 for x, y in zip(av, bv)]

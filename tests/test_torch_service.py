@@ -6,16 +6,17 @@ A map -> reduce plan (tests/test_e2e.py's) runs through the JAX
 uploaded frames and plan JSON: the output and intermediate partitions are
 byte-identical and decrypt to the plaintext oracle.  Also here: the other
 reduce policies, plan JSON, job listing, catalogued intermediate frames,
-upload cleanup, the options the port refuses, config engine names, and the
+upload cleanup, the options the port refuses and the GLWE, seeded and
+compressed-key options it serves, config engine names, and the
 pure-Python PASETO v2.local against the JAX package's and RFC 8439.
 """
 
 import dataclasses
-import io
 import pathlib
 
 import numpy as np
 import pytest
+import torch
 from cryptography.hazmat.primitives.ciphers.aead import ChaCha20Poly1305
 
 from herdsman_tpu.core import TOY
@@ -57,6 +58,7 @@ from herdsman_tpu_torch.service.config import (
 )
 from herdsman_tpu_torch.service.coordinator import Coordinator
 from herdsman_tpu_torch.service.execution import JobStatus
+from herdsman_tpu_torch.ops.server_key import device_server_key
 from herdsman_tpu_torch.utils import rowcodec
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -110,12 +112,14 @@ def inputs():
     return ck, jcoord.serialize_server_key(sk), chunks
 
 
-def start_session(coord, key_bytes, chunks, name="in"):
+def start_session(coord, key_bytes, chunks, name="in", token=None,
+                  session=None):
     """authorize -> session -> key in 64 KiB chunks -> streamed row upload;
     works on either package's coordinator (the wire types are the same
     integers and bytes)."""
-    token = coord.authorize_connection("admin==true")
-    session = coord.create_session(token, "s").uuid
+    if session is None:
+        token = coord.authorize_connection("admin==true")
+        session = coord.create_session(token, "s").uuid
     coord.add_key(token, session, SchemaType.TFHE_BOOL, len(key_bytes),
                   [key_bytes[i:i + (1 << 16)]
                    for i in range(0, len(key_bytes), 1 << 16)])
@@ -128,7 +132,7 @@ def start_session(coord, key_bytes, chunks, name="in"):
     return token, session, meta.uuid
 
 
-def run_plan(coord, token, session, frame_uuid, policy):
+def run_plan(coord, token, session, frame_uuid, policy, download=True):
     """Schedule the plan as JSON, wait, and download the output and the
     map's intermediate frame."""
     plan = build_plan(frame_uuid, policy).to_json()
@@ -136,6 +140,8 @@ def run_plan(coord, token, session, frame_uuid, policy):
     job = coord.wait_for_job(token, session, job.job_uuid, timeout=600)
     assert job.status == JobStatus.COMPLETED, job.message
     assert job.retries == 0 and job.bootstraps_executed > 0
+    if not download:
+        return job, None
     (out,) = job.output_frames.values()
     (mid,) = [f.uuid for f in coord.list_data_frames(token, session)
               if f.name.startswith(f"intermediate-{job.job_uuid}-")]
@@ -262,9 +268,6 @@ UNPORTED_CONFIGS = {
     "lambda_workers": {"lambda_workers": LambdaWorkersConfig("localhost:1")},
     "mesh_batch_axis": {"mesh_workers": MeshWorkersConfig(batch_axis=2)},
     "mesh_limb_axis": {"mesh_workers": MeshWorkersConfig(limb_axis=2)},
-    "glwe_frames": {"mesh_workers": MeshWorkersConfig(glwe_frames=True)},
-    "glwe_outputs": {"mesh_workers": MeshWorkersConfig(glwe_outputs=True)},
-    "glwe_inputs": {"mesh_workers": MeshWorkersConfig(glwe_inputs=True)},
     "profile_dir": {"logging": LoggingConfig(profile_dir="traces")},
 }
 
@@ -275,26 +278,85 @@ def test_unported_config_options_raise(tmp_path, option):
         port_coordinator(tmp_path, **UNPORTED_CONFIGS[option])
 
 
-def test_unported_calls_raise(inputs, tmp_path):
-    _, key_bytes, chunks = inputs
+@pytest.mark.parametrize("flag", ["glwe_frames", "glwe_outputs",
+                                  "glwe_inputs"])
+def test_glwe_config_options_are_served(inputs, tmp_path, flag):
+    """Each GLWE frame option of ``workers.mesh`` is served: with the
+    session's packing key, the frames it names are stored packed (inputs
+    at ingest, intermediates and outputs by the job; glwe_outputs alone
+    packs the output), and they download packed and decrypt."""
+    ck, key_bytes, chunks = inputs
+    coord = port_coordinator(tmp_path, mesh_workers=MeshWorkersConfig(
+        engine="pallas_fused", **{flag: True}))
+    try:
+        assert getattr(coord.config.mesh_workers, flag)
+        token = coord.authorize_connection("admin==true")
+        session = coord.create_session(token, "s").uuid
+        pk = jref.make_packing_key(ck, np.random.default_rng(5))
+        blob = jcoord.serialize_packing_key(pk)
+        coord.add_key(token, session, SchemaType.TFHE_PACKING, len(blob),
+                      [blob])
+        token, session, frame = start_session(coord, key_bytes, chunks,
+                                              token=token, session=session)
+        entry = coord.storage.get_data_frame(session, frame)
+        assert entry.glwe_packed == (flag == "glwe_inputs")
+        job, _ = run_plan(coord, token, session, frame, Policy.PARALLEL,
+                          download=False)
+        frames = {f.name.split("-")[0]: f
+                  for f in coord.list_data_frames(token, session)}
+        assert frames["intermediate"].glwe_packed == (flag == "glwe_frames")
+        assert frames["result"].glwe_packed == (flag == "glwe_outputs")
+        rows, out = oracle()
+        parts = list(coord.download_data_frame_packed(
+            token, session, frames["intermediate"].uuid))
+        assert client.decrypt_rows_packed(ck, MID_COLS, parts) == rows
+        parts = list(coord.download_data_frame_packed(
+            token, session, frames["result"].uuid))
+        assert client.decrypt_rows_packed(ck, MID_COLS, parts) == out
+    finally:
+        coord.shutdown()
+
+
+def test_seeded_compressed_and_packed_calls_are_served(tmp_path):
+    """A compressed server key, a seeded upload and a packed download, each
+    refused before the port had them, are served: the compressed key is
+    expanded at ingest, the seeded rows are stored expanded and decrypt,
+    and the frame downloads packed."""
     coord = port_coordinator(tmp_path)
     try:
-        token, session, frame = start_session(coord, key_bytes, chunks)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            coord.begin_data_frame_upload(
-                token, session, "seeded", SchemaType.TFHE_BOOL, IN_COLS, 1, 1,
-                seeded_seed=7)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            coord.download_data_frame_packed(token, session, frame)
-        buf = io.BytesIO()  # the JAX package's compressed-key wire format
-        np.savez_compressed(buf, seed=np.array([1], dtype=np.uint64),
-                            params=np.array([TOY.name], dtype=object))
-        blob = buf.getvalue()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            coord.add_key(token, session, SchemaType.TFHE_BOOL, len(blob),
-                          [blob])
-        assert [f.name for f in coord.list_data_frames(token, session)] \
-            == ["in"]
+        token = coord.authorize_connection("admin==true")
+        session = coord.create_session(token, "s").uuid
+        sck, csk = jref.keygen_seeded(TOY, np.random.default_rng(8), 99)
+        blob = jcoord.serialize_server_key_compressed(csk)
+        coord.add_key(token, session, SchemaType.TFHE_BOOL, len(blob),
+                      [blob])
+        bodies, seed = client.encrypt_rows_seeded(
+            sck, IN_COLS, TABLE, np.random.default_rng(9))
+        meta = coord.begin_data_frame_upload(
+            token, session, "seeded", SchemaType.TFHE_BOOL, IN_COLS,
+            len(TABLE), PARTITIONS, seeded_seed=seed)
+        framed = rowcodec.frame_rows([row.tobytes() for row in bodies])
+        for i in range(0, len(framed), 37):
+            coord.append_data_frame(token, session, meta.uuid,
+                                    framed[i:i + 37])
+        coord.finish_data_frame_upload(token, session, meta.uuid)
+        rows = [{"a": a, "b": b} for a, b in TABLE]
+        parts = list(coord.download_data_frame(token, session, meta.uuid))
+        cts = frame_codec.payloads_to_rows(
+            [pl for part in parts for pl in rowcodec.parse_rows(part)], 16,
+            TOY)
+        assert client.decrypt_rows(sck, IN_COLS, cts) == rows
+        pk = jref.make_packing_key(sck, np.random.default_rng(10))
+        blob = jcoord.serialize_packing_key(pk)
+        coord.add_key(token, session, SchemaType.TFHE_PACKING, len(blob),
+                      [blob])
+        parts = list(coord.download_data_frame_packed(token, session,
+                                                      meta.uuid))
+        assert client.decrypt_rows_packed(sck, IN_COLS, parts) == rows
+        _, dsk = coord._device_key(session)  # the expanded key's
+        assert torch.equal(dsk.bsk_bt, device_server_key(
+            jref.expand_server_key(csk), layouts=("bsk_bt",),
+            device="cpu").bsk_bt)
     finally:
         coord.shutdown()
 
@@ -320,12 +382,16 @@ def test_config_engine_names(tmp_path, monkeypatch):
         == {"pallas_bt": "bt", "pallas_fused": "bt_fused",
             "pallas_mega13": "mega13", "pallas_mega12": "mega12",
             "bt_fused": "bt_fused", "mega12": "mega12"}
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        port_engine("conv_i8")
+    assert port_engine("conv_i8") == "conv_i8"  # the JAX default engine
+    with pytest.raises(ConfigError, match="not ported"):
+        port_engine("pallas_mega99")
     assert port_engine("gather_u32") == "gather_u32"  # the JAX config's name
     cfg = load_config(str(ROOT / "template.yaml"))  # loads as it is
     assert cfg.mesh_workers.engine == "bt_fused"
     monkeypatch.setenv("HERDSMAN_ENGINE", "conv_i8")
+    assert load_config(str(ROOT / "template.yaml")).mesh_workers.engine \
+        == "conv_i8"
+    monkeypatch.setenv("HERDSMAN_ENGINE", "pallas_mega99")
     with pytest.raises(ConfigError, match="not ported"):
         load_config(str(ROOT / "template.yaml"))
     for name in ("pallas_mega11", "pallas_mega8", "pallas_mega7",

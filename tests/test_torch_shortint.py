@@ -1,8 +1,8 @@
 """The port's ``ShortContext`` / ``EncShort`` against the JAX package's, on
 the CPU at TEST_PBS: the same keys and seed give the same ciphertexts, every
 operation's output is array-equal to the JAX package's (the JAX package on
-its default ``conv_i8`` engine, the port on ``mega12``'s plain version), and
-decrypts right.
+its default ``conv_i8`` engine, the port on ``mega12``'s plain version, and
+on ``conv_i8``), and decrypts right.
 """
 
 import numpy as np
@@ -108,3 +108,26 @@ def test_bool_only_and_mesh_refused(pair):
     with pytest.raises(ValueError):  # a key on another device
         tshort.ShortContext(t.params, keys=(t.ck, t.sk), dsk=t.dsk,
                             device="meta")
+
+
+def test_context_on_conv_i8_equals_jax(pair):
+    """``ShortContext(engine="conv_i8")`` keeps the engine, builds only
+    ``bsk_conv``, and its add chain (through the carry-reducing PBS) and
+    packed product equal a fresh JAX context's on the same keys and
+    seed."""
+    _, t = pair
+    keys = (t.ck, t.sk)
+    j = jshort.ShortContext(TEST_PBS, msg_bits=2, carry_bits=2, keys=keys,
+                            seed=6)
+    c = tshort.ShortContext(PARAM_SETS["test_pbs"], msg_bits=2, carry_bits=2,
+                            engine="conv_i8", keys=keys, seed=6, device="cpu")
+    assert c.engine == "conv_i8" and c.dsk.bsk_conv is not None
+    av, bv = [1, 2, 3], [3, 3, 2]
+    ja, jb = j.encrypt(av), j.encrypt(bv)
+    ca, cb = c.encrypt(av), c.encrypt(bv)
+    same(ja, ca)
+    jt, ct = ja + jb + jb + jb + jb, ca + cb + cb + cb + cb
+    same(jt, ct)
+    same(ja * jb, ca * cb)
+    assert c.decrypt(ct) == [(x + 4 * y) % 4 for x, y in zip(av, bv)]
+    assert c.decrypt(ca * cb) == [(x * y) % 4 for x, y in zip(av, bv)]
