@@ -69,6 +69,9 @@ Phases, in order; any failure raises and exits non-zero:
    (``pack_lwes_batch``, 4 x 512 rows), decrypted as their rows; each
    job's rotation widths with their counts and the host milliseconds per
    step at each width;
+8b. the map circuit as submitted (the plan compiler runs the optimized
+   one) evaluated in one batch on ``bt_fused`` over the same rows: the
+   frame an offload worker must write (paths O, O');
 9. times of the block-Toeplitz kernels per step at B=2048 (with bound,
    plain and library times), fused at path C's narrow widths B=288 and 9
    and unfused at STD128's geometry (each with its share of the bound and
@@ -216,7 +219,30 @@ Phases, in order; any failure raises and exits non-zero:
     STD128_K2 and of 512 at STD128 (each from a worker process; both
     groups decrypt), ``conv_i8_correlate`` on saturated inputs whose sums
     pass 2^31 (they wrap mod 2^32, where one ``torch._int_mm`` of them
-    saturates), and the pack's time on one partition of path N.
+    saturates), and the pack's time on one partition of path N;
+19. main path O, task-granular dispatch: path C's job (2048 rows in 4
+    partitions, the same key and upload) on a coordinator whose in-code
+    config has ``workers.lambda`` (4 requests in flight), its map and
+    reduce tasks served over HTTP by an offload worker
+    (``service/offload_worker.make_server``, engine ``pallas_mega13``)
+    from a thread of this process, so that its launches count here:
+    COMPLETED with no retry, the task count the reduce tree implies,
+    ``mega13`` alone launched, the intermediate frame byte-equal to phase
+    8b's, every row decrypted; the job's wall time and its rotations' CUDA
+    event spans (summed, and their union: the tasks overlap on the stream);
+20. main path O', the worker in its own process: ``python -m
+    herdsman_tpu_torch.service.offload_worker --device cuda --engine
+    pallas_mega13`` serves a map-only job over path C's first partition
+    (512 rows); this process launches no kernel, the worker process
+    (read through its ``GET /counts`` before and after the job) launches
+    ``mega13`` alone, the frame is byte-equal to that partition of phase
+    8b's and decrypts; the worker is stopped at the end, also when a check
+    fails;
+21. main path P, a traced job: path I's job (512 rows, ``pallas_mega11``)
+    on a coordinator with ``logging.profile_dir``: exactly one trace under
+    ``<profile_dir>/<job_uuid>/``, which parses and holds CUDA kernel
+    events of ``csrc/mega12.cu``'s ``mega12_kernel``; the frame byte-equal
+    to path I's; the trace's size and the job's time beside path I's.
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
@@ -237,10 +263,14 @@ import json
 import logging
 import multiprocessing
 import os
+import pathlib
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -411,6 +441,8 @@ def main() -> int:
             InputStage, MapperStage, OutputStage, Policy, ReduceStage,
             SchemaType)
         from herdsman_tpu_torch.compiler import lower
+        from herdsman_tpu_torch.compiler.reduce_tree import build_reduce_tree
+        from herdsman_tpu_torch.compiler.stages import partition_sizes
         from herdsman_tpu_torch.core import PARAM_SETS, STD128
         from herdsman_tpu_torch.core import STD128_K2 as P
         from herdsman_tpu_torch.core import client
@@ -421,17 +453,20 @@ def main() -> int:
         from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
                                                     megaJ, megaS, megaT)
         from herdsman_tpu_torch.ops.kernels import rotate_decompose as rd
+        from herdsman_tpu_torch.ops.kernels import wrappers as kernel_wrappers
         from herdsman_tpu_torch.ops.server_key import (
             bt_tile, device_server_key, fit_engine, layouts_for_engine)
         from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
         from herdsman_tpu_torch.radix import RadixContext
         from herdsman_tpu_torch.service import frames as frame_codec
         from herdsman_tpu_torch.service.config import (
-            Config, MeshWorkersConfig, SecurityConfig, ServerConfig)
+            Config, LambdaWorkersConfig, LoggingConfig, MeshWorkersConfig,
+            SecurityConfig, ServerConfig)
         from herdsman_tpu_torch.service.coordinator import (
             Coordinator, serialize_packing_key, serialize_server_key,
             serialize_server_key_compressed)
         from herdsman_tpu_torch.service.execution import JobStatus
+        from herdsman_tpu_torch.service.offload_worker import make_server
         from herdsman_tpu_torch.shortint import EncShort, ShortContext
         from herdsman_tpu_torch.utils import bounds, rowcodec
     except ImportError as e:
@@ -456,9 +491,8 @@ def main() -> int:
     JOB_MID_COLS = (ColumnMeta("x", DataType.UINT8),
                     ColumnMeta("odd", DataType.BIT))
 
-    def job_plan(frame_uuid: str):
-        """Input -> Mapper (x = a XOR b, odd = parity(x)) -> Reduce
-        (bitwise XOR, PARALLEL, 2 per node) -> Output."""
+    def map_circuit():
+        """x = a XOR b, odd = parity(x)."""
         mb = CircuitBuilder(JOB_IN_COLS)
         xv = mb.input_column("a") ^ mb.input_column("b")
         parity = xv.bits[0]
@@ -466,16 +500,23 @@ def main() -> int:
             parity = parity ^ bit
         mb.output("x", xv)
         mb.output("odd", parity)
+        return mb.build()
+
+    def job_plan(frame_uuid: str, reduce: bool = True):
+        """Input -> Mapper (``map_circuit``) -> Reduce (bitwise XOR,
+        PARALLEL, 2 per node) -> Output; without the reduce if not
+        ``reduce``."""
         rb = CircuitBuilder(JOB_MID_COLS + JOB_MID_COLS)
         rb.output("x", rb.input_column_at(0) ^ rb.input_column_at(2))
         rb.output("odd", rb.input_column_at(1).bits[0]
                   ^ rb.input_column_at(3).bits[0])
         g = DAG()
         stages = [g.emplace(InputStage(frame_uuid)),
-                  g.emplace(MapperStage(mb.build())),
-                  g.emplace(ReduceStage(rb.build(), Policy.PARALLEL,
-                                        per_node_count=2)),
-                  g.emplace(OutputStage("result"))]
+                  g.emplace(MapperStage(map_circuit()))]
+        if reduce:
+            stages.append(g.emplace(ReduceStage(rb.build(), Policy.PARALLEL,
+                                                per_node_count=2)))
+        stages.append(g.emplace(OutputStage("result")))
         for a, b in zip(stages, stages[1:]):
             g.add_edge(a, b)
         return ExecutionPlan(SchemaType.TFHE_BOOL, g)
@@ -506,25 +547,7 @@ def main() -> int:
     print(f"keys: {P.name} keygen + carry to the card in layouts {layouts} "
           f"{time.perf_counter() - t0:.1f} s; bsk_bt "
           f"{dsk.bsk_bt.numel() / 2**30:.3f} GiB")
-    counters = {"mega13": mega13.mega13_blind_rotate,
-                "mega12": mega12.mega12_blind_rotate,
-                "bt_external_product": bt.external_product_bt,
-                "rotate_decompose": rd.rotate_decompose,
-                "mega16": megaT.mega16_blind_rotate,
-                "mega17": megaT.mega17_blind_rotate,
-                "mega15": megaT.mega15_blind_rotate,
-                "mega14": megaT.mega14_blind_rotate,
-                "mega11": megaJ.mega11_blind_rotate,
-                "mega8": megaJ.mega8_blind_rotate,
-                "mega7": megaJ.mega7_blind_rotate,
-                "mega9": megaJ.mega9_blind_rotate,
-                "mega6": megaJ.mega6_blind_rotate,
-                "mega10": megaJ.mega10_blind_rotate,
-                "mega3": megaJ.mega3_blind_rotate,
-                "mega4": megaJ.mega4_blind_rotate,
-                "mega5": megaJ.mega5_blind_rotate,
-                "mega": megaJ.mega_blind_rotate,
-                "mega2": megaJ.mega2_blind_rotate}
+    counters = kernel_wrappers()
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -867,12 +890,15 @@ def main() -> int:
     runner_log.addHandler(phase_log)
 
     def recorded(run):
-        """(result, host seconds, rotations, device seconds) of ``run()``:
-        each blind rotation it makes, as (width, host seconds of the call),
-        and the CUDA events on the stream around each (their device time)
-        summed."""
+        """(result, host seconds, rotations, device seconds, union seconds)
+        of ``run()``: each blind rotation it makes, as (width, host seconds
+        of the call), and the spans of the CUDA events on the stream around
+        each summed, and their union (less than the sum where rotations of
+        several threads overlap on the stream)."""
         rotations: list[tuple[int, float]] = []
         events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        base = torch.cuda.Event(enable_timing=True)
+        base.record()
         rotate_batch = bs.blind_rotate_batch
 
         def recording(dsk_, ct, *a, **kw):
@@ -891,8 +917,13 @@ def main() -> int:
         finally:
             bs.blind_rotate_batch = rotate_batch
         torch.cuda.synchronize()
+        union, reach = 0.0, 0.0
+        for start, end in sorted((base.elapsed_time(a), base.elapsed_time(b))
+                                 for a, b in events):
+            union += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
         return (result, host, rotations,
-                sum(a.elapsed_time(b) for a, b in events) / 1e3)
+                sum(a.elapsed_time(b) for a, b in events) / 1e3, union / 1e3)
 
     def widths_line(rotations, p) -> str:
         """A job's rotation widths with their counts and host ms per step."""
@@ -910,11 +941,18 @@ def main() -> int:
                 f"synchronize) by width {host_ms}")
 
     def path_c(engine: str, workdir: str, rows: int = JOB_ROWS,
-               partitions: int = JOB_PARTITIONS, pk_bytes=None) -> dict:
+               partitions: int = JOB_PARTITIONS, pk_bytes=None,
+               worker: str = "", profile_dir: str = "",
+               reduce: bool = True) -> dict:
         """Path C's job on ``engine`` over the first ``rows`` rows of the
         table in ``partitions`` partitions; with ``pk_bytes`` (a packing
         key of the client key) the output and intermediate row frames are
-        then also downloaded packed, on the card, and decrypted."""
+        then also downloaded packed, on the card, and decrypted.  With
+        ``worker`` (host:port) the coordinator's config has
+        ``workers.lambda`` in place of ``workers.mesh``, and ``engine`` only
+        names the run; with ``profile_dir`` it has
+        ``logging.profile_dir``; without ``reduce`` the plan is the map
+        alone."""
         upload = [rowcodec.frame_rows(payloads[i:min(i + per_chunk, rows)])
                   for i in range(0, rows, per_chunk)]
         want_out = [{"x": int(np.bitwise_xor.reduce(xs[:rows])),
@@ -922,8 +960,12 @@ def main() -> int:
         cfg = Config(server=ServerConfig(key_directory=workdir + "/keys",
                                          storage_directory=workdir + "/st"),
                      security=SecurityConfig(secret_key="chip-smoke"),
-                     mesh_workers=(MeshWorkersConfig() if engine == "pallas_bt"
-                                   else MeshWorkersConfig(engine=engine)))
+                     logging=LoggingConfig(profile_dir=profile_dir))
+        if worker:
+            cfg.lambda_workers = LambdaWorkersConfig(worker, JOB_PARTITIONS)
+        else:
+            cfg.mesh_workers = (MeshWorkersConfig() if engine == "pallas_bt"
+                                else MeshWorkersConfig(engine=engine))
         coord = Coordinator(cfg, device=dev)
         tok = coord.authorize_connection("admin==true")
         sess = coord.create_session(tok, "chip-smoke").uuid
@@ -936,10 +978,12 @@ def main() -> int:
         for chunk in upload:
             coord.append_data_frame(tok, sess, meta.uuid, chunk)
         coord.finish_data_frame_upload(tok, sess, meta.uuid)
-        plan_json = job_plan(meta.uuid).to_json()
+        plan_json = job_plan(meta.uuid, reduce).to_json()
 
         def run_job():
-            job = coord.schedule_job(tok, sess, plan_json)
+            # an offload job keeps a task per partition in flight
+            job = coord.schedule_job(tok, sess, plan_json,
+                                     JOB_PARTITIONS if worker else 1)
             job = coord.wait_for_job(tok, sess, job.job_uuid, timeout=900)
             check(job.status == JobStatus.COMPLETED and job.retries == 0
                   and job.bootstraps_executed > 0,
@@ -949,11 +993,12 @@ def main() -> int:
             return job
 
         reset_counts()
-        job, host, rotations, rotation_s = recorded(run_job)
+        job, host, rotations, rotation_s, union_s = recorded(run_job)
         counts = read_counts()
         res = {"job": job, "host_s": host, "counts": counts,
-               "phases": phase_log.phases[job.job_uuid],
-               "rotations": rotations, "rotation_s": rotation_s}
+               "phases": phase_log.phases.get(job.job_uuid),
+               "rotations": rotations, "rotation_s": rotation_s,
+               "union_s": union_s}
 
         def frame_bytes(uuid):
             return list(coord.download_data_frame(tok, sess, uuid))
@@ -962,6 +1007,10 @@ def main() -> int:
         (mid,) = [f.uuid for f in coord.list_data_frames(tok, sess)
                   if f.name.startswith(f"intermediate-{job.job_uuid}-")]
         res["out"], res["mid"] = frame_bytes(out_uuid), frame_bytes(mid)
+        if not reduce:  # the map's frame is the output
+            want_out = want_rows[:rows]
+            check(out_uuid == mid, f"path C ({engine}) map-only job's "
+                  f"output is not its intermediate frame")
         packed = {}
         if pk_bytes is not None:  # the row frames packed on the card
             coord.add_key(tok, sess, SchemaType.TFHE_PACKING, len(pk_bytes),
@@ -1006,6 +1055,8 @@ def main() -> int:
               f"intermediate rows and the reduced row decrypt right; "
               f"launches {r['counts']}")
     c_bt, c_fused = runs["pallas_bt"]["counts"], runs["pallas_fused"]["counts"]
+    # kept for path O, after runs is freed
+    wall_c = {e: r["job"].wall_time_s for e, r in runs.items()}
     only(c_bt, ("bt_external_product",), "path C on pallas_bt")
     only(c_fused, ("bt_external_product", "rotate_decompose"),
          "path C on pallas_fused")
@@ -1019,6 +1070,22 @@ def main() -> int:
         print(f"main path C ({engine}): {widths_line(r['rotations'], P)}; "
               f"CUDA events around each rotation span "
               f"{r['rotation_s']:.3f} s of the stream in all {card}")
+    # 8b. the map circuit as submitted, in one batch on bt_fused: what an
+    # offload worker (paths O, O') writes.  Path C's runner plans the
+    # optimized circuit (compiler/optimizer.py re-expands the parity
+    # chain), whose ciphertexts differ, though they decrypt alike
+    submitted = map_circuit()
+    out_sub = to_numpy_u32(lower.compile_circuit(
+        submitted, dsk, engine="bt_fused", device=dev)(job_in))
+    bounds_sub = np.cumsum([0, *partition_sizes(JOB_ROWS, JOB_PARTITIONS)])
+    mid_sub = [rowcodec.frame_rows(frame_codec.rows_to_payloads(
+        out_sub[a:b])) for a, b in zip(bounds_sub, bounds_sub[1:])]
+    del out_sub
+    print(f"main path C: the map circuit as submitted "
+          f"({lower.circuit_cost(submitted)}) evaluated in one batch on "
+          f"bt_fused, the frame of paths O and O'; byte-equal to path C's, "
+          f"whose runner plans the optimized circuit: "
+          f"{mid_sub == runs['pallas_fused']['mid']}")
     print(f"main path C (pallas_fused): the TFHE_PACKING key uploaded, both "
           f"row frames downloaded packed on the card (pack_lwes_batch, "
           f"{JOB_PARTITIONS} x {JOB_ROWS // JOB_PARTITIONS} rows a frame) "
@@ -1620,6 +1687,7 @@ def main() -> int:
           "path C's on pallas_fused")
     job_i = res_i["job"]
     load, exe, store = res_i["phases"]
+    wall_i, mid_i = job_i.wall_time_s, res_i["mid"]
     print(f"main path I (pallas_mega11): {rows_i} rows (path C's first "
           f"partition) in 1 partition, map + PARALLEL reduce: COMPLETED, "
           f"retries 0, {job_i.bootstraps_executed} bootstraps; all {rows_i} "
@@ -2383,7 +2451,7 @@ def main() -> int:
             return coord.wait_for_job(tok, sess, job.job_uuid, timeout=900)
 
         reset_counts()
-        job_n, job_n_s, rot_n, rot_n_s = recorded(run_job_n)
+        job_n, job_n_s, rot_n, rot_n_s, _ = recorded(run_job_n)
         counts_n = read_counts()
         check(job_n.status == JobStatus.COMPLETED and job_n.retries == 0,
               f"path N job {job_n.status.name}, retries {job_n.retries}: "
@@ -2496,6 +2564,162 @@ def main() -> int:
           f"{pack_s_bound[0]:.4f} ms ({pack_s_bound[1]}) {card}")
     del pkc_n, pkc_s, lwes_r, lwes_s
 
+    # 19. main path O: path C's job dispatched task by task over HTTP to an
+    # offload worker on mega13, served from a thread of this process -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tree_o = build_reduce_tree(partition_sizes(JOB_ROWS, JOB_PARTITIONS),
+                               Policy.PARALLEL, 2)
+    with tempfile.TemporaryDirectory() as workdir:
+        srv = make_server(workdir + "/st", workdir + "/keys",
+                          engine="pallas_mega13", device=dev)
+        serving = threading.Thread(target=srv.serve_forever, daemon=True)
+        serving.start()
+        try:
+            res_o = path_c("offload to a mega13 worker", workdir,
+                           worker=f"127.0.0.1:{srv.server_address[1]}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            serving.join(30)
+    peak_o = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    job_o = res_o["job"]
+    only(res_o["counts"], ("mega13",), "path O (offload worker on mega13)")
+    check(job_o.tasks_executed == JOB_PARTITIONS + tree_o.total_tasks(),
+          f"path O ran {job_o.tasks_executed} tasks, not {JOB_PARTITIONS} "
+          f"maps and the reduce tree's {tree_o.total_tasks()}")
+    check(res_o["mid"] == mid_sub, "path O intermediate frame differs from "
+          "the submitted map circuit's on bt_fused (phase 8b)")
+    print(f"main path O (workers.lambda, an offload worker on pallas_mega13 "
+          f"in a thread of this process): {JOB_ROWS} rows in "
+          f"{JOB_PARTITIONS} partitions, map + PARALLEL reduce: COMPLETED, "
+          f"retries 0, {job_o.tasks_executed} tasks ({JOB_PARTITIONS} maps, "
+          f"{tree_o.total_tasks()} reduces), {job_o.bootstraps_executed} "
+          f"bootstraps; all {JOB_ROWS} intermediate rows and the reduced "
+          f"row decrypt right; the intermediate frame byte-equal to the "
+          f"submitted map circuit's on bt_fused; launches {res_o['counts']}")
+    print(f"time: main path O job wall {job_o.wall_time_s:.3f} s (host "
+          f"{res_o['host_s']:.3f} s, the worker's key build included), "
+          f"{job_o.bootstraps_executed / job_o.wall_time_s:.1f} "
+          f"bootstraps/s; beside path C's wall on pallas_bt "
+          f"{wall_c['pallas_bt']:.3f} s and pallas_fused "
+          f"{wall_c['pallas_fused']:.3f} s and path I's (512 rows on "
+          f"mega11) {wall_i:.3f} s; {widths_line(res_o['rotations'], P)}; "
+          f"CUDA events around each of its {len(res_o['rotations'])} "
+          f"rotations span {res_o['rotation_s']:.3f} s summed, "
+          f"{res_o['union_s']:.3f} s in their union (the tasks' rotations "
+          f"overlap on the stream); torch.cuda.max_memory_allocated "
+          f"{peak_o / 2**30:.3f} GiB {card}")
+
+    # 20. main path O': the worker in its own process on the card ----------
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as workdir:
+        log_path = pathlib.Path(workdir) / "worker.log"
+        with open(log_path, "w") as log_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "herdsman_tpu_torch.service.offload_worker", "--storage",
+                 workdir + "/st", "--keys", workdir + "/keys", "--port", "0",
+                 "--device", "cuda", "--engine", "pallas_mega13"],
+                cwd=here, stdout=log_f, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                    [here, *filter(None, [os.environ.get("PYTHONPATH")])])})
+        try:
+            t0 = time.perf_counter()
+            while not (found := re.search(r"offload worker on port (\d+)",
+                                          log_path.read_text())):
+                check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                      f"path O': the worker process did not start: "
+                      f"{log_path.read_text()[-3000:]}")
+                time.sleep(0.2)
+            start_o2 = time.perf_counter() - t0
+
+            def worker_counts() -> dict[str, int]:
+                """The worker process's launches, by kernel."""
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{found.group(1)}/counts",
+                        timeout=30) as r:
+                    return json.loads(r.read())
+
+            before_o2 = worker_counts()
+            res_o2 = path_c("offload to a mega13 worker process", workdir,
+                            rows=rows_i, partitions=1,
+                            worker=f"127.0.0.1:{found.group(1)}",
+                            reduce=False)
+            after_o2 = worker_counts()
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+    job_o2 = res_o2["job"]
+    only(res_o2["counts"], (), "path O' (its worker in another process)")
+    check(set(after_o2) == set(counters),
+          f"path O': the worker counts {sorted(after_o2)}, this script "
+          f"{sorted(counters)}")
+    counts_o2 = {k: after_o2[k] - before_o2[k] for k in counters}
+    only(counts_o2, ("mega13",), "path O' (its worker process)")
+    check(job_o2.tasks_executed == 1 and res_o2["mid"] == mid_sub[:1],
+          f"path O': {job_o2.tasks_executed} tasks; the frame differs from "
+          f"the first partition of the submitted map circuit's (phase 8b)")
+    print(f"main path O' (python -m herdsman_tpu_torch.service.offload_worker "
+          f"--device cuda --engine pallas_mega13, serving after "
+          f"{start_o2:.1f} s): a map-only job over {rows_i} rows (path C's "
+          f"first partition): COMPLETED, retries 0, 1 task; all {rows_i} "
+          f"rows decrypt right, the frame byte-equal to the first partition "
+          f"of phase 8b's and of path O's; this process launched no kernel, "
+          f"the worker process (its GET /counts before and after) "
+          f"{counts_o2}; the worker process stopped (exit "
+          f"{proc.returncode})")
+    print(f"time: main path O' job wall {job_o2.wall_time_s:.3f} s (host "
+          f"{res_o2['host_s']:.3f} s, the worker's key build included) "
+          f"{card}")
+
+    # 21. main path P: path I's job, traced (logging.profile_dir) ----------
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as workdir:
+        traces = pathlib.Path(workdir) / "traces"
+        res_p = path_c("pallas_mega11", workdir, rows=rows_i, partitions=1,
+                       profile_dir=str(traces))
+        job_p = res_p["job"]
+        written = sorted(f.relative_to(traces) for f in traces.rglob("*")
+                         if f.is_file())
+        check(len(written) == 1
+              and written[0].parent == pathlib.Path(job_p.job_uuid)
+              and written[0].name.endswith(".pt.trace.json"),
+              f"path P: traces {written}, not one under {job_p.job_uuid}/")
+        trace_bytes = (traces / written[0]).stat().st_size
+        events = json.loads((traces / written[0]).read_text())["traceEvents"]
+    peak_p = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    mega12_events = [e for e in kernel_events
+                     if "mega12_kernel" in e.get("name", "")]
+    only(res_p["counts"], ("mega11",), "path P on pallas_mega11, traced")
+    check(len(mega12_events) > 0,
+          f"path P: the trace holds {len(kernel_events)} CUDA kernel events "
+          f"and none of csrc/mega12.cu's mega12_kernel")
+    check(res_p["mid"] == mid_i, "path P intermediate frame differs from "
+          "path I's")
+    load, exe, store = res_p["phases"]
+    print(f"main path P (pallas_mega11, logging.profile_dir): path I's job "
+          f"COMPLETED, retries 0, the frame byte-equal to path I's; one "
+          f"trace under <profile_dir>/<job_uuid>/ ({written[0].name}, "
+          f"{trace_bytes} bytes, {len(events)} events, "
+          f"{len(kernel_events)} CUDA kernel events of which "
+          f"{len(mega12_events)} {mega12_events[0]['name']!r}, "
+          f"{sum(e.get('dur', 0) for e in mega12_events) / 1e6:.3f} s in "
+          f"all); launches {res_p['counts']}")
+    print(f"time: main path P job wall {job_p.wall_time_s:.3f} s traced "
+          f"(host {res_p['host_s']:.3f} s; runner load {load:.3f} s, exec "
+          f"{exe:.3f} s, store {store:.3f} s) beside path I's untraced "
+          f"{wall_i:.3f} s; torch.cuda.max_memory_allocated "
+          f"{peak_p / 2**30:.3f} GiB {card}")
+
     # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
                "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
@@ -2528,7 +2752,10 @@ def main() -> int:
                   for name in row_j},
                **{f"M2_job_pallas_{name}": res_m2[name] for name in row_j},
                "A_gate_batch_conv_i8": counts_conv,
-               "N_job_conv_i8": counts_n}
+               "N_job_conv_i8": counts_n,
+               "O_job_offload_mega13": res_o["counts"],
+               "O2_job_offload_process_mega13": counts_o2,
+               "P_job_pallas_mega11_traced": res_p["counts"]}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}

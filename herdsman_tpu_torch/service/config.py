@@ -97,8 +97,9 @@ class SecurityConfig:
 @dataclasses.dataclass
 class LoggingConfig:
     level: str = "info"
-    # when set, every job writes a jax.profiler trace (XLA/TPU timeline,
-    # TensorBoard/Perfetto-viewable) under <profile_dir>/<job_uuid>/
+    # when set, every job writes a torch.profiler trace (host operators and
+    # the card's kernels, TensorBoard/Perfetto-viewable) under
+    # <profile_dir>/<job_uuid>/ (utils/tracing.py)
     profile_dir: str = ""
 
 

@@ -13,21 +13,26 @@ Beyond the reference, as the JAX coordinator: compressed (seeded) server
 keys and seeded row uploads, expanded at ingest; GLWE-packed frames
 (``workers.mesh.glwe_inputs``, ``glwe_frames``, ``glwe_outputs``) and
 ``download_data_frame_packed``, packed on the card with the session's
-``TFHE_PACKING`` key.
+``TFHE_PACKING`` key.  With ``workers.lambda`` jobs run task by task on an
+offload worker (``service/offload.py``; the worker,
+``service/offload_worker.py``, runs them on its card), and with
+``logging.profile_dir`` every job writes a ``torch.profiler`` trace
+(``utils/tracing.py``).
 
 What the JAX coordinator does beyond that is not ported yet, and raises
 ``NotImplementedError`` naming the ROADMAP item that ports it, rather than
-quietly doing less: offload worker groups (``workers.grpc`` /
-``workers.lambda``), a mesh of more than one device and
-``logging.profile_dir``.
+quietly doing less: the gRPC worker fleet (``workers.grpc``) and a mesh of
+more than one device.
 """
 
 from __future__ import annotations
 
 import io
 import logging
+import os
 import pathlib
 import struct
+import threading
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
@@ -55,13 +60,17 @@ from herdsman_tpu_torch.service.config import Config, port_engine
 from herdsman_tpu_torch.service.errors import ObjectNotFoundException
 from herdsman_tpu_torch.service.execution import ExecutionService, JobDescriptor
 from herdsman_tpu_torch.service.keystore import KeyService
+from herdsman_tpu_torch.service.offload import (
+    OffloadJobRunner,
+    OffloadWorkerGroup,
+)
 from herdsman_tpu_torch.service.runner import (
     StorageJobRunner,
     pack_frame_partitions_inplace,
 )
 from herdsman_tpu_torch.service.session import SessionService
 from herdsman_tpu_torch.service.storage import DataFrameEntry, StorageService
-from herdsman_tpu_torch.utils import rowcodec
+from herdsman_tpu_torch.utils import rowcodec, tracing
 
 log = logging.getLogger("herdsman")
 
@@ -168,6 +177,11 @@ class Coordinator:
         # in-flight seeded uploads: frame_uuid -> expansion state (seed,
         # params, bits per row, position in the mask stream, partial row)
         self._seeded_uploads: dict[str, dict] = {}
+        # the workers.lambda group, built by the first job; under a lock, so
+        # that two executor threads (concurrent_jobs > 1) cannot both build
+        # one and leak the loser's threads
+        self._offload_group: Optional[OffloadWorkerGroup] = None
+        self._offload_group_lock = threading.Lock()
         self.execution.set_runner(self._run_job)
 
     @staticmethod
@@ -175,18 +189,12 @@ class Coordinator:
         """Refuse what the port cannot serve yet, before anything starts."""
         if config.grpc_workers is not None:
             raise _unported("workers.grpc (offload to a gRPC worker fleet)",
-                            "ROADMAP queue 1, item 15")
-        if config.lambda_workers is not None:
-            raise _unported("workers.lambda (elastic CPU offload)",
-                            "ROADMAP queue 1, item 15")
+                            "ROADMAP queue 1, item 16")
         mw = config.mesh_workers
         if mw is not None:
             if mw.batch_axis * mw.limb_axis > 1:
                 raise _unported("a workers.mesh of more than one device",
                                 "ROADMAP queue 1, item 12")
-        if config.logging.profile_dir:
-            raise _unported("logging.profile_dir (per-job traces)",
-                            "ROADMAP queue 1, item 17")
 
     # ---- auth (reference src/controller/auth_controller.cpp) ----
 
@@ -500,6 +508,26 @@ class Coordinator:
         return self._session_dsk[session_uuid]
 
     def _run_job(self, job: JobDescriptor):
+        """Run ``job``; with ``logging.profile_dir``, inside a trace written
+        under ``<profile_dir>/<job_uuid>/`` (the JAX coordinator's
+        ``coordinator.py:497-503``)."""
+        profile_dir = self.config.logging.profile_dir
+        log_dir = (os.path.join(profile_dir, job.job_uuid) if profile_dir
+                   else None)
+        with tracing.trace(log_dir, self.device):
+            return self._run_job_inner(job)
+
+    def _run_job_inner(self, job: JobDescriptor):
+        if self.config.lambda_workers is not None:
+            # task-granular dispatch to an offload worker (the reference's
+            # build_worker_group lambda branch, src/main.cpp:67-84): the
+            # worker runs the circuits, this process builds no device key
+            with self._offload_group_lock:
+                if self._offload_group is None:
+                    lw = self.config.lambda_workers
+                    self._offload_group = OffloadWorkerGroup(
+                        lw.address, lw.concurrency_limit, self.storage)
+            return OffloadJobRunner(self.storage, self._offload_group)(job)
         cached = self._session_runner.get(job.session_uuid)
         if cached is not None:
             return cached(job)
@@ -568,3 +596,5 @@ class Coordinator:
 
     def shutdown(self) -> None:
         self.execution.shutdown()
+        if self._offload_group is not None:
+            self._offload_group.shutdown()

@@ -4,9 +4,11 @@
   ``herdsman_tpu``, checked both in a fresh interpreter and in the source;
   nor, when imported, ``cryptography`` or ``yaml``, which the GPU machines
   do not have.
+- The offload worker and the tracing hooks load none of them at run time
+  either: a job dispatched to a worker and traced, in a fresh interpreter.
 - Without a CUDA device, every entry point called with its default device
-  raises instead of running on the CPU, and ``chip_smoke.py`` fails without
-  printing a result.
+  raises instead of running on the CPU (the offload worker's module refuses
+  to start), and ``chip_smoke.py`` fails without printing a result.
 """
 
 import ast
@@ -29,6 +31,8 @@ from herdsman_tpu_torch.ops.server_key import device_server_key
 from herdsman_tpu_torch.service.config import (Config, SecurityConfig,
                                                ServerConfig)
 from herdsman_tpu_torch.service.coordinator import Coordinator
+from herdsman_tpu_torch.service.offload_worker import make_server
+from herdsman_tpu_torch.utils import tracing
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "herdsman_tpu_torch"
@@ -94,6 +98,93 @@ def test_integer_tier_imports_alone(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "herdsman_tpu_torch.service.offload",
+    "herdsman_tpu_torch.service.offload_worker",
+    "herdsman_tpu_torch.utils.tracing"])
+def test_offload_and_tracing_import_alone(module):
+    """The offload worker group, the worker and the tracing hooks, imported
+    alone, load nothing of JAX, the JAX package, PyYAML or cryptography."""
+    code = (
+        f"import importlib, sys; importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cryptography', 'yaml')!r})\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+OFFLOAD_JOB = """
+import shutil, sys, tempfile, threading
+import numpy as np
+from herdsman_tpu_torch.circuit import (DAG, CircuitBuilder, ColumnMeta,
+    DataType, ExecutionPlan, InputStage, MapperStage, OutputStage, SchemaType)
+from herdsman_tpu_torch.core import TOY, client
+from herdsman_tpu_torch.core import reference as ref
+from herdsman_tpu_torch.service import frames
+from herdsman_tpu_torch.service.config import (Config, LambdaWorkersConfig,
+    LoggingConfig, SecurityConfig, ServerConfig)
+from herdsman_tpu_torch.service.coordinator import (Coordinator,
+    serialize_server_key)
+from herdsman_tpu_torch.service.execution import JobStatus
+from herdsman_tpu_torch.service.offload_worker import make_server
+from herdsman_tpu_torch.utils import rowcodec
+
+d = tempfile.mkdtemp()
+srv = make_server(d + "/st", d + "/keys", device="cpu")
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+coord = Coordinator(Config(
+    server=ServerConfig(key_directory=d + "/keys",
+                        storage_directory=d + "/st"),
+    security=SecurityConfig(secret_key="x"),
+    logging=LoggingConfig(profile_dir=d + "/traces"),
+    lambda_workers=LambdaWorkersConfig(f"127.0.0.1:{srv.server_address[1]}")),
+    device="cpu")
+rng = np.random.default_rng(0)
+ck, sk = ref.keygen(TOY, rng)
+cols = (ColumnMeta("a", DataType.BIT), ColumnMeta("b", DataType.BIT))
+tok = coord.authorize_connection("admin==true")
+sess = coord.create_session(tok, "s").uuid
+key = serialize_server_key(sk)
+coord.add_key(tok, sess, SchemaType.TFHE_BOOL, len(key), [key])
+meta = coord.begin_data_frame_upload(tok, sess, "in", SchemaType.TFHE_BOOL,
+                                     cols, 2, 1)
+cts = client.encrypt_rows(ck, cols, [(1, 1), (0, 1)], rng)
+coord.append_data_frame(tok, sess, meta.uuid,
+                        rowcodec.frame_rows(frames.rows_to_payloads(cts)))
+coord.finish_data_frame_upload(tok, sess, meta.uuid)
+cb = CircuitBuilder(cols)
+cb.output("x", cb.input_bit("a") & cb.input_bit("b"))
+g = DAG()
+st = [g.emplace(InputStage(meta.uuid)), g.emplace(MapperStage(cb.build())),
+      g.emplace(OutputStage("out"))]
+g.add_edge(st[0], st[1])
+g.add_edge(st[1], st[2])
+job = coord.schedule_job(tok, sess, ExecutionPlan(SchemaType.TFHE_BOOL, g))
+job = coord.wait_for_job(tok, sess, job.job_uuid, timeout=120)
+coord.shutdown()
+srv.shutdown()
+shutil.rmtree(d)
+assert job.status == JobStatus.COMPLETED and job.tasks_executed == 1, job
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+assert not bad, bad
+"""
+
+
+def test_offload_and_tracing_run_without_jax():
+    """A traced job dispatched to an offload worker (both on the CPU), in a
+    fresh interpreter, loads nothing of JAX, the JAX package, PyYAML or
+    cryptography at run time."""
+    code = (f"FORBIDDEN = {FORBIDDEN + ('cryptography', 'yaml')!r}\n"
+            + OFFLOAD_JOB)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     str(f.relative_to(ROOT)) for f in
     [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
@@ -145,6 +236,12 @@ def test_entry_points_default_to_card(no_card):
     with pytest.raises(ValueError):
         gates.gate_batch(dsk, gates.GateBatch(np.array([0, 1]), c, c),
                          device="meta")
+    # the offload worker and a trace (of a job on the card)
+    with pytest.raises(RuntimeError, match="GPU"):
+        make_server("storage", "keys")
+    with pytest.raises(RuntimeError, match="GPU"):
+        with tracing.trace("traces"):
+            pass
 
 
 def test_integer_tier_defaults_to_card(no_card):
@@ -173,6 +270,20 @@ def test_coordinator_defaults_to_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="GPU"):
         Coordinator(cfg)
     Coordinator(cfg, device="cpu").shutdown()
+
+
+def test_offload_worker_module_refuses_to_start_without_card(no_card,
+                                                          tmp_path):
+    """``python -m herdsman_tpu_torch.service.offload_worker`` without
+    ``--device cpu`` exits non-zero here, before it serves."""
+    out = subprocess.run(
+        [sys.executable, "-m", "herdsman_tpu_torch.service.offload_worker",
+         "--storage", str(tmp_path / "st"), "--keys", str(tmp_path / "k"),
+         "--port", "0"],
+        cwd=ROOT, env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode != 0
+    assert "GPU" in out.stderr and "offload worker on port" not in out.stderr
 
 
 def test_chip_smoke_fails_without_card(no_card, tmp_path):

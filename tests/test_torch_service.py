@@ -48,8 +48,6 @@ from herdsman_tpu_torch.service.config import (
     Config,
     ConfigError,
     GrpcWorkersConfig,
-    LambdaWorkersConfig,
-    LoggingConfig,
     MeshWorkersConfig,
     SecurityConfig,
     ServerConfig,
@@ -263,19 +261,22 @@ def test_aborted_and_overrun_uploads_leave_no_frame(inputs, tmp_path):
         coord.shutdown()
 
 
+# option -> (config, the ROADMAP queue 1 item that ports it)
 UNPORTED_CONFIGS = {
-    "grpc_workers": {"grpc_workers": GrpcWorkersConfig(["localhost:1"])},
-    "lambda_workers": {"lambda_workers": LambdaWorkersConfig("localhost:1")},
-    "mesh_batch_axis": {"mesh_workers": MeshWorkersConfig(batch_axis=2)},
-    "mesh_limb_axis": {"mesh_workers": MeshWorkersConfig(limb_axis=2)},
-    "profile_dir": {"logging": LoggingConfig(profile_dir="traces")},
+    "grpc_workers": ({"grpc_workers": GrpcWorkersConfig(["localhost:1"])},
+                     16),
+    "mesh_batch_axis": ({"mesh_workers": MeshWorkersConfig(batch_axis=2)},
+                        12),
+    "mesh_limb_axis": ({"mesh_workers": MeshWorkersConfig(limb_axis=2)}, 12),
 }
 
 
 @pytest.mark.parametrize("option", sorted(UNPORTED_CONFIGS))
 def test_unported_config_options_raise(tmp_path, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_coordinator(tmp_path, **UNPORTED_CONFIGS[option])
+    cfg, item = UNPORTED_CONFIGS[option]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1, item {item}\\)"):
+        port_coordinator(tmp_path, **cfg)
 
 
 @pytest.mark.parametrize("flag", ["glwe_frames", "glwe_outputs",
