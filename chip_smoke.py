@@ -24,7 +24,8 @@ through their own entries), ``mega12``, ``mega7``, ``mega5``, ``mega4``,
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. card: nvidia-smi's name and power limit, torch's device name;
+1. card: nvidia-smi's name and power limit, torch's device name, the
+   versions of grpc and protobuf;
 2. build: every kernel under ``herdsman_tpu_torch/csrc/``, one nvcc each,
    all at once;
 3. kernel vs plain: the blind-rotation kernel (mega13, on the stream key
@@ -207,9 +208,10 @@ Phases, in order; any failure raises and exits non-zero:
     worker process): a coordinator whose in-code config has
     ``workers.mesh {engine: conv_i8, glwe_inputs, glwe_frames,
     glwe_outputs}`` takes the compressed server key and the
-    ``TFHE_PACKING`` key in 64 KiB chunks and path C's 2048 rows in 4
-    partitions uploaded seeded (``encrypt_rows_seeded``, one u32 a bit, in
-    64 KiB chunks cut mid-row), packs them at ingest, runs path C's plan to
+    ``TFHE_PACKING`` key in 64 KiB chunks and path C's first partition
+    (512 rows, as paths I and M2, in 2 partitions) uploaded seeded
+    (``encrypt_rows_seeded``, one u32 a bit, in 8 KiB chunks cut
+    mid-row, one across the partitions' boundary), packs them at ingest, runs path C's plan to
     COMPLETED with no retry and no hand-written kernel, every frame
     GLWE-packed, and the output and intermediate frames downloaded packed
     decrypt to the plaintext (``decrypt_rows_packed``); with the ingest
@@ -219,7 +221,8 @@ Phases, in order; any failure raises and exits non-zero:
     STD128_K2 and of 512 at STD128 (each from a worker process; both
     groups decrypt), ``conv_i8_correlate`` on saturated inputs whose sums
     pass 2^31 (they wrap mod 2^32, where one ``torch._int_mm`` of them
-    saturates), and the pack's time on one partition of path N;
+    saturates), and the pack's time on one partition of path C (512
+    rows);
 19. main path O, task-granular dispatch: path C's job (2048 rows in 4
     partitions, the same key and upload) on a coordinator whose in-code
     config has ``workers.lambda`` (4 requests in flight), its map and
@@ -242,7 +245,31 @@ Phases, in order; any failure raises and exits non-zero:
     on a coordinator with ``logging.profile_dir``: exactly one trace under
     ``<profile_dir>/<job_uuid>/``, which parses and holds CUDA kernel
     events of ``csrc/mega12.cu``'s ``mega12_kernel``; the frame byte-equal
-    to path I's; the trace's size and the job's time beside path I's.
+    to path I's; the trace's size and the job's time beside path I's;
+22. main path Q, the gRPC front end: ``service/api_server.build_server`` on
+    a coordinator whose in-code config has ``workers.mesh.engine =
+    pallas_fused``, on an insecure loopback port, and a ``HerdClient``
+    that authorizes, opens a session, streams the server key (1 MiB
+    messages) and C's packing key, uploads path C's 2048 rows in 4
+    partitions over the bidi stream, sends C's plan as a proto, waits, and
+    downloads the output and intermediate frames and the output packed:
+    COMPLETED with no retry, every frame byte-equal to path C's on
+    ``pallas_fused`` and decrypted, ``describe_job``'s plan equal to the
+    plan sent, ``rotate_decompose`` and the fused ``bt_external_product``
+    alone launched, each as often as in path C on ``pallas_fused``; the
+    key, upload, job (load / exec / store) and download seconds beside
+    C's in-process ones;
+23. main path Q', the ``workers.grpc`` fleet: path C's job on a
+    coordinator whose config names two ``service/grpc_worker``
+    ``make_worker_server(..., engine="pallas_mega13")`` members served from
+    threads of this process: COMPLETED with no retry, path O's 9 tasks
+    round-robin over both (their ``task_counts``), ``mega13`` alone
+    launched as often as in path O, the intermediate frame byte-equal to
+    phase 8b's and path O's, every row decrypted; the job's wall time and
+    its rotations' CUDA spans summed and in their union beside O's.
+
+TLS is not run here: the GPU machines have no ``cryptography`` to make
+certificates with (the CPU tests run it).
 
 Every kernel's launch counter is set to 0 before each main path and read
 after it; the run fails if a path did not launch the kernels of its
@@ -435,11 +462,15 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     try:
+        import google.protobuf
+        import grpc
+
         from herdsman_tpu_torch.api import HerdContext
         from herdsman_tpu_torch.circuit import (
             DAG, CircuitBuilder, ColumnMeta, DataType, ExecutionPlan,
             InputStage, MapperStage, OutputStage, Policy, ReduceStage,
             SchemaType)
+        from herdsman_tpu_torch.client import HerdClient
         from herdsman_tpu_torch.compiler import lower
         from herdsman_tpu_torch.compiler.reduce_tree import build_reduce_tree
         from herdsman_tpu_torch.compiler.stages import partition_sizes
@@ -459,13 +490,16 @@ def main() -> int:
         from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
         from herdsman_tpu_torch.radix import RadixContext
         from herdsman_tpu_torch.service import frames as frame_codec
+        from herdsman_tpu_torch.service import mappers
+        from herdsman_tpu_torch.service.api_server import build_server
         from herdsman_tpu_torch.service.config import (
-            Config, LambdaWorkersConfig, LoggingConfig, MeshWorkersConfig,
-            SecurityConfig, ServerConfig)
+            Config, GrpcWorkersConfig, LambdaWorkersConfig, LoggingConfig,
+            MeshWorkersConfig, SecurityConfig, ServerConfig)
         from herdsman_tpu_torch.service.coordinator import (
             Coordinator, serialize_packing_key, serialize_server_key,
             serialize_server_key_compressed)
         from herdsman_tpu_torch.service.execution import JobStatus
+        from herdsman_tpu_torch.service.grpc_worker import make_worker_server
         from herdsman_tpu_torch.service.offload_worker import make_server
         from herdsman_tpu_torch.shortint import EncShort, ShortContext
         from herdsman_tpu_torch.utils import bounds, rowcodec
@@ -529,7 +563,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = f"[{smi}]"
     print(f"card: torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {kind}")
+          f"device {kind}; grpc {grpc.__version__}, protobuf "
+          f"{google.protobuf.__version__}")
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -942,14 +977,15 @@ def main() -> int:
 
     def path_c(engine: str, workdir: str, rows: int = JOB_ROWS,
                partitions: int = JOB_PARTITIONS, pk_bytes=None,
-               worker: str = "", profile_dir: str = "",
-               reduce: bool = True) -> dict:
+               worker: str = "", fleet: tuple[str, ...] = (),
+               profile_dir: str = "", reduce: bool = True) -> dict:
         """Path C's job on ``engine`` over the first ``rows`` rows of the
         table in ``partitions`` partitions; with ``pk_bytes`` (a packing
         key of the client key) the output and intermediate row frames are
         then also downloaded packed, on the card, and decrypted.  With
         ``worker`` (host:port) the coordinator's config has
-        ``workers.lambda`` in place of ``workers.mesh``, and ``engine`` only
+        ``workers.lambda`` in place of ``workers.mesh``, with ``fleet``
+        (host:port of each worker) ``workers.grpc``, and ``engine`` only
         names the run; with ``profile_dir`` it has
         ``logging.profile_dir``; without ``reduce`` the plan is the map
         alone."""
@@ -963,27 +999,33 @@ def main() -> int:
                      logging=LoggingConfig(profile_dir=profile_dir))
         if worker:
             cfg.lambda_workers = LambdaWorkersConfig(worker, JOB_PARTITIONS)
+        elif fleet:
+            cfg.grpc_workers = GrpcWorkersConfig(list(fleet))
         else:
             cfg.mesh_workers = (MeshWorkersConfig() if engine == "pallas_bt"
                                 else MeshWorkersConfig(engine=engine))
         coord = Coordinator(cfg, device=dev)
         tok = coord.authorize_connection("admin==true")
         sess = coord.create_session(tok, "chip-smoke").uuid
+        t0 = time.perf_counter()
         coord.add_key(tok, sess, SchemaType.TFHE_BOOL, len(key_bytes),
                       (key_bytes[i:i + (1 << 16)]
                        for i in range(0, len(key_bytes), 1 << 16)))
+        t1 = time.perf_counter()
         meta = coord.begin_data_frame_upload(
             tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, rows,
             partitions)
         for chunk in upload:
             coord.append_data_frame(tok, sess, meta.uuid, chunk)
         coord.finish_data_frame_upload(tok, sess, meta.uuid)
+        key_s, upload_s = t1 - t0, time.perf_counter() - t1
         plan_json = job_plan(meta.uuid, reduce).to_json()
 
         def run_job():
             # an offload job keeps a task per partition in flight
             job = coord.schedule_job(tok, sess, plan_json,
-                                     JOB_PARTITIONS if worker else 1)
+                                     JOB_PARTITIONS if worker or fleet
+                                     else 1)
             job = coord.wait_for_job(tok, sess, job.job_uuid, timeout=900)
             check(job.status == JobStatus.COMPLETED and job.retries == 0
                   and job.bootstraps_executed > 0,
@@ -998,7 +1040,7 @@ def main() -> int:
         res = {"job": job, "host_s": host, "counts": counts,
                "phases": phase_log.phases.get(job.job_uuid),
                "rotations": rotations, "rotation_s": rotation_s,
-               "union_s": union_s}
+               "union_s": union_s, "key_s": key_s, "upload_s": upload_s}
 
         def frame_bytes(uuid):
             return list(coord.download_data_frame(tok, sess, uuid))
@@ -1021,6 +1063,8 @@ def main() -> int:
                     coord.download_data_frame_packed(tok, sess, uuid)))
             res["packed"] = {name: (secs, sum(map(len, parts)))
                              for name, (parts, secs) in packed.items()}
+            res["packed_parts"] = {name: parts
+                                   for name, (parts, _) in packed.items()}
         for name, parts, want in (("intermediate", res["mid"],
                                    want_rows[:rows]),
                                   ("output", res["out"], want_out)):
@@ -1041,10 +1085,11 @@ def main() -> int:
         return res
 
     runs = {}
+    pk_bytes_c = serialize_packing_key(pk_c.get())  # C's and Q's
     for engine in ("pallas_bt", "pallas_fused"):
         with tempfile.TemporaryDirectory() as workdir:
             runs[engine] = path_c(
-                engine, workdir, pk_bytes=(serialize_packing_key(pk_c.get())
+                engine, workdir, pk_bytes=(pk_bytes_c
                                            if engine == "pallas_fused"
                                            else None))
         torch.cuda.empty_cache()
@@ -1055,8 +1100,11 @@ def main() -> int:
               f"intermediate rows and the reduced row decrypt right; "
               f"launches {r['counts']}")
     c_bt, c_fused = runs["pallas_bt"]["counts"], runs["pallas_fused"]["counts"]
-    # kept for path O, after runs is freed
+    # kept for paths O and Q, after runs is freed
     wall_c = {e: r["job"].wall_time_s for e, r in runs.items()}
+    res_c = {k: runs["pallas_fused"][k]
+             for k in ("mid", "out", "packed", "packed_parts", "phases",
+                       "host_s", "key_s", "upload_s", "rotation_s")}
     only(c_bt, ("bt_external_product",), "path C on pallas_bt")
     only(c_fused, ("bt_external_product", "rotate_decompose"),
          "path C on pallas_fused")
@@ -2404,7 +2452,11 @@ def main() -> int:
 
     # 18. main path N: the coordinator's compact wire path on conv_i8 at
     # STD128_K2: a compressed server key, a seeded upload packed at ingest,
-    # GLWE-packed frames end to end, packed downloads -----------------------
+    # GLWE-packed frames end to end, packed downloads; over path C's first
+    # partition (as paths I and M2, to keep the run's time) split in two
+    # partitions, uploaded in 8 KiB chunks cut mid-row, one across the
+    # partitions' boundary ----------------------------------------------
+    rows_n, parts_n = rows_i, 2
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2412,10 +2464,10 @@ def main() -> int:
     key_n, pkn_bytes = (serialize_server_key_compressed(csk_n),
                         serialize_packing_key(pk_n))
     (bodies_n, seed_n), enc_n_s = host_s(lambda: client.encrypt_rows_seeded(
-        ck_n, JOB_IN_COLS, table.tolist(), rng))
+        ck_n, JOB_IN_COLS, table[:rows_n].tolist(), rng))
     seeded_n = rowcodec.frame_rows([row.tobytes() for row in bodies_n])
-    want_out_all = {"x": int(np.bitwise_xor.reduce(xs)),
-                    "odd": int(np.bitwise_xor.reduce(odd))}
+    want_out_n = {"x": int(np.bitwise_xor.reduce(xs[:rows_n])),
+                  "odd": int(np.bitwise_xor.reduce(odd[:rows_n]))}
     flags_n = dict(glwe_inputs=True, glwe_frames=True, glwe_outputs=True)
     with tempfile.TemporaryDirectory() as workdir:
         coord = Coordinator(Config(
@@ -2432,18 +2484,18 @@ def main() -> int:
                           (blob[i:i + (1 << 16)]
                            for i in range(0, len(blob), 1 << 16)))
         meta = coord.begin_data_frame_upload(
-            tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, JOB_ROWS,
-            JOB_PARTITIONS, seeded_seed=seed_n)
-        for i in range(0, len(seeded_n), 1 << 16):  # cut mid-row
+            tok, sess, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, rows_n,
+            parts_n, seeded_seed=seed_n)
+        for i in range(0, len(seeded_n), 1 << 13):  # cut mid-row
             coord.append_data_frame(tok, sess, meta.uuid,
-                                    seeded_n[i:i + (1 << 16)])
+                                    seeded_n[i:i + (1 << 13)])
         _, ingest_n_s = host_s(lambda: coord.finish_data_frame_upload(
             tok, sess, meta.uuid))
         check(coord.storage.get_data_frame(sess, meta.uuid).glwe_packed,
               "path N: the seeded upload was not packed at ingest")
         in_bytes = sum(
             coord.storage.partition_path(sess, meta.uuid, q).stat().st_size
-            for q in range(JOB_PARTITIONS))
+            for q in range(parts_n))
         plan_n = job_plan(meta.uuid).to_json()
 
         def run_job_n():
@@ -2465,8 +2517,9 @@ def main() -> int:
         (mid_n,) = [f.uuid for n, f in frames_n.items()
                     if n.startswith(f"intermediate-{job_n.job_uuid}-")]
         down_n = {}
-        for name, uuid, want in (("intermediate", mid_n, want_rows),
-                                 ("output", out_n, [want_out_all])):
+        for name, uuid, want in (("intermediate", mid_n,
+                                  want_rows[:rows_n]),
+                                 ("output", out_n, [want_out_n])):
             parts, secs = host_s(lambda: list(
                 coord.download_data_frame_packed(tok, sess, uuid)))
             got = client.decrypt_rows_packed(ck_n, JOB_MID_COLS, parts)
@@ -2483,16 +2536,17 @@ def main() -> int:
           f"{P.name} keygen_seeded + make_packing_key {keygen_n_s:.1f} s "
           f"(worker process); compressed server key {len(key_n)} bytes "
           f"(the full key {len(key_bytes)}), packing key "
-          f"{len(pkn_bytes)} bytes, both in 64 KiB chunks; {JOB_ROWS} rows "
-          f"encrypted seeded in {enc_n_s:.3f} s, {len(seeded_n)} bytes "
-          f"uploaded in {JOB_PARTITIONS} partitions, packed at ingest into "
-          f"{in_bytes} bytes; job COMPLETED, retries 0, "
+          f"{len(pkn_bytes)} bytes, both in 64 KiB chunks; {rows_n} rows "
+          f"(path C's first partition) encrypted seeded in {enc_n_s:.3f} s, "
+          f"{len(seeded_n)} bytes uploaded in {parts_n} partitions in 8 KiB "
+          f"chunks, packed at ingest into {in_bytes} bytes; job COMPLETED, "
+          f"retries 0, "
           f"{job_n.bootstraps_executed} bootstraps, every frame GLWE-packed; "
-          f"all {JOB_ROWS} intermediate rows and the reduced row downloaded "
+          f"all {rows_n} intermediate rows and the reduced row downloaded "
           f"packed decrypt right (decrypt_rows_packed); launches {counts_n} "
           f"(no hand-written kernel)")
     print(f"time: main path N ingest (finish_data_frame_upload: mark, read "
-          f"and pack {JOB_PARTITIONS} partitions on the card) "
+          f"and pack {parts_n} partitions on the card) "
           f"{ingest_n_s:.3f} s; job {job_n_s:.3f} s host (wall_time_s "
           f"{job_n.wall_time_s:.3f}), load / exec / store "
           f"{phases_n[0]:.3f} / {phases_n[1]:.3f} / {phases_n[2]:.3f} s = "
@@ -2558,7 +2612,7 @@ def main() -> int:
           f"({R_w * P.N} rows: {want_sat}), where one torch._int_mm of the "
           f"same sums gives {raw_sat}")
     print(f"time: pack_lwes_batch at {P.name} {groups_n} groups of {P.N} "
-          f"(one path N partition) {pack_ms:.3f} ms, {pack_bound[0] / pack_ms:.4f}"
+          f"(one path C partition) {pack_ms:.3f} ms, {pack_bound[0] / pack_ms:.4f}"
           f" of the {pack_bound[0]:.4f} ms bound ({pack_bound[1]}); at "
           f"{STD128.name} 1 group {pack_s_ms:.3f} ms, bound "
           f"{pack_s_bound[0]:.4f} ms ({pack_s_bound[1]}) {card}")
@@ -2720,6 +2774,164 @@ def main() -> int:
           f"{wall_i:.3f} s; torch.cuda.max_memory_allocated "
           f"{peak_p / 2**30:.3f} GiB {card}")
 
+    # 22. main path Q: path C's job through the gRPC front end: a HerdClient
+    # against build_server on a coordinator on pallas_fused -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    want_out_c = [{"x": int(np.bitwise_xor.reduce(xs)),
+                   "odd": int(np.bitwise_xor.reduce(odd))}]
+    with tempfile.TemporaryDirectory() as workdir:
+        coord_q = Coordinator(Config(
+            server=ServerConfig(key_directory=workdir + "/keys",
+                                storage_directory=workdir + "/st"),
+            security=SecurityConfig(secret_key="chip-smoke"),
+            mesh_workers=MeshWorkersConfig(engine="pallas_fused")),
+            device=dev)
+        server_q, port_q = build_server(coord_q, "127.0.0.1:0")
+        server_q.start()
+        herd = HerdClient(f"127.0.0.1:{port_q}")
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            herd.authorize("admin==true")
+            sess_q = herd.create_session("chip-smoke").uuid
+            _, key_q_s = host_s(lambda: herd.add_key(
+                sess_q, SchemaType.TFHE_BOOL, key_bytes))
+            herd.add_key(sess_q, SchemaType.TFHE_PACKING, pk_bytes_c)
+            meta_q, upload_q_s = host_s(lambda: herd.upload_data_frame(
+                sess_q, "rows", SchemaType.TFHE_BOOL, JOB_IN_COLS, job_in,
+                JOB_PARTITIONS, chunk_rows=per_chunk))
+            plan_q = job_plan(meta_q.uuid)
+
+            def run_job_q():
+                desc = herd.schedule_job(sess_q, plan_q)
+                return desc, herd.wait_for_job(sess_q, desc.uuid,
+                                               timeout=900)
+
+            (desc_q, state_q), host_q, rot_q, rot_q_s, _ = recorded(run_job_q)
+            (out_q,) = state_q.output_frames
+            (mid_q,) = [f.uuid for f in herd.list_data_frames(sess_q)
+                        if f.name.startswith(f"intermediate-{desc_q.uuid}-")]
+            frames_q, download_q_s = host_s(lambda: {
+                name: herd.download_data_frame(sess_q, uuid, 9, P)
+                for name, uuid in (("out", out_q), ("mid", mid_q))})
+            packed_q, packed_q_s = host_s(
+                lambda: herd.download_data_frame_packed(sess_q, out_q))
+            path_q_s = time.perf_counter() - t0
+            counts_q = read_counts()
+            described_q = herd.describe_job(sess_q, desc_q.uuid)
+            job_q = coord_q.get_job_state(
+                coord_q.authorize_connection("admin==true"), sess_q,
+                desc_q.uuid)
+        finally:
+            herd.close()
+            server_q.stop(None).wait(30)
+            coord_q.shutdown()
+    peak_q = torch.cuda.max_memory_allocated()
+    del coord_q, server_q, herd  # the coordinator holds Q's device key
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(state_q.status == int(JobStatus.COMPLETED) and job_q.retries == 0
+          and state_q.bootstraps_executed > 0,
+          f"path Q job {JobStatus(state_q.status).name}, retries "
+          f"{job_q.retries}: {state_q.message}")
+    only(counts_q, ("bt_external_product", "rotate_decompose"),
+         "path Q (gRPC front end on pallas_fused)")
+    check(all(counts_q[k] == c_fused[k] for k in counts_q),
+          f"path Q launched {counts_q}, path C on pallas_fused {c_fused}")
+    for name in ("mid", "out"):
+        check(frame_codec.rows_to_payloads(frames_q[name])
+              == [pl for part in res_c[name]
+                  for pl in rowcodec.parse_rows(part)],
+              f"path Q {name} frame differs from path C's on pallas_fused")
+    check(packed_q == res_c["packed_parts"]["output"],
+          "path Q's packed output differs from path C's")
+    check(client.decrypt_rows(ck, JOB_MID_COLS, frames_q["mid"]) == want_rows
+          and client.decrypt_rows(ck, JOB_MID_COLS, frames_q["out"])
+          == want_out_c
+          and client.decrypt_rows_packed(ck, JOB_MID_COLS, packed_q)
+          == want_out_c, "path Q frames decrypt wrong")
+    check(described_q.plan.SerializeToString(deterministic=True)
+          == mappers.plan_to_proto(plan_q).SerializeToString(
+              deterministic=True), "path Q: describe_job's plan differs from "
+          "the plan sent")
+    load_q, exe_q, store_q = phase_log.phases[desc_q.uuid]
+    load_c, exe_c, store_c = res_c["phases"]
+    print(f"main path Q (HerdClient -> build_server on 127.0.0.1, insecure "
+          f"-> Coordinator on pallas_fused): authorize, session, the "
+          f"{P.name} server key ({len(key_bytes)} bytes in "
+          f"{-(-len(key_bytes) // (1 << 20))} messages of at most 1 MiB, "
+          f"client-streamed) and the TFHE_PACKING key, {JOB_ROWS} rows in "
+          f"{JOB_PARTITIONS} partitions over the bidi upload, the plan as a "
+          f"proto: COMPLETED, retries 0, {state_q.bootstraps_executed} "
+          f"bootstraps; the output and intermediate frames downloaded "
+          f"(server-streamed, one message a partition) byte-equal to path "
+          f"C's on pallas_fused and decrypting right, the output downloaded "
+          f"packed byte-equal to C's; describe_job's plan equal to the plan "
+          f"sent; launches {counts_q}, equal to path C's on pallas_fused")
+    print(f"time: main path Q end to end {path_q_s:.3f} s: key over the wire "
+          f"{key_q_s:.3f} s ({len(key_bytes) / key_q_s / 2**20:.1f} MiB/s; "
+          f"C in process {res_c['key_s']:.3f} s), rows over the wire "
+          f"{upload_q_s:.3f} s (C {res_c['upload_s']:.3f} s), job wall "
+          f"{job_q.wall_time_s:.3f} s (host {host_q:.3f} s; C "
+          f"{wall_c['pallas_fused']:.3f} s, host {res_c['host_s']:.3f} s), "
+          f"runner load {load_q:.3f} s, exec {exe_q:.3f} s, store "
+          f"{store_q:.3f} s (C {load_c:.3f}, {exe_c:.3f}, {store_c:.3f} s), "
+          f"rotations' CUDA spans {rot_q_s:.3f} s summed (C "
+          f"{res_c['rotation_s']:.3f} s), download of both row frames "
+          f"{download_q_s:.3f} s, of the output packed {packed_q_s:.3f} s "
+          f"(C {res_c['packed']['output'][0]:.3f} s); "
+          f"torch.cuda.max_memory_allocated {peak_q / 2**30:.3f} GiB {card}")
+
+    # 23. main path Q': path C's job on a workers.grpc fleet of two workers
+    # on mega13, served from threads of this process -------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as workdir:
+        fleet = [make_worker_server(workdir + "/st", workdir + "/keys",
+                                    engine="pallas_mega13", device=dev)
+                 for _ in range(2)]
+        for srv, _ in fleet:
+            srv.start()
+        try:
+            res_q2 = path_c("a workers.grpc fleet of two mega13 workers",
+                            workdir,
+                            fleet=tuple(f"127.0.0.1:{p}" for _, p in fleet))
+        finally:
+            for srv, _ in fleet:
+                srv.stop(None).wait(30)
+    peak_q2 = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    job_q2 = res_q2["job"]
+    tasks_q2 = [srv.task_counts["tasks"] for srv, _ in fleet]
+    only(res_q2["counts"], ("mega13",), "path Q' (a gRPC fleet on mega13)")
+    check(res_q2["counts"]["mega13"] == res_o["counts"]["mega13"],
+          f"path Q' launched mega13 {res_q2['counts']['mega13']} times, path "
+          f"O {res_o['counts']['mega13']}")
+    check(job_q2.tasks_executed == JOB_PARTITIONS + tree_o.total_tasks()
+          and tasks_q2 == [-(-job_q2.tasks_executed // 2),
+                           job_q2.tasks_executed // 2],
+          f"path Q' ran {job_q2.tasks_executed} tasks, {tasks_q2} by worker, "
+          f"not path O's {JOB_PARTITIONS + tree_o.total_tasks()} round-robin")
+    check(res_q2["mid"] == mid_sub and res_q2["mid"] == res_o["mid"],
+          "path Q' intermediate frame differs from phase 8b's and path O's")
+    print(f"main path Q' (workers.grpc, two make_worker_server members on "
+          f"pallas_mega13 in threads of this process): {JOB_ROWS} rows in "
+          f"{JOB_PARTITIONS} partitions, map + PARALLEL reduce: COMPLETED, "
+          f"retries 0, {job_q2.tasks_executed} tasks round-robin "
+          f"{tasks_q2} by worker, {job_q2.bootstraps_executed} bootstraps; "
+          f"all {JOB_ROWS} intermediate rows and the reduced row decrypt "
+          f"right; the intermediate frame byte-equal to phase 8b's and path "
+          f"O's; launches {res_q2['counts']}")
+    print(f"time: main path Q' job wall {job_q2.wall_time_s:.3f} s (host "
+          f"{res_q2['host_s']:.3f} s, both workers' key builds included; O "
+          f"{res_o['job'].wall_time_s:.3f} s); CUDA events around each of its "
+          f"{len(res_q2['rotations'])} rotations span "
+          f"{res_q2['rotation_s']:.3f} s summed, {res_q2['union_s']:.3f} s "
+          f"in their union (O {res_o['rotation_s']:.3f} s, "
+          f"{res_o['union_s']:.3f} s); torch.cuda.max_memory_allocated "
+          f"{peak_q2 / 2**30:.3f} GiB {card}")
+
     # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
                "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
@@ -2755,7 +2967,9 @@ def main() -> int:
                "N_job_conv_i8": counts_n,
                "O_job_offload_mega13": res_o["counts"],
                "O2_job_offload_process_mega13": counts_o2,
-               "P_job_pallas_mega11_traced": res_p["counts"]}
+               "P_job_pallas_mega11_traced": res_p["counts"],
+               "Q_job_grpc_front_end_pallas_fused": counts_q,
+               "Q2_job_grpc_fleet_mega13": res_q2["counts"]}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}

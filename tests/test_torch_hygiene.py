@@ -6,6 +6,12 @@
   do not have.
 - The offload worker and the tracing hooks load none of them at run time
   either: a job dispatched to a worker and traced, in a fresh interpreter.
+- The gRPC surface (server, client, worker fleet, mappers, the generated
+  module) imports none of them, nor a top-level ``herdsman_pb2``, and
+  touches no ``sys.path``; a job through ``HerdClient``, the server and a
+  ``workers.grpc`` fleet, in a fresh interpreter with every port module
+  imported, leaves no module of the JAX package's files in
+  ``sys.modules``, and no top-level ``herdsman_pb2``.
 - Without a CUDA device, every entry point called with its default device
   raises instead of running on the CPU (the offload worker's module refuses
   to start), and ``chip_smoke.py`` fails without printing a result.
@@ -185,6 +191,121 @@ def test_offload_and_tracing_run_without_jax():
     assert out.returncode == 0, out.stderr
 
 
+GRPC_JOB = """
+import importlib, pathlib, pkgutil, shutil, sys, tempfile
+import herdsman_tpu_torch as p
+for n in [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]:
+    importlib.import_module(n)
+import numpy as np
+from herdsman_tpu_torch.circuit import (DAG, CircuitBuilder, ColumnMeta,
+    DataType, ExecutionPlan, InputStage, MapperStage, OutputStage, SchemaType)
+from herdsman_tpu_torch.client import HerdClient
+from herdsman_tpu_torch.core import TOY, client
+from herdsman_tpu_torch.core import reference as ref
+from herdsman_tpu_torch.service.api_server import build_server
+from herdsman_tpu_torch.service.config import (Config, GrpcWorkersConfig,
+    SecurityConfig, ServerConfig)
+from herdsman_tpu_torch.service.coordinator import (Coordinator,
+    serialize_server_key)
+from herdsman_tpu_torch.service.execution import JobStatus
+from herdsman_tpu_torch.service.grpc_worker import make_worker_server
+
+d = tempfile.mkdtemp()
+worker, wport = make_worker_server(d + "/st", d + "/keys", device="cpu")
+worker.start()
+coord = Coordinator(Config(
+    server=ServerConfig(key_directory=d + "/keys",
+                        storage_directory=d + "/st"),
+    security=SecurityConfig(secret_key="x"),
+    grpc_workers=GrpcWorkersConfig([f"127.0.0.1:{wport}"])), device="cpu")
+server, port = build_server(coord)
+server.start()
+c = HerdClient(f"127.0.0.1:{port}")
+c.authorize()
+rng = np.random.default_rng(0)
+ck, sk = ref.keygen(TOY, rng)
+cols = (ColumnMeta("a", DataType.BIT), ColumnMeta("b", DataType.BIT))
+sess = c.create_session("s").uuid
+c.add_key(sess, SchemaType.TFHE_BOOL, serialize_server_key(sk))
+meta = c.upload_data_frame(sess, "in", SchemaType.TFHE_BOOL, cols,
+                           client.encrypt_rows(ck, cols, [(1, 1), (0, 1)],
+                                               rng), partitions=1)
+cb = CircuitBuilder(cols)
+cb.output("x", cb.input_bit("a") & cb.input_bit("b"))
+g = DAG()
+st = [g.emplace(InputStage(meta.uuid)), g.emplace(MapperStage(cb.build())),
+      g.emplace(OutputStage("out"))]
+g.add_edge(st[0], st[1])
+g.add_edge(st[1], st[2])
+job = c.schedule_job(sess, ExecutionPlan(SchemaType.TFHE_BOOL, g))
+job = c.wait_for_job(sess, job.uuid, timeout=120)
+rows = c.download_data_frame(sess, job.output_frames[0], 1, TOY)
+c.close()
+server.stop(None)
+coord.shutdown()
+worker.stop(None)
+shutil.rmtree(d)
+assert job.status == int(JobStatus.COMPLETED), job
+assert [r["x"] for r in client.decrypt_rows(
+    ck, (ColumnMeta("x", DataType.BIT),), rows)] == [1, 0]
+assert worker.task_counts["tasks"] == 1
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+assert not bad, bad
+assert "herdsman_pb2" not in sys.modules
+jax_files = sorted(
+    n for n, m in list(sys.modules.items())
+    if getattr(m, "__file__", None)
+    and pathlib.Path(m.__file__).resolve().is_relative_to(ROOT / "herdsman_tpu"))
+assert not jax_files, jax_files
+"""
+
+
+def test_grpc_path_runs_without_jax():
+    """Every port module imported, then a job through ``HerdClient``, the
+    port's gRPC server and a ``workers.grpc`` fleet (all on the CPU), in a
+    fresh interpreter: nothing of JAX, the JAX package's files (its
+    generated ``herdsman_pb2`` under any name), PyYAML or cryptography is
+    loaded."""
+    code = (f"FORBIDDEN = {FORBIDDEN + ('cryptography', 'yaml')!r}\n"
+            f"ROOT = __import__('pathlib').Path({str(ROOT)!r})\n" + GRPC_JOB)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+GRPC_SOURCES = ["herdsman_tpu_torch/client/__init__.py",
+                "herdsman_tpu_torch/client/herd_client.py",
+                "herdsman_tpu_torch/service/_proto/__init__.py",
+                "herdsman_tpu_torch/service/_proto/herdsman_pb2.py",
+                "herdsman_tpu_torch/service/api_server.py",
+                "herdsman_tpu_torch/service/grpc_worker.py",
+                "herdsman_tpu_torch/service/mappers.py",
+                "herdsman_tpu_torch/service/proto_build.py"]
+
+
+@pytest.mark.parametrize("path", GRPC_SOURCES)
+def test_grpc_sources_import_nothing_forbidden(path):
+    """The gRPC surface's sources import no ``jax``, ``herdsman_tpu``,
+    ``cryptography``, ``yaml`` or top-level ``herdsman_pb2``, and touch no
+    ``sys.path``: the generated module is imported by its package path."""
+    tree = ast.parse((ROOT / path).read_text())
+    forbidden = FORBIDDEN + ("cryptography", "yaml", "herdsman_pb2")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            assert not (isinstance(node, ast.Attribute)
+                        and node.attr == "path"
+                        and isinstance(node.value, ast.Name)
+                        and node.value.id == "sys"), path
+            continue
+        assert not any(n.split(".")[0] in forbidden for n in names), \
+            (path, names)
+
+
 @pytest.mark.parametrize("path", sorted(
     str(f.relative_to(ROOT)) for f in
     [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
@@ -270,6 +391,30 @@ def test_coordinator_defaults_to_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="GPU"):
         Coordinator(cfg)
     Coordinator(cfg, device="cpu").shutdown()
+
+
+def test_grpc_entry_points_default_to_card(no_card, tmp_path, monkeypatch):
+    """``make_worker_server()``, ``grpc_worker.main`` and ``api_server.main``
+    with their default device raise without a card, before they serve."""
+    from herdsman_tpu_torch.service import api_server, grpc_worker
+
+    with pytest.raises(RuntimeError, match="GPU"):
+        grpc_worker.make_worker_server(str(tmp_path / "st"),
+                                       str(tmp_path / "k"))
+    monkeypatch.setattr(sys, "argv", [
+        "grpc_worker", "--storage", str(tmp_path / "st"), "--keys",
+        str(tmp_path / "k"), "--port", "0"])
+    with pytest.raises(RuntimeError, match="GPU"):
+        grpc_worker.main()
+    cfg = tmp_path / "herdsman.yaml"
+    cfg.write_text(
+        "server:\n  hostname: 127.0.0.1\n  port: 0\n"
+        f"  key_directory: {tmp_path / 'k'}\n"
+        f"  storage_directory: {tmp_path / 'st'}\n"
+        "security:\n  secret_key: x\n")
+    monkeypatch.setattr(sys, "argv", ["api_server", str(cfg)])
+    with pytest.raises(RuntimeError, match="GPU"):
+        api_server.main()
 
 
 def test_offload_worker_module_refuses_to_start_without_card(no_card,

@@ -47,7 +47,6 @@ from herdsman_tpu_torch.service.auth import AuthService
 from herdsman_tpu_torch.service.config import (
     Config,
     ConfigError,
-    GrpcWorkersConfig,
     MeshWorkersConfig,
     SecurityConfig,
     ServerConfig,
@@ -263,8 +262,6 @@ def test_aborted_and_overrun_uploads_leave_no_frame(inputs, tmp_path):
 
 # option -> (config, the ROADMAP queue 1 item that ports it)
 UNPORTED_CONFIGS = {
-    "grpc_workers": ({"grpc_workers": GrpcWorkersConfig(["localhost:1"])},
-                     16),
     "mesh_batch_axis": ({"mesh_workers": MeshWorkersConfig(batch_axis=2)},
                         12),
     "mesh_limb_axis": ({"mesh_workers": MeshWorkersConfig(limb_axis=2)}, 12),
