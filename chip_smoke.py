@@ -266,7 +266,21 @@ Phases, in order; any failure raises and exits non-zero:
     round-robin over both (their ``task_counts``), ``mega13`` alone
     launched as often as in path O, the intermediate frame byte-equal to
     phase 8b's and path O's, every row decrypted; the job's wall time and
-    its rotations' CUDA spans summed and in their union beside O's.
+    its rotations' CUDA spans summed and in their union beside O's;
+24. main path R, BASELINE config 3 (``ops/rns`` on the four-step NTT of
+    ``ops/ntt``, whose DFT steps are int8 ``torch._int_mm`` products; no
+    hand-written kernel): N = 4096, 3 primes, B = 2048 on the card, as the
+    JAX package's ``bench.py --metric rns`` runs it, and N = 2048 (a
+    non-square split) over 256: ``ntt_inv(ntt_fwd(x)) == x`` on every limb,
+    ``polymul``'s first and last rows equal to the big-int product
+    (computed in worker processes) and 8 rows to the port's CPU run;
+    ``keyswitch_keygen`` equal to its CPU run; ``key_switch`` of
+    [2, 3, 2048, 4096] ciphertexts under s2 (encrypted with the checked
+    ``polymul``) to s1: 64 rows decoded through the CRT on the host, every
+    message right and the noise below delta/16, two rows' phases equal to
+    the big-int ones; times on CUDA events (``ntt_fwd``, its ``_int_mm``
+    products, 6 chained dependent polymuls as polymuls/s, ``key_switch``)
+    beside ``utils/bounds.py``'s bounds, and the path's peak memory.
 
 TLS is not run here: the GPU machines have no ``cryptography`` to make
 certificates with (the CPU tests run it).
@@ -364,6 +378,29 @@ def packing_key(ck, seed: int):
     """The packing key of client key ``ck`` (a worker process's job)."""
     from herdsman_tpu_torch.core import reference as ref
     return ref.make_packing_key(ck, np.random.default_rng(seed + 40))
+
+
+def rns_bigint_rows(N: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The negacyclic products mod Q of residue rows ``a`` and ``b`` [L, r,
+    N] by big ints on the host (CRT in, ``np.convolve`` on Python ints, CRT
+    out; no NTT), as residues [L, r, N] (a worker process's job)."""
+    from herdsman_tpu_torch.ops import rns
+    ctx = rns.make_rns(N, a.shape[0], device="cpu")
+    x, y = rns.from_rns(ctx, a), rns.from_rns(ctx, b)
+    return rns.to_rns(ctx, np.stack([rns.host_negacyclic_polymul(ctx, u, v)
+                                     for u, v in zip(x, y)]))
+
+
+def rns_bigint_phases(N: int, a: np.ndarray, b: np.ndarray,
+                      s1: np.ndarray) -> np.ndarray:
+    """The phases b - a * s1 mod Q of key-switched rows (``a`` and ``b``
+    residues [L, r, N]) by big ints on the host: object ints [r, N] (a
+    worker process's job)."""
+    from herdsman_tpu_torch.ops import rns
+    ctx = rns.make_rns(N, a.shape[0], device="cpu")
+    x, y = rns.from_rns(ctx, a), rns.from_rns(ctx, b)
+    return np.stack([(v - rns.host_negacyclic_polymul(ctx, u, s1)) % ctx.Q
+                     for u, v in zip(x, y)])
 
 
 def check(ok: bool, what: str) -> None:
@@ -479,7 +516,7 @@ def main() -> int:
         from herdsman_tpu_torch.core import client
         from herdsman_tpu_torch.core import reference as ref
         from herdsman_tpu_torch.ops import bootstrap as bs
-        from herdsman_tpu_torch.ops import gates, pack, pbs, poly
+        from herdsman_tpu_torch.ops import gates, pack, pbs, poly, rns
         from herdsman_tpu_torch.ops.decomp import signed_decompose
         from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
                                                     megaJ, megaS, megaT)
@@ -2932,6 +2969,167 @@ def main() -> int:
           f"{res_o['union_s']:.3f} s); torch.cuda.max_memory_allocated "
           f"{peak_q2 / 2**30:.3f} GiB {card}")
 
+    # 24. main path R: BASELINE config 3, the RNS/NTT path (ops/ntt and
+    # ops/rns, no hand-written kernel: the DFT steps' int8 products are
+    # torch._int_mm) at the JAX package's bench.py --metric rns defaults, N
+    # = 4096, 3 primes, B = 2048, and at N = 2048 (N1 = 32, N2 = 64: the
+    # transposes of a non-square split) over 256; the big-int oracles run
+    # in worker processes beside the card's work --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    oracle = multiprocessing.get_context("spawn").Pool(4)
+    atexit.register(oracle.terminate)
+    rng_r = np.random.default_rng(args.seed + 50)
+    reset_counts()
+    t_r = time.perf_counter()
+
+    def rns_products(N: int, B: int) -> dict:
+        """ntt_inv(ntt_fwd(x)) == x on every limb of a batch [3, B, N], and
+        ``rns.polymul`` of two batches: the first and last rows sent to the
+        big-int oracle (read later), 8 rows equal to the port's CPU run."""
+        ctx_r = rns.make_rns(N, 3, device=dev)
+        a, b = (np.stack([rng_r.integers(0, q, (B, N)).astype(np.uint32)
+                          for q in ctx_r.primes]) for _ in range(2))
+        ends = [0, B - 1]
+        oracles = [oracle.apply_async(rns_bigint_rows,
+                                      (N, a[:, [r]], b[:, [r]]))
+                   for r in ends]
+        a_t, b_t = from_numpy_u32(a, dev), from_numpy_u32(b, dev)
+        check(torch.equal(rns.ntt_inv(ctx_r, rns.ntt_fwd(ctx_r, a_t)), a_t),
+              f"path R: ntt_inv(ntt_fwd(x)) != x at N={N} B={B}")
+        prod = rns.polymul(ctx_r, a_t, b_t)
+        sel = np.linspace(0, B - 1, 8).astype(int)
+        cpu = rns.polymul(rns.make_rns(N, 3, device="cpu"), a[:, sel],
+                          b[:, sel])
+        check(torch.equal(prod[:, sel].cpu(), cpu),
+              f"path R: polymul at N={N} differs from its CPU run on rows "
+              f"{sel.tolist()}")
+        return {"ctx": ctx_r, "a": a_t, "b": b_t, "B": B,
+                "ends": list(zip(ends, oracles)),
+                "got_ends": to_numpy_u32(prod[:, ends])}
+
+    big = rns_products(4096, B_MAIN)
+    small = rns_products(2048, 256)
+    ctx_r, a_r, b_r = big["ctx"], big["a"], big["b"]
+    N_R = ctx_r.N
+    delta = ctx_r.Q // 256
+    s1, s2 = rng_r.integers(0, 2, N_R), rng_r.integers(0, 2, N_R)
+    ksk, keygen_r_s = host_s(lambda: rns.keyswitch_keygen(
+        ctx_r, s1, s2, np.random.default_rng(args.seed + 51)))
+    ksk_cpu = rns.keyswitch_keygen(rns.make_rns(N_R, 3, device="cpu"), s1,
+                                   s2, np.random.default_rng(args.seed + 51))
+    check(torch.equal(ksk.ksk_a.cpu(), ksk_cpu.ksk_a)
+          and torch.equal(ksk.ksk_b.cpu(), ksk_cpu.ksk_b),
+          "path R: keyswitch_keygen on the card differs from its CPU run")
+
+    def s_res(s):
+        return from_numpy_u32(rns.to_rns(ctx_r, s)[:, None], dev)
+
+    # ciphertexts under s2 of 8-bit messages in the top bits, b = a * s2 +
+    # msg * delta + e by the checked polymul (tests/test_ntt.py:100-137)
+    msg = rng_r.integers(0, 256, (B_MAIN, N_R))
+    e_r = np.rint(rng_r.normal(0, 3.2, (B_MAIN, N_R))).astype(np.int64)
+    a_ks = from_numpy_u32(np.stack(
+        [rng_r.integers(0, q, (B_MAIN, N_R)).astype(np.uint32)
+         for q in ctx_r.primes]), dev)
+    msg_t, e_t = torch.from_numpy(msg).to(dev), torch.from_numpy(e_r).to(dev)
+    extra = torch.stack([((msg_t * (delta % q) + e_t) % q).to(torch.int32)
+                         for q in ctx_r.primes])
+    ct_r = torch.stack([a_ks, rns.add(ctx_r, rns.polymul(ctx_r, a_ks,
+                                                         s_res(s2)), extra)])
+    del msg_t, e_t, extra
+    out_r = rns.key_switch(ctx_r, ksk, ct_r)
+    check(out_r.shape == ct_r.shape, f"path R: key_switch gave "
+          f"{tuple(out_r.shape)}, not {tuple(ct_r.shape)}")
+    rows_ks = np.linspace(0, B_MAIN - 1, 64).astype(int)
+    host_phases = [oracle.apply_async(rns_bigint_phases, (
+        N_R, to_numpy_u32(out_r[0][:, [r]]), to_numpy_u32(out_r[1][:, [r]]),
+        s1)) for r in (0, B_MAIN - 1)]
+    phase_r = rns.sub(ctx_r, out_r[1],
+                      rns.polymul(ctx_r, out_r[0], s_res(s1)))
+    t0 = time.perf_counter()
+    ph = rns.from_rns(ctx_r, to_numpy_u32(phase_r[:, rows_ks]))
+    decoded = (ph + delta // 2) // delta % 256
+    crt_s = time.perf_counter() - t0
+    check((decoded.astype(np.int64) == msg[rows_ks]).all(),
+          f"path R: key-switched messages wrong in "
+          f"{int((decoded.astype(np.int64) != msg[rows_ks]).sum())} of "
+          f"{decoded.size} coefficients")
+    rem = ph % delta
+    noise_r = int(np.minimum(rem, delta - rem).max())
+    check(noise_r < delta / 16, f"path R: key-switch noise {noise_r} not "
+          f"below delta/16 = {delta // 16}")
+    del phase_r
+
+    # times: CUDA events after warm-up (every function ran above)
+    ntt_ms = timed_ms(lambda: rns.ntt_fwd(ctx_r, a_r), 3)
+    N1_r, N2_r = ctx_r.plans[0].N1, ctx_r.plans[0].N2
+    d1 = torch.randint(-128, 128, (3 * B_MAIN * N2_r, N1_r),
+                       dtype=torch.int8, device=dev)
+    d2 = torch.randint(-128, 128, (3 * B_MAIN * N1_r, N2_r),
+                       dtype=torch.int8, device=dev)
+    mm_ms = timed_ms(lambda: [(mega13.int8_matmul(d1, pl.w1_dig),
+                               mega13.int8_matmul(d2, pl.w2_dig))
+                              for pl in ctx_r.plans], 3)
+    del d1, d2
+    K_CHAIN = 6
+
+    def chain():
+        c = a_r
+        for _ in range(K_CHAIN):
+            c = rns.polymul(ctx_r, c, b_r)
+        return c
+    _, chain_ms = timed_call(chain)
+    ks_ms = timed_ms(lambda: rns.key_switch(ctx_r, ksk, ct_r), 2)
+    peak_r = torch.cuda.max_memory_allocated()
+
+    # the big-int oracles
+    for res in (big, small):
+        for i, (r, fut) in enumerate(res["ends"]):
+            check((res["got_ends"][:, i] == fut.get(timeout=600)[:, 0]).all(),
+                  f"path R: polymul row {r} at N={res['ctx'].N} differs from "
+                  f"the big-int product")
+    for i, fut in enumerate(host_phases):
+        r = rows_ks[0] if i == 0 else rows_ks[-1]
+        check((fut.get(timeout=600)[0] == ph[0 if i == 0 else -1]).all(),
+              f"path R: key-switched row {r}'s phase differs from the "
+              f"big-int phase")
+    oracle.close()
+    oracle.join()
+    counts_r = read_counts()
+    only(counts_r, (), "main path R (the RNS/NTT path)")
+    path_r_s = time.perf_counter() - t_r
+    del big, small, a_r, b_r, a_ks, ct_r, out_r, ksk, ksk_cpu
+    torch.cuda.empty_cache()
+    b_ntt = bounds.bound_ms(*bounds.ntt(N_R, 3, B_MAIN))
+    b_mm = bounds.bound_ms(*bounds.ntt_products(N_R, 3, B_MAIN))
+    b_poly = bounds.bound_ms(*bounds.ntt_polymul(N_R, 3, B_MAIN))
+    b_ks = bounds.bound_ms(*bounds.rns_key_switch(N_R, 3, B_MAIN))
+    print(f"main path R (BASELINE config 3: ops/rns on ops/ntt, N={N_R}, "
+          f"primes {ctx_r.primes}, B={B_MAIN}; and N=2048 over 256): "
+          f"ntt_inv(ntt_fwd(x)) == x on every limb at both sizes; polymul's "
+          f"first and last rows equal to the big-int product at both "
+          f"sizes, 8 rows equal to the port's CPU run; keyswitch_keygen "
+          f"({keygen_r_s:.3f} s) equal to its CPU run; key_switch of "
+          f"[2, 3, {B_MAIN}, {N_R}]: {len(rows_ks)} rows decoded through "
+          f"the CRT on the host ({crt_s:.3f} s), every message right, noise "
+          f"at most 2^{np.log2(max(noise_r, 1)):.1f} of delta/16 = "
+          f"2^{np.log2(delta / 16):.1f}, rows 0 and {B_MAIN - 1}'s phases "
+          f"equal to the big-int ones; launches {counts_r} (no hand-written "
+          f"kernel: torch._int_mm); path R {path_r_s:.1f} s")
+    print(f"time: main path R at N={N_R} L=3 B={B_MAIN}: ntt_fwd "
+          f"{ntt_ms:.3f} ms ({b_ntt[0] / ntt_ms:.4f} of the {b_ntt[0]:.4f} "
+          f"ms bound, {b_ntt[1]}), its torch._int_mm products {mm_ms:.3f} ms "
+          f"({mm_ms / ntt_ms:.4f} of the NTT; bound {b_mm[0]:.4f} ms, "
+          f"{b_mm[1]}); {K_CHAIN} chained dependent polymuls "
+          f"{chain_ms:.3f} ms, {chain_ms / K_CHAIN:.3f} ms a batch "
+          f"({b_poly[0] / (chain_ms / K_CHAIN):.4f} of the {b_poly[0]:.4f} ms "
+          f"bound, {b_poly[1]}), {B_MAIN * K_CHAIN / chain_ms * 1e3:.1f} "
+          f"polymuls/s; key_switch {ks_ms:.3f} ms ({b_ks[0] / ks_ms:.4f} of "
+          f"the {b_ks[0]:.4f} ms bound, {b_ks[1]}); "
+          f"torch.cuda.max_memory_allocated {peak_r / 2**30:.3f} GiB {card}")
+
     # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
                "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
@@ -2969,7 +3167,8 @@ def main() -> int:
                "O2_job_offload_process_mega13": counts_o2,
                "P_job_pallas_mega11_traced": res_p["counts"],
                "Q_job_grpc_front_end_pallas_fused": counts_q,
-               "Q2_job_grpc_fleet_mega13": res_q2["counts"]}
+               "Q2_job_grpc_fleet_mega13": res_q2["counts"],
+               "R_rns_ntt": counts_r}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}

@@ -59,6 +59,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def on_device(x, device: torch.device) -> torch.Tensor:
+    """``to_device`` for operands of a plan or context that lives on
+    ``device``: numpy is carried there, a tensor on another device
+    raises instead of moving."""
+    if isinstance(x, torch.Tensor) and x.device != device:
+        raise ValueError(f"the operand is on {x.device}, not on {device}")
+    return to_device(x, device)
+
+
 def to_device(x, device: torch.device) -> torch.Tensor:
     """A numpy uint32 array or an int32 carrier tensor, on ``device``."""
     if isinstance(x, torch.Tensor):

@@ -14,12 +14,16 @@ prints the bound of every TPU kernel of the JAX package at its own
 parameter set and B = 2048 (the ``Bound ms`` column of ``PERF.md``'s kernel
 table).  Every blind-rotation kernel is counted as the int8 limb product
 the TPU kernels run: n * B * (R*N) * ((k+1)*4*N) MACs per rotation.
+It also prints the bounds of the NTT/RNS path (``ops/ntt``, ``ops/rns``,
+no Pallas kernel) at BASELINE config 3, counted as its int8 digit-pair
+products and its residues in and out.
 """
 
 from __future__ import annotations
 
 from herdsman_tpu_torch.core.params import PARAM_SETS, TFHEParams
 from herdsman_tpu_torch.ops.kernels import megaT
+from herdsman_tpu_torch.ops.ntt import split_n
 
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -121,6 +125,58 @@ def rotate_decompose_step(p: TFHEParams, B: int) -> tuple[float, float]:
     return ops, nbytes
 
 
+def ntt_ops(N: int) -> int:
+    """int8 operations of one negacyclic NTT (forward or inverse) of one
+    limb polynomial: 9 digit-pair products of 2 * N * (N1 + N2) (the two
+    DFT steps, N2 rows of [N1] x [N1, N1] and N1 rows of [N2] x [N2,
+    N2])."""
+    return 9 * 2 * N * sum(split_n(N))
+
+
+def ntt(N: int, L: int, B: int) -> tuple[float, float]:
+    """(int8 ops, bytes) of ``rns.ntt_fwd`` on residues [L, B, N]: the
+    residues in and the spectra out, int32."""
+    return L * B * ntt_ops(N), 2 * 4 * L * B * N
+
+
+def ntt_polymul(N: int, L: int, B: int) -> tuple[float, float]:
+    """(int8 ops, bytes) of ``rns.polymul`` of two residue batches [L, B,
+    N]: 3 NTTs a limb and polynomial (two forward, one inverse); both
+    operands in, the product out."""
+    return 3 * L * B * ntt_ops(N), 3 * 4 * L * B * N
+
+
+def rns_key_switch(N: int, L: int, B: int) -> tuple[float, float]:
+    """(int8 ops, bytes) of ``rns.key_switch`` of B ciphertexts [2, L, B,
+    N]: L digit polynomials forward on every limb (L * L NTTs) and the two
+    sums back (2 * L); the ciphertexts in and out, the key [2, L, L, N]
+    in."""
+    ops = (L * L + 2 * L) * B * ntt_ops(N)
+    return ops, 2 * (2 * 4 * L * B * N) + 2 * 4 * L * L * N
+
+
+def ntt_products(N: int, L: int, B: int) -> tuple[float, float]:
+    """(int8 ops, bytes) of the ``torch._int_mm`` products alone of
+    ``rns.ntt_fwd`` on [L, B, N]: per limb and step the three digit planes
+    [3*B*M, K] in and the int32 products [3*B*M, 3*K] out (M, K = N2, N1
+    and N1, N2)."""
+    N1, N2 = split_n(N)
+    nbytes = sum(L * 3 * B * M * K * (1 + 3 * 4)
+                 for M, K in ((N2, N1), (N1, N2)))
+    return L * B * ntt_ops(N), nbytes
+
+
+def ntt_table(B: int = 2048) -> list[tuple[str, str, float, str]]:
+    """(function, shape, bound ms, what bounds it) of the NTT/RNS path (no
+    pl.pallas_call: its products are torch._int_mm) at BASELINE config 3
+    (the JAX package's bench.py --metric rns: N = 4096, 3 primes, B =
+    2048), which chip_smoke.py's path R runs, and at N = 2048."""
+    fns = {"ntt_fwd": ntt, "polymul": ntt_polymul,
+           "key_switch": rns_key_switch}
+    return [(f"rns.{name}", f"N={N} L=3 B={B}", *bound_ms(*fn(N, 3, B)))
+            for N in (4096, 2048) for name, fn in fns.items()]
+
+
 # every function of the JAX package that reaches pl.pallas_call:
 # (kernel body, parameter set of its tier, key layout it reads); a ported
 # kernel's set is the one chip_smoke.py times it at (mega8 and mega7 serve
@@ -185,5 +241,5 @@ def further_table(B: int = 2048) -> list[tuple[str, str, float, str]]:
 if __name__ == "__main__":
     print(f"bounds on one H100 at B=2048 (int8 {PEAK_INT8_OPS:.4g} op/s, "
           f"int32 {PEAK_INT32_OPS:.4g} op/s, {PEAK_BYTES:.4g} B/s)")
-    for kernel, pset, ms, by in table() + further_table():
+    for kernel, pset, ms, by in table() + further_table() + ntt_table():
         print(f"{kernel:45s} {pset:22s} {ms:12.4f} ms ({by})")

@@ -565,3 +565,45 @@ def test_megaS_plan_matches_python(card):
                 pl = megaS.plan(p, B, extended, n_sms)
                 assert megaS.kernel_plan(p, B, name, n_sms) == (
                     pl.units, pl.splits), (name, p.name, B)
+
+
+# the NTT/RNS path (ops/ntt, ops/rns): no hand-written kernel, but its DFT
+# steps' torch._int_mm on the card wants K and the columns multiples of 8
+# and more than 16 rows (N = 16 and 32 pad K from 4 to 8, N = 16 the
+# columns from 12 to 16; a [1, N] row pads the rows to 32)
+@pytest.mark.parametrize("N", [16, 32, 64, 128, 256, 2048, 4096])
+def test_ntt_on_card_equals_cpu(card, N):
+    from herdsman_tpu_torch.ops import rns
+
+    gpu, cpu = rns.make_rns(N, 3, device=card), rns.make_rns(N, 3,
+                                                             device="cpu")
+    rng = np.random.default_rng(N)
+    for shape in ((1,), (5, 7)):
+        a, b = (np.stack([rng.integers(0, p, shape + (N,)).astype(np.uint32)
+                          for p in cpu.primes]) for _ in range(2))
+        spec = rns.ntt_fwd(gpu, a)
+        assert torch.equal(spec.cpu(), rns.ntt_fwd(cpu, a))
+        assert torch.equal(rns.ntt_inv(gpu, spec).cpu(),
+                           torch.from_numpy(a.view(np.int32)))
+        assert torch.equal(rns.polymul(gpu, a, b).cpu(),
+                           rns.polymul(cpu, a, b))
+
+
+def test_rns_key_switch_on_card_equals_cpu(card):
+    from herdsman_tpu_torch.ops import rns
+
+    N = 256
+    gpu, cpu = rns.make_rns(N, 3, device=card), rns.make_rns(N, 3,
+                                                             device="cpu")
+    rng = np.random.default_rng(1)
+    s1, s2 = rng.integers(0, 2, N), rng.integers(0, 2, N)
+    kg = rns.keyswitch_keygen(gpu, s1, s2, np.random.default_rng(2))
+    kc = rns.keyswitch_keygen(cpu, s1, s2, np.random.default_rng(2))
+    assert kg.ksk_a.device == card
+    assert torch.equal(kg.ksk_a.cpu(), kc.ksk_a)
+    assert torch.equal(kg.ksk_b.cpu(), kc.ksk_b)
+    ct = np.stack([np.stack([rng.integers(0, p, (9, N)).astype(np.uint32)
+                             for p in cpu.primes]) for _ in range(2)])
+    for x in (ct, ct[:, :, 0].copy()):
+        assert torch.equal(rns.key_switch(gpu, kg, x).cpu(),
+                           rns.key_switch(cpu, kc, x))

@@ -12,6 +12,8 @@
   ``workers.grpc`` fleet, in a fresh interpreter with every port module
   imported, leaves no module of the JAX package's files in
   ``sys.modules``, and no top-level ``herdsman_pb2``.
+- The port's copy of ``core/numtheory.py`` gives the original's primes,
+  roots and powers.
 - Without a CUDA device, every entry point called with its default device
   raises instead of running on the CPU (the offload worker's module refuses
   to start), and ``chip_smoke.py`` fails without printing a result.
@@ -89,7 +91,9 @@ def test_port_modules_import_without_cryptography_or_yaml():
     "herdsman_tpu_torch.radix", "herdsman_tpu_torch.api",
     "herdsman_tpu_torch.ops.kernels.mega12",
     "herdsman_tpu_torch.ops.kernels.megaT",
-    "herdsman_tpu_torch.ops.kernels.megaJ"])
+    "herdsman_tpu_torch.ops.kernels.megaJ",
+    "herdsman_tpu_torch.core.numtheory", "herdsman_tpu_torch.ops.modmath",
+    "herdsman_tpu_torch.ops.ntt", "herdsman_tpu_torch.ops.rns"])
 def test_integer_tier_imports_alone(module):
     """Each module of the integer tier, imported alone, loads nothing of
     JAX, the JAX package, PyYAML or cryptography."""
@@ -102,6 +106,35 @@ def test_integer_tier_imports_alone(module):
                          env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_numtheory_copy_equals_the_original(N):
+    """The port's copy of ``core/numtheory.py`` gives the original's primes,
+    roots and powers, and its source is the original's but the
+    docstring."""
+    from herdsman_tpu.core import numtheory as jnt
+    from herdsman_tpu_torch.core import numtheory as nt
+
+    assert nt.MAX_DIGIT3 == jnt.MAX_DIGIT3
+    primes = nt.ntt_primes(2 * N, 3, cap=nt.MAX_DIGIT3)
+    assert primes == jnt.ntt_primes(2 * N, 3, cap=jnt.MAX_DIGIT3)
+    assert nt.ntt_primes(2 * N, 2, bits=20) == jnt.ntt_primes(2 * N, 2,
+                                                                bits=20)
+    for p in primes:
+        assert nt.is_prime(p) and jnt.is_prime(p)
+        assert nt.primitive_root(p) == jnt.primitive_root(p)
+        psi = nt.root_of_unity(p, 2 * N)
+        assert psi == jnt.root_of_unity(p, 2 * N)
+        np.testing.assert_array_equal(nt.powers_mod(psi, N, p),
+                                      jnt.powers_mod(psi, N, p))
+    assert [nt.is_prime(k) for k in range(200)] == \
+        [jnt.is_prime(k) for k in range(200)]
+
+    def body(mod):
+        src = pathlib.Path(mod.__file__).read_text()
+        return src[src.index('"""', 3) + 3:]
+    assert body(nt) == body(jnt)
 
 
 @pytest.mark.parametrize("module", [
@@ -382,6 +415,25 @@ def test_integer_tier_defaults_to_card(no_card):
         pbs.pbs_batch(dsk, c, [0, 1], 1)
     with pytest.raises(RuntimeError, match="GPU"):
         pbs.pbs_many_batch(dsk, c, [[0, 1], [1, 0]], 1)
+
+
+def test_ntt_and_rns_default_to_card(no_card):
+    """``make_plan`` and ``make_rns`` with their default device raise
+    without a card; a context on the CPU refuses a tensor on another
+    device rather than moving it."""
+    from herdsman_tpu_torch.ops import ntt, rns
+
+    p = ntt.ntt_primes_for(64, 1)[0]
+    with pytest.raises(RuntimeError, match="GPU"):
+        ntt.make_plan(p, 64)
+    with pytest.raises(RuntimeError, match="GPU"):
+        rns.make_rns(64)
+    ctx = rns.make_rns(64, device="cpu")
+    x = torch.zeros(3, 64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        rns.polymul(ctx, x, x)
+    with pytest.raises(ValueError):
+        ntt.ntt_fwd(ctx.plans[0], x[0])
 
 
 def test_coordinator_defaults_to_card(no_card, tmp_path):
