@@ -49,6 +49,14 @@ Phases, in order; any failure raises and exits non-zero:
    table, the rotation equal to ``mega13``'s, timed in turns with
    ``mega13`` and bt_fused's rotation at B = 2048 and 256, and one step
    split into the expansion, the product and the rest;
+6c. main path S1 and S2, the mesh (``herdsman_tpu_torch.mesh``) with its
+   positions on this card (``devices=[cuda:0, cuda:0, ...]``): path A's
+   batch through ``gate_step_sharded`` on ``mega13`` over (2, 1) (one
+   launch a position), array-equal to path A's output and decrypted, and
+   on ``conv_i8`` over (1, 2) and (2, 2) (the limb positions' int32
+   partial products summed each step), array-equal to phase 6b's; each
+   sub-path of S prints its wall time beside its one-device counterpart's,
+   its launches and its peak memory;
 7. kernel vs plain for the block-Toeplitz kernels (tolerance 0):
    ``bt_external_product`` (unfused and fused) and ``rotate_decompose``
    against their plain PyTorch versions on the card, on step 0 of the
@@ -126,6 +134,9 @@ Phases, in order; any failure raises and exits non-zero:
     ``pallas_mega11``: COMPLETED with no retry, every row decrypted, the
     intermediate frame byte-equal to the first partition of path C's on
     ``pallas_fused``;
+9c'. main path S3: path I's plan over its 512 rows through
+    ``PlanCompiler(mesh=(2, 1))`` on ``mega11``, both positions on this
+    card: the output and intermediate frames equal to path I's;
 9d. main path M, the JAX package's R-major legacy engines at STD128_K2:
     M1, path A's gate batch on ``mega`` and ``mega2`` (both
     ``mega12.cu``'s single window on the ``bsk_btk`` that
@@ -156,6 +167,8 @@ Phases, in order; any failure raises and exits non-zero:
     main path D2, radix: an 8-bit
     multiply (4 blocks of 2 bits) over 256 values on ``mega12``, decrypted
     against (a*b) mod 256, with its rotation widths;
+11'. main path S4: D1 on a ``ShortContext(mesh=(2, 1))`` sharing path
+    D's keys and key tensors, its ciphertexts equal to D1's, decrypted;
 12. times of ``mega12`` per rotation at B=2048 (beside its bound and the
     plain version's time) and at D2's narrow width B=256, each with its
     share of the bound and its tile plan, in turns with ``bt_fused``'s
@@ -280,7 +293,18 @@ Phases, in order; any failure raises and exits non-zero:
     message right and the noise below delta/16, two rows' phases equal to
     the big-int ones; times on CUDA events (``ntt_fwd``, its ``_int_mm``
     products, 6 chained dependent polymuls as polymuls/s, ``key_switch``)
-    beside ``utils/bounds.py``'s bounds, and the path's peak memory.
+    beside ``utils/bounds.py``'s bounds, and the path's peak memory;
+25. main path S5: path R's ``ntt_fwd`` and polymul (N = 4096, L = 3, B =
+    2048) through ``mesh/ntt_sharded`` with the coefficient matrix split
+    over limb axes of 2 and 4 positions of this card, equal to ``ops/rns``'s;
+    main path S6: two ``python -m herdsman_tpu_torch.mesh._dcn_check``
+    processes, four positions each on this card, joined over gloo (NCCL
+    refuses two ranks on one card) with path A's STD128_K2 keys handed over
+    in a file: the sharded gate step and a limb-sum bootstrap on
+    ``conv_i8``, two map + reduce plans, a sharded PBS and ``mega13`` across
+    the process boundary, each process printing ``MULTIPROCESS OK`` and its
+    launches, which S6's counts sum.  One card shows placement and
+    exactness, not the speed of several cards.
 
 TLS is not run here: the GPU machines have no ``cryptography`` to make
 certificates with (the CPU tests run it).
@@ -306,6 +330,7 @@ import multiprocessing
 import os
 import pathlib
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -515,8 +540,11 @@ def main() -> int:
         from herdsman_tpu_torch.core import STD128_K2 as P
         from herdsman_tpu_torch.core import client
         from herdsman_tpu_torch.core import reference as ref
+        from herdsman_tpu_torch import mesh as tmesh
+        from herdsman_tpu_torch.compiler.stages import FrameData, PlanCompiler
+        from herdsman_tpu_torch.mesh import _dcn_check, ntt_sharded
         from herdsman_tpu_torch.ops import bootstrap as bs
-        from herdsman_tpu_torch.ops import gates, pack, pbs, poly, rns
+        from herdsman_tpu_torch.ops import gates, ntt, pack, pbs, poly, rns
         from herdsman_tpu_torch.ops.decomp import signed_decompose
         from herdsman_tpu_torch.ops.kernels import (_build, bt, mega12, mega13,
                                                     megaJ, megaS, megaT)
@@ -841,12 +869,12 @@ def main() -> int:
     rot_conv = bs.blind_rotate_batch(dsk, lin, tp, engine="conv_i8")
     check(torch.equal(rot_conv, outs[B_MAIN]),
           "blind_rotate_batch on conv_i8 != mega13's rotation")
-    del rot_conv, out_conv
+    del rot_conv
     R_c, O_c = (P.k + 1) * P.levels, (P.k + 1) * 4
 
     def conv_rotation(p, acc, a_t_, key):
         """The conv_i8 engine's rotation: n steps of PyTorch ops."""
-        return bs.step_rotation(p, bs._ep_conv_i8, acc, a_t_, key)
+        return bs.step_rotation(p, bs._ep_conv_i8, acc, a_t_, [key])
 
     def conv_expand(w):
         """A step's Toeplitz expansion, K-major: [O*N, R*N], the transpose
@@ -897,6 +925,66 @@ def main() -> int:
           f"{conv_t['product']:.4f} ms; the product's bound "
           f"{conv_bound[0]:.4f} ms ({conv_bound[1]}); bsk_conv "
           f"{dsk.bsk_conv.numel() / 1e6:.1f} MB {card}")
+
+    # 6c. main path S1 and S2: path A's batch on the mesh, its positions on
+    # this card: S1 gate_step_sharded on mega13 over (2, 1) (one launch a
+    # position), S2 on conv_i8 over (1, 2) and (2, 2) (the exact int32 limb
+    # sum of the partial products) ---------------------------------------
+    res_s: dict[str, dict] = {}
+
+    def card_mesh(batch_axis: int, limb_axis: int = 1):
+        """A mesh whose positions all sit on this card."""
+        return tmesh.make_mesh(batch_axis, limb_axis,
+                               devices=[dev] * (batch_axis * limb_axis))
+
+    def path_s(name: str, fn, single_s: float, what: str, counts_of=None):
+        """Path S's sub-path ``name``: ``fn()`` with every count set to 0
+        just before and read just after (by ``counts_of(fn())`` where the
+        launches are another process's), its wall time beside its
+        single-device counterpart's, its launches and its peak memory."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out_, secs = host_s(fn)
+        counts_ = read_counts() if counts_of is None else counts_of(out_)
+        res_s[name] = {"counts": counts_, "s": secs, "single_s": single_s,
+                       "peak": torch.cuda.max_memory_allocated()}
+        beside = ("no one-device time on this line" if single_s is None
+                  else f"beside {single_s:.3f} s on one device")
+        print(f"time: main path {name} ({what}) end to end {secs:.3f} s "
+              f"{beside}; launches "
+              f"{ {k: v for k, v in counts_.items() if v} }; "
+              f"torch.cuda.max_memory_allocated "
+              f"{res_s[name]['peak'] / 2**30:.3f} GiB {card}")
+        return out_
+
+    out_s1 = path_s("S1", lambda: tmesh.gate_step_sharded(
+        dsk, card_mesh(2), batch.gate_ids, batch.c1, batch.c2,
+        engine="mega13"), gate2_s, "gate_step_sharded, mega13, mesh (2, 1)")
+    only(res_s["S1"]["counts"], ("mega13",), "path S1")
+    check(res_s["S1"]["counts"]["mega13"] == 2,
+          f"path S1 launched mega13 {res_s['S1']['counts']['mega13']} "
+          f"times, not once on each of its 2 positions")
+    check(torch.equal(out_s1, out), "path S1's gates != path A's")
+    check(np.array_equal(ref.lwe_decrypt_bool(ck, to_numpy_u32(out_s1)),
+                         expect), "path S1's gates decrypt wrong")
+    for shape in ((1, 2), (2, 2)):
+        name = f"S2_{shape[0]}x{shape[1]}"
+        out_s2 = path_s(name, lambda: tmesh.gate_step_sharded(
+            dsk, card_mesh(*shape), batch.gate_ids, batch.c1, batch.c2,
+            engine="conv_i8"), conv_s, f"gate_step_sharded, conv_i8, mesh "
+            f"{shape}")
+        only(res_s[name]["counts"], (), f"path {name}")
+        check(torch.equal(out_s2, out_conv),
+              f"path {name}'s gates != phase 6b's on conv_i8")
+    del out_s1, out_s2, out_conv
+    print(f"main path S1, S2: path A's {B_MAIN} gates through "
+          f"gate_step_sharded on meshes of positions of one card: mega13 "
+          f"over (2, 1) == path A's output (array equality) and decrypts "
+          f"to the truth table, one launch a position; conv_i8 over (1, 2) "
+          f"and (2, 2) (the limb positions' int32 partial products summed) "
+          f"== phase 6b's conv_i8 output")
 
     # 7. kernel vs plain: the block-Toeplitz kernels, tolerance 0 ----------
     errs = {"bt_external_product": 0, "rotate_decompose": 0}
@@ -1790,6 +1878,36 @@ def main() -> int:
     print(f"memory: path I torch.cuda.max_memory_allocated "
           f"{peak_i / 2**30:.3f} GiB {card}")
 
+    # 9c'. main path S3: path I's job (its 512 rows, its plan) through
+    # PlanCompiler(mesh=(2, 1)) on mega11, both positions on this card: the
+    # frames equal path I's --------------------------------------------------
+    dsk_s3 = device_server_key(sk, layouts=layouts_for_engine("mega11"),
+                               device=dev)
+    rows_s3 = from_numpy_u32(frame_codec.payloads_to_rows(
+        payloads[:rows_i], 16, P), dev)
+    frame_s3 = "00000000-0000-0000-0000-0000000000c3"
+    compiler_s3 = PlanCompiler(dsk_s3, engine="mega11", mesh=card_mesh(2))
+    res_s3 = path_s("S3", lambda: compiler_s3.execute(
+        job_plan(frame_s3), {frame_s3: FrameData(JOB_IN_COLS, rows_s3, 1)}),
+        exe, "path I's plan through PlanCompiler(mesh=(2, 1)), mega11; "
+        "beside path I's runner exec")
+    only(res_s["S3"]["counts"], ("mega11",), "path S3")
+    for label, got_s3, parts in (
+            ("output", res_s3.outputs, res_i["out"]),
+            ("intermediate", {k: v for k, v in res_s3.intermediates.items()
+                              if tuple(v.data.shape[:2]) == (rows_i, 9)},
+             res_i["mid"])):
+        (frame_got,) = got_s3.values()
+        want_s3 = frame_codec.payloads_to_rows(
+            [pl for part in parts for pl in rowcodec.parse_rows(part)], 9, P)
+        check(np.array_equal(to_numpy_u32(frame_got.data), want_s3),
+              f"path S3's {label} frame != path I's")
+    del dsk_s3, compiler_s3, res_s3, rows_s3
+    print(f"main path S3: path I's plan ({rows_i} rows, map + PARALLEL "
+          f"reduce) through PlanCompiler(mesh=(2, 1)) on mega11, the rows "
+          f"split over two positions of this card: the output and "
+          f"intermediate frames == path I's (array equality of every row)")
+
     # 9d. main path M: the JAX package's R-major legacy engines on path A's
     # key. M1: path A's gate batch on mega and mega2 (csrc/mega12.cu's
     # single window, on the bsk_btk that mega12.kmajor_from_bt re-lays from
@@ -2028,6 +2146,26 @@ def main() -> int:
           f"{list(WIDTHS_S)} (array equality, max_abs_err {err13_d}); mega13 "
           f"{m13_d_ms:.3f} ms per rotation at B={B_MAIN}, plain "
           f"{plain13_d_ms:.3f} ms {card}")
+
+    # 11'. main path S4: D1 on ShortContext(mesh=(2, 1)) with path D's keys
+    # and key tensors, both positions on this card ----------------------
+    short_s4 = ShortContext(PS, msg_bits=2, carry_bits=2, keys=keys_d,
+                            dsk=short.dsk, seed=args.seed, mesh=card_mesh(2),
+                            device=dev)
+    a4, b4 = short_s4.encrypt(av), short_s4.encrypt(bv)
+    check(torch.equal(a4.data, a.data) and torch.equal(b4.data, b.data),
+          "path S4's encryptions differ from D1's")
+    r4, dec4 = path_s("S4", lambda: d1(short_s4, a4, b4), d1_s,
+                      "D1 on ShortContext(mesh=(2, 1)), mega12")
+    only(res_s["S4"]["counts"], ("mega12",), "path S4")
+    check(torch.equal(r4.data, r12.data) and dec4 == dec12,
+          "path S4 != D1 on one device")
+    del short_s4, a4, b4, r4
+    print(f"main path S4: D1 ((a*b)+a over {B_MAIN} values, reduced and "
+          f"decrypted) on ShortContext(mesh=(2, 1)) sharing path D's key "
+          f"tensors: every PBS batch split over two positions of this card; "
+          f"the ciphertexts == D1's (array equality), every value decrypts "
+          f"right")
 
     rctx = RadixContext(short, n_blocks=4)
     av2 = vals.integers(0, 256, RADIX_VALUES)
@@ -3130,6 +3268,105 @@ def main() -> int:
           f"the {b_ks[0]:.4f} ms bound, {b_ks[1]}); "
           f"torch.cuda.max_memory_allocated {peak_r / 2**30:.3f} GiB {card}")
 
+    # 25. main path S5: path R's ntt_fwd and polymul (N=4096, L=3, B=2048)
+    # with each limb's coefficient matrix split over limb axes of 2 and 4
+    # positions of this card (mesh/ntt_sharded: two all-to-all exchanges a
+    # transform); S6: two mesh._dcn_check processes on this card ---------
+    gen_s5 = torch.Generator(device=dev)
+    gen_s5.manual_seed(args.seed + 25)
+    a_s5, b_s5 = (torch.stack([
+        torch.randint(0, q, (B_MAIN, N_R), dtype=torch.int32, device=dev,
+                      generator=gen_s5) for q in ctx_r.primes])
+        for _ in range(2))
+    spec_s5 = rns.ntt_fwd(ctx_r, a_s5)
+    prod_s5 = rns.polymul(ctx_r, a_s5, b_s5)
+    # one device's times, CUDA events after a warm call, as the sharded
+    # ones below
+    spec_ms = timed_ms(lambda: rns.ntt_fwd(ctx_r, a_s5), 3)
+    prod_ms = timed_ms(lambda: rns.polymul(ctx_r, a_s5, b_s5), 3)
+    for limb in (2, 4):
+        mesh_s5 = card_mesh(1, limb)
+
+        def spec_fn():
+            return torch.stack([ntt_sharded.ntt_fwd_sharded(pl, mesh_s5, a_j)
+                                for pl, a_j in zip(ctx_r.plans, a_s5)])
+
+        def prod_fn():
+            return torch.stack([ntt_sharded.polymul_sharded(pl, mesh_s5, a_j,
+                                                            b_j)
+                                for pl, a_j, b_j in zip(ctx_r.plans, a_s5,
+                                                        b_s5)])
+
+        spec_m, prod_m = path_s(
+            f"S5_limb{limb}", lambda: (spec_fn(), prod_fn()), None,
+            f"ntt_fwd_sharded and polymul_sharded, N={N_R} L=3 B={B_MAIN}, "
+            f"limb axis {limb}, one cold call; warm times beside one "
+            f"device's follow")
+        only(res_s[f"S5_limb{limb}"]["counts"], (), f"path S5 (limb {limb})")
+        check(torch.equal(spec_m, spec_s5) and torch.equal(prod_m, prod_s5),
+              f"path S5 (limb {limb}): the sharded NTT or polymul != ops/rns")
+        print(f"time: main path S5 (limb axis {limb}) on CUDA events after "
+              f"a warm call: ntt_fwd_sharded {timed_ms(spec_fn, 3):.3f} ms "
+              f"beside ops/rns's ntt_fwd {spec_ms:.3f} ms, polymul_sharded "
+              f"{timed_ms(prod_fn, 3):.3f} ms beside ops/rns's polymul "
+              f"{prod_ms:.3f} ms {card}")
+    del a_s5, b_s5, spec_s5, prod_s5, spec_m, prod_m
+    print(f"main path S5: path R's ntt_fwd and polymul at N={N_R}, "
+          f"L=3, B={B_MAIN} with the [64, 64] coefficient matrix split over "
+          f"limb axes of 2 and 4 positions of this card == ops/rns's "
+          f"(array equality)")
+
+    def dcn_processes():
+        """Two _dcn_check processes, four positions each on this card,
+        joined over gloo (NCCL refuses two ranks on one card), on path A's
+        STD128_K2 keys from a file (no keygen in the children)."""
+        with tempfile.TemporaryDirectory() as keydir:
+            key_file = os.path.join(keydir, "keys.npz")
+            _dcn_check.save_keys(key_file, ck, sk)
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "herdsman_tpu_torch.mesh._dcn_check",
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                 "2", "--process-id", str(i), "--local-devices", "4",
+                 "--device", "cuda", "--backend", "gloo", "--key", key_file],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                    [here, *filter(None, [os.environ.get("PYTHONPATH")])])})
+                for i in range(2)]
+            try:
+                return [p.communicate(timeout=300)[0] for p in procs], procs
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+
+    def dcn_counts(result) -> dict[str, int]:
+        """Both processes' launches on the mesh path, summed: each ends its
+        MULTIPROCESS OK line in counts= and a JSON object of its own."""
+        check(read_counts() == dict.fromkeys(counters, 0),
+              f"path S6: this process launched {read_counts()}")
+        outs, procs = result
+        total = dict.fromkeys(counters, 0)
+        for i, (p_s6, out_s6) in enumerate(zip(procs, outs)):
+            ok = [line for line in out_s6.splitlines()
+                  if line.startswith(f"MULTIPROCESS OK: process {i}/2")]
+            check(p_s6.returncode == 0 and len(ok) == 1,
+                  f"path S6: process {i} exited {p_s6.returncode}:\n"
+                  f"{out_s6[-3000:]}")
+            print(f"main path S6: process {i}: {ok[0]}")
+            for k, v in json.loads(ok[0].split(" counts=", 1)[1]).items():
+                total[k] += v
+        return total
+
+    path_s("S6", dcn_processes, None, "two mesh._dcn_check processes on "
+           "this card over gloo, 4 positions each, STD128_K2 keys from a "
+           "file; launches summed from both processes' counts=",
+           counts_of=dcn_counts)
+    only(res_s["S6"]["counts"], ("mega13",), "path S6")
+
     # 17-18. result lines ---------------------------------------------------
     by_path = {"A_gate_batch": counts_a, "B_adder_job": counts_b,
                "C_job_pallas_bt": c_bt, "C_job_pallas_fused": c_fused,
@@ -3168,7 +3405,8 @@ def main() -> int:
                "P_job_pallas_mega11_traced": res_p["counts"],
                "Q_job_grpc_front_end_pallas_fused": counts_q,
                "Q2_job_grpc_fleet_mega13": res_q2["counts"],
-               "R_rns_ntt": counts_r}
+               "R_rns_ntt": counts_r,
+               **{f"{name}_mesh": r["counts"] for name, r in res_s.items()}}
 
     def launches(name):
         per = {path: c[name] for path, c in by_path.items()}

@@ -18,6 +18,7 @@ from typing import Callable, Sequence
 import torch
 
 from herdsman_tpu_torch.circuit.model import BOOTSTRAP_GATES, Circuit, GateOp
+from herdsman_tpu_torch.mesh import sharding
 from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates as gate_ops
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey
@@ -79,14 +80,24 @@ def circuit_cost(circuit: Circuit) -> dict:
 
 def compile_circuit(circuit: Circuit, dsk: DeviceServerKey,
                     engine: str = "mega13",
-                    device: str | torch.device = "cuda"
+                    device: str | torch.device = "cuda",
+                    mesh: sharding.Mesh | None = None
                     ) -> Callable[[object], torch.Tensor]:
     """Returns fn: inputs [rows, num_input_bits, n+1] -> outputs [rows,
     num_output_bits, n+1] int32 carrier on ``device`` (output columns' bits
     concatenated in declaration order, LSB-first).  The levels are planned
     once here; each call runs one gate batch (and one mux batch where the
-    level has MUX gates) per level."""
+    level has MUX gates) per level.
+
+    With a ``mesh`` (``dsk`` a ``DeviceServerKey`` or its
+    ``mesh.sharding.shard_server_key``), the rows are padded with copies
+    of row 0 to a multiple of the batch axis and split over it (a
+    reduce fold's tail shrinks below the axis); each batch position runs
+    the levels on its share, over its line's limb positions, and the
+    output comes back to ``device``, cut to the rows given."""
     circuit.validate()
+    if mesh is not None:
+        return _compile_on_mesh(circuit, dsk, engine, device, mesh)
     dev = dsk.check_device(resolve_device(device))
     p = dsk.params
     n_in = circuit.num_input_bits
@@ -142,6 +153,25 @@ def compile_circuit(circuit: Circuit, dsk: DeviceServerKey,
                     engine=engine, device=dev))
             sweep_linear()
         return torch.stack([wires[w] for w in out_wires], dim=1)
+
+    return run
+
+
+def _compile_on_mesh(circuit: Circuit, dsk, engine: str,
+                     device: str | torch.device, mesh: sharding.Mesh
+                     ) -> Callable[[object], torch.Tensor]:
+    sk = sharding.as_sharded(dsk, mesh)
+    dev = sk.source.check_device(resolve_device(device))
+    sharding.check_engine(engine, mesh.shape["limb"])
+    positions = sharding.batch_positions(mesh)
+    lines = {b: sk.line(b) for b, _ in positions if mesh.is_local(b)}
+    runs = {b: compile_circuit(circuit, key, engine=engine,
+                               device=key.device)
+            for b, key in lines.items()}
+
+    def run(inputs) -> torch.Tensor:
+        return sharding.map_shards(mesh, positions, to_device(inputs, dev),
+                                   lambda pos, rows: runs[pos[0]](rows), dev)
 
     return run
 

@@ -38,6 +38,7 @@ from herdsman_tpu_torch.circuit.plan import (
 from herdsman_tpu_torch.compiler.lower import circuit_cost, compile_circuit
 from herdsman_tpu_torch.compiler.optimizer import optimize_circuit
 from herdsman_tpu_torch.compiler.reduce_tree import build_reduce_tree
+from herdsman_tpu_torch.mesh.sharding import Mesh, shard_server_key
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey
 
 
@@ -93,10 +94,13 @@ class PlanCompiler:
     """Compiles and executes ExecutionPlans against a device server key."""
 
     def __init__(self, dsk: DeviceServerKey, engine: str = "mega13",
-                 optimize: bool = True):
+                 optimize: bool = True, mesh: Mesh | None = None):
         self.dsk = dsk
         self.engine = engine
         self.optimize = optimize
+        # shard plan rows over the mesh's batch axis (the key placed once)
+        self.mesh = mesh
+        self._key = dsk if mesh is None else shard_server_key(dsk, mesh)
         # circuit (STRUCTURAL key: Circuit is a frozen dataclass, equal
         # circuits hash equal) -> (planned fn, circuit actually compiled),
         # so a plan deserialized from the wire reuses the levels planned
@@ -111,8 +115,8 @@ class PlanCompiler:
                 lowered = (optimize_circuit(circuit) if self.optimize
                            else circuit)
                 self._circuit_cache[key] = (
-                    compile_circuit(lowered, self.dsk, engine=self.engine,
-                                    device=self.dsk.device),
+                    compile_circuit(lowered, self._key, engine=self.engine,
+                                    device=self.dsk.device, mesh=self.mesh),
                     lowered,
                 )
             return self._circuit_cache[key]

@@ -56,6 +56,7 @@ All tensors are the int32 carrier of ``ops.u32``.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
@@ -156,6 +157,12 @@ ENGINES: dict[str, tuple[Callable, str]] = {
     "gather_u32": (_ep_gather_u32, "bsk_ext"),
 }
 
+# the per-step product engines whose partial products over a share of the
+# key's GGSW rows sum to the step's product (``step_rotation``): a mesh's
+# limb axis serves these.  ``bt``'s kernel contracts all R rows of a step
+# (``ops/kernels/bt.py``), so it runs on a batch axis only.
+LIMB_ENGINES = ("conv_i8", "gather_u32")
+
 # engine name -> (fn(params, acc, a_i, bsk_i), key layout it reads): one
 # call runs a whole CMux step
 STEP_ENGINES: dict[str, tuple[Callable, str]] = {
@@ -222,7 +229,10 @@ def blind_rotate_batch(dsk: DeviceServerKey, ct: torch.Tensor,
                        coarse_bits: int = 0) -> torch.Tensor:
     """GINX blind rotation of a batch: ct [B, n+1] -> acc [B, k+1, N]."""
     p = dsk.params
-    B = ct.shape[0]
+    if dsk.limb_shards is not None and engine not in LIMB_ENGINES:
+        raise ValueError(f"engine {engine!r} runs the whole key on one "
+                         f"device; a key split over a limb axis serves "
+                         f"{LIMB_ENGINES}")
     acc0, a_t = rotation_inputs(p, ct, test_poly, coarse_bits)
     if engine in ROTATION_ENGINES:
         rot_fn, layout = ROTATION_ENGINES[engine]
@@ -237,21 +247,50 @@ def blind_rotate_batch(dsk: DeviceServerKey, ct: torch.Tensor,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     ep, layout = ENGINES[engine]
-    return step_rotation(p, ep, acc0, a_t, _key(dsk, layout, engine))
+    return step_rotation(p, ep, acc0, a_t, [
+        _key(k, layout, engine) for k in dsk.limb_shards or (dsk,)])
+
+
+def step_digits(p: TFHEParams, acc: torch.Tensor,
+                a_i: torch.Tensor) -> torch.Tensor:
+    """The signed digits of X^{a_i} acc - acc: [B, k+1, N] -> [B, R, N],
+    row (j, level) of GLWE component j."""
+    rot = poly.negacyclic_monomial_mul(acc, a_i[:, None])
+    digits = signed_decompose(rot - acc, p.bg_bits, p.levels)
+    return digits.permute(0, 1, 3, 2).reshape(acc.shape[0],
+                                              (p.k + 1) * p.levels, p.N)
 
 
 def step_rotation(p: TFHEParams, ep: Callable, acc: torch.Tensor,
-                  a_t: torch.Tensor, bsk: torch.Tensor) -> torch.Tensor:
+                  a_t: torch.Tensor, shards: list[torch.Tensor]
+                  ) -> torch.Tensor:
     """The n CMux steps of a per-step product engine ``ep`` of ``ENGINES``
     from acc0 [B, k+1, N] and a_t [n, B]: rotate, subtract and decompose in
-    PyTorch, then ``ep``'s external product against step i of ``bsk``."""
-    B, R = acc.shape[0], (p.k + 1) * p.levels
+    PyTorch, then ``ep``'s external product against step i of the key.
+
+    ``shards`` is the key, ``[bsk]``, or its R GGSW rows split over the limb
+    positions of a mesh line: ``shards[j]`` [n, R_j, ...] holds the next R_j
+    rows on its position's device.  Every step, each shard gives the partial
+    product of its rows of the digits, and the partials are summed exactly
+    (int32 adds, which wrap mod 2^32) onto each device of the line.  Each
+    distinct device holds its own copy of the accumulator, so positions that
+    share a device share one."""
+    devices = list(dict.fromkeys(s.device for s in shards))
+    accs = [acc.to(d) for d in devices]
+    a_ts = [a_t.to(d) for d in devices]
+    home = [devices.index(s.device) for s in shards]
+    ends = list(itertools.accumulate(s.shape[1] for s in shards))
+    rows = [slice(r1 - s.shape[1], r1) for r1, s in zip(ends, shards)]
     for i in range(p.n):
-        rot = poly.negacyclic_monomial_mul(acc, a_t[i][:, None])
-        digits = signed_decompose(rot - acc, p.bg_bits, p.levels)
-        digits = digits.permute(0, 1, 3, 2).reshape(B, R, p.N)
-        acc = acc + ep(p, digits, bsk[i])
-    return acc
+        digits = [step_digits(p, x, a[i]) for x, a in zip(accs, a_ts)]
+        parts = [ep(p, digits[h][:, r], s[i])
+                 for h, r, s in zip(home, rows, shards)]
+        for j, d in enumerate(devices):
+            total = parts[0].to(d)
+            for q in parts[1:]:
+                total = total + q.to(d)
+            accs[j] = accs[j] + total
+    return accs[devices.index(acc.device)]
 
 
 def _key(dsk: DeviceServerKey, layout: str, engine: str) -> torch.Tensor:

@@ -76,8 +76,9 @@ def decode(params: TFHEParams, phase: np.ndarray, msg_bits: int) -> np.ndarray:
         np.int64) % (1 << msg_bits)
 
 
-def _pbs(dsk: DeviceServerKey, ct: torch.Tensor, tv: torch.Tensor,
-         engine: str, k: int) -> torch.Tensor:
+def rotate_extract_switch(dsk: DeviceServerKey, ct: torch.Tensor,
+                          tv: torch.Tensor, engine: str,
+                          k: int) -> torch.Tensor:
     """k interleaved LUTs from one rotation: rotate, extract coefficients
     0..k-1, one key switch over the k extracts: [B, n+1] -> [k*B, n+1]."""
     acc = bs.blind_rotate_batch(dsk, ct, tv, engine=engine,
@@ -96,7 +97,7 @@ def pbs_batch(dsk: DeviceServerKey, ct, table, msg_bits: int,
     which must be the key's."""
     dev = dsk.check_device(resolve_device(device))
     tv = lut_test_poly(dsk.params, table, msg_bits, device=dev)
-    return _pbs(dsk, to_device(ct, dev), tv, engine, 1)
+    return rotate_extract_switch(dsk, to_device(ct, dev), tv, engine, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -161,4 +162,4 @@ def pbs_many_batch(dsk: DeviceServerKey, ct, tables, msg_bits: int,
     dev = dsk.check_device(resolve_device(device))
     tv = lut_test_poly_many(dsk.params, tables, msg_bits, device=dev)
     ct = to_device(ct, dev)
-    return list(_pbs(dsk, ct, tv, engine, k).chunk(k))
+    return list(rotate_extract_switch(dsk, ct, tv, engine, k).chunk(k))

@@ -178,6 +178,10 @@ LAYOUTS = ("bsk", "bsk_btS", "bsk_ext", "bsk_bt", "bsk_btj", "bsk_btjj",
            "bsk_btTc", "bsk_btTe", "bsk_conv")
 DEFAULT_LAYOUTS = ("bsk_btS",)  # the mega13 kernel and its plain version
 
+# the layouts whose axis 1 is the GGSW row axis, split over a mesh's limb
+# axis (``mesh.sharding.shard_server_key``); every other one is replicated
+ROW_SHARDED = ("bsk_ext", "bsk_conv", "bsk_bt")
+
 # the layout each engine of ops.bootstrap reads
 ENGINE_LAYOUTS = {"mega13": "bsk_btS", "mega12": "bsk_btk", "bt": "bsk_bt",
                   "bt_fused": "bsk_bt", "gather_u32": "bsk_ext",
@@ -211,6 +215,12 @@ class DeviceServerKey:
     bsk_btTc: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
     bsk_btTe: torch.Tensor | None = None  # int8 [n, k+1, k+1, 4, row_bytes]
     bsk_conv: torch.Tensor | None = None  # int8 [n, R, (k+1)*4, 2N-1]
+    # set on the key of a mesh line whose limb axis splits the GGSW rows
+    # (``mesh.sharding``): the keys of the line's positions, each holding
+    # its share of the rows of ``ROW_SHARDED`` on its device; a per-step
+    # product engine then sums their partial products
+    # (``bootstrap.step_rotation``)
+    limb_shards: tuple["DeviceServerKey", ...] | None = None
 
     @property
     def R(self) -> int:

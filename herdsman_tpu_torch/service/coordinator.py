@@ -21,9 +21,9 @@ card.  With ``logging.profile_dir`` every job writes a ``torch.profiler``
 trace (``utils/tracing.py``).  ``service/api_server.py`` serves this
 facade over gRPC.
 
-What the JAX coordinator does beyond that is not ported yet, and raises
-``NotImplementedError`` naming the ROADMAP item that ports it, rather than
-quietly doing less: a mesh of more than one device.
+A ``workers.mesh`` of more than one device (``batch_axis``,
+``limb_axis``) runs each job's plans on a ``mesh.sharding`` mesh, the
+session's key placed on it once (``PlanCompiler(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from herdsman_tpu_torch.compiler.stages import partition_sizes
 from herdsman_tpu_torch.core import PARAM_SETS, noise
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.core.reference import ServerKey
+from herdsman_tpu_torch.mesh.sharding import Mesh, check_engine, make_mesh
 from herdsman_tpu_torch.ops import pack
 from herdsman_tpu_torch.ops.server_key import (
     device_server_key,
@@ -74,12 +75,6 @@ from herdsman_tpu_torch.service.storage import DataFrameEntry, StorageService
 from herdsman_tpu_torch.utils import rowcodec, tracing
 
 log = logging.getLogger("herdsman")
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to herdsman_tpu_torch yet ({item}); the JAX "
-        f"package's herdsman_tpu.service.coordinator serves it")
 
 
 def serialize_server_key(sk: ServerKey) -> bytes:
@@ -146,11 +141,13 @@ class Coordinator:
         ``device`` is resolved here, on the constructing thread (CUDA is
         initialised here, not on an executor thread), and raises without a
         card unless it is ``"cpu"``."""
-        self._check_config(config)
         self.config = config
         level = getattr(logging, config.logging.level.upper(), logging.INFO)
         logging.basicConfig(level=level)
         self.device = resolve_device(device)
+        mw = config.mesh_workers
+        self._engine = port_engine(engine or (mw.engine if mw else "bt"))
+        self.mesh = self._mesh()
         self.auth = AuthService(config.security.secret_key,
                                 config.security.token_lifetime)
         storage_dir = pathlib.Path(config.server.storage_directory)
@@ -160,13 +157,11 @@ class Coordinator:
         self.storage = StorageService(
             config.server.storage_directory,
             catalog_backend=config.server.catalog_backend)
-        mw = config.mesh_workers
         self.execution = ExecutionService(
             self.keys, self.storage,
             journal_path=str(storage_dir / "jobs.jsonl"),
             concurrent_workers=mw.concurrent_jobs if mw else 1,
         )
-        self._engine = port_engine(engine or (mw.engine if mw else "bt"))
         # session -> (resolved engine name, DeviceServerKey)
         self._session_dsk: dict[str, tuple[str, object]] = {}
         # session -> StorageJobRunner: reused ACROSS jobs so the
@@ -185,14 +180,18 @@ class Coordinator:
         self._offload_group_lock = threading.Lock()
         self.execution.set_runner(self._run_job)
 
-    @staticmethod
-    def _check_config(config: Config) -> None:
-        """Refuse what the port cannot serve yet, before anything starts."""
-        mw = config.mesh_workers
-        if mw is not None:
-            if mw.batch_axis * mw.limb_axis > 1:
-                raise _unported("a workers.mesh of more than one device",
-                                "ROADMAP queue 1, item 12")
+    def _mesh(self) -> Mesh | None:
+        """The device mesh of ``workers.mesh`` (batch_axis * limb_axis > 1
+        splits plan rows over the batch axis, and the GGSW rows over the
+        limb axis); None for one device.  On CUDA over the visible cards
+        (``make_mesh`` raises when there are fewer), on the CPU over CPU
+        positions.  A limb axis on an engine that shards over batch only
+        is refused here, before anything starts."""
+        mw = self.config.mesh_workers
+        if mw is None or mw.batch_axis * mw.limb_axis <= 1:
+            return None
+        check_engine(self._engine, mw.limb_axis)
+        return make_mesh(mw.batch_axis, mw.limb_axis, device=self.device)
 
     # ---- auth (reference src/controller/auth_controller.cpp) ----
 
@@ -567,7 +566,7 @@ class Coordinator:
                         "row frames", margin, dsk.params.name)
                     pk = None
         runner = StorageJobRunner(
-            self.storage, dsk, engine=engine, packing_key=pk,
+            self.storage, dsk, engine=engine, mesh=self.mesh, packing_key=pk,
             glwe_frames=bool(mw is not None and mw.glwe_frames),
             glwe_outputs=bool(mw is not None and mw.glwe_outputs))
         # concurrent executor slots may race here; last writer wins and the

@@ -96,7 +96,7 @@ def pack_frame_partitions_inplace(storage: StorageService,
 
 class StorageJobRunner:
     def __init__(self, storage: StorageService, dsk: DeviceServerKey,
-                 engine: str = "mega13", packing_key=None,
+                 engine: str = "mega13", mesh=None, packing_key=None,
                  glwe_frames: bool = True, glwe_outputs: bool = False):
         """``packing_key`` (the session's ``core.reference.PackingKey``)
         enables GLWE-domain intermediate frames: mapper and reduce outputs
@@ -107,10 +107,11 @@ class StorageJobRunner:
         row format unless ``glwe_outputs`` is set, which stores them packed
         too (clients then download them with
         ``download_data_frame_packed``; the noise added is the packing
-        keyswitch a packed download applies anyway)."""
+        keyswitch a packed download applies anyway).  ``mesh`` splits
+        the plans' rows over its batch axis (``PlanCompiler``)."""
         self._storage = storage
         self._dsk = dsk
-        self._compiler = PlanCompiler(dsk, engine=engine)
+        self._compiler = PlanCompiler(dsk, engine=engine, mesh=mesh)
         self._glwe_frames = glwe_frames    # pack intermediate frames
         self._glwe_outputs = glwe_outputs  # pack output frames too
         self._pkc = None

@@ -26,6 +26,9 @@ import torch
 
 from herdsman_tpu_torch.core import reference as ref
 from herdsman_tpu_torch.core.params import TFHEParams
+from herdsman_tpu_torch.mesh.sharding import (pbs_batch_sharded,
+                                              pbs_many_batch_sharded,
+                                              shard_server_key)
 from herdsman_tpu_torch.ops import pbs
 from herdsman_tpu_torch.ops.server_key import (DeviceServerKey,
                                                device_server_key, fit_engine,
@@ -46,10 +49,6 @@ class ShortContext:
                 "noise budget does not support shortint slot encodings "
                 "(hardware-measured decrypt failure, docs/BENCH_LOG.md "
                 "round 4); use std128_shortint instead")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a multi-device mesh is not ported yet (ROADMAP queue 1, "
-                "item 12): the port's integer tier runs on one device")
         self.device = resolve_device(device)
         self.params = params
         self.msg_bits = msg_bits
@@ -94,6 +93,12 @@ class ShortContext:
             self.dsk = device_server_key(
                 self.sk, layouts=layouts_for_engine(engine),
                 device=self.device)
+        # every PBS batch split over all positions of the mesh
+        # (mesh.pbs_batch_sharded), bit-identical to one device; the whole
+        # shortint and radix front end rides it.  The key is placed once.
+        self.mesh = mesh
+        self._mesh_key = (None if mesh is None
+                          else shard_server_key(self.dsk, mesh))
 
     @property
     def modulus(self) -> int:
@@ -132,6 +137,9 @@ class ShortContext:
 
     def _pbs(self, data: torch.Tensor, table) -> torch.Tensor:
         self.rotations += int(data.shape[0])
+        if self.mesh is not None:
+            return pbs_batch_sharded(self._mesh_key, self.mesh, data, table,
+                                     self.space_bits, engine=self.engine)
         return pbs.pbs_batch(self.dsk, data, table, self.space_bits,
                              engine=self.engine, device=self.device)
 
@@ -142,6 +150,10 @@ class ShortContext:
         if (self.many_lut and k > 1 and k & (k - 1) == 0
                 and k <= pbs.many_lut_capacity(self.params, self.space_bits)):
             self.rotations += int(data.shape[0])
+            if self.mesh is not None:
+                return pbs_many_batch_sharded(
+                    self._mesh_key, self.mesh, data, tables,
+                    self.space_bits, engine=self.engine)
             return pbs.pbs_many_batch(self.dsk, data, tables,
                                       self.space_bits, engine=self.engine,
                                       device=self.device)

@@ -607,3 +607,48 @@ def test_rns_key_switch_on_card_equals_cpu(card):
     for x in (ct, ct[:, :, 0].copy()):
         assert torch.equal(rns.key_switch(gpu, kg, x).cpu(),
                            rns.key_switch(cpu, kc, x))
+
+
+# the mesh (mesh/sharding, mesh/ntt_sharded) with its positions on one card
+# (devices=[cuda:0, ...]): the same kernels launched once a position, equal
+# to one device's outputs
+@pytest.mark.parametrize("shape, engine", [
+    ((2, 1), "mega13"), ((2, 1), "bt_fused"), ((1, 2), "conv_i8"),
+    ((2, 2), "conv_i8"), ((2, 2), "gather_u32")])
+def test_mesh_on_one_card_equals_one_device(card, shape, engine):
+    from herdsman_tpu_torch import mesh
+    from herdsman_tpu_torch.ops.server_key import layouts_for_engine
+
+    params = KERNEL_SETS[1]   # k=2, N=256, bg=2^8, l=2: R = 6 rows
+    rng = np.random.default_rng(3)
+    ck, sk = ref.keygen(params, rng)
+    dsk = device_server_key(sk, layouts=layouts_for_engine(engine),
+                            device=card)
+    bits = rng.integers(0, 2, 37).astype(bool)   # not a multiple of 2
+    ct = ref.encrypt_bool(ck, bits, rng)
+    m = mesh.make_mesh(*shape, devices=[card] * (shape[0] * shape[1]))
+    one = bs.bootstrap_bool_batch(dsk, ct, engine=engine, device=card)
+    sharded = mesh.bootstrap_bool_sharded(mesh.shard_server_key(dsk, m), m,
+                                          ct, engine=engine)
+    assert sharded.device == card and torch.equal(sharded, one)
+    assert (ref.lwe_decrypt_bool(ck, to_numpy_u32(sharded)) == bits).all()
+
+
+def test_ntt_sharded_on_one_card_equals_ntt(card):
+    from herdsman_tpu_torch import mesh
+    from herdsman_tpu_torch.mesh import ntt_sharded
+    from herdsman_tpu_torch.ops import ntt
+
+    N = 4096
+    p = ntt.ntt_primes_for(N, 1)[0]
+    plan = ntt.make_plan(p, N, device=card)
+    rng = np.random.default_rng(4)
+    x, y = (from_numpy_u32(rng.integers(0, p, (3, 64, N)).astype(np.uint32),
+                           card) for _ in range(2))
+    for limb in (2, 4):
+        m = mesh.make_mesh(1, limb, devices=[card] * limb)
+        spec = ntt_sharded.ntt_fwd_sharded(plan, m, x)
+        assert torch.equal(spec, ntt.ntt_fwd(plan, x))
+        assert torch.equal(ntt_sharded.ntt_inv_sharded(plan, m, spec), x)
+        assert torch.equal(ntt_sharded.polymul_sharded(plan, m, x, y),
+                           ntt.negacyclic_polymul_ntt(plan, x, y))

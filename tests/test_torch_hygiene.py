@@ -93,10 +93,13 @@ def test_port_modules_import_without_cryptography_or_yaml():
     "herdsman_tpu_torch.ops.kernels.megaT",
     "herdsman_tpu_torch.ops.kernels.megaJ",
     "herdsman_tpu_torch.core.numtheory", "herdsman_tpu_torch.ops.modmath",
-    "herdsman_tpu_torch.ops.ntt", "herdsman_tpu_torch.ops.rns"])
+    "herdsman_tpu_torch.ops.ntt", "herdsman_tpu_torch.ops.rns",
+    "herdsman_tpu_torch.mesh", "herdsman_tpu_torch.mesh.sharding",
+    "herdsman_tpu_torch.mesh.ntt_sharded",
+    "herdsman_tpu_torch.mesh.distributed"])
 def test_integer_tier_imports_alone(module):
-    """Each module of the integer tier, imported alone, loads nothing of
-    JAX, the JAX package, PyYAML or cryptography."""
+    """Each module of the integer tier and of the mesh, imported alone,
+    loads nothing of JAX, the JAX package, PyYAML or cryptography."""
     code = (
         f"import importlib, sys; importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -6,8 +6,7 @@ A map -> reduce plan (tests/test_e2e.py's) runs through the JAX
 uploaded frames and plan JSON: the output and intermediate partitions are
 byte-identical and decrypt to the plaintext oracle.  Also here: the other
 reduce policies, plan JSON, job listing, catalogued intermediate frames,
-upload cleanup, the options the port refuses and the GLWE, seeded and
-compressed-key options it serves, config engine names, and the
+upload cleanup, the GLWE, seeded and compressed-key options it serves, config engine names, and the
 pure-Python PASETO v2.local against the JAX package's and RFC 8439.
 """
 
@@ -258,22 +257,6 @@ def test_aborted_and_overrun_uploads_leave_no_frame(inputs, tmp_path):
         assert names == ["in"]
     finally:
         coord.shutdown()
-
-
-# option -> (config, the ROADMAP queue 1 item that ports it)
-UNPORTED_CONFIGS = {
-    "mesh_batch_axis": ({"mesh_workers": MeshWorkersConfig(batch_axis=2)},
-                        12),
-    "mesh_limb_axis": ({"mesh_workers": MeshWorkersConfig(limb_axis=2)}, 12),
-}
-
-
-@pytest.mark.parametrize("option", sorted(UNPORTED_CONFIGS))
-def test_unported_config_options_raise(tmp_path, option):
-    cfg, item = UNPORTED_CONFIGS[option]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, item {item}\\)"):
-        port_coordinator(tmp_path, **cfg)
 
 
 @pytest.mark.parametrize("flag", ["glwe_frames", "glwe_outputs",

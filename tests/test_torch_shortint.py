@@ -14,6 +14,7 @@ from herdsman_tpu.core import TEST_PBS
 from herdsman_tpu.core import reference as jref
 from herdsman_tpu_torch import shortint as tshort
 from herdsman_tpu_torch.core import PARAM_SETS
+from herdsman_tpu_torch.mesh import make_mesh
 from herdsman_tpu_torch.ops.u32 import to_numpy_u32
 
 
@@ -101,10 +102,12 @@ def test_mul_and_mixed_expression_equal_jax(pair):
 def test_bool_only_and_mesh_refused(pair):
     with pytest.raises(ValueError, match="bool-gate-only"):
         tshort.ShortContext(PARAM_SETS["std128_shortint_fast"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tshort.ShortContext(PARAM_SETS["test_pbs"], mesh=object(),
-                            device="cpu")
     _, t = pair
+    # a mesh is accepted: the context places its key on it once
+    mesh = make_mesh(2, device="cpu")
+    short = tshort.ShortContext(t.params, keys=(t.ck, t.sk), dsk=t.dsk,
+                                mesh=mesh, device="cpu")
+    assert short.mesh is mesh and short._mesh_key.source is t.dsk
     with pytest.raises(ValueError):  # a key on another device
         tshort.ShortContext(t.params, keys=(t.ck, t.sk), dsk=t.dsk,
                             device="meta")
