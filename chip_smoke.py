@@ -26,8 +26,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name, the
    versions of grpc and protobuf;
-2. build: every kernel under ``herdsman_tpu_torch/csrc/``, one nvcc each,
-   all at once;
+2. build: every source under ``herdsman_tpu_torch/csrc/``, all at once, one
+   compiler each: the kernels (``.cu``) with nvcc, the upload's row
+   splitter ``rowcodec.cpp`` with the host compiler (the ``build:`` line
+   lists ``rowcodec``);
 3. kernel vs plain: the blind-rotation kernel (mega13, on the stream key
    ``bsk_btS``) against its plain PyTorch version on the card, by array
    equality, on the rotation inputs of main path A's gate batch at every
@@ -81,6 +83,11 @@ Phases, in order; any failure raises and exits non-zero:
 8b. the map circuit as submitted (the plan compiler runs the optimized
    one) evaluated in one batch on ``bt_fused`` over the same rows: the
    frame an offload worker must write (paths O, O');
+8c. the upload's row splitter, the native ``csrc/rowcodec.cpp`` that every
+   upload of paths C, I, M2, N, O, Q and Q' goes through: path C's 2048
+   rows into 4 partitions in chunks of whole rows up to 64 KiB, timed in
+   turns with its plain Python version (native, plain, plain, native), the
+   partition files byte-equal;
 9. times of the block-Toeplitz kernels per step at B=2048 (with bound,
    plain and library times), fused at path C's narrow widths B=288 and 9
    and unfused at STD128's geometry (each with its share of the bound and
@@ -254,6 +261,14 @@ Phases, in order; any failure raises and exits non-zero:
     ``mega13`` alone, the frame is byte-equal to that partition of phase
     8b's and decrypts; the worker is stopped at the end, also when a check
     fails;
+20b. a fresh worker process's cold start: ``python -m
+    herdsman_tpu_torch.utils.probe_coldstart`` on the key file that the
+    coordinator of path O' wrote, a fresh interpreter each on ``mega13``
+    and on ``bt`` over 512 rows: import, CUDA context, the key's read,
+    deserialization, device layouts and ``compile_circuit``, the first
+    call split into library loads, the first rotation (host and CUDA
+    events), the first key switch's ``torch._int_mm`` and the rest, and a
+    second call;
 21. main path P, a traced job: path I's job (512 rows, ``pallas_mega11``)
     on a coordinator with ``logging.profile_dir``: exactly one trace under
     ``<profile_dir>/<job_uuid>/``, which parses and holds CUDA kernel
@@ -336,6 +351,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -1267,6 +1283,54 @@ def main() -> int:
           f"{sum(map(len, runs['pallas_fused']['mid']))} and "
           f"{sum(map(len, runs['pallas_fused']['out']))} bytes of rows "
           f"{card}")
+
+    # 8c. the upload's row splitter: the native csrc/rowcodec.cpp, which
+    # every upload of paths C, I, M2, N, O, Q and Q' goes through, in turns
+    # with its plain Python version on path C's rows --------------------------
+    split_rows_chunk = max(1, (1 << 16) // (len(payloads[0]) + 4))
+    split_chunks = [rowcodec.frame_rows(payloads[i:i + split_rows_chunk])
+                    for i in range(0, JOB_ROWS, split_rows_chunk)]
+    split_caps = partition_sizes(JOB_ROWS, JOB_PARTITIONS)
+
+    def split_upload(split):
+        """(seconds, partition files) of path C's rows through ``split``
+        into fresh partition files."""
+        with tempfile.TemporaryDirectory() as split_dir:
+            frame_dir = pathlib.Path(split_dir)
+            state = types.SimpleNamespace(current_partition=0,
+                                          rows_stored_in_partition=0)
+            t0 = time.perf_counter()
+            for chunk in split_chunks:
+                split(chunk, frame_dir, state, split_caps.__getitem__,
+                      JOB_PARTITIONS)
+            secs = time.perf_counter() - t0
+            return secs, [(frame_dir / str(i)).read_bytes()
+                          for i in range(JOB_PARTITIONS)]
+
+    split_s: dict[str, list[float]] = {"native": [], "plain": []}
+    split_files = {}
+    for name in ("native", "plain", "plain", "native"):
+        secs, files = split_upload(rowcodec.split_rows if name == "native"
+                                   else rowcodec.split_rows_plain)
+        split_s[name].append(secs)
+        split_files.setdefault(name, files)
+    upload_bytes = sum(map(len, split_chunks))
+    check(split_files["native"] == split_files["plain"]
+          and b"".join(split_files["native"]) == b"".join(split_chunks),
+          "the native row splitter's partition files differ from the plain "
+          "version's")
+    print(f"time: upload row splitter on path C's {JOB_ROWS} rows of "
+          f"{len(payloads[0])} bytes into {JOB_PARTITIONS} partitions "
+          f"({len(split_chunks)} chunks of {split_rows_chunk} rows, "
+          f"{upload_bytes / 2**20:.1f} MiB, timed in turns native, plain, "
+          f"plain, native; files written through the page cache): native "
+          f"csrc/rowcodec.cpp {split_s['native'][0]:.4f} / "
+          f"{split_s['native'][1]:.4f} s, plain Python "
+          f"{split_s['plain'][0]:.4f} / {split_s['plain'][1]:.4f} s; best "
+          f"{upload_bytes / 2**20 / min(split_s['native']):.1f} against "
+          f"{upload_bytes / 2**20 / min(split_s['plain']):.1f} MiB/s; "
+          f"partition files byte-equal {card}")
+    del split_files
 
     # 9. times of the block-Toeplitz engines --------------------------------
     R = (P.k + 1) * P.levels
@@ -2885,6 +2949,54 @@ def main() -> int:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(30)
+        # 20b. a fresh worker process's cold start, split: the probe on the
+        # key file the coordinator's key store wrote, in a fresh interpreter
+        # each (no CUDA state of this process), on mega13 (the O' worker's
+        # engine) and bt (the coordinator's default)
+        key_files = sorted(pathlib.Path(workdir, "keys").rglob("*.key"))
+        check(len(key_files) == 1 and key_files[0].read_bytes() == key_bytes,
+              f"path O': the key store holds {key_files}, not path C's key")
+        cold = {}
+        for engine in ("mega13", "bt"):
+            probe_cmd = [sys.executable, "-m",
+                         "herdsman_tpu_torch.utils.probe_coldstart", "--key",
+                         str(key_files[0]), "--engine", engine, "--batch",
+                         str(rows_i)]
+            done = subprocess.run(
+                probe_cmd, cwd=here, capture_output=True, text=True,
+                timeout=300, env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                    [here, *filter(None, [os.environ.get("PYTHONPATH")])])})
+            check(done.returncode == 0,
+                  f"the cold-start probe on {engine} exited "
+                  f"{done.returncode}: {done.stdout[-3000:]}"
+                  f"{done.stderr[-3000:]}")
+            lines = done.stdout.strip().splitlines()
+            cold[engine] = json.loads(lines[-1])["probe_coldstart"]["seconds"]
+            for line in lines[:-1]:
+                print(f"cold start ({engine}): {line}")
+    for engine, secs in cold.items():
+        first = secs["first call"]
+        modules_s = secs["import the port's service modules"]
+        int_mm_s = secs["first call: first key switch's torch._int_mm"]
+        data_s = sum(secs[k] for k in ("read the key file",
+                                       "deserialize_server_key",
+                                       "device_server_key",
+                                       "compile_circuit"))
+        print(f"time: cold start of a fresh worker process (python -m "
+              f"herdsman_tpu_torch.utils.probe_coldstart --engine {engine} "
+              f"--batch {rows_i}, path O's key file): import torch "
+              f"{secs['import torch']:.3f} s, the port's modules "
+              f"{modules_s:.3f} s, CUDA "
+              f"context {secs['CUDA context']:.3f} s, the key's data "
+              f"(read, deserialize, device_server_key, compile_circuit) "
+              f"{data_s:.3f} s, first call {first:.3f} s (_build.load "
+              f"{secs['first call: _build.load']:.3f} s, first rotation "
+              f"{secs['first call: first rotation']:.3f} s, first key "
+              f"switch's torch._int_mm "
+              f"{int_mm_s:.3f} s, the rest "
+              f"{secs['first call: the rest']:.3f} s), second "
+              f"call {secs['second call']:.3f} s (rotation "
+              f"{secs['second call: first rotation']:.3f} s) {card}")
     job_o2 = res_o2["job"]
     only(res_o2["counts"], (), "path O' (its worker in another process)")
     check(set(after_o2) == set(counters),

@@ -12,8 +12,8 @@ include/service/storage_service.hpp, src/service/storage_service.cpp):
 - catalog entries carry {uuid, name, schema_type, columns, row_count,
   partitions, uploaded, busy}.
 
-The row splitter is the pure-Python one of ``utils.rowcodec`` (the JAX
-package's native C++ splitter is not ported yet).
+The row splitter is the native one of ``utils.rowcodec``
+(``csrc/rowcodec.cpp``, built with the host compiler at first use).
 
 Deviation (deliberate fix): the reference sets `busy` at job schedule and
 never clears it (SURVEY.md §2.1); here unlock_data_frame exists and the

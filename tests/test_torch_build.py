@@ -1,8 +1,10 @@
 """The kernel cache of the port (``ops/kernels/_build.py``) without a card or
-``nvcc``: a stub compiler stands in for ``nvcc``.  Two threads that build
-one source together both return and compile it once; a ``_build/`` that is
-group-writable or owned by another user is refused, and so is a library in
-it that is; a change to ``NVCC_FLAGS`` changes the library's name.
+``nvcc``: a stub compiler stands in for ``nvcc`` (and for ``c++``).  Two
+threads that build one source together both return and compile it once; a
+``_build/`` that is group-writable or owned by another user is refused, and
+so is a library in it that is; a change to ``NVCC_FLAGS`` or to the
+compiler's identity changes the library's name; a ``.cpp`` source is built
+by the host compiler with ``HOST_FLAGS``.
 """
 
 import os
@@ -15,15 +17,19 @@ import pytest
 
 from herdsman_tpu_torch.ops.kernels import _build
 
-# a stand-in for nvcc: waits a little (so that two builds overlap), writes
-# the -o file and records one line per compile
+# a stand-in for nvcc: answers --version with a release line; otherwise
+# waits a little (so that two builds overlap), writes the -o file and
+# records one line per compile, its arguments
 STUB = """\
 import pathlib, sys, time
+if sys.argv[1:] == ["--version"]:
+    print("stub compiler\\nCuda compilation tools, release 0.0, V0.0")
+    sys.exit(0)
 time.sleep(0.3)
 out = sys.argv[sys.argv.index("-o") + 1]
 pathlib.Path(out).write_bytes(b"built")
 with open(sys.argv[0] + ".log", "a") as log:
-    log.write(out + "\\n")
+    log.write(" ".join(sys.argv[1:]) + "\\n")
 """
 
 
@@ -126,3 +132,41 @@ def test_header_change_renames_and_rebuilds(cache):
     assert after != before and not after.exists()
     assert list(_build.build(["k"])) == ["k"]
     assert after.exists() and len(cache.read_text().splitlines()) == 2
+
+
+def test_compiler_identity_is_its_release_line(cache):
+    """nvcc's "release" line, else the first line of ``--version``."""
+    assert _build._identity(_build._nvcc()) == \
+        "Cuda compilation tools, release 0.0, V0.0"
+    cxx = _build.SRC_DIR.parent / "cxx"
+    cxx.write_text("#!/bin/sh\necho 'c++ (stub) 1.2.3'\necho 'Copyright'\n")
+    cxx.chmod(0o755)
+    assert _build._identity(str(cxx)) == "c++ (stub) 1.2.3"
+
+
+def test_compiler_identity_changes_the_library_name(cache, monkeypatch):
+    """Another compiler (a toolkit upgrade) is another library, so a
+    library built by the old one is not reused."""
+    before = _build._target("k")
+    _build.build(["k"])
+    monkeypatch.setattr(_build, "_identity",
+                        lambda compiler: "Cuda compilation tools, release 9.9")
+    after = _build._target("k")
+    assert after != before and after.name.startswith("libk-")
+    assert list(_build.build(["k"])) == ["k"]
+    assert after.exists() and len(cache.read_text().splitlines()) == 2
+
+
+def test_host_source_is_built_by_the_host_compiler(cache, monkeypatch):
+    """A ``csrc/<name>.cpp`` is a source of its own, built by ``c++`` with
+    ``HOST_FLAGS`` (and named by them), not by nvcc."""
+    (_build.SRC_DIR / "h.cpp").write_text("// host code\n")
+    monkeypatch.setattr(_build, "_cxx", _build._nvcc)  # the same stub
+    assert _build.sources() == ["h", "k"]
+    assert list(_build.build(["h"])) == ["h"]
+    (line,) = cache.read_text().splitlines()
+    assert line.split()[:len(_build.HOST_FLAGS)] == _build.HOST_FLAGS
+    assert line.endswith("h.cpp") and "-gencode" not in line
+    before = _build._target("h")
+    monkeypatch.setattr(_build, "HOST_FLAGS", [*_build.HOST_FLAGS, "-g"])
+    assert _build._target("h") != before

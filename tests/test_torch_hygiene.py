@@ -14,9 +14,15 @@
   ``sys.modules``, and no top-level ``herdsman_pb2``.
 - The port's copy of ``core/numtheory.py`` gives the original's primes,
   roots and powers.
+- The upload's row splitter loads the port's own library, built from
+  ``csrc/rowcodec.cpp`` into ``herdsman_tpu_torch/_build/``; no port source
+  names the JAX package's native build.  The splitter, the build module and
+  the cold-start probe import nothing of JAX, the JAX package, PyYAML or
+  cryptography.
 - Without a CUDA device, every entry point called with its default device
-  raises instead of running on the CPU (the offload worker's module refuses
-  to start), and ``chip_smoke.py`` fails without printing a result.
+  raises instead of running on the CPU (the offload worker's module and the
+  cold-start probe refuse to start), and ``chip_smoke.py`` fails without
+  printing a result.
 """
 
 import ast
@@ -40,7 +46,7 @@ from herdsman_tpu_torch.service.config import (Config, SecurityConfig,
                                                ServerConfig)
 from herdsman_tpu_torch.service.coordinator import Coordinator
 from herdsman_tpu_torch.service.offload_worker import make_server
-from herdsman_tpu_torch.utils import tracing
+from herdsman_tpu_torch.utils import rowcodec, tracing
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "herdsman_tpu_torch"
@@ -358,6 +364,44 @@ def test_source_imports_no_jax(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
+@pytest.mark.parametrize("module", [
+    "herdsman_tpu_torch.utils.rowcodec",
+    "herdsman_tpu_torch.utils.probe_coldstart",
+    "herdsman_tpu_torch.ops.kernels._build"])
+def test_row_splitter_and_probe_import_alone(module):
+    """The row splitter, the build module and the cold-start probe,
+    imported alone, load nothing of JAX, the JAX package, PyYAML or
+    cryptography."""
+    code = (
+        f"import importlib, sys; importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cryptography', 'yaml')!r})\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_row_splitter_loads_the_ports_own_library():
+    """``split_rows`` runs ``csrc/rowcodec.cpp`` as built into the port's
+    ``_build/``, not the JAX package's ``native/build`` library."""
+    path = pathlib.Path(rowcodec._lib()._name).resolve()
+    assert path.parent == (PKG / "_build").resolve()
+    assert path.name.startswith("librowcodec-") and path.suffix == ".so"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(f.relative_to(ROOT)) for f in
+    [*PKG.rglob("*.py"), *PKG.rglob("*.cu"), *PKG.rglob("*.cuh"),
+     *PKG.rglob("*.cpp"), ROOT / "chip_smoke.py"]
+    if "_build" not in f.relative_to(ROOT).parts))
+def test_source_names_no_jax_native_build(path):
+    """No port source loads or names the JAX package's native library."""
+    text = (ROOT / path).read_text()
+    assert "native/build" not in text and "libherdsman_native" not in text
+
+
 @pytest.fixture(scope="module")
 def no_card():
     if torch.cuda.is_available():
@@ -499,3 +543,20 @@ def test_chip_smoke_fails_without_card(no_card, tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_probe_refuses_to_start_without_card(no_card, tmp_path):
+    """``python -m herdsman_tpu_torch.utils.probe_coldstart`` without
+    ``--device cpu`` exits non-zero here and prints no result."""
+    from herdsman_tpu_torch.service.coordinator import serialize_server_key
+
+    _, sk, _ = no_card
+    key = tmp_path / "1.key"
+    key.write_bytes(serialize_server_key(sk))
+    out = subprocess.run(
+        [sys.executable, "-m", "herdsman_tpu_torch.utils.probe_coldstart",
+         "--key", str(key)],
+        cwd=ROOT, env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode != 0
+    assert "GPU" in out.stderr and "probe_coldstart" not in out.stdout
