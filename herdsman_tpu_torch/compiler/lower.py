@@ -23,6 +23,7 @@ from herdsman_tpu_torch.ops import bootstrap as bs
 from herdsman_tpu_torch.ops import gates as gate_ops
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey
 from herdsman_tpu_torch.ops.u32 import resolve_device, to_device, u32_const
+from herdsman_tpu_torch.utils import tracing
 
 I32 = torch.int32
 
@@ -140,18 +141,19 @@ def compile_circuit(circuit: Circuit, dsk: DeviceServerKey,
 
         sweep_linear()
         for level, ids in zip(levels, level_ids):
-            if level.bootstrap_gates:
-                gis = level.bootstrap_gates
-                batch = gate_ops.GateBatch(ids.repeat(rows), stack(gis, 0),
-                                           stack(gis, 1))
-                store(gis, gate_ops.gate_batch(dsk, batch, engine=engine,
-                                               device=dev))
-            if level.mux_gates:
-                gis = level.mux_gates
-                store(gis, gate_ops.mux_batch(
-                    dsk, stack(gis, 0), stack(gis, 1), stack(gis, 2),
-                    engine=engine, device=dev))
-            sweep_linear()
+            with tracing.span("lower.level"):
+                if level.bootstrap_gates:
+                    gis = level.bootstrap_gates
+                    batch = gate_ops.GateBatch(ids.repeat(rows),
+                                               stack(gis, 0), stack(gis, 1))
+                    store(gis, gate_ops.gate_batch(dsk, batch, engine=engine,
+                                                   device=dev))
+                if level.mux_gates:
+                    gis = level.mux_gates
+                    store(gis, gate_ops.mux_batch(
+                        dsk, stack(gis, 0), stack(gis, 1), stack(gis, 2),
+                        engine=engine, device=dev))
+                sweep_linear()
         return torch.stack([wires[w] for w in out_wires], dim=1)
 
     return run

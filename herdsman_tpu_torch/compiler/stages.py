@@ -17,6 +17,7 @@ server key's device; the durable disk-backed catalog lives in
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import threading
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
@@ -40,6 +41,7 @@ from herdsman_tpu_torch.compiler.optimizer import optimize_circuit
 from herdsman_tpu_torch.compiler.reduce_tree import build_reduce_tree
 from herdsman_tpu_torch.mesh.sharding import Mesh, shard_server_key
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey
+from herdsman_tpu_torch.utils import tracing
 
 
 def partition_sizes(row_count: int, partitions: int) -> list[int]:
@@ -112,13 +114,17 @@ class PlanCompiler:
         key = circuit
         with self._cache_lock:
             if key not in self._circuit_cache:
-                lowered = (optimize_circuit(circuit) if self.optimize
-                           else circuit)
-                self._circuit_cache[key] = (
-                    compile_circuit(lowered, self._key, engine=self.engine,
-                                    device=self.dsk.device, mesh=self.mesh),
-                    lowered,
-                )
+                tracing.count("compiler.cache_miss")
+                with tracing.span("compiler.compile"):
+                    lowered = (optimize_circuit(circuit) if self.optimize
+                               else circuit)
+                    self._circuit_cache[key] = (
+                        compile_circuit(lowered, self._key,
+                                        engine=self.engine,
+                                        device=self.dsk.device,
+                                        mesh=self.mesh),
+                        lowered,
+                    )
             return self._circuit_cache[key]
 
     # ---- stage executors ----
@@ -272,9 +278,11 @@ class PlanCompiler:
                 while ready:
                     nid = ready.pop()
                     node = compute_nodes[nid]
+                    # each stage in a copy of this context: its spans
+                    # stay the job's (utils/tracing.job_scope)
                     futures[pool.submit(
-                        self._run_stage, node.value, nid, produced,
-                        node.parents())] = nid
+                        contextvars.copy_context().run, self._run_stage,
+                        node.value, nid, produced, node.parents())] = nid
                 finished, _ = fwait(futures, return_when=FIRST_COMPLETED)
                 for fut in finished:
                     nid = futures.pop(fut)

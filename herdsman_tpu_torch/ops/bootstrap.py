@@ -68,6 +68,7 @@ from herdsman_tpu_torch.ops.kernels import bt, mega12, mega13, megaJ, megaT
 from herdsman_tpu_torch.ops.kernels.rotate_decompose import rotate_decompose
 from herdsman_tpu_torch.ops.server_key import DeviceServerKey, bt_tile
 from herdsman_tpu_torch.ops.u32 import resolve_device, srl, to_device, u32_const
+from herdsman_tpu_torch.utils import tracing
 
 I32 = torch.int32
 I8 = torch.int8
@@ -227,12 +228,22 @@ def rotation_inputs(p: TFHEParams, ct: torch.Tensor, test_poly: torch.Tensor,
 def blind_rotate_batch(dsk: DeviceServerKey, ct: torch.Tensor,
                        test_poly: torch.Tensor, engine: str = "mega13",
                        coarse_bits: int = 0) -> torch.Tensor:
-    """GINX blind rotation of a batch: ct [B, n+1] -> acc [B, k+1, N]."""
-    p = dsk.params
+    """GINX blind rotation of a batch: ct [B, n+1] -> acc [B, k+1, N],
+    recorded as one ``bootstrap.rotation`` device span."""
     if dsk.limb_shards is not None and engine not in LIMB_ENGINES:
         raise ValueError(f"engine {engine!r} runs the whole key on one "
                          f"device; a key split over a limb axis serves "
                          f"{LIMB_ENGINES}")
+    tracing.count("bootstrap.rotations")
+    with tracing.span("bootstrap.rotation", device=ct.device,
+                      B=ct.shape[0]):
+        return _blind_rotate(dsk, ct, test_poly, engine, coarse_bits)
+
+
+def _blind_rotate(dsk: DeviceServerKey, ct: torch.Tensor,
+                  test_poly: torch.Tensor, engine: str,
+                  coarse_bits: int) -> torch.Tensor:
+    p = dsk.params
     acc0, a_t = rotation_inputs(p, ct, test_poly, coarse_bits)
     if engine in ROTATION_ENGINES:
         rot_fn, layout = ROTATION_ENGINES[engine]
@@ -318,15 +329,17 @@ def key_switch_batch(dsk: DeviceServerKey, ct: torch.Tensor) -> torch.Tensor:
 
     One int8 product, balanced signed digits [B, kN*t] times the key's limbs
     [kN*t, (n+1)*4] through ``torch._int_mm`` (exact: kN*t*4*128 < 2^31),
-    then the limb recombine."""
+    then the limb recombine; one ``bootstrap.key_switch`` device span."""
     p = dsk.params
     B = ct.shape[0]
-    digits = signed_decompose(ct[:, :p.kN], p.ks_base_bits, p.ks_levels)
-    d8 = digits.reshape(B, p.kN * p.ks_levels).to(I8)
-    part = mega13.int8_matmul(d8, dsk.ksk_limbs)[:, :(p.n + 1) * 4]
-    contrib = poly.from_i32_limb_partials(part.reshape(B, p.n + 1, 4))
-    out = -contrib
-    out[:, p.n] += ct[:, p.kN]
+    with tracing.span("bootstrap.key_switch", device=ct.device, B=B):
+        digits = signed_decompose(ct[:, :p.kN], p.ks_base_bits,
+                                  p.ks_levels)
+        d8 = digits.reshape(B, p.kN * p.ks_levels).to(I8)
+        part = mega13.int8_matmul(d8, dsk.ksk_limbs)[:, :(p.n + 1) * 4]
+        contrib = poly.from_i32_limb_partials(part.reshape(B, p.n + 1, 4))
+        out = -contrib
+        out[:, p.n] += ct[:, p.kN]
     return out
 
 

@@ -17,8 +17,9 @@ keys and seeded row uploads, expanded at ingest; GLWE-packed frames
 static gRPC worker fleet (``service/grpc_worker.py``), with
 ``workers.lambda`` on an HTTP offload worker (``service/offload.py``,
 ``service/offload_worker.py``); both workers run their tasks on their
-card.  With ``logging.profile_dir`` every job writes a ``torch.profiler``
-trace (``utils/tracing.py``).  ``service/api_server.py`` serves this
+card.  Every job's spans and counters go to ``utils/tracing``'s recorder
+(``tracing.job(job_uuid)``); with ``logging.profile_dir`` every job also
+writes a ``torch.profiler`` trace.  ``service/api_server.py`` serves this
 facade over gRPC.
 
 A ``workers.mesh`` of more than one device (``batch_axis``,
@@ -227,17 +228,19 @@ class Coordinator:
     def add_key(self, token: str, session_uuid: str, schema_type: SchemaType,
                 size: int, chunks: Iterable[bytes]) -> None:
         self._check_session(token, session_uuid)
-        buf = bytearray()
-        for chunk in chunks:
-            buf.extend(chunk)
-            if len(buf) > size:
+        with tracing.span("coordinator.add_key", session=session_uuid):
+            buf = bytearray()
+            for chunk in chunks:
+                buf.extend(chunk)
+                if len(buf) > size:
+                    raise ValueError(
+                        f"key upload overrun: {len(buf)} > declared {size}"
+                    )
+            if len(buf) != size:
                 raise ValueError(
-                    f"key upload overrun: {len(buf)} > declared {size}"
-                )
-        if len(buf) != size:
-            raise ValueError(f"short key upload: {len(buf)} of {size} bytes")
-        self.keys.add_key(session_uuid, schema_type, bytes(buf))
-        self._forget_keys(session_uuid)
+                    f"short key upload: {len(buf)} of {size} bytes")
+            self.keys.add_key(session_uuid, schema_type, bytes(buf))
+            self._forget_keys(session_uuid)
 
     def remove_key(self, token: str, session_uuid: str,
                    schema_type: SchemaType) -> None:
@@ -493,15 +496,19 @@ class Coordinator:
         SESSION (fit_engine depends on the session key's params), so one
         session's memory-driven fallback never downgrades another."""
         if session_uuid not in self._session_dsk:
-            data = self.keys.read_key(session_uuid, SchemaType.TFHE_BOOL)
-            sk = deserialize_server_key(data)
-            engine = fit_engine(self._engine, sk.params)
-            if engine != self._engine:
-                log.warning("engine %s key layout won't fit the card at %s; "
-                            "session %s uses %s", self._engine,
-                            sk.params.name, session_uuid, engine)
-            self._session_dsk[session_uuid] = (engine, device_server_key(
-                sk, layouts=layouts_for_engine(engine), device=self.device))
+            with tracing.span("coordinator.device_key",
+                              session=session_uuid):
+                data = self.keys.read_key(session_uuid, SchemaType.TFHE_BOOL)
+                sk = deserialize_server_key(data)
+                engine = fit_engine(self._engine, sk.params)
+                if engine != self._engine:
+                    log.warning("engine %s key layout won't fit the card at "
+                                "%s; session %s uses %s", self._engine,
+                                sk.params.name, session_uuid, engine)
+                self._session_dsk[session_uuid] = (
+                    engine, device_server_key(
+                        sk, layouts=layouts_for_engine(engine),
+                        device=self.device))
         return self._session_dsk[session_uuid]
 
     def _run_job(self, job: JobDescriptor):

@@ -45,6 +45,7 @@ from herdsman_tpu_torch.service.errors import (ObjectNotFoundException,
                                          TaskFailedException)
 from herdsman_tpu_torch.service.keystore import KeyService
 from herdsman_tpu_torch.service.storage import StorageService
+from herdsman_tpu_torch.utils import tracing
 
 log = logging.getLogger("herdsman.execution")
 
@@ -107,7 +108,9 @@ class ExecutionService:
         self._runner = runner
         self._lock = threading.RLock()
         self._jobs: dict[str, list[JobDescriptor]] = {}  # session -> jobs
-        self._queue: "queue.Queue[Optional[JobDescriptor]]" = queue.Queue()
+        # (job, its open execution.queue span, seconds it waited before a
+        # retry); None stops a thread
+        self._queue: queue.Queue = queue.Queue()
         self._journal = journal_path
         self._load_journal()
         self._threads = [
@@ -231,9 +234,14 @@ class ExecutionService:
             )
             self._jobs.setdefault(session_uuid, []).append(job)
             self._journal_write(job)
-        self._queue.put(job)
+        self._enqueue(job, 0.0)
         log.info("job %s scheduled (complexity %d)", job.job_uuid, complexity)
         return job
+
+    def _enqueue(self, job: JobDescriptor, waited: float) -> None:
+        self._queue.put((job, tracing.begin(
+            "execution.queue", job=job.job_uuid, session=job.session_uuid),
+            waited))
 
     # ---- monitoring (reference :66-118) ----
 
@@ -282,9 +290,12 @@ class ExecutionService:
 
     def _executor_loop(self) -> None:
         while True:
-            job = self._queue.get()
-            if job is None:
+            item = self._queue.get()
+            if item is None:
                 return
+            job, wait, waited = item
+            wait.end()
+            waited += wait.seconds
             with self._lock:
                 job.status = JobStatus.PENDING
             try:
@@ -293,7 +304,8 @@ class ExecutionService:
                 import time as _time
 
                 t0 = _time.monotonic()
-                tasks, bootstraps, outputs = self._runner(job)
+                with tracing.job_scope(job.job_uuid):
+                    tasks, bootstraps, outputs = self._runner(job)
                 wall = _time.monotonic() - t0
                 with self._lock:
                     job.tasks_executed = tasks
@@ -305,9 +317,9 @@ class ExecutionService:
                     self._journal_write(job)
                 log.info(
                     "job %s completed (%d tasks, %d bootstraps, %.2fs, "
-                    "%.1f bootstraps/s)",
+                    "%.1f bootstraps/s, queued %.2fs)",
                     job.job_uuid, tasks, bootstraps, wall,
-                    job.bootstraps_per_sec,
+                    job.bootstraps_per_sec, waited,
                 )
             except Exception as e:  # noqa: BLE001 — job isolation boundary
                 with self._lock:
@@ -317,7 +329,7 @@ class ExecutionService:
                         job.status = JobStatus.WAITING_FOR_EXECUTION
                         log.warning("job %s failed (%s); retry %d/%d",
                                     job.job_uuid, e, job.retries, RETRY_LIMIT)
-                        self._queue.put(job)
+                        self._enqueue(job, waited)
                     else:
                         # terminal = the reference's ERROR class (fail now,
                         # executor.cpp:168-178); otherwise retries exhausted

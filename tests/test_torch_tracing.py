@@ -3,7 +3,7 @@
 writes one parseable trace under ``<profile_dir>/<job_uuid>/`` for a job on
 its own runner and for one dispatched to an offload worker, and the job's
 frames equal those of an untraced run; ``trace(None)`` and ``trace("")``
-do nothing; ``annotate`` names a region of an active trace.
+do nothing.  The spans such a trace holds: ``test_torch_spans.py``.
 """
 
 import functools
@@ -161,13 +161,3 @@ def test_trace_without_a_directory_does_nothing(tmp_path, monkeypatch,
         assert not torch.autograd.profiler._is_profiler_enabled
     assert list(tmp_path.iterdir()) == []
 
-
-def test_annotate_names_a_region_of_the_trace(tmp_path):
-    with tracing.trace(str(tmp_path), device="cpu"):
-        assert torch.autograd.profiler._is_profiler_enabled
-        with tracing.annotate("herdsman-region"):
-            torch.ones(4).sum()
-    (trace_file,) = tmp_path.iterdir()
-    names = {e.get("name") for e in
-             json.loads(trace_file.read_text())["traceEvents"]}
-    assert "herdsman-region" in names
