@@ -104,23 +104,26 @@
 // fragments, runs its eight k32 wgmma (two M tiles x four k32 steps) as one
 // group, waits for them (wait_group 0: a group left in flight across the
 // loop makes ptxas serialize every wgmma, mega12.cu's finding) and each of
-// its warps arrives on the stage's empty barrier; the two warpgroups'
-// fragment building and products overlap each other's.  Fragments of the
-// next stage built while the group runs (a second register set) spilled
-// and ran slower.  The producer warpgroup gives its registers to the consumers
-// (setmaxnreg: 40 and 232 a thread): at the 168 a thread that 384 threads
-// leave, ptxas serialized the wgmma for want of registers (C7512).  The
-// producer prefetches the next step's key into L2 at the start of each
-// step's products.  L2 bytes per operation: a stage of 18 KB feeds 256 x
-// 128 x 128 MACs, 466 int8 operations per byte.  Those bytes do not set the
-// pace at N = 2048 either (kt = 96 or 128 K blocks an item, 1.6-2.1 GB of
-// digit tiles a step): two-block clusters in which the two items of a
-// 128-column tile, which walk the same digit tiles, shared each tile
-// through a multicast copy (10 KB of L2 a block and stage, not 18) ran
-// 0.2% faster to 0.8% slower than this kernel at STD128_SHORTINT_B8 and _L4
-// B = 2048 and 0.8-1.7% slower at B = 256, in turns, so they were taken out
-// again; the stage hand-off, the fragments and the products, one after the
-// other in each consumer warpgroup, set the pace (PERF.md).
+// its warps arrives on the stage's empty barrier.  The two warpgroups
+// issue their groups at the same time and the tensor cores interleave
+// them: a group alone, two dependent chains of four wgmma, keeps them busy
+// about 0.6 of its time.  So ordered turns on named barriers (one
+// warpgroup's group running while the other builds its fragments, the
+// ping-pong of CUTLASS's kernels) ran 1-5.5% slower at every entry and
+// width, and fragments of the next stage built while the group runs (a
+// second register set) spilled and ran slower (PERF.md).  The producer
+// warpgroup gives its registers to the consumers (setmaxnreg: 40 and 232 a
+// thread): at the 168 a thread that 384 threads leave, ptxas serialized
+// the wgmma for want of registers (C7512).  The producer prefetches the
+// next step's key into L2 at the start of each step's products.  L2 bytes
+// per operation: a stage of 18 KB feeds 256 x 128 x 128 MACs, 466 int8
+// operations per byte.  Those bytes do not set the pace at N = 2048 either
+// (kt = 96 or 128 K blocks an item, 1.6-2.1 GB of digit tiles a step):
+// two-block clusters in which the two items of a 128-column tile, which
+// walk the same digit tiles, shared each tile through a multicast copy (10
+// KB of L2 a block and stage, not 18) ran 0.2% faster to 0.8% slower than
+// this kernel at STD128_SHORTINT_B8 and _L4 B = 2048 and 0.8-1.7% slower at
+// B = 256, in turns, so they were taken out again (PERF.md).
 //
 // Fragments and the K permutation.  In warpgroup w's two m64 tiles T = 0, 1,
 // row 16*warp + g + 8h (g = lane/4) is limb j = 2T + h of coefficient q =
@@ -159,6 +162,9 @@ constexpr int CONSUMER_REGS = 232;
 constexpr int SMEM_PER_BLOCK = 232448;
 constexpr int STAGES = (SMEM_PER_BLOCK - 1024 - 256) / STAGE;
 constexpr int SMEM = STAGES * STAGE + 1024 + 16 * STAGES;
+// words of an unsplit item's epilogue loaded before their stores: 8 ran up
+// to 3% faster than 4 or 16, and 2-6% faster than 32, which spilled
+constexpr int EPI = 8;
 
 struct Args {
   const int32_t* a_t;  // [n, B] in [0, 2N)
@@ -400,24 +406,42 @@ __device__ __forceinline__ uint32_t word_of(const int (&a0)[64],
 // add (or subtract) the thread's 32 recombined words into `out`: word x is
 // coefficient y of ciphertext bt*128 + 8*(x/2) + 2*(lane%4) + x%2.  Without
 // K splits each (b, c_out, y) is one thread's in a step: a plain
-// read-modify-write; with them the splits add with red.global.add (integer
-// adds commute and the recombine is linear, so the sum is exact in any
-// order)
+// read-modify-write, its loads issued EPI at a time before their stores:
+// the compiler moves no load above an earlier store to `out`, so word by
+// word each load would wait a round trip to L2, 32 an epilogue, in both
+// consumer warpgroups at once with the tensor cores idle; with K splits
+// the splits add with red.global.add (integer adds commute and the
+// recombine is linear, so the sum is exact in any order)
 template <bool SPLIT>
 __device__ __forceinline__ void store_words(const Args& a, const Item& it,
                                             const int (&a0)[64],
                                             const int (&a1)[64], int y,
                                             int tig, bool negate) {
 #pragma unroll
-  for (int x = 0; x < 32; ++x) {
-    const int b = it.bt * NT + 8 * (x >> 1) + 2 * tig + (x & 1);
-    if (b < a.B) {
-      uint32_t* o = a.out + (static_cast<size_t>(b) * a.kp1 + it.c_out) * a.N + y;
-      const uint32_t w = negate ? 0u - word_of(a0, a1, x) : word_of(a0, a1, x);
-      if (SPLIT) {
-        atomicAdd(o, w);
-      } else {
-        *o = __ldcg(o) + w;
+  for (int x0 = 0; x0 < 32; x0 += EPI) {
+    uint32_t old[EPI];
+    if (!SPLIT) {
+#pragma unroll
+      for (int x = x0; x < x0 + EPI; ++x) {
+        const int b = it.bt * NT + 8 * (x >> 1) + 2 * tig + (x & 1);
+        if (b < a.B)
+          old[x - x0] = __ldcg(
+              a.out + (static_cast<size_t>(b) * a.kp1 + it.c_out) * a.N + y);
+      }
+    }
+#pragma unroll
+    for (int x = x0; x < x0 + EPI; ++x) {
+      const int b = it.bt * NT + 8 * (x >> 1) + 2 * tig + (x & 1);
+      if (b < a.B) {
+        uint32_t* o =
+            a.out + (static_cast<size_t>(b) * a.kp1 + it.c_out) * a.N + y;
+        const uint32_t w =
+            negate ? 0u - word_of(a0, a1, x) : word_of(a0, a1, x);
+        if (SPLIT) {
+          atomicAdd(o, w);
+        } else {
+          *o = old[x - x0] + w;
+        }
       }
     }
   }

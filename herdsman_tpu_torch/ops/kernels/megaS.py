@@ -13,7 +13,8 @@ single-width key, P = N for ``mega14``'s extended one.  Output coefficient
 ct*P + q reads it from byte (P-1-q)*L on (``geometry`` gives P, the padded
 stream's K blocks and the sequence's bytes).  The source note in
 ``csrc/megaS.cu`` gives the kernel's design and bound; ``plan`` mirrors its
-items and K blocks, ``permuted_word_offset`` its digit layout.
+items and K blocks, ``turns`` counts its consumer warpgroups' groups of
+``wgmma``, ``permuted_word_offset`` mirrors its digit layout.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops.kernels import _build
+from herdsman_tpu_torch.utils import tracing
 
 KB = 128      # K block: stream bytes a stage, digit row bytes
 NT = 128      # ciphertexts of an item (wgmma N)
@@ -95,6 +97,18 @@ def plan(p: TFHEParams, B: int, extended: bool = False,
     kt = (p.k + 1) * g.NBc
     splits = max(1, min(kt, n_sms // items))
     return Plan(tiles, qblocks, items, kt, splits, items * splits)
+
+
+def turns(p: TFHEParams, B: int, extended: bool = False,
+          n_sms: int = H100_SMS) -> int:
+    """The turns of a rotation of B ciphertexts on the tensor cores, each
+    one consumer warpgroup's group of eight ``wgmma`` on one K block: per
+    step every work unit's K blocks once for each consumer warpgroup that
+    holds coefficients of its item (the second holds none where the column
+    tile is 32 coefficients), n steps a rotation."""
+    pl = plan(p, B, extended, n_sms)
+    live = -(-min(QI, geometry(p.N, p.levels, extended).P) // 32)
+    return p.n * pl.items * pl.kt * live
 
 
 def split_range(kt: int, s: int, splits: int) -> tuple[int, int]:
@@ -200,5 +214,7 @@ def launch(name: str, p: TFHEParams, acc0: torch.Tensor, a_t: torch.Tensor,
            key: torch.Tensor) -> torch.Tensor:
     """One launch of kernel ``name`` (``mega13``, ``mega14``, ``mega17``,
     ``mega15`` or ``mega16``) of the built ``csrc/megaS.cu``
-    (``rotate_with``)."""
-    return rotate_with(_lib(), name, p, acc0, a_t, key)
+    (``rotate_with``), its ``turns`` counted in ``bootstrap.megaS_turns``."""
+    out = rotate_with(_lib(), name, p, acc0, a_t, key)
+    tracing.count(tracing.MEGAS_TURNS, turns(p, acc0.shape[0], KERNELS[name]))
+    return out

@@ -21,10 +21,14 @@ card and ``nvcc``:
 
     python -m herdsman_tpu_torch.utils.megaS_ablation \\
         [--kernel mega13] [--set std128_k2 ...] [--batch 2048 256 ...]
+    python -m herdsman_tpu_torch.utils.megaS_ablation \\
+        --kernel mega13 --set std128 --batch 2048 256
 
 (the default set is the kernel's own: ``std128_k2`` for ``mega13`` and
 ``mega14``, ``std128_shortint_b8`` for ``mega17``, ``std128_shortint_l4``
-for ``mega15``, ``std128_shortint_fast`` for ``mega16``).
+for ``mega15``, ``std128_shortint_fast`` for ``mega16``; the second line
+runs STD128, N = 1024, k = 1, bg = 2^7 and 3 levels, the geometry of the
+benchmark's TFHE-lib set at n = 768 steps where that set has 630).
 """
 
 from __future__ import annotations

@@ -16,7 +16,11 @@ process-wide recorder, always on, takes:
   active on the calling thread, the profiler records the span too, by
   name, beside the kernels.  ``begin(...)`` opens a span that another
   thread ends (``Span.end()``).
-- ``count(name, n=1, job=None)``: adds to a counter.
+- ``count(name, n=1, job=None)``: adds to a counter.  The program counts
+  ``bootstrap.rotations`` (every blind rotation) and ``MEGAS_TURNS``
+  (``bootstrap.megaS_turns``: the warpgroup turns on the tensor cores of
+  each ``csrc/megaS.cu`` launch, from ``ops/kernels/megaS.py::turns``),
+  among others.
 - ``job_scope(uuid)``: spans and counts in the block, and in threads
   started with a copy of its context, belong to job ``uuid`` unless they
   name another.
@@ -71,6 +75,10 @@ PHASES = {"execution.queue": "queue", "runner.load": "load",
 ROTATION = "bootstrap.rotation"
 KEY_SWITCH = "bootstrap.key_switch"
 KEY_INGEST = ("coordinator.add_key", "coordinator.device_key")
+# counter: the turns of csrc/megaS.cu's consumer warpgroups on the tensor
+# cores, each a warpgroup's group of wgmma on one K block
+# (ops/kernels/megaS.py::turns), beside bootstrap.rotations
+MEGAS_TURNS = "bootstrap.megaS_turns"
 
 _job: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     "herdsman_job", default=None)

@@ -15,11 +15,18 @@ result.  The emulated rotation is held array-equal to the plain versions
 (``mega13.blind_rotate_plain_btS``, ``megaT.blind_rotate_plain_btTe``),
 which are held to the JAX package's ``pallas_mega13`` / ``pallas_mega14``
 (Pallas interpret mode) and to its NumPy reference; ``bsk_btS``'s rows are
-held to the block-Toeplitz key's blocks at two gadgets.
+held to the block-Toeplitz key's blocks at two gadgets.  A model of the
+ring's barrier protocol (the producer and the two consumer warpgroups on
+each stage's full and empty mbarriers, across work units, K splits and
+steps) runs over ``megaS.plan`` at N = 32 to 2048 and widths 1 to 2048,
+and a launch's ``bootstrap.megaS_turns`` count is held to it.
 """
 
+import collections
 import dataclasses as dc
 import functools
+import json
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +41,9 @@ from herdsman_tpu_torch.core import PARAM_SETS, TOY
 from herdsman_tpu_torch.core.params import TFHEParams
 from herdsman_tpu_torch.ops import bootstrap as tbs
 from herdsman_tpu_torch.ops import server_key as tsk
-from herdsman_tpu_torch.ops.kernels import mega13, megaS, megaT
+from herdsman_tpu_torch.ops.kernels import _build, mega13, megaS, megaT
 from herdsman_tpu_torch.ops.u32 import from_numpy_u32, to_numpy_u32
+from herdsman_tpu_torch.utils import megaS_ablation, tracing
 
 # the kernel's constants (csrc/megaS.cu)
 KB, NT, QI, KSLOT = megaS.KB, megaS.NT, megaS.QI, megaS.KSLOT
@@ -530,3 +538,216 @@ def test_mega13_wrapper_and_routes():
     before = mega13.mega13_blind_rotate.launches
     mega13.mega13_blind_rotate(p, acc0, a_t, dsk.bsk_btS)
     assert mega13.mega13_blind_rotate.launches == before  # no kernel on CPU
+
+
+# ---- the ring's barrier protocol (csrc/megaS.cu) ----
+
+CONSUMER_WARPS = 4  # warps a consumer warpgroup arrives on empty[s] with
+
+
+class MBarrier:
+    """An mbarrier: a phase completes after ``count`` arrivals; a wait on
+    parity P passes once the last phase of parity P has completed (a fresh
+    barrier's phase of parity 1 counts as completed)."""
+
+    def __init__(self, count: int):
+        self.count, self.pending, self.phases = count, 0, 0
+
+    def arrive(self, n: int) -> None:
+        self.pending += n
+        assert self.pending <= self.count
+        if self.pending == self.count:
+            self.pending, self.phases = 0, self.phases + 1
+
+    def passed(self, parity: int) -> bool:
+        return self.phases % 2 != parity
+
+
+def consumer_ops(wg: int, steps: int, units: tuple):
+    """Consumer warpgroup ``wg``'s barrier operations, as ``consume`` and
+    ``k_step`` run them: per step the digit phase's grid barrier, then per
+    K block of each of the block's work units (e0, e1, live) the stage's
+    full barrier, its group of wgmma (with products where ``live[wg]``) and
+    the stage released by its four warps, then the products' grid barrier
+    (none after the last step)."""
+    it = 0
+    for i in range(steps):
+        yield ("block",)
+        for e0, e1, live in units:
+            for _ in range(e0, e1):
+                s = it % STAGES
+                yield ("wait", ("full", s), (it // STAGES) & 1)
+                yield ("group", wg, live[wg])
+                yield ("arrive", ("empty", s), CONSUMER_WARPS)
+                it += 1
+        if i + 1 < steps:
+            yield ("block",)
+
+
+def producer_ops(steps: int, units: tuple):
+    """The producer's: per K block the stage's empty barrier, then its
+    copies onto the full one (``produce``)."""
+    it = 0
+    for i in range(steps):
+        yield ("block",)
+        for e0, e1, _ in units:
+            for _ in range(e0, e1):
+                s = it % STAGES
+                yield ("wait", ("empty", s), ((it // STAGES) & 1) ^ 1)
+                yield ("arrive", ("full", s), 1)
+                it += 1
+        if i + 1 < steps:
+            yield ("block",)
+
+
+def run_block(units: tuple, steps: int, rng) -> list[list[tuple]]:
+    """One block's producer and two consumer warpgroups over ``units``,
+    interleaved at random where more than one can go on.  Fails where none
+    can go on before all end (a warpgroup would wait forever), or where a
+    stage's barrier holds arrivals at a step's end.  Returns each step's
+    groups in the order they were issued: (warpgroup, with products)."""
+    mbar = {}
+    for s in range(STAGES):
+        mbar["full", s] = MBarrier(1)
+        mbar["empty", s] = MBarrier(2 * CONSUMER_WARPS)
+    block = {"arrived": 0, "gen": 0}
+    groups: list[list[tuple]] = [[]]
+
+    def end_of_step():
+        for key, mb in mbar.items():
+            assert mb.pending == 0, f"{key}: arrivals left at a step's end"
+        assert mbar["full", 0].phases == mbar["empty", 0].phases
+
+    ops = {"producer": producer_ops(steps, units),
+           0: consumer_ops(0, steps, units), 1: consumer_ops(1, steps, units)}
+    op = {a: next(g) for a, g in ops.items()}
+    parked: dict = {}  # actor -> the block barrier generation it waits on
+    while op:
+        ready = [a for a, o in op.items()
+                 if (block["gen"] > parked[a] if a in parked
+                     else o[0] != "wait" or mbar[o[1]].passed(o[2]))]
+        assert ready, f"no warpgroup can go on: waiting at {op}"
+        a = ready[rng.integers(len(ready))]
+        o = op[a]
+        if a in parked:
+            del parked[a]
+        elif o[0] == "block":
+            parked[a] = block["gen"]
+            block["arrived"] += 1
+            if block["arrived"] == 3:
+                block["arrived"] = 0
+                block["gen"] += 1
+                if block["gen"] % 2 == 0:  # the products' barrier
+                    end_of_step()
+                    groups.append([])
+            continue
+        elif o[0] == "arrive":
+            mbar[o[1]].arrive(o[2])
+        elif o[0] == "group":
+            groups[-1].append((o[1], o[2]))
+        nxt = next(ops[a], None)
+        if nxt is None:
+            del op[a]
+        else:
+            op[a] = nxt
+    end_of_step()
+    return groups
+
+
+def block_units(p, B: int, extended: bool, n_sms: int = 132) -> dict:
+    """Each block's work units (e0, e1, (live0, live1)) in the order it
+    walks them, counted by how many blocks walk the same ones."""
+    g = megaS.geometry(p.N, p.levels, extended)
+    pl = megaS.plan(p, B, extended, n_sms)
+    blocks = collections.Counter()
+    for b in range(n_sms):
+        units = []
+        for t in range(b, pl.units, n_sms):
+            _, _, _, q_lo, q_hi, _ = item_of(p, g, t // pl.splits,
+                                             pl.qblocks, extended)
+            e0, e1 = megaS.split_range(pl.kt, t % pl.splits, pl.splits)
+            units.append((e0, e1, tuple(q_lo + 32 * wg <= q_hi
+                                        for wg in range(2))))
+        blocks[tuple(units)] += 1
+    return blocks
+
+
+# (N, levels, extended, k): mega13's N = 32 to 2048 at levels 1-4, mega14's
+# extended key at N = 512 to 2048 (levels 2) and STD128_K4's k = 4
+RING_GEOMETRIES = ([(N, L, False, 1) for N in (32, 64, 512, 1024, 2048)
+                    for L in (1, 2, 3, 4)]
+                   + [(N, 2, True, 1) for N in (512, 1024, 2048)]
+                   + [(256, 2, True, 4)])
+RING_WIDTHS = (1, 9, 128, 256, 300, 1920, 2048)
+
+
+@pytest.mark.parametrize("N,levels,extended,k", RING_GEOMETRIES,
+                         ids=[f"N{N}-l{L}-{'ext' if x else 'S'}-k{k}"
+                              for N, L, x, k in RING_GEOMETRIES])
+def test_ring_protocol_over_plan(N, levels, extended, k):
+    """The producer and the two consumer warpgroups on the ring's full and
+    empty barriers over ``megaS.plan`` at every width, split and unsplit:
+    every block (blocks that walk the same units once) runs two steps
+    without a warpgroup waiting forever and with every stage's barriers
+    balanced at each step's end (``run_block``); each warpgroup issues one
+    group a K block of its units, with products only where it holds
+    coefficients of the item (not the second at N = 32); and the groups with
+    products of all blocks over n steps are ``megaS.turns``."""
+    p = dc.replace(TOY, name=f"ring_{N}_{levels}", n=2, N=N, k=k,
+                   bg_bits=8, levels=levels)
+    rng = np.random.default_rng(N * 8 + levels)
+    splits = set()
+    for B in RING_WIDTHS:
+        splits.add(megaS.plan(p, B, extended).splits > 1)
+        live = 0
+        for units, count in block_units(p, B, extended).items():
+            steps = run_block(units, 2, rng)
+            assert len(steps) == 2
+            for groups in steps:
+                for wg in range(2):
+                    assert [w for v, w in groups if v == wg] == [
+                        lv[wg] for e0, e1, lv in units
+                        for _ in range(e0, e1)]
+            live += count * sum(w for _, w in steps[0])
+        assert p.n * live == megaS.turns(p, B, extended)
+    assert True in splits and (N < 512 or False in splits)
+
+
+def tfhe_lib_params() -> TFHEParams:
+    """The benchmark's set, built from the numbers of
+    ``fhebench/configs/herd_tfhe_lib.json`` (n = 630, N = 1024, k = 1, bg =
+    2^7, 3 levels), which the program holds under no name of its own."""
+    path = pathlib.Path(__file__).parents[1] / "fhebench" / "configs" / \
+        "herd_tfhe_lib.json"
+    return TFHEParams(**json.loads(path.read_text())["params"])
+
+
+@pytest.mark.parametrize("B", (2048, 1920, 256, 128))
+def test_launch_counts_megaS_turns(B, monkeypatch):
+    """A launch of ``megaS.cu`` adds its rotation's turns to the job's
+    ``bootstrap.megaS_turns``: at the benchmark cells' widths, the groups
+    with products that every block's work units take over n steps (the
+    model above), ``megaS.turns``.  The kernel's build and launch are
+    stubbed: the count is the plan's, whatever the card does."""
+    p = tfhe_lib_params()
+    monkeypatch.setattr(megaS, "_lib", lambda: None)
+    monkeypatch.setattr(megaS, "rotate_with",
+                        lambda lib, name, q, acc0, a_t, key: acc0)
+    acc0 = torch.zeros(B, p.k + 1, p.N, dtype=torch.int32)
+    job = f"megaS-turns-{B}"
+    with tracing.job_scope(job):
+        megaS.launch("mega13", p, acc0, None, None)
+    planned = p.n * sum(
+        count * sum((e1 - e0) * sum(live) for e0, e1, live in units)
+        for units, count in block_units(p, B, False).items())
+    assert tracing.job(job)["counts"] == {tracing.MEGAS_TURNS: planned}
+    assert planned == megaS.turns(p, B) > 0
+
+
+def test_ablation_variants_find_their_text():
+    """Each of ``utils/megaS_ablation``'s edits finds its text once in the
+    kernel's source, so the ablation builds its variants."""
+    text = (_build.SRC_DIR / "megaS.cu").read_text()
+    for name, edits in megaS_ablation.VARIANTS.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)
