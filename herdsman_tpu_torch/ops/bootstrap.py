@@ -49,7 +49,10 @@ through one of three kinds of engine:
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor and
 only then.  The per-step engines launch 2 kernels per step (n = 768 steps
 at STD128_K2) from the Python loop and mask ragged batches in the kernels,
-so no batch is padded.
+so no batch is padded.  A ``STEP_ENGINES`` rotation records its loop as
+the host span ``bootstrap.step_issue`` (``B``, ``steps``) and counts the
+device operations it issued one at a time (``STEP_LAUNCHES``: kernels,
+and the set before a K-split product) in ``bootstrap.step_launches``.
 
 All tensors are the int32 carrier of ``ops.u32``.
 """
@@ -151,6 +154,14 @@ def _step_bt_fused(p: TFHEParams, acc: torch.Tensor, a_i: torch.Tensor,
     return bt.external_product_bt(p, d8, bsk_bt_i, glwe=acc)
 
 
+def _step_bt_fused_launches(p: TFHEParams, B: int,
+                            device: torch.device) -> int:
+    """Device operations one ``_step_bt_fused`` issues at width B:
+    ``rotate_decompose``'s kernel, then ``bt_external_product``'s with the
+    set before it where K is split."""
+    return 1 + bt.operations(p, B, device)
+
+
 # engine name -> (fn(params, digits, bsk_i), key layout it reads)
 ENGINES: dict[str, tuple[Callable, str]] = {
     "bt": (_ep_bt, "bsk_bt"),
@@ -168,6 +179,11 @@ LIMB_ENGINES = ("conv_i8", "gather_u32")
 # call runs a whole CMux step
 STEP_ENGINES: dict[str, tuple[Callable, str]] = {
     "bt_fused": (_step_bt_fused, "bsk_bt"),
+}
+# engine name -> fn(params, B, device): the device operations one step of
+# a STEP_ENGINES engine issues at width B (``bootstrap.step_launches``)
+STEP_LAUNCHES: dict[str, Callable] = {
+    "bt_fused": _step_bt_fused_launches,
 }
 
 # engine name -> (fn(params, acc0, a_t, bsk), key layout it reads): one call
@@ -251,9 +267,13 @@ def _blind_rotate(dsk: DeviceServerKey, ct: torch.Tensor,
     if engine in STEP_ENGINES:
         step_fn, layout = STEP_ENGINES[engine]
         bsk = _key(dsk, layout, engine)
+        B = acc0.shape[0]
         acc = acc0
-        for i in range(p.n):
-            acc = step_fn(p, acc, a_t[i], bsk[i])
+        with tracing.span(tracing.STEP_ISSUE, B=B, steps=p.n):
+            for i in range(p.n):
+                acc = step_fn(p, acc, a_t[i], bsk[i])
+        tracing.count(tracing.STEP_LAUNCHES,
+                      p.n * STEP_LAUNCHES[engine](p, B, acc0.device))
         return acc
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")

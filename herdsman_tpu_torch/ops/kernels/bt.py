@@ -59,6 +59,21 @@ def plan(p: TFHEParams, B: int, n_sms: int) -> Plan:
     return Plan(bm, splits, qb, (-(-B // bm), tiles_n, splits))
 
 
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def operations(p: TFHEParams, B: int, device: torch.device) -> int:
+    """Device operations one call at width ``B`` issues on ``device``: the
+    kernel, and before it the entry point's set of ``out`` (to 0 or to
+    ``glwe``) where ``plan`` splits K.  On a CPU tensor the plain version
+    stands for the kernel alone."""
+    if device.type != "cuda":
+        return 1
+    return 1 + (plan(p, B, _sms(device)).splits > 1)
+
+
 def check_params(p: TFHEParams) -> None:
     """Raise on a parameter set the kernel does not take."""
     if p.N & (p.N - 1) or not 32 <= p.N <= 2048:

@@ -17,10 +17,13 @@ process-wide recorder, always on, takes:
   name, beside the kernels.  ``begin(...)`` opens a span that another
   thread ends (``Span.end()``).
 - ``count(name, n=1, job=None)``: adds to a counter.  The program counts
-  ``bootstrap.rotations`` (every blind rotation) and ``MEGAS_TURNS``
+  ``bootstrap.rotations`` (every blind rotation), ``MEGAS_TURNS``
   (``bootstrap.megaS_turns``: the warpgroup turns on the tensor cores of
-  each ``csrc/megaS.cu`` launch, from ``ops/kernels/megaS.py::turns``),
-  among others.
+  each ``csrc/megaS.cu`` launch, from ``ops/kernels/megaS.py::turns``)
+  and ``STEP_LAUNCHES`` (``bootstrap.step_launches``: the device
+  operations a per-step engine's rotation issued one at a time, beside
+  its loop's host span ``STEP_ISSUE``, ``bootstrap.step_issue``), among
+  others.
 - ``job_scope(uuid)``: spans and counts in the block, and in threads
   started with a copy of its context, belong to job ``uuid`` unless they
   name another.
@@ -79,6 +82,12 @@ KEY_INGEST = ("coordinator.add_key", "coordinator.device_key")
 # cores, each a warpgroup's group of wgmma on one K block
 # (ops/kernels/megaS.py::turns), beside bootstrap.rotations
 MEGAS_TURNS = "bootstrap.megaS_turns"
+# host span: a per-step engine's Python loop over the n CMux steps of one
+# rotation (ops/bootstrap.STEP_ENGINES), attributes B and steps
+STEP_ISSUE = "bootstrap.step_issue"
+# counter: the device operations that loop issued one at a time (kernels,
+# and the set before a K-split product; a graph's replay would be one)
+STEP_LAUNCHES = "bootstrap.step_launches"
 
 _job: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     "herdsman_job", default=None)

@@ -63,28 +63,21 @@ def _env(**extra):
     return env
 
 
-def test_port_modules_import_no_jax():
+@pytest.mark.parametrize("forbidden,must_have", [
+    (FORBIDDEN, None),
+    (("cryptography", "yaml"), "herdsman_tpu_torch.service.coordinator")],
+    ids=["no_jax", "without_cryptography_or_yaml"])
+def test_port_modules_import(forbidden, must_have):
+    """Every module of the port, imported in a fresh interpreter, loads
+    none of ``forbidden``: JAX and the JAX package, or PyYAML and
+    cryptography, which the GPU machines do not have."""
     code = (
         "import importlib, pkgutil, sys, herdsman_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})\n"
         "assert len(names) >= 15, names\n"
-        "assert not bad, bad\n"
-        "print(len(names))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-
-
-def test_port_modules_import_without_cryptography_or_yaml():
-    code = (
-        "import importlib, pkgutil, sys, herdsman_tpu_torch as p\n"
-        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cryptography', 'yaml'))\n"
-        "assert 'herdsman_tpu_torch.service.coordinator' in names, names\n"
+        f"assert {must_have!r} is None or {must_have!r} in names, names\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
@@ -102,10 +95,17 @@ def test_port_modules_import_without_cryptography_or_yaml():
     "herdsman_tpu_torch.ops.ntt", "herdsman_tpu_torch.ops.rns",
     "herdsman_tpu_torch.mesh", "herdsman_tpu_torch.mesh.sharding",
     "herdsman_tpu_torch.mesh.ntt_sharded",
-    "herdsman_tpu_torch.mesh.distributed"])
-def test_integer_tier_imports_alone(module):
-    """Each module of the integer tier and of the mesh, imported alone,
-    loads nothing of JAX, the JAX package, PyYAML or cryptography."""
+    "herdsman_tpu_torch.mesh.distributed",
+    "herdsman_tpu_torch.service.offload",
+    "herdsman_tpu_torch.service.offload_worker",
+    "herdsman_tpu_torch.utils.tracing", "herdsman_tpu_torch.utils.rowcodec",
+    "herdsman_tpu_torch.utils.probe_coldstart",
+    "herdsman_tpu_torch.ops.kernels._build"])
+def test_module_imports_alone(module):
+    """Each module of the integer tier and of the mesh, the offload worker
+    group, the worker and the tracing hooks, the row splitter, the build
+    module and the cold-start probe, imported alone, loads nothing of JAX,
+    the JAX package, PyYAML or cryptography."""
     code = (
         f"import importlib, sys; importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -144,24 +144,6 @@ def test_numtheory_copy_equals_the_original(N):
         src = pathlib.Path(mod.__file__).read_text()
         return src[src.index('"""', 3) + 3:]
     assert body(nt) == body(jnt)
-
-
-@pytest.mark.parametrize("module", [
-    "herdsman_tpu_torch.service.offload",
-    "herdsman_tpu_torch.service.offload_worker",
-    "herdsman_tpu_torch.utils.tracing"])
-def test_offload_and_tracing_import_alone(module):
-    """The offload worker group, the worker and the tracing hooks, imported
-    alone, load nothing of JAX, the JAX package, PyYAML or cryptography."""
-    code = (
-        f"import importlib, sys; importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN + ('cryptography', 'yaml')!r})\n"
-        "assert not bad, bad\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
 
 
 OFFLOAD_JOB = """
@@ -362,25 +344,6 @@ def test_source_imports_no_jax(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
-
-
-@pytest.mark.parametrize("module", [
-    "herdsman_tpu_torch.utils.rowcodec",
-    "herdsman_tpu_torch.utils.probe_coldstart",
-    "herdsman_tpu_torch.ops.kernels._build"])
-def test_row_splitter_and_probe_import_alone(module):
-    """The row splitter, the build module and the cold-start probe,
-    imported alone, load nothing of JAX, the JAX package, PyYAML or
-    cryptography."""
-    code = (
-        f"import importlib, sys; importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN + ('cryptography', 'yaml')!r})\n"
-        "assert not bad, bad\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
 
 
 def test_row_splitter_loads_the_ports_own_library():

@@ -14,7 +14,8 @@
   counted in ``tracing.dropped``.
 - A device span's CUDA events are placed on the unix clock by ``settle``
   (fake events stand in for the card's).
-- ``logging.profile_dir``'s per-job trace holds the spans by name.
+- ``logging.profile_dir``'s per-job trace holds the spans by name, on
+  ``pallas_fused`` also each rotation's ``bootstrap.step_issue``.
 - ``utils/tracing.py`` waits for the device nowhere but at the one
   reference event of ``settle``.
 """
@@ -93,13 +94,13 @@ def circuit():
     return cb.build()
 
 
-def coordinator(tmp, slots=1, profile_dir=""):
+def coordinator(tmp, slots=1, profile_dir="", engine="pallas_mega13"):
     return Coordinator(Config(
         server=ServerConfig(key_directory=str(tmp / "keys"),
                             storage_directory=str(tmp / "storage")),
         security=SecurityConfig(secret_key="test-secret"),
         logging=LoggingConfig(profile_dir=profile_dir),
-        mesh_workers=MeshWorkersConfig(engine="pallas_mega13",
+        mesh_workers=MeshWorkersConfig(engine=engine,
                                        concurrent_jobs=slots)),
         device="cpu")
 
@@ -384,9 +385,12 @@ def test_settle_places_device_spans_on_the_unix_clock(monkeypatch):
     assert len(rec._free[card]) == 3
 
 
-def test_profile_dir_trace_holds_the_spans(tmp_path):
+def profiled_span_names(tmp_path, engine="pallas_mega13"):
+    """The names of the complete events in one job's ``profile_dir``
+    trace."""
     profile_dir = tmp_path / "traces"
-    coord = coordinator(tmp_path, profile_dir=str(profile_dir))
+    coord = coordinator(tmp_path, profile_dir=str(profile_dir),
+                        engine=engine)
     try:
         token = coord.authorize_connection("admin==true")
         sess, plan = session(coord, token)
@@ -395,13 +399,25 @@ def test_profile_dir_trace_holds_the_spans(tmp_path):
     finally:
         coord.shutdown()
     (trace_file,) = (profile_dir / job.job_uuid).iterdir()
-    names = {e.get("name") for e in
-             json.loads(trace_file.read_text())["traceEvents"]
-             if e.get("ph") == "X"}
+    return {e.get("name") for e in
+            json.loads(trace_file.read_text())["traceEvents"]
+            if e.get("ph") == "X"}
+
+
+def test_profile_dir_trace_holds_the_spans(tmp_path):
+    names = profiled_span_names(tmp_path)
     assert {*RUNNER, "runner.load.read", "runner.load.decode",
             "runner.load.h2d", "runner.store.d2h", "runner.store.write",
             "compiler.compile", "lower.level", "bootstrap.rotation",
             "bootstrap.key_switch", "coordinator.device_key"} <= names
+    assert tracing.STEP_ISSUE not in names
+
+
+def test_profile_dir_trace_holds_a_step_engines_issue_span(tmp_path):
+    """On ``pallas_fused`` each rotation's step loop is in the trace too,
+    beside the rotation."""
+    names = profiled_span_names(tmp_path, engine="pallas_fused")
+    assert {"bootstrap.rotation", tracing.STEP_ISSUE} <= names
 
 
 def test_tracing_waits_for_the_device_only_at_the_reference_event():
